@@ -1,0 +1,405 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``qdml_tpu_torch``) on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py        # from the repo root; needs one CUDA GPU and nvcc
+
+Phases, each of which exits non-zero on failure:
+
+1. device: require CUDA; print the card's name and power limit (nvidia-smi);
+2. build: compile both circuit kernels from ``qdml_tpu_torch/csrc/`` with nvcc
+   for sm_90a, in parallel, and print the build seconds and ptxas reports;
+3. kernels: hold each kernel against its plain PyTorch version on the card,
+   over qubit counts, layer counts and batch sizes, plus the QSC kernel's
+   autograd gradients;
+4. serving: three full-width engines (S=3 trunks of 32 features on the
+   16x8x2 image, the 4096->2048 head, seeded random weights) — quantum n=6
+   L=3 through impl ``pallas``, quantum n=8 L=3 through impl
+   ``pallas_circuit``, and the classical SCP128 — answer batches of 1, 5, 64
+   and 100 requests over buckets (1, 8, 64); the kernels' launch counters are
+   zeroed just before and read just after, and every answer is held against
+   the same engine built on the CPU from the same weights;
+5. times: each kernel and its plain version at the serving shapes (CUDA
+   events), each kernel's device time per launch (torch profiler) at the
+   serving shapes and over batch sizes, and each bucket's ``infer`` latency
+   (host clock).
+
+The line before the last is a JSON object with one record per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 2026
+BUCKETS = (1, 8, 64)
+REQUEST_SIZES = (1, 5, 64, 100)
+SERVE_BATCH = 64
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and fp32 non-tensor rate
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def qsc_work(batch: int, n: int) -> tuple[float, float]:
+    """Bytes (angles in, U re/im in, <Z> out, each once) and flops of one QSC call."""
+    dim = 1 << n
+    bytes_moved = 4 * (batch * n + 2 * dim * dim + batch * n)
+    flops = batch * dim * n + 4 * batch * dim * dim + 3 * batch * dim + 2 * batch * dim * n
+    return bytes_moved, flops
+
+
+def circuit_work(batch: int, n: int, layers: int) -> tuple[float, float]:
+    """Bytes (angles and gate table in, <Z> out) and flops of one circuit call
+    without the final state: embedding, 24 flops per amplitude pair per wire
+    per layer (RY then RZ), and the <Z> contraction."""
+    dim = 1 << n
+    bytes_moved = 4 * (batch * n + layers * n * 4 + batch * n)
+    flops = batch * dim * n + 12 * batch * layers * n * dim + 3 * batch * dim + 2 * batch * dim * n
+    return bytes_moved, flops
+
+
+def event_ms(torch, fn, reps: int = 25, inner: int = 20) -> float:
+    """Median over ``reps`` of the per-call device time of ``inner`` back-to-back
+    calls, bracketed by CUDA events, after a warm-up."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def host_ms(torch, fn, reps: int = 20) -> tuple[float, float]:
+    """Median and minimum host-clock milliseconds of ``fn`` over ``reps``
+    calls, each ended by a device synchronisation, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(lat), min(lat)
+
+
+def profiled_device_us(torch, fn, kernel: str, calls: int = 20) -> float | None:
+    """Mean device time of ``kernel`` per launch over ``calls`` calls of ``fn``,
+    read from the torch profiler's CUDA trace; None when the trace holds no
+    device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total += getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)
+            count += evt.count
+    return total / count if count and total > 0 else None
+
+
+def device_sweep(torch, K, circuits, card: str) -> None:
+    """Each kernel's device time per launch (profiler) over batch sizes, at
+    the serving qubit counts and the circuit kernel's largest: shows whether
+    a kernel's time follows its work or is fixed per block."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    for n in (6, 8):
+        w = torch.tensor(rng.uniform(0, 2 * np.pi, (3, n, 2)), dtype=torch.float32, device=dev)
+        u = circuits.ansatz_unitary(w, n, 3)
+        ur, ui = u.re.contiguous(), u.im.contiguous()
+        for b in (1, 64, 4096):
+            a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
+            us = profiled_device_us(torch, lambda: K.fused_qsc_expvals(a, ur, ui, n), "qsc_expvals_kernel")
+            log(f"device sweep qsc_expvals n={n} B={b}: {us} us per launch [{card}]")
+    for n in (8, 12):
+        w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
+        for b in (1, 64, 4096):
+            a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
+            us = profiled_device_us(torch, lambda: K.fused_circuit_expvals(a, w, n, 3), "circuit_expvals_kernel")
+            log(f"device sweep circuit_expvals n={n} L=3 B={b}: {us} us per launch [{card}]")
+
+
+def check_kernels(torch, K, circuits) -> dict[str, float]:
+    """Each kernel against its plain version on the card; returns the largest
+    absolute error seen per kernel. Raises on any mismatch."""
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    worst = {"qsc_expvals": 0.0, "circuit_expvals": 0.0}
+
+    def close(name, got, want, rtol, atol, what):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        worst[name] = max(worst[name], err)
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            raise AssertionError(f"{name} {what}: max abs err {err:.3e} (rtol {rtol}, atol {atol})")
+
+    # QSC: rtol 1e-4 / atol 1e-5, as tests/test_pallas.py:33 holds the TPU kernel
+    for n in (4, 6, 8):
+        w = torch.tensor(rng.uniform(0, 2 * np.pi, (3, n, 2)), dtype=torch.float32, device=dev)
+        u = circuits.ansatz_unitary(w, n, 3)
+        ur, ui = u.re.contiguous(), u.im.contiguous()
+        for b in (1, 37, 64, 4096):
+            a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
+            got = K.fused_qsc_expvals(a, ur, ui, n)
+            want = K.qsc_expvals_plain(a, ur, ui, n)
+            close("qsc_expvals", got, want, 1e-4, 1e-5, f"n={n} B={b}")
+        # gradients through the kernel's autograd.Function vs the plain version
+        a = torch.tensor(rng.uniform(-1, 1, (37, n)), dtype=torch.float32, device=dev)
+        g = torch.tensor(rng.standard_normal((37, n)), dtype=torch.float32, device=dev)
+        grads = []
+        for fn in (K.fused_qsc_expvals, K.qsc_expvals_plain):
+            xs = [t.clone().requires_grad_(True) for t in (a, ur, ui)]
+            (fn(*xs, n) * g).sum().backward()
+            grads.append([t.grad for t in xs])
+        for k, (gk, gp) in enumerate(zip(*grads)):
+            close("qsc_expvals", gk, gp, 1e-4, 1e-5, f"n={n} grad of input {k}")
+        log(f"check qsc_expvals n={n}: ok")
+
+    # circuit: atol 2e-5 — fp32 rounding over 2nL gate updates taken in
+    # another order (and with fused multiply-adds) than the plain version's
+    for n in (3, 7, 8, 10, 12):
+        for layers in (1, 3):
+            w = torch.tensor(rng.uniform(-3, 3, (layers, n, 2)), dtype=torch.float32, device=dev)
+            for b in (1, 37, 64, 4096):
+                b = min(b, max(1, (1 << 20) >> n))  # cap B * 2^n at 2^20 amplitudes
+                a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
+                ev, fre, fim = K.fused_circuit_expvals(a, w, n, layers, return_state=True)
+                pev, pre, pim = K.circuit_expvals_plain(a, w, n, layers)
+                for got, want, what in ((ev, pev, "<Z>"), (fre, pre, "re"), (fim, pim, "im")):
+                    close("circuit_expvals", got, want, 0.0, 2e-5, f"n={n} L={layers} B={b} {what}")
+                ev_only = K.fused_circuit_expvals(a, w, n, layers)
+                close("circuit_expvals", ev_only, pev, 0.0, 2e-5, f"n={n} L={layers} B={b} no-state")
+        log(f"check circuit_expvals n={n}: ok")
+    return worst
+
+
+def serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod):
+    """Build the three engines on the card and on the CPU, drive the card's
+    through the request sizes with the launch counters zeroed, and hold every
+    answer against the CPU twin. Returns per-kernel launches, the engines and
+    the requests."""
+    from dataclasses import replace
+
+    base = cfg_mod.ExperimentConfig()
+    variants = {
+        "qsc_n6_pallas": (replace(base, quantum=replace(base.quantum, n_qubits=6, n_layers=3, impl="pallas")), True),
+        "qsc_n8_pallas_circuit": (replace(base, quantum=replace(base.quantum, n_qubits=8, n_layers=3, impl="pallas_circuit")), True),
+        "sc_classical": (base, False),
+    }
+    gen = torch.Generator().manual_seed(SEED)
+    hdce_sd = hdce_mod.build_hdce(base, device="cpu", generator=gen).state_dict()
+    engines = {}
+    for name, (cfg, quantum) in variants.items():
+        clf_sd = qsc_mod.build_classifier(cfg, quantum, device="cpu", generator=gen).state_dict()
+        gpu = engine_mod.ServeEngine(cfg, hdce_sd, clf_sd, quantum=quantum, buckets=BUCKETS)
+        cpu = engine_mod.ServeEngine(cfg, hdce_sd, clf_sd, quantum=quantum, buckets=BUCKETS, device="cpu")
+        warm = gpu.warmup()
+        cpu.warmup()
+        log(f"engine {name}: warm {json.dumps(warm)}")
+        engines[name] = (gpu, cpu)
+
+    rng = np.random.default_rng(SEED + 1)
+    hw = base.image_hw
+    requests = {n: rng.standard_normal((n, *hw, 2)).astype(np.float32) for n in REQUEST_SIZES}
+
+    # the main path: counters zeroed just before, read just after
+    K.reset_launch_counts()
+    answers = {}
+    per_engine = {}
+    for name, (gpu, _) in engines.items():
+        before = dict(K.launches)
+        answers[name] = {n: gpu.infer(x) for n, x in requests.items()}
+        torch.cuda.synchronize()
+        per_engine[name] = {k: K.launches[k] - before[k] for k in K.launches}
+    launches = dict(K.launches)
+    log(f"main-path launches per engine: {json.dumps(per_engine)}")
+    if per_engine["qsc_n6_pallas"]["qsc_expvals"] == 0:
+        raise AssertionError("the n=6 pallas engine never launched the QSC kernel")
+    if per_engine["qsc_n8_pallas_circuit"]["circuit_expvals"] == 0:
+        raise AssertionError("the n=8 pallas_circuit engine never launched the circuit kernel")
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f"kernel {k} was not launched on the main path")
+
+    for name, (gpu, cpu) in engines.items():
+        for n, x in requests.items():
+            h, pred, conf, info = answers[name][n]
+            h_ref, pred_ref, conf_ref, _ = cpu.infer(x)
+            if h.shape != (n, base.h_out_dim) or pred.shape != (n,) or conf.shape != (n,):
+                raise AssertionError(f"{name} n={n}: shapes {h.shape} {pred.shape} {conf.shape}")
+            if not (np.isfinite(h).all() and np.isfinite(conf).all()):
+                raise AssertionError(f"{name} n={n}: non-finite output")
+            with torch.inference_mode():
+                logp = cpu.clf(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()).numpy()
+            top2 = np.sort(logp, axis=-1)[:, -2:]
+            sure = (top2[:, 1] - top2[:, 0]) > 1e-4
+            if not np.array_equal(pred[sure], pred_ref[sure]):
+                raise AssertionError(f"{name} n={n}: routed scenario differs from the CPU engine")
+            same = pred == pred_ref
+            tol = 1e-4 * np.abs(h_ref).max() + 1e-5
+            err = np.abs(h[same] - h_ref[same]).max() if same.any() else 0.0
+            if err > tol:
+                raise AssertionError(f"{name} n={n}: |h - h_cpu| {err:.3e} > {tol:.3e}")
+            cerr = np.abs(conf - conf_ref).max()
+            if cerr > 1e-4:
+                raise AssertionError(f"{name} n={n}: |conf - conf_cpu| {cerr:.3e}")
+            log(
+                f"serve {name} n={n}: bucket {info.bucket} chunks {info.chunks} "
+                f"rows {info.rows}, max|h-h_cpu| {err:.3e} (tol {tol:.3e}), "
+                f"routed rows agreeing {int(same.sum())}/{n}, sure {int(sure.sum())}"
+            )
+    return launches, engines, requests
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+
+    from qdml_tpu_torch import config as cfg_mod
+    from qdml_tpu_torch.models import qsc as qsc_mod
+    from qdml_tpu_torch.quantum import circuits
+    from qdml_tpu_torch.quantum import kernels as K
+    from qdml_tpu_torch.serve import engine as engine_mod
+    from qdml_tpu_torch.train import hdce as hdce_mod
+    from qdml_tpu_torch.utils.device import resolve_device
+
+    resolve_device()  # float32 matmuls and convs (no TF32)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"gpu: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    secs = K.build()
+    log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} wall {time.perf_counter() - t0:.2f} s")
+    for name, text in K.build_log.items():
+        for line in text.splitlines():
+            if "ptxas" in line and ("registers" in line or "spill" in line or "smem" in line):
+                log(f"ptxas {name}: {line.strip()}")
+
+    worst = check_kernels(torch, K, circuits)
+    launches, engines, requests = serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod)
+
+    # times at the serving shapes, plain version beside each kernel
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    a6 = torch.tensor(rng.uniform(-1, 1, (SERVE_BATCH, 6)), dtype=torch.float32, device=dev)
+    w6 = torch.tensor(rng.uniform(0, 2 * np.pi, (3, 6, 2)), dtype=torch.float32, device=dev)
+    u6 = circuits.ansatz_unitary(w6, 6, 3)
+    ur, ui = u6.re.contiguous(), u6.im.contiguous()
+    a8 = torch.tensor(rng.uniform(-1, 1, (SERVE_BATCH, 8)), dtype=torch.float32, device=dev)
+    w8 = torch.tensor(rng.uniform(0, 2 * np.pi, (3, 8, 2)), dtype=torch.float32, device=dev)
+    saved = dict(K.launches)
+    with torch.inference_mode():
+        qsc_ms = event_ms(torch, lambda: K.fused_qsc_expvals(a6, ur, ui, 6))
+        qsc_plain_ms = event_ms(torch, lambda: K.qsc_expvals_plain(a6, ur, ui, 6))
+        circ_ms = event_ms(torch, lambda: K.fused_circuit_expvals(a8, w8, 8, 3))
+        circ_plain_ms = event_ms(torch, lambda: K.circuit_expvals_plain(a8, w8, 8, 3))
+        qsc_dev_us = profiled_device_us(torch, lambda: K.fused_qsc_expvals(a6, ur, ui, 6), "qsc_expvals_kernel")
+        circ_dev_us = profiled_device_us(torch, lambda: K.fused_circuit_expvals(a8, w8, 8, 3), "circuit_expvals_kernel")
+        device_sweep(torch, K, circuits, card)
+    K.launches.update(saved)  # timing launches are not main-path launches
+    for name, us in (("qsc_expvals_kernel", qsc_dev_us), ("circuit_expvals_kernel", circ_dev_us)):
+        shown = f"{us:.3f} us per launch" if us is not None else "not measured (no device time in the trace)"
+        log(f"profiler device time {name}: {shown} [{card}]")
+    log(f"time qsc_expvals n=6 B={SERVE_BATCH}: kernel {qsc_ms:.5f} ms, plain {qsc_plain_ms:.5f} ms [{card}]")
+    log(f"time circuit_expvals n=8 L=3 B={SERVE_BATCH}: kernel {circ_ms:.5f} ms, plain {circ_plain_ms:.5f} ms [{card}]")
+
+    for name, (gpu, _) in engines.items():
+        for b in BUCKETS:
+            x = requests[64][:b]
+            med, low = host_ms(torch, lambda: gpu.infer(x))
+            log(f"time infer {name} bucket {b}: median {med:.4f} ms, min {low:.4f} ms over 20 [{card}]")
+        # where one bucket-64 forward goes: the classifier (with its circuit),
+        # then all trunks and the head
+        xt = torch.from_numpy(requests[64]).to(dev).permute(0, 3, 1, 2).contiguous()
+        xs = xt.expand(gpu.cfg.data.n_scenarios, *xt.shape)
+        with torch.inference_mode():
+            clf_ms, _ = host_ms(torch, lambda: gpu.clf(xt))
+            hdce_ms, _ = host_ms(torch, lambda: gpu.hdce(xs))
+        log(f"time forward parts {name} bucket 64: classifier {clf_ms:.4f} ms, trunks+head {hdce_ms:.4f} ms (medians) [{card}]")
+    with torch.inference_mode():
+        u_ms, _ = host_ms(torch, lambda: circuits.ansatz_unitary(w6, 6, 3))
+    log(f"time ansatz_unitary n=6 L=3 (rebuilt by impl pallas on every call): median {u_ms:.4f} ms [{card}]")
+
+    qsc_bound, qsc_by = bound(*qsc_work(SERVE_BATCH, 6))
+    circ_bound, circ_by = bound(*circuit_work(SERVE_BATCH, 8, 3))
+    kernels = [
+        {
+            "name": "qsc_expvals",
+            "route": "cuda",
+            "source": "qdml_tpu_torch/csrc/qsc_expvals.cu",
+            "replaces": "qdml_tpu/quantum/pallas_kernels.py:205",
+            "launches": launches["qsc_expvals"],
+            "max_abs_err": worst["qsc_expvals"],
+            "ms": qsc_ms,
+            "device_ms": None if qsc_dev_us is None else qsc_dev_us / 1e3,
+            "plain_ms": qsc_plain_ms,
+            "bound_ms": qsc_bound,
+            "bound_by": qsc_by,
+            "library_ms": None,
+        },
+        {
+            "name": "circuit_expvals",
+            "route": "cuda",
+            "source": "qdml_tpu_torch/csrc/circuit_expvals.cu",
+            "replaces": "qdml_tpu/quantum/pallas_kernels.py:354",
+            "launches": launches["circuit_expvals"],
+            "max_abs_err": worst["circuit_expvals"],
+            "ms": circ_ms,
+            "device_ms": None if circ_dev_us is None else circ_dev_us / 1e3,
+            "plain_ms": circ_plain_ms,
+            "bound_ms": circ_bound,
+            "bound_by": circ_by,
+            "library_ms": None,
+        },
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,125 @@
+"""Classical models (``qdml_tpu/models/cnn.py``) as torch modules in NCHW.
+
+Reference architectures (``Estimators_QuantumNAT_onchipQNN.py``):
+
+- ``Conv_P128`` (:237-268): 3 x [Conv3x3(no bias) + BatchNorm + ReLU],
+  channels 2->32->32->32, flatten to 32*16*8 = 4096;
+- ``FC_P128`` (:272-279): Linear(4096 -> 2048), the shared head;
+- ``SC_P128`` (:79-101): the classical scenario classifier;
+- ``QSC_P128.preprocess`` (:152-162): the quantum classifier's CNN front end.
+
+Parameter names are the reference's own (``cnn.{0,3,6}.weight``,
+``cnn.{1,4,7}.*``, ``FC.*``, ``conv1``/``conv2``, ``preprocess.{0,3,7}.*``),
+the names ``qdml_tpu/train/torch_interop.py`` writes, so reference ``.pth``
+files and weights carried from Flax (:mod:`qdml_tpu_torch.interop`) load with
+one ``load_state_dict``. Inputs are NCHW ``(B, 2, n_sub, n_beam)`` and
+flattening is torch's C-major order, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+class ConvP128(nn.Module):
+    """Per-scenario feature extractor: ``(B, 2, 16, 8) -> (B, features*16*8)``."""
+
+    def __init__(self, features: int = 32, n_layers: int = 3):
+        super().__init__()
+        blocks: list[nn.Module] = []
+        ch = 2
+        for _ in range(n_layers):
+            blocks += [
+                nn.Conv2d(ch, features, 3, padding=1, bias=False),
+                nn.BatchNorm2d(features),
+                nn.ReLU(),
+            ]
+            ch = features
+        self.cnn = nn.Sequential(*blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cnn(x).flatten(1)
+
+
+class FCP128(nn.Module):
+    """Shared estimation head: ``in_dim -> out_dim`` (4096 -> 2048 at full width)."""
+
+    def __init__(self, in_dim: int = 4096, out_dim: int = 2048):
+        super().__init__()
+        self.FC = nn.Linear(in_dim, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.FC(x)
+
+
+class StackedConvP128(nn.ModuleList):
+    """All ``n_scenarios`` trunks: ``(S, B, 2, H, W) -> (S, B, F)``; scenario s
+    flows through trunk s only."""
+
+    def __init__(self, n_scenarios: int = 3, features: int = 32):
+        super().__init__([ConvP128(features) for _ in range(n_scenarios)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.stack([trunk(x[s]) for s, trunk in enumerate(self)])
+
+
+class SCP128(nn.Module):
+    """Classical scenario classifier: ``(B, 2, 16, 8) -> (B, n_classes)`` log-probs."""
+
+    def __init__(self, n_classes: int = 3):
+        super().__init__()
+        self.conv1 = nn.Conv2d(2, 32, 3, padding=1, bias=False)
+        self.conv2 = nn.Conv2d(32, 32, 3, padding=1, bias=False)
+        self.FC = nn.Linear(32 * 4 * 2, n_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.max_pool2d(torch.relu(self.conv1(x)), 2, 2)
+        x = torch.max_pool2d(torch.relu(self.conv2(x)), 2, 2)
+        return torch.log_softmax(self.FC(x.flatten(1)), dim=-1)
+
+
+class QSCPreprocess(nn.Sequential):
+    """CNN front end of the quantum classifier: Conv 2->16 + ReLU + maxpool2,
+    Conv 16->32 + ReLU + maxpool2, flatten 256, Linear -> n_qubits, tanh."""
+
+    def __init__(self, n_qubits: int = 6):
+        super().__init__(
+            nn.Conv2d(2, 16, 3, padding=1),
+            nn.ReLU(),
+            nn.MaxPool2d(2, 2),
+            nn.Conv2d(16, 32, 3, padding=1),
+            nn.ReLU(),
+            nn.MaxPool2d(2, 2),
+            nn.Flatten(1),
+            nn.Linear(32 * 4 * 2, n_qubits),
+            nn.Tanh(),
+        )
+
+
+def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every parameter and BatchNorm statistic of ``module`` from
+    ``generator`` (a CPU generator), in place, whatever device it lives on:
+    conv and linear weights and biases uniform in ``±1/sqrt(fan_in)`` (torch's
+    default bound), BatchNorm scale and running variance in [0.5, 1.5], shift
+    and running mean in [-0.1, 0.1]. Returns ``module``."""
+
+    def draw(t: torch.Tensor, lo: float, hi: float) -> None:
+        v = torch.rand(t.shape, generator=generator, dtype=torch.float32)
+        t.copy_(lo + (hi - lo) * v)
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                draw(m.weight, -bound, bound)
+                if m.bias is not None:
+                    draw(m.bias, -bound, bound)
+            elif isinstance(m, nn.BatchNorm2d):
+                draw(m.weight, 0.5, 1.5)
+                draw(m.bias, -0.1, 0.1)
+                draw(m.running_mean, -0.1, 0.1)
+                draw(m.running_var, 0.5, 1.5)
+    return module

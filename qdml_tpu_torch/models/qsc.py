@@ -1,0 +1,87 @@
+"""Quantum scenario classifier (``qdml_tpu/models/qsc.py``), eval form.
+
+CNN front end -> tanh angles -> the variational circuit
+(:func:`qdml_tpu_torch.quantum.circuits.run_circuit`, whichever impl the
+config names) -> linear head -> log-softmax. Parameter names follow the
+reference ``QSC_P128`` (``preprocess.{0,3,7}.*``, ``qlayer.weights`` of shape
+(L, n, 2), ``classifier.*``). QuantumNAT noise and trajectory evaluation
+belong to training and come with that slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from qdml_tpu_torch.config import ExperimentConfig
+from qdml_tpu_torch.models.cnn import SCP128, QSCPreprocess, seeded_init_
+from qdml_tpu_torch.quantum.circuits import run_circuit
+from qdml_tpu_torch.utils.device import resolve_device
+
+
+class QuantumLayer(nn.Module):
+    """Holds the circuit weights under the reference name ``weights``."""
+
+    def __init__(self, n_layers: int, n_qubits: int):
+        super().__init__()
+        self.weights = nn.Parameter(torch.zeros(n_layers, n_qubits, 2))
+
+
+class QSCP128(nn.Module):
+    """``(B, 2, 16, 8) -> (B, n_classes)`` log-probabilities."""
+
+    def __init__(
+        self,
+        n_qubits: int = 6,
+        n_layers: int = 3,
+        n_classes: int = 3,
+        backend: str = "auto",
+        impl: str = "auto",
+        input_norm: bool = False,
+    ):
+        super().__init__()
+        self.n_qubits, self.n_layers = n_qubits, n_layers
+        self.backend, self.impl, self.input_norm = backend, impl, input_norm
+        self.preprocess = QSCPreprocess(n_qubits)
+        self.qlayer = QuantumLayer(n_layers, n_qubits)
+        self.classifier = nn.Linear(n_qubits, n_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.input_norm:
+            rms = torch.sqrt(torch.mean(x**2, dim=(1, 2, 3), keepdim=True) + 1e-12)
+            x = x / rms
+        angles = self.preprocess(x)
+        expz = run_circuit(
+            angles, self.qlayer.weights, self.n_qubits, self.n_layers, self.backend,
+            impl=self.impl,
+        )
+        return torch.log_softmax(self.classifier(expz), dim=-1)
+
+
+def build_classifier(
+    cfg: ExperimentConfig,
+    quantum: bool,
+    device: str | torch.device | None = None,
+    generator: torch.Generator | None = None,
+) -> nn.Module:
+    """The scenario classifier the config describes (``QSCP128`` when
+    ``quantum``, else ``SCP128``) on ``device``, in eval mode; its weights are
+    drawn from ``generator`` when one is given."""
+    dev = resolve_device(device)
+    q = cfg.quantum
+    if quantum:
+        clf: nn.Module = QSCP128(
+            q.n_qubits, q.n_layers, q.n_classes, q.backend, q.impl, q.input_norm
+        )
+    else:
+        clf = SCP128(q.n_classes)
+    if generator is not None:
+        seeded_init_(clf, generator)
+        if quantum:
+            # uniform in [0, 2pi), as PennyLane's TorchLayer draws them
+            w = clf.qlayer.weights
+            with torch.no_grad():
+                w.copy_(2.0 * math.pi * torch.rand(w.shape, generator=generator))
+    return clf.to(dev).eval()
