@@ -6,11 +6,12 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
-2. build: compile both circuit kernels from ``qdml_tpu_torch/csrc/`` with nvcc
-   for sm_90a, in parallel, and print the build seconds and ptxas reports;
+2. build: compile the three circuit kernels from ``qdml_tpu_torch/csrc/`` with
+   nvcc for sm_90a, in parallel, and print the build seconds and ptxas reports;
 3. kernels: hold each kernel against its plain PyTorch version on the card,
    over qubit counts, layer counts and batch sizes, plus the QSC kernel's
-   autograd gradients;
+   autograd gradients and the adjoint kernel against autograd through the
+   plain forward;
 4. serving: three full-width engines (S=3 trunks of 32 features on the
    16x8x2 image, the 4096->2048 head, seeded random weights) — quantum n=6
    L=3 through impl ``pallas``, quantum n=8 L=3 through impl
@@ -18,10 +19,18 @@ Phases, each of which exits non-zero on failure:
    and 100 requests over buckets (1, 8, 64); the kernels' launch counters are
    zeroed just before and read just after, and every answer is held against
    the same engine built on the CPU from the same weights;
-5. times: each kernel and its plain version at the serving shapes (CUDA
-   events), each kernel's device time per launch (torch profiler) at the
-   serving shapes and over batch sizes, and each bucket's ``infer`` latency
-   (host clock).
+5. training: at full width on data synthesized on the card (data_len 2048 per
+   cell, cut from the reference's 20000 for time), four trainers each run one
+   epoch (7 steps of 256 rows per cell, 2304 a step) and validate: HDCE
+   (Adam), SC (Adam), QSC n=6 L=3 under impl ``pallas`` (AdamW, QuantumNAT
+   sigma 0.01) and QSC n=8 L=3 under impl ``pallas_circuit`` (AdamW, quantile
+   gradient pruning 0.5), with the counters zeroed just before and read just
+   after each; their first 2 steps are run again on a CPU twin from the same
+   weights and batches (the same QuantumNAT noise) and held against it;
+6. times: each kernel and its plain version at the main path's shapes (CUDA
+   events), each kernel's device time per launch (torch profiler) over batch
+   sizes, each bucket's ``infer`` latency and each trainer's step time with
+   its forward/backward/update split (host clock).
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -41,6 +50,12 @@ SEED = 2026
 BUCKETS = (1, 8, 64)
 REQUEST_SIZES = (1, 5, 64, 100)
 SERVE_BATCH = 64
+# training: samples per (scenario, user) cell, cut from the reference's
+# 20000 for time only; 256 rows per cell and step, as the reference
+TRAIN_DATA_LEN = 2048
+TRAIN_BATCH = 256
+TWIN_STEPS = 2
+DEVICE = "cuda"
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and fp32 non-tensor rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -61,6 +76,18 @@ def qsc_work(batch: int, n: int) -> tuple[float, float]:
     dim = 1 << n
     bytes_moved = 4 * (batch * n + 2 * dim * dim + batch * n)
     flops = batch * dim * n + 4 * batch * dim * dim + 3 * batch * dim + 2 * batch * dim * n
+    return bytes_moved, flops
+
+
+def adjoint_work(batch: int, n: int, layers: int) -> tuple[float, float]:
+    """Bytes (final state, cotangent, angles and gate table in; dangles and
+    dweights out, each once) and flops of one adjoint call: the cotangent's
+    start (n + 3 per amplitude), 64 flops per amplitude pair per wire per
+    layer (two gradient terms and two rotations undone on psi and lambda),
+    and the embedding cotangent (n + 2 per amplitude per wire)."""
+    dim = 1 << n
+    bytes_moved = 4 * (2 * batch * dim + 2 * batch * n + layers * n * 4 + batch * n + layers * n * 2)
+    flops = batch * (dim * (n + 3) + 32 * layers * n * dim + n * dim * (n + 2))
     return bytes_moved, flops
 
 
@@ -154,7 +181,7 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
     absolute error seen per kernel. Raises on any mismatch."""
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    worst = {"qsc_expvals": 0.0, "circuit_expvals": 0.0}
+    worst = {"qsc_expvals": 0.0, "circuit_expvals": 0.0, "circuit_adjoint": 0.0}
 
     def close(name, got, want, rtol, atol, what):
         torch.cuda.synchronize()
@@ -162,6 +189,7 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
         worst[name] = max(worst[name], err)
         if not torch.allclose(got, want, rtol=rtol, atol=atol):
             raise AssertionError(f"{name} {what}: max abs err {err:.3e} (rtol {rtol}, atol {atol})")
+        return err
 
     # QSC: rtol 1e-4 / atol 1e-5, as tests/test_pallas.py:33 holds the TPU kernel
     for n in (4, 6, 8):
@@ -200,6 +228,31 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
                 ev_only = K.fused_circuit_expvals(a, w, n, layers)
                 close("circuit_expvals", ev_only, pev, 0.0, 2e-5, f"n={n} L={layers} B={b} no-state")
         log(f"check circuit_expvals n={n}: ok")
+
+    # adjoint: atol 2e-5 of the largest cotangent plus 1e-6 — fp32 rounding
+    # over 2nL rotations undone and a batch sum taken in another order
+    for n in (2, 4, 6, 8, 10, 12):
+        ratio = 0.0
+        for layers in (1, 3, 5):
+            w = torch.tensor(rng.uniform(-3, 3, (layers, n, 2)), dtype=torch.float32, device=dev)
+            for b in (1, 64, 2304):
+                a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
+                g = torch.tensor(rng.standard_normal((b, n)), dtype=torch.float32, device=dev)
+                _, fre, fim = K.fused_circuit_expvals(a, w, n, layers, return_state=True)
+                got = K.circuit_adjoint(fre, fim, g, a, w, n, layers)
+                want = K.circuit_adjoint_plain(fre, fim, g, a, w, n, layers)
+                refs = [want]
+                if b <= 64:  # autograd keeps every gate's state: small batches only
+                    xs = [t.clone().requires_grad_(True) for t in (a, w)]
+                    (K.circuit_expvals_plain(*xs, n, layers)[0] * g).sum().backward()
+                    refs.append([t.grad for t in xs])
+                for ref in refs:
+                    for x, y, what in zip(got, ref, ("dangles", "dweights")):
+                        tol = 2e-5 * y.abs().max().item() + 1e-6
+                        err = close("circuit_adjoint", x, y, 0.0, tol, f"n={n} L={layers} B={b} {what}")
+                        ratio = max(ratio, err / tol)
+        log(f"check circuit_adjoint n={n}: ok, largest error {100 * ratio:.1f}% of its tolerance "
+            f"(2e-5 * max|ref| + 1e-6; against the plain adjoint and autograd of the plain forward)")
     return worst
 
 
@@ -247,9 +300,9 @@ def serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod):
         raise AssertionError("the n=6 pallas engine never launched the QSC kernel")
     if per_engine["qsc_n8_pallas_circuit"]["circuit_expvals"] == 0:
         raise AssertionError("the n=8 pallas_circuit engine never launched the circuit kernel")
-    for k, v in launches.items():
-        if v == 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
+    for k in ("qsc_expvals", "circuit_expvals"):  # the serving path's kernels
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was not launched on the serving path")
 
     for name, (gpu, cpu) in engines.items():
         for n, x in requests.items():
@@ -281,6 +334,184 @@ def serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod):
     return launches, engines, requests
 
 
+class Recorder:
+    """Keeps what a trainer logs (each step's loss at print_freq 1)."""
+
+    def __init__(self):
+        self.records: list[dict] = []
+
+    def log(self, step=None, **values) -> None:
+        self.records.append({"step": step, **values})
+
+
+def trainer_configs(cfg_mod):
+    """The four trainers at full width: (config, quantum) with quantum None
+    for the HDCE."""
+    from dataclasses import replace
+
+    base = cfg_mod.ExperimentConfig()
+    base = replace(
+        base,
+        data=replace(base.data, data_len=TRAIN_DATA_LEN),
+        train=replace(base.train, batch_size=TRAIN_BATCH, n_epochs=1, print_freq=1),
+    )
+    q = base.quantum
+    return {
+        "hdce": (base, None),
+        "sc": (base, False),
+        "qsc_n6_pallas": (replace(base, quantum=replace(
+            q, n_qubits=6, n_layers=3, impl="pallas", use_quantumnat=True, noise_level=0.01)), True),
+        "qsc_n8_pallas_circuit": (replace(base, quantum=replace(
+            q, n_qubits=8, n_layers=3, impl="pallas_circuit", use_gradient_pruning=True,
+            gradient_prune_mode="quantile", gradient_threshold=0.5)), True),
+    }
+
+
+def build_trainee(mods, cfg, quantum, device, steps_per_epoch):
+    """A fresh model (the trainer's own seeded init), its optimizer, and its
+    step ``step(batch, noise) -> {"loss": ...}``, as the trainers build them."""
+    from dataclasses import replace
+
+    if quantum is None:
+        model = mods["hdce"].init_hdce_state(cfg, device)
+        opt = mods["optim"].get_optimizer(cfg.train, model.parameters(), steps_per_epoch)
+        return model, opt, lambda b, eps: mods["hdce"].hdce_train_step(model, opt, b)
+    model = mods["qsc"].build_classifier(cfg, quantum, device)
+    tcfg = replace(cfg.train, optimizer="adamw") if quantum else cfg.train
+    opt = mods["optim"].get_optimizer(
+        tcfg, model.parameters(), steps_per_epoch, cfg.quantum if quantum else None
+    )
+    return model, opt, lambda b, eps: mods["qsc"].classifier_train_step(model, opt, b, noise=eps)
+
+
+def cpu_twin(torch, mods, name, cfg, quantum, batches, steps_per_epoch) -> None:
+    """The first steps on the card and on the CPU from the same weights,
+    batches and QuantumNAT noise. Losses: rtol 1e-4 (fp32 sums over 2304 rows
+    in another order). Parameters: within 1e-5 + 1e-4 |p| except where a
+    gradient is rounding-dominated, which Adam turns into up to lr per step
+    either way (the last layer's RZ weights, whose gradient is zero, and
+    entries at the pruning cutoff); every entry within that bound, and at
+    most 1% of entries outside the tight one."""
+    qcfg = cfg.quantum
+    gen = torch.Generator().manual_seed(SEED + 5)
+    noises = [
+        qcfg.noise_level * torch.randn((qcfg.n_layers, qcfg.n_qubits, 2), generator=gen)
+        if quantum and qcfg.use_quantumnat else None
+        for _ in batches
+    ]
+    runs = []
+    for dev in (DEVICE, "cpu"):
+        model, opt, step = build_trainee(mods, cfg, quantum, dev, steps_per_epoch)
+        losses = []
+        for b, eps in zip(batches, noises):
+            b = {k: v.to(dev) for k, v in b.items()}
+            losses.append(float(step(b, None if eps is None else eps.to(dev))["loss"]))
+        runs.append((losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+    (gl, gp), (cl, cp) = runs
+    if not np.allclose(gl, cl, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"train {name}: losses {gl} on the card, {cl} on the CPU twin")
+    lr = cfg.train.lr
+    bound = 1.1 * TWIN_STEPS * lr + 1e-5
+    worst, outside, total = 0.0, 0, 0
+    for k, want in cp.items():
+        if not want.is_floating_point():
+            continue
+        diff = (gp[k] - want).abs()
+        worst = max(worst, diff.max().item())
+        outside += int((diff > 1e-5 + 1e-4 * want.abs()).sum())
+        total += want.numel()
+    log(f"train {name}: CPU twin over {TWIN_STEPS} steps: losses card {gl}, cpu {cl} (rtol 1e-4); "
+        f"params max |diff| {worst:.3e} (bound {bound:.1e}), {outside}/{total} entries outside "
+        f"1e-5 + 1e-4|p| (at most 1%)")
+    if worst > bound or outside > 0.01 * total:
+        raise AssertionError(f"train {name}: parameters differ from the CPU twin")
+
+
+def train(torch, K, mods, card: str):
+    """The training phase: per trainer, the CPU twin, then the main path with
+    the launch counters zeroed just before and read just after, then its
+    step times. Returns the launches summed over the trainers and the
+    circuit_adjoint launches per training step."""
+    data_cfg = trainer_configs(mods["config"])["hdce"][0].data
+    t0 = time.perf_counter()
+    data = mods["datasets"].GridData.synthesize(data_cfg, DEVICE)
+    torch.cuda.synchronize()
+    log(f"train data: {data_cfg.data_len} samples per cell (cut from 20000 for time only), "
+        f"synthesized on the card in {time.perf_counter() - t0:.2f} s")
+    loader = mods["datasets"].DMLGridLoader(data, TRAIN_BATCH, "train")
+    spe = loader.steps_per_epoch
+    batches = [
+        {k: b[k] for k in ("yp_img", "h_label", "h_perf", "indicator")}
+        for _, b in zip(range(TWIN_STEPS), loader.epoch(0))
+    ]
+    launches = {k: 0 for k in K.launches}
+    per_step_adjoint = None
+    for name, (cfg, quantum) in trainer_configs(mods["config"]).items():
+        cpu_twin(torch, mods, name, cfg, quantum, batches, spe)
+
+        rec = Recorder()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        if quantum is None:
+            _, hist = mods["hdce"].train_hdce(cfg, data=data, logger=rec)
+        else:
+            _, hist = mods["qsc"].train_classifier(cfg, quantum, data=data, logger=rec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(K.launches)
+        for k in launches:
+            launches[k] += counts[k]
+        steps = [r["loss"] for r in rec.records if "loss" in r]
+        log(f"train {name}: one epoch ({len(steps)} steps of {cfg.data.n_scenarios * cfg.data.n_users * TRAIN_BATCH} "
+            f"rows) + validation in {wall:.2f} s; step losses {[round(x, 5) for x in steps]}; "
+            f"history {json.dumps(hist)}; launches {json.dumps(counts)}")
+        if len(steps) != spe or not all(np.isfinite(steps)):
+            raise AssertionError(f"train {name}: step losses {steps}")
+        if not all(np.isfinite(v).all() for v in hist.values()):
+            raise AssertionError(f"train {name}: non-finite history {hist}")
+        if quantum is None and not steps[-1] < steps[0]:
+            raise AssertionError(f"train hdce: last step loss {steps[-1]} not below the first {steps[0]}")
+        if name == "qsc_n6_pallas" and counts["qsc_expvals"] == 0:
+            raise AssertionError("the pallas trainer never launched the QSC kernel")
+        if name == "qsc_n8_pallas_circuit":
+            if counts["circuit_expvals"] == 0 or counts["circuit_adjoint"] == 0:
+                raise AssertionError("the pallas_circuit trainer never launched the circuit kernels")
+            per_step_adjoint = counts["circuit_adjoint"] / spe
+
+        # step time and its split, on a fresh model: forward (loss), backward, update
+        saved = dict(K.launches)
+        model, opt, _ = build_trainee(mods, cfg, quantum, DEVICE, spe)
+        b = {k: v for k, v in batches[0].items()}
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        parts = {"forward": [], "backward": [], "update": []}
+        for i in range(13):
+            marks = [time.perf_counter()]
+            if quantum is None:
+                loss, _ = mods["hdce"].hdce_loss(model.train(), b)
+            else:
+                loss = mods["qsc"].classifier_loss(model, b, generator=gen)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            opt.zero_grad()
+            loss.backward()
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            opt.step()
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if i >= 3:  # after warm-up
+                for part, t_a, t_b in zip(parts, marks, marks[1:]):
+                    parts[part].append((t_b - t_a) * 1e3)
+        K.launches.update(saved)  # timing launches are not main-path launches
+        med = {k: statistics.median(v) for k, v in parts.items()}
+        log(f"time train step {name}: median {sum(med.values()):.4f} ms = forward {med['forward']:.4f} "
+            f"+ backward {med['backward']:.4f} + update {med['update']:.4f} ms (host clock, synchronized "
+            f"after each part, 10 steps of {cfg.data.n_scenarios * cfg.data.n_users * TRAIN_BATCH} rows) [{card}]")
+    log(f"main-path training launches: {json.dumps(launches)}; circuit_adjoint per training step "
+        f"{per_step_adjoint}")
+    return launches, per_step_adjoint
+
+
 def main() -> int:
     import torch
 
@@ -289,11 +520,14 @@ def main() -> int:
         return 2
 
     from qdml_tpu_torch import config as cfg_mod
+    from qdml_tpu_torch.data import datasets
     from qdml_tpu_torch.models import qsc as qsc_mod
     from qdml_tpu_torch.quantum import circuits
     from qdml_tpu_torch.quantum import kernels as K
     from qdml_tpu_torch.serve import engine as engine_mod
     from qdml_tpu_torch.train import hdce as hdce_mod
+    from qdml_tpu_torch.train import optim
+    from qdml_tpu_torch.train import qsc as train_qsc
     from qdml_tpu_torch.utils.device import resolve_device
 
     resolve_device()  # float32 matmuls and convs (no TF32)
@@ -314,6 +548,12 @@ def main() -> int:
 
     worst = check_kernels(torch, K, circuits)
     launches, engines, requests = serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod)
+    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "optim": optim}
+    train_launches, adjoint_per_step = train(torch, K, mods, card)
+    launches = {k: launches[k] + train_launches[k] for k in launches}
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f"kernel {k} was not launched on the main path")
 
     # times at the serving shapes, plain version beside each kernel
     dev = torch.device("cuda")
@@ -330,15 +570,20 @@ def main() -> int:
         qsc_plain_ms = event_ms(torch, lambda: K.qsc_expvals_plain(a6, ur, ui, 6))
         circ_ms = event_ms(torch, lambda: K.fused_circuit_expvals(a8, w8, 8, 3))
         circ_plain_ms = event_ms(torch, lambda: K.circuit_expvals_plain(a8, w8, 8, 3))
-        qsc_dev_us = profiled_device_us(torch, lambda: K.fused_qsc_expvals(a6, ur, ui, 6), "qsc_expvals_kernel")
-        circ_dev_us = profiled_device_us(torch, lambda: K.fused_circuit_expvals(a8, w8, 8, 3), "circuit_expvals_kernel")
-        device_sweep(torch, K, circuits, card)
-    K.launches.update(saved)  # timing launches are not main-path launches
-    for name, us in (("qsc_expvals_kernel", qsc_dev_us), ("circuit_expvals_kernel", circ_dev_us)):
-        shown = f"{us:.3f} us per launch" if us is not None else "not measured (no device time in the trace)"
-        log(f"profiler device time {name}: {shown} [{card}]")
-    log(f"time qsc_expvals n=6 B={SERVE_BATCH}: kernel {qsc_ms:.5f} ms, plain {qsc_plain_ms:.5f} ms [{card}]")
-    log(f"time circuit_expvals n=8 L=3 B={SERVE_BATCH}: kernel {circ_ms:.5f} ms, plain {circ_plain_ms:.5f} ms [{card}]")
+        # the adjoint at the training shape (n=8, L=3, 2304 rows a step) and at
+        # B=64; every event timing runs before the first profiler session
+        adj = {}
+        for b in (TRAIN_BATCH * 9, SERVE_BATCH):
+            a = torch.tensor(rng.uniform(-1, 1, (b, 8)), dtype=torch.float32, device=dev)
+            g = torch.tensor(rng.standard_normal((b, 8)), dtype=torch.float32, device=dev)
+            _, fre, fim = K.fused_circuit_expvals(a, w8, 8, 3, return_state=True)
+            args = (fre, fim, g, a, w8, 8, 3)
+            adj[b] = {
+                "args": args,
+                "ms": event_ms(torch, lambda: K.circuit_adjoint(*args)),
+                "plain_ms": event_ms(torch, lambda: K.circuit_adjoint_plain(*args), reps=5, inner=2),
+                "bound": bound(*adjoint_work(b, 8, 3)),
+            }
 
     for name, (gpu, _) in engines.items():
         for b in BUCKETS:
@@ -357,6 +602,32 @@ def main() -> int:
         u_ms, _ = host_ms(torch, lambda: circuits.ansatz_unitary(w6, 6, 3))
     log(f"time ansatz_unitary n=6 L=3 (rebuilt by impl pallas on every call): median {u_ms:.4f} ms [{card}]")
 
+    # device times last: a profiler session can slow the host's launches after it
+    with torch.inference_mode():
+        qsc_dev_us = profiled_device_us(torch, lambda: K.fused_qsc_expvals(a6, ur, ui, 6), "qsc_expvals_kernel")
+        circ_dev_us = profiled_device_us(torch, lambda: K.fused_circuit_expvals(a8, w8, 8, 3), "circuit_expvals_kernel")
+        for t in adj.values():
+            t["device_us"] = profiled_device_us(
+                torch, lambda: K.circuit_adjoint(*t["args"]), "circuit_adjoint_kernel"
+            )
+        device_sweep(torch, K, circuits, card)
+        after = event_ms(torch, lambda: K.circuit_adjoint(*adj[SERVE_BATCH]["args"]))
+    K.launches.update(saved)  # timing launches are not main-path launches
+    for name, us in (("qsc_expvals_kernel", qsc_dev_us), ("circuit_expvals_kernel", circ_dev_us)):
+        shown = f"{us:.3f} us per launch" if us is not None else "not measured (no device time in the trace)"
+        log(f"profiler device time {name}: {shown} [{card}]")
+    log(f"time qsc_expvals n=6 B={SERVE_BATCH}: kernel {qsc_ms:.5f} ms, plain {qsc_plain_ms:.5f} ms [{card}]")
+    log(f"time circuit_expvals n=8 L=3 B={SERVE_BATCH}: kernel {circ_ms:.5f} ms, plain {circ_plain_ms:.5f} ms [{card}]")
+    for b, t in adj.items():
+        us = t["device_us"]
+        shown = f"{us:.3f} us" if us is not None else "not measured (no device time in the trace)"
+        log(f"time circuit_adjoint n=8 L=3 B={b}: wrapper {t['ms']:.5f} ms, device {shown} per launch, "
+            f"plain {t['plain_ms']:.5f} ms, bound {t['bound'][0]:.3e} ms ({t['bound'][1]}); "
+            f"{adjoint_per_step} launches per training step [{card}]")
+    log(f"time circuit_adjoint n=8 L=3 B={SERVE_BATCH} wrapper again after the profiler sessions: "
+        f"{after:.5f} ms (before them: {adj[SERVE_BATCH]['ms']:.5f} ms) [{card}]")
+
+    train_adj = adj[TRAIN_BATCH * 9]  # the adjoint's main-path shape is the training step's
     qsc_bound, qsc_by = bound(*qsc_work(SERVE_BATCH, 6))
     circ_bound, circ_by = bound(*circuit_work(SERVE_BATCH, 8, 3))
     kernels = [
@@ -386,6 +657,20 @@ def main() -> int:
             "plain_ms": circ_plain_ms,
             "bound_ms": circ_bound,
             "bound_by": circ_by,
+            "library_ms": None,
+        },
+        {
+            "name": "circuit_adjoint",
+            "route": "cuda",
+            "source": "qdml_tpu_torch/csrc/circuit_adjoint.cu",
+            "replaces": "qdml_tpu/quantum/pallas_kernels.py:521",
+            "launches": launches["circuit_adjoint"],
+            "max_abs_err": worst["circuit_adjoint"],
+            "ms": train_adj["ms"],
+            "device_ms": None if train_adj["device_us"] is None else train_adj["device_us"] / 1e3,
+            "plain_ms": train_adj["plain_ms"],
+            "bound_ms": train_adj["bound"][0],
+            "bound_by": train_adj["bound"][1],
             "library_ms": None,
         },
     ]

@@ -8,6 +8,14 @@ Reference architectures (``Estimators_QuantumNAT_onchipQNN.py``):
 - ``SC_P128`` (:79-101): the classical scenario classifier;
 - ``QSC_P128.preprocess`` (:152-162): the quantum classifier's CNN front end.
 
+The trunks' BatchNorm follows the JAX package in train mode, not torch's
+``BatchNorm2d`` (:class:`BatchNorm2d`): the running statistics decay by the
+Flax momentum (``running = decay * running + (1 - decay) * batch``, torch
+momentum ``1 - decay``) and take the BIASED batch variance, which Flax both
+normalizes with and keeps; torch keeps the unbiased one. :func:`flax_init_`
+draws a module's weights as Flax initialises them; :func:`seeded_init_` is
+the serving path's seeded draw.
+
 Parameter names are the reference's own (``cnn.{0,3,6}.weight``,
 ``cnn.{1,4,7}.*``, ``FC.*``, ``conv1``/``conv2``, ``preprocess.{0,3,7}.*``),
 the names ``qdml_tpu/train/torch_interop.py`` writes, so reference ``.pth``
@@ -21,20 +29,47 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from qdml_tpu_torch.data.channels import truncated_normal
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with the Flax ``BatchNorm`` train-mode statistics
+    (``qdml_tpu/models/cnn.py:134-136``): normalize with the biased batch
+    variance and fold it, biased, into the running variance with decay
+    ``decay`` (Flax's momentum). Eval mode is torch's own. State-dict keys are
+    torch's."""
+
+    def __init__(self, num_features: int, decay: float = 0.9, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=1.0 - decay)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return out
 
 
 class ConvP128(nn.Module):
-    """Per-scenario feature extractor: ``(B, 2, 16, 8) -> (B, features*16*8)``."""
+    """Per-scenario feature extractor: ``(B, 2, 16, 8) -> (B, features*16*8)``.
+    ``bn_decay`` is the BatchNorm running-statistics decay per update (Flax
+    momentum; the reference's torch momentum 0.1 is decay 0.9)."""
 
-    def __init__(self, features: int = 32, n_layers: int = 3):
+    def __init__(self, features: int = 32, n_layers: int = 3, bn_decay: float = 0.9):
         super().__init__()
         blocks: list[nn.Module] = []
         ch = 2
         for _ in range(n_layers):
             blocks += [
                 nn.Conv2d(ch, features, 3, padding=1, bias=False),
-                nn.BatchNorm2d(features),
+                BatchNorm2d(features, decay=bn_decay),
                 nn.ReLU(),
             ]
             ch = features
@@ -59,8 +94,8 @@ class StackedConvP128(nn.ModuleList):
     """All ``n_scenarios`` trunks: ``(S, B, 2, H, W) -> (S, B, F)``; scenario s
     flows through trunk s only."""
 
-    def __init__(self, n_scenarios: int = 3, features: int = 32):
-        super().__init__([ConvP128(features) for _ in range(n_scenarios)])
+    def __init__(self, n_scenarios: int = 3, features: int = 32, bn_decay: float = 0.9):
+        super().__init__([ConvP128(features, bn_decay=bn_decay) for _ in range(n_scenarios)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.stack([trunk(x[s]) for s, trunk in enumerate(self)])
@@ -122,4 +157,25 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 draw(m.bias, -0.1, 0.1)
                 draw(m.running_mean, -0.1, 0.1)
                 draw(m.running_var, 0.5, 1.5)
+    return module
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw ``module``'s weights in place as Flax initialises them, from
+    ``generator`` (on any device): conv and linear weights lecun-normal
+    (truncated normal on [-2, 2] scaled to variance 1/fan_in, as
+    ``nn.initializers.lecun_normal``), biases zero, BatchNorm scale 1, shift
+    0, running mean 0 and variance 1. A run from this init is distributed as
+    a JAX run from ``init_hdce_state``. Returns ``module``."""
+    # lecun_normal's stddev correction for the [-2, 2] truncation
+    trunc_std = 0.87962566103423978
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                std = math.sqrt(1.0 / m.weight[0].numel()) / trunc_std
+                m.weight.copy_(std * truncated_normal(generator, tuple(m.weight.shape)))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
     return module

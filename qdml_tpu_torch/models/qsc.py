@@ -1,11 +1,17 @@
-"""Quantum scenario classifier (``qdml_tpu/models/qsc.py``), eval form.
+"""Quantum scenario classifier (``qdml_tpu/models/qsc.py``).
 
 CNN front end -> tanh angles -> the variational circuit
 (:func:`qdml_tpu_torch.quantum.circuits.run_circuit`, whichever impl the
 config names) -> linear head -> log-softmax. Parameter names follow the
 reference ``QSC_P128`` (``preprocess.{0,3,7}.*``, ``qlayer.weights`` of shape
-(L, n, 2), ``classifier.*``). QuantumNAT noise and trajectory evaluation
-belong to training and come with that slice.
+(L, n, 2), ``classifier.*``).
+
+QuantumNAT: in train mode with ``use_quantumnat`` and ``noise_level > 0`` the
+circuit runs at ``weights + noise``, so the gradient is taken at the noisy
+point while the optimizer updates the clean parameter
+(``qdml_tpu/models/qsc.py:83-87``). The noise is passed in or drawn from the
+caller's generator. Trajectory evaluation (``depolarizing_p``) is not ported
+yet (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -40,22 +46,41 @@ class QSCP128(nn.Module):
         backend: str = "auto",
         impl: str = "auto",
         input_norm: bool = False,
+        use_quantumnat: bool = False,
+        noise_level: float = 0.01,
     ):
         super().__init__()
         self.n_qubits, self.n_layers = n_qubits, n_layers
         self.backend, self.impl, self.input_norm = backend, impl, input_norm
+        self.use_quantumnat, self.noise_level = use_quantumnat, noise_level
         self.preprocess = QSCPreprocess(n_qubits)
         self.qlayer = QuantumLayer(n_layers, n_qubits)
         self.classifier = nn.Linear(n_qubits, n_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        train: bool = False,
+        noise: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """``train`` turns QuantumNAT on (when configured): the circuit weights
+        get ``noise`` added, or ``noise_level * N(0, 1)`` drawn from
+        ``generator`` when no noise is passed."""
         if self.input_norm:
             rms = torch.sqrt(torch.mean(x**2, dim=(1, 2, 3), keepdim=True) + 1e-12)
             x = x / rms
         angles = self.preprocess(x)
+        weights = self.qlayer.weights
+        if train and self.use_quantumnat and self.noise_level > 0:
+            if noise is None:
+                dev = weights.device if generator is None else generator.device
+                noise = self.noise_level * torch.randn(
+                    weights.shape, generator=generator, device=dev
+                )
+            weights = weights + noise.to(weights.device)
         expz = run_circuit(
-            angles, self.qlayer.weights, self.n_qubits, self.n_layers, self.backend,
-            impl=self.impl,
+            angles, weights, self.n_qubits, self.n_layers, self.backend, impl=self.impl
         )
         return torch.log_softmax(self.classifier(expz), dim=-1)
 

@@ -1,13 +1,16 @@
 """The circuit kernels: CUDA C++ for Hopper, their build, bindings and plain versions.
 
 Counterpart of ``qdml_tpu/quantum/pallas_kernels.py``. Two of its four Pallas
-kernels are on the serving path and are ported here:
+kernels are on the serving and training paths and are ported here:
 
 - :func:`fused_qsc_expvals` (``csrc/qsc_expvals.cu``, replaces ``_qsc_kernel``):
-  angles + a precompiled ansatz unitary -> per-wire <Z>;
+  angles + a precompiled ansatz unitary -> per-wire <Z>; its backward is
+  autograd through the plain version, as the JAX backward differentiates its
+  XLA twin;
 - :func:`fused_circuit_expvals` (``csrc/circuit_expvals.cu``, replaces
   ``_circuit_kernel``): angles + weights -> the L-layer gate chain -> <Z>
-  (and the final state).
+  (and the final state); its adjoint backward is a kernel too
+  (``csrc/circuit_adjoint.cu``, replaces ``_circuit_bwd``).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface the first time it is needed, under
@@ -31,12 +34,13 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from qdml_tpu_torch.quantum import statevector as sv
 from qdml_tpu_torch.utils.complexops import CArr
 
-KERNELS = ("qsc_expvals", "circuit_expvals")
+KERNELS = ("qsc_expvals", "circuit_expvals", "circuit_adjoint")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qdml_tpu_torch"
 NVCC_FLAGS = (
@@ -138,8 +142,12 @@ def _load(name: str) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "qsc_expvals":
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
-    else:
+    elif name == "circuit_expvals":
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    else:
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+        lib.circuit_adjoint_blocks.restype = ctypes.c_int
+        lib.circuit_adjoint_blocks.argtypes = [i32, i32]
     _libs[name] = lib
     return lib
 
@@ -258,14 +266,18 @@ def circuit_gate_table(weights: torch.Tensor) -> torch.Tensor:
     return torch.stack([c[..., 0], s[..., 0], c[..., 1], s[..., 1]], dim=-1).contiguous()
 
 
+def _check_circuit_window(n: int, layers: int) -> None:
+    if not CIRCUIT_MIN_QUBITS <= n <= CIRCUIT_MAX_QUBITS or layers < 1:
+        raise ValueError(
+            f"circuit kernels take {CIRCUIT_MIN_QUBITS} <= n <= {CIRCUIT_MAX_QUBITS} "
+            f"and layers >= 1, got n={n}, layers={layers}"
+        )
+
+
 def _circuit_launch(angles, weights, n: int, layers: int, with_state: bool):
     dev = angles.device
     batch, dim = angles.shape[0], 1 << n
-    if not CIRCUIT_MIN_QUBITS <= n <= CIRCUIT_MAX_QUBITS or layers < 1:
-        raise ValueError(
-            f"circuit kernel takes {CIRCUIT_MIN_QUBITS} <= n <= {CIRCUIT_MAX_QUBITS} "
-            f"and layers >= 1, got n={n}, layers={layers}"
-        )
+    _check_circuit_window(n, layers)
     _check(angles, "angles", (batch, n), dev)
     _check(weights, "weights", (layers, n, 2), dev)
     ev = torch.empty((batch, n), dtype=torch.float32, device=dev)
@@ -290,6 +302,125 @@ def _circuit_launch(angles, weights, n: int, layers: int, with_state: bool):
     return ev, fre, fim
 
 
+def _product_state(factors: torch.Tensor) -> torch.Tensor:
+    """(B, n, 2) per-wire factors (bit 0, bit 1) -> the (B, 2^n) product
+    state, qubit 0 the most significant bit."""
+    amp = torch.ones(factors.shape[:1] + (1,), dtype=factors.dtype, device=factors.device)
+    for q in range(factors.shape[1]):
+        amp = (amp[:, :, None] * factors[:, None, q, :]).reshape(amp.shape[0], -1)
+    return amp
+
+
+def _halves(t: torch.Tensor, n: int, q: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bit-0 and bit-1 halves of wire ``q``: (B, 2^n) -> 2 x (B, 2^q, 2^(n-q-1))."""
+    v = t.reshape(t.shape[0], 1 << q, 2, -1)
+    return v[:, :, 0], v[:, :, 1]
+
+
+def circuit_adjoint_plain(fre, fim, g, angles, weights, n: int, layers: int):
+    """Plain version of the adjoint backward (the JAX ``_circuit_bwd``,
+    ``pallas_kernels.py:521-552``): from the final state ``fre, fim`` (B, 2^n)
+    and the <Z> cotangent ``g`` (B, n) to ``(dangles (B, n), dweights (layers,
+    n, 2))``. It walks the layers in reverse, undoing each layer on the state
+    (``_undo_layer``) and pulling the cotangent back through it by the gates'
+    own derivatives, written out: not autograd through the forward."""
+    z = torch.as_tensor(sv.z_signs(n), device=fre.device)
+    dprobs = g @ z.T
+    psi = CArr(fre, fim)
+    lam = CArr(2.0 * fre * dprobs, 2.0 * fim * dprobs)
+    inv_ring = np.argsort(sv.ring_cnot_perm(n))
+    cs = circuit_gate_table(weights)
+    dweights = torch.zeros((layers, n, 2), dtype=torch.float32, device=fre.device)
+    for l in reversed(range(layers)):
+        psi, lam = sv.apply_perm(psi, inv_ring), sv.apply_perm(lam, inv_ring)
+        for q in reversed(range(n)):
+            cy, sy, cz, sz = cs[l, q]
+            (r0, r1), (i0, i1) = _halves(psi.re, n, q), _halves(psi.im, n, q)
+            (x0, x1), (y0, y1) = _halves(lam.re, n, q), _halves(lam.im, n, q)
+            # RZ(t): d/dt is -i/2 on the 0-branch, +i/2 on the 1-branch
+            dweights[l, q, 1] = 0.5 * ((x0 * i0 - y0 * r0) + (y1 * r1 - x1 * i1)).sum()
+            psi = sv.apply_rz_cs(psi, n, q, cz, -sz)
+            lam = sv.apply_rz_cs(lam, n, q, cz, -sz)
+            (r0, r1), (i0, i1) = _halves(psi.re, n, q), _halves(psi.im, n, q)
+            (x0, x1), (y0, y1) = _halves(lam.re, n, q), _halves(lam.im, n, q)
+            # RY(t) = [c, -s; s, c]: d/dt (b0, b1) = (-b1, b0) / 2
+            dweights[l, q, 0] = 0.5 * ((x1 * r0 - x0 * r1) + (y1 * i0 - y0 * i1)).sum()
+            psi = sv.apply_ry_cs(psi, n, q, cy, -sy)
+            lam = sv.apply_ry_cs(lam, n, q, cy, -sy)
+    # embedding: the embedded state is real, so only lambda's real part flows
+    half = 0.5 * angles
+    factors = torch.stack([torch.cos(half), torch.sin(half)], dim=-1)  # (B, n, 2)
+    dangles = []
+    for q in range(n):
+        dq = factors.clone()
+        dq[:, q] = torch.stack([-0.5 * factors[:, q, 1], 0.5 * factors[:, q, 0]], dim=-1)
+        dangles.append((lam.re * _product_state(dq)).sum(-1))
+    return torch.stack(dangles, dim=-1), dweights
+
+
+def _adjoint_launch(fre, fim, g, angles, weights, n: int, layers: int):
+    dev = angles.device
+    batch, dim = angles.shape[0], 1 << n
+    _check_circuit_window(n, layers)
+    _check(fre, "fre", (batch, dim), dev)
+    _check(fim, "fim", (batch, dim), dev)
+    _check(g, "g", (batch, n), dev)
+    _check(angles, "angles", (batch, n), dev)
+    _check(weights, "weights", (layers, n, 2), dev)
+    dangles = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    if batch == 0:
+        return dangles, torch.zeros((layers, n, 2), dtype=torch.float32, device=dev)
+    cs = circuit_gate_table(weights)
+    lib = _load("circuit_adjoint")
+    partials = torch.empty(
+        (lib.circuit_adjoint_blocks(batch, n), layers, n, 2), dtype=torch.float32, device=dev
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.circuit_adjoint_launch(
+            fre.data_ptr(), fim.data_ptr(), g.data_ptr(), cs.data_ptr(), angles.data_ptr(),
+            dangles.data_ptr(), partials.data_ptr(), batch, n, layers, stream,
+        )
+    _raise_on(err, "circuit_adjoint")
+    launches["circuit_adjoint"] += 1
+    # the batch sum over per-block partials, in a fixed order: no atomics
+    return dangles, partials.sum(dim=0)
+
+
+def circuit_adjoint(fre, fim, g, angles, weights, n: int, layers: int):
+    """The adjoint backward: one ``circuit_adjoint`` launch on the card, its
+    plain version for CPU tensors."""
+    if fre.device.type == "cpu":
+        return circuit_adjoint_plain(fre, fim, g, angles, weights, n, layers)
+    return _adjoint_launch(fre, fim, g, angles, weights, n, layers)
+
+
+class _CircuitExpvals(torch.autograd.Function):
+    """The forward writes the final state; the backward is the adjoint walk
+    from it, as the JAX ``_circuit_expvals`` custom_vjp saves only the final
+    state (pallas_kernels.py:509-555). ``plain`` takes both plain versions."""
+
+    @staticmethod
+    def forward(ctx, angles, weights, n, layers, plain):
+        if plain:
+            ev, fre, fim = circuit_expvals_plain(angles, weights, n, layers)
+        else:
+            ev, fre, fim = _circuit_launch(angles, weights, n, layers, with_state=True)
+        ctx.save_for_backward(angles, weights, fre, fim)
+        ctx.n, ctx.layers, ctx.plain = n, layers, plain
+        ctx.mark_non_differentiable(fre, fim)
+        return ev, fre, fim
+
+    @staticmethod
+    def backward(ctx, g, _g_re, _g_im):
+        angles, weights, fre, fim = ctx.saved_tensors
+        adjoint = circuit_adjoint_plain if ctx.plain else _adjoint_launch
+        dangles, dweights = adjoint(
+            fre, fim, g.contiguous(), angles, weights, ctx.n, ctx.layers
+        )
+        return dangles, dweights, None, None, None
+
+
 def fused_circuit_expvals(
     angles: torch.Tensor,
     weights: torch.Tensor,
@@ -301,23 +432,22 @@ def fused_circuit_expvals(
     ring CNOTs) + per-wire <Z> — in one kernel launch on the card.
 
     angles (..., n), weights (layers, n, 2) -> expvals (..., n); with
-    ``return_state`` also the final state's re and im, (..., 2^n) each. The
-    kernel is forward only: on the card, tensors that need grad raise (the
-    adjoint backward kernel is the training slice, ROADMAP A.6)."""
+    ``return_state`` also the final state's re and im, (..., 2^n) each, which
+    carry no gradient. When autograd needs a gradient the forward kernel also
+    writes the final state and the backward is one ``circuit_adjoint``
+    launch."""
     lead = angles.shape[:-1]
     a2 = angles.reshape(-1, n)
-    if a2.device.type == "cpu":
-        ev, fre, fim = circuit_expvals_plain(a2, weights, n, layers)
-    elif n > CIRCUIT_MAX_QUBITS or layers < 1:
-        # outside the JAX kernel's window its XLA twin runs
-        # (pallas_kernels.py:441-442)
+    needs_grad = torch.is_grad_enabled() and (a2.requires_grad or weights.requires_grad)
+    # plain versions on the CPU, and where JAX runs its XLA twin instead of
+    # the kernel (pallas_kernels.py:441-442); its backward is still the
+    # adjoint walk (pallas_kernels.py:521)
+    plain = a2.device.type == "cpu" or n > CIRCUIT_MAX_QUBITS or layers < 1
+    if needs_grad:
+        ev, fre, fim = _CircuitExpvals.apply(a2, weights, n, layers, plain)
+    elif plain:
         ev, fre, fim = circuit_expvals_plain(a2, weights, n, layers)
     else:
-        if torch.is_grad_enabled() and (a2.requires_grad or weights.requires_grad):
-            raise NotImplementedError(
-                "the circuit kernel is forward only; its adjoint backward kernel "
-                "comes with the training slice (ROADMAP A.6)"
-            )
         ev, fre, fim = _circuit_launch(a2, weights, n, layers, return_state)
     ev = ev.reshape(lead + (n,))
     if not return_state:

@@ -43,7 +43,7 @@ def test_import_everything_leaves_jax_out():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the slice was imported
+    assert int(out.stdout.strip()) >= 31  # every module of both slices was imported
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -75,7 +75,7 @@ def test_every_module_has_a_jax_counterpart_or_is_the_kernels():
             continue
         assert (ROOT / "qdml_tpu" / rel).exists(), rel
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "circuit_expvals.cu", "qsc_expvals.cu"
+        "circuit_adjoint.cu", "circuit_expvals.cu", "qsc_expvals.cu"
     ]
 
 
@@ -85,10 +85,12 @@ def _no_gpu(monkeypatch):
 
 def test_entry_points_raise_without_gpu(monkeypatch):
     _no_gpu(monkeypatch)
+    from qdml_tpu_torch.data.datasets import GridData
     from qdml_tpu_torch.models.qsc import build_classifier
     from qdml_tpu_torch.quantum.statevector import zero_state
     from qdml_tpu_torch.serve.engine import ServeEngine
-    from qdml_tpu_torch.train.hdce import build_hdce
+    from qdml_tpu_torch.train.hdce import build_hdce, init_hdce_state, train_hdce
+    from qdml_tpu_torch.train.qsc import train_classifier
 
     cfg = tconfig.ExperimentConfig()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -99,6 +101,10 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         build_classifier(cfg, quantum=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         zero_state(2)
+    for entry in (lambda: train_hdce(cfg), lambda: train_classifier(cfg, True),
+                  lambda: init_hdce_state(cfg), lambda: GridData.synthesize(cfg.data)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         qdml_tpu_torch.resolve_device("cuda")
     assert qdml_tpu_torch.resolve_device("cpu") == torch.device("cpu")
@@ -143,7 +149,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     pev, pre, pim = tk.circuit_expvals_plain(a, w, 5, 2)
     assert torch.equal(ev, pev) and torch.equal(re, pre) and torch.equal(im, pim)
     assert tk.fused_circuit_expvals(a[None], w, 5, 2).shape == (1, 3, 5)  # lead axes kept
-    assert tk.launches == {"qsc_expvals": 0, "circuit_expvals": 0}
+    assert tk.launches == {"qsc_expvals": 0, "circuit_expvals": 0, "circuit_adjoint": 0}
 
 
 def test_library_path_is_keyed_by_source_and_lives_in_build():
@@ -169,7 +175,7 @@ def test_config_defaults_match_the_jax_config():
 
     t, j = tconfig.ExperimentConfig(), jconfig.ExperimentConfig()
     assert (t.image_hw, t.h_out_dim) == (j.image_hw, j.h_out_dim)
-    for sect in ("data", "model", "quantum", "serve"):
+    for sect in ("data", "model", "quantum", "train", "serve"):
         for field, value in vars(getattr(t, sect)).items():
             assert getattr(getattr(j, sect), field) == value, (sect, field)
 
@@ -179,3 +185,6 @@ def test_submodules_import():
     for name in mods:
         importlib.import_module(name)
     assert "qdml_tpu_torch.quantum.kernels" in mods and "qdml_tpu_torch.serve.engine" in mods
+    for name in ("data.channels", "data.datasets", "train.optim", "train.qsc", "train.checkpoint",
+                 "ops.quantumnat", "ops.grad_prune", "models.losses", "utils.metrics", "cli"):
+        assert f"qdml_tpu_torch.{name}" in mods, name

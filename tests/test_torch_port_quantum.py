@@ -129,7 +129,7 @@ def test_kernel_impls_on_cpu_take_the_plain_version(impl):
     got = tcirc.run_circuit(torch.tensor(a), torch.tensor(w), n, layers, impl=impl)
     want = tcirc.run_circuit(torch.tensor(a), torch.tensor(w), n, layers, "dense")
     _close(got, want, 1e-5)
-    assert tk.launches == {"qsc_expvals": 0, "circuit_expvals": 0}
+    assert tk.launches == {"qsc_expvals": 0, "circuit_expvals": 0, "circuit_adjoint": 0}
 
 
 def test_dispatch_names_and_heuristic_match():

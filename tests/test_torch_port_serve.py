@@ -105,7 +105,7 @@ def test_port_engine_matches_jax_forward(n_qubits, impl):
         np.testing.assert_allclose(conf, conf_ref, rtol=0, atol=1e-5)
         assert info.n == n and info.chunks == (2 if n > 8 else 1)
         assert info.rows == (16 if n > 8 else {1: 1, 5: 8}[n])
-    assert tk.launches == {"qsc_expvals": 0, "circuit_expvals": 0}  # CPU: plain versions
+    assert set(tk.launches.values()) == {0}  # CPU: plain versions
 
 
 def test_classical_engine_routes_like_select_expert():
