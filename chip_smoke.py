@@ -84,10 +84,13 @@ def adjoint_work(batch: int, n: int, layers: int) -> tuple[float, float]:
     dweights out, each once) and flops of one adjoint call: the cotangent's
     start (n + 3 per amplitude), 64 flops per amplitude pair per wire per
     layer (two gradient terms and two rotations undone on psi and lambda),
-    and the embedding cotangent (n + 2 per amplitude per wire)."""
+    and the embedding cotangent as the function needs it, the backward pass
+    of the product-state build (``qdml_tpu/quantum/statevector.py:161``):
+    about 2 per amplitude to rebuild it and 8 for its backward. The kernel
+    itself spends n + 2 per amplitude per wire there, which is not counted."""
     dim = 1 << n
     bytes_moved = 4 * (2 * batch * dim + 2 * batch * n + layers * n * 4 + batch * n + layers * n * 2)
-    flops = batch * (dim * (n + 3) + 32 * layers * n * dim + n * dim * (n + 2))
+    flops = batch * (dim * (n + 3) + 32 * layers * n * dim + 10 * dim)
     return bytes_moved, flops
 
 
@@ -367,31 +370,28 @@ def trainer_configs(cfg_mod):
     }
 
 
-def build_trainee(mods, cfg, quantum, device, steps_per_epoch):
-    """A fresh model (the trainer's own seeded init), its optimizer, and its
-    step ``step(batch, noise) -> {"loss": ...}``, as the trainers build them."""
-    from dataclasses import replace
-
+def trainee(mods, cfg, quantum, device, steps_per_epoch):
+    """The trainer's own model and optimizer (``make_trainer``), and its step
+    ``step(batch, noise) -> {"loss": ...}``."""
     if quantum is None:
-        model = mods["hdce"].init_hdce_state(cfg, device)
-        opt = mods["optim"].get_optimizer(cfg.train, model.parameters(), steps_per_epoch)
+        model, opt = mods["hdce"].make_trainer(cfg, device, steps_per_epoch)
         return model, opt, lambda b, eps: mods["hdce"].hdce_train_step(model, opt, b)
-    model = mods["qsc"].build_classifier(cfg, quantum, device)
-    tcfg = replace(cfg.train, optimizer="adamw") if quantum else cfg.train
-    opt = mods["optim"].get_optimizer(
-        tcfg, model.parameters(), steps_per_epoch, cfg.quantum if quantum else None
-    )
+    model, opt = mods["qsc"].make_trainer(cfg, quantum, device, steps_per_epoch)
     return model, opt, lambda b, eps: mods["qsc"].classifier_train_step(model, opt, b, noise=eps)
 
 
 def cpu_twin(torch, mods, name, cfg, quantum, batches, steps_per_epoch) -> None:
     """The first steps on the card and on the CPU from the same weights,
     batches and QuantumNAT noise. Losses: rtol 1e-4 (fp32 sums over 2304 rows
-    in another order). Parameters: within 1e-5 + 1e-4 |p| except where a
-    gradient is rounding-dominated, which Adam turns into up to lr per step
-    either way (the last layer's RZ weights, whose gradient is zero, and
-    entries at the pruning cutoff); every entry within that bound, and at
-    most 1% of entries outside the tight one."""
+    in another order). The circuit weights' gradient of the first backward
+    (before pruning), where the circuit kernels' autograd lands: within
+    1e-4 max|g| + 1e-7 of the twin's, since Adam's first update is
+    lr * sign(g) and hides a wrong magnitude from the parameters.
+    Parameters: within 1e-5 + 1e-4 |p| except where a gradient is
+    rounding-dominated, which Adam turns into up to lr per step either way
+    (the last layer's RZ weights, whose gradient is zero, and entries at the
+    pruning cutoff); every entry within that bound, and at most 1% of entries
+    outside the tight one."""
     qcfg = cfg.quantum
     gen = torch.Generator().manual_seed(SEED + 5)
     noises = [
@@ -401,15 +401,27 @@ def cpu_twin(torch, mods, name, cfg, quantum, batches, steps_per_epoch) -> None:
     ]
     runs = []
     for dev in (DEVICE, "cpu"):
-        model, opt, step = build_trainee(mods, cfg, quantum, dev, steps_per_epoch)
+        model, opt, step = trainee(mods, cfg, quantum, dev, steps_per_epoch)
+        grads = []
+        if quantum:  # the leaf's gradient as autograd delivers it, copied before pruning edits .grad in place
+            hook = model.qlayer.weights.register_hook(lambda g: grads.append(g.detach().to("cpu", copy=True)))
         losses = []
         for b, eps in zip(batches, noises):
             b = {k: v.to(dev) for k, v in b.items()}
             losses.append(float(step(b, None if eps is None else eps.to(dev))["loss"]))
-        runs.append((losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}))
-    (gl, gp), (cl, cp) = runs
+        if quantum:
+            hook.remove()
+        runs.append((losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}, grads))
+    (gl, gp, gg), (cl, cp, cg) = runs
     if not np.allclose(gl, cl, rtol=1e-4, atol=0.0):
         raise AssertionError(f"train {name}: losses {gl} on the card, {cl} on the CPU twin")
+    if quantum:
+        gtol = 1e-4 * cg[0].abs().max().item() + 1e-7
+        gerr = (gg[0] - cg[0]).abs().max().item()
+        log(f"train {name}: circuit weights' first gradient, card vs CPU twin: max |diff| {gerr:.3e} "
+            f"(tol 1e-4 max|g| + 1e-7 = {gtol:.3e}; max|g| {cg[0].abs().max().item():.3e})")
+        if gerr > gtol:
+            raise AssertionError(f"train {name}: circuit weights' gradient differs from the CPU twin")
     lr = cfg.train.lr
     bound = 1.1 * TWIN_STEPS * lr + 1e-5
     worst, outside, total = 0.0, 0, 0
@@ -480,7 +492,7 @@ def train(torch, K, mods, card: str):
 
         # step time and its split, on a fresh model: forward (loss), backward, update
         saved = dict(K.launches)
-        model, opt, _ = build_trainee(mods, cfg, quantum, DEVICE, spe)
+        model, opt, _ = trainee(mods, cfg, quantum, DEVICE, spe)
         b = {k: v for k, v in batches[0].items()}
         gen = torch.Generator(device=DEVICE).manual_seed(SEED)
         parts = {"forward": [], "backward": [], "update": []}
@@ -526,7 +538,6 @@ def main() -> int:
     from qdml_tpu_torch.quantum import kernels as K
     from qdml_tpu_torch.serve import engine as engine_mod
     from qdml_tpu_torch.train import hdce as hdce_mod
-    from qdml_tpu_torch.train import optim
     from qdml_tpu_torch.train import qsc as train_qsc
     from qdml_tpu_torch.utils.device import resolve_device
 
@@ -548,7 +559,7 @@ def main() -> int:
 
     worst = check_kernels(torch, K, circuits)
     launches, engines, requests = serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod)
-    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "optim": optim}
+    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc}
     train_launches, adjoint_per_step = train(torch, K, mods, card)
     launches = {k: launches[k] + train_launches[k] for k in launches}
     for k, v in launches.items():

@@ -85,6 +85,20 @@ def init_hdce_state(
     return model.to(dev).train()
 
 
+def make_trainer(
+    cfg: ExperimentConfig,
+    device: str | torch.device | None,
+    steps_per_epoch: int,
+    init_state: dict | None = None,
+) -> tuple[HDCE, Optimizer]:
+    """The HDCE that :func:`train_hdce` trains and its optimizer: the seeded
+    init (or ``init_state``) and ``cfg.train``'s optimizer and schedule."""
+    model = init_hdce_state(cfg, device)
+    if init_state is not None:
+        model.load_state_dict(init_state)
+    return model, get_optimizer(cfg.train, model.parameters(), steps_per_epoch)
+
+
 def cell_nmse(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """Per-grid-cell whole-batch NMSE: (S, U, B, D) -> (S, U)."""
     err = torch.sum((pred - label) ** 2, dim=(-1, -2))
@@ -166,10 +180,7 @@ def train_hdce(
         data = GridData.synthesize(cfg.data, dev)
     train_loader = DMLGridLoader(data, cfg.train.batch_size, "train")
     val_loader = DMLGridLoader(data, cfg.train.batch_size, "val")
-    model = init_hdce_state(cfg, dev)
-    if init_state is not None:
-        model.load_state_dict(init_state)
-    opt = get_optimizer(cfg.train, model.parameters(), train_loader.steps_per_epoch)
+    model, opt = make_trainer(cfg, dev, train_loader.steps_per_epoch, init_state)
 
     start_epoch, best = 0, math.inf
     if cfg.train.resume:

@@ -60,6 +60,27 @@ def build_classifier(
     return clf.to(dev)
 
 
+def make_trainer(
+    cfg: ExperimentConfig,
+    quantum: bool,
+    device: str | torch.device | None,
+    steps_per_epoch: int,
+    init_state: dict | None = None,
+) -> tuple[nn.Module, Optimizer]:
+    """The classifier that :func:`train_classifier` trains and its optimizer:
+    the seeded init (or ``init_state``), ``cfg.train``'s optimizer and
+    schedule, and for the quantum classifier AdamW (reference
+    ``Runner...py:320``) with the quantum config's gradient pruning."""
+    model = build_classifier(cfg, quantum, device)
+    if init_state is not None:
+        model.load_state_dict(init_state)
+    train_cfg = dataclasses.replace(cfg.train, optimizer="adamw") if quantum else cfg.train
+    opt = get_optimizer(
+        train_cfg, model.parameters(), steps_per_epoch, cfg.quantum if quantum else None
+    )
+    return model, opt
+
+
 def grid_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """The flattened grid: NCHW images (S*U*B, 2, H, W) and labels (S*U*B,)."""
     img = batch["yp_img"]
@@ -139,17 +160,7 @@ def train_classifier(
         data = GridData.synthesize(cfg.data, dev)
     train_loader = DMLGridLoader(data, cfg.train.batch_size, "train")
     val_loader = DMLGridLoader(data, cfg.train.batch_size, "val")
-    model = build_classifier(cfg, quantum, dev)
-    if init_state is not None:
-        model.load_state_dict(init_state)
-    train_cfg = cfg.train
-    if quantum:
-        # reference QSC training uses AdamW (Runner...py:320)
-        train_cfg = dataclasses.replace(train_cfg, optimizer="adamw")
-    opt = get_optimizer(
-        train_cfg, model.parameters(), train_loader.steps_per_epoch,
-        cfg.quantum if quantum else None,
-    )
+    model, opt = make_trainer(cfg, quantum, dev, train_loader.steps_per_epoch, init_state)
     tag = "qsc" if quantum else "sc"
 
     start_epoch, best_acc = 0, -1.0
