@@ -6,12 +6,15 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
-2. build: compile the three circuit kernels from ``qdml_tpu_torch/csrc/`` with
+2. build: compile the five circuit kernels from ``qdml_tpu_torch/csrc/`` with
    nvcc for sm_90a, in parallel, and print the build seconds and ptxas reports;
 3. kernels: hold each kernel against its plain PyTorch version on the card,
-   over qubit counts, layer counts and batch sizes, plus the QSC kernel's
-   autograd gradients and the adjoint kernel against autograd through the
-   plain forward;
+   over qubit counts, layer counts and batch sizes, plus the autograd
+   gradients of the QSC, rotation-layer and unitary kernels against autograd
+   through the plain versions, the adjoint kernel against autograd through
+   the plain forward, and the out-of-window qubit counts that must raise.
+   No entry point reaches the rotation-layer kernel (the JAX package reaches
+   its own only from ``tests/test_pallas.py``), so this phase is its path;
 4. serving: three full-width engines (S=3 trunks of 32 features on the
    16x8x2 image, the 4096->2048 head, seeded random weights) — quantum n=6
    L=3 through impl ``pallas``, quantum n=8 L=3 through impl
@@ -19,30 +22,45 @@ Phases, each of which exits non-zero on failure:
    and 100 requests over buckets (1, 8, 64); the kernels' launch counters are
    zeroed just before and read just after, and every answer is held against
    the same engine built on the CPU from the same weights;
-5. training: at full width on data synthesized on the card (data_len 2048 per
+5. microbench: the port's circuit micro-benchmark
+   (``qdml_tpu_torch.scripts.quantum_microbench``) at its full shape (n=6,
+   L=3, B=2304), counters zeroed before and read after; every row's <Z> is
+   held against the ``dense`` row's within 1e-5. Its ``pallas_old`` row is
+   the unitary kernel's path;
+6. training: at full width on data synthesized on the card (data_len 2048 per
    cell, cut from the reference's 20000 for time), four trainers each run one
    epoch (7 steps of 256 rows per cell, 2304 a step) and validate: HDCE
    (Adam), SC (Adam), QSC n=6 L=3 under impl ``pallas`` (AdamW, QuantumNAT
    sigma 0.01) and QSC n=8 L=3 under impl ``pallas_circuit`` (AdamW, quantile
    gradient pruning 0.5), with the counters zeroed just before and read just
    after each; their first 2 steps are run again on a CPU twin from the same
-   weights and batches (the same QuantumNAT noise) and held against it;
-6. times: each kernel and its plain version at the main path's shapes (CUDA
+   weights and batches (the same QuantumNAT noise) and held against it. The
+   HDCE, SC and n=6 QSC write their checkpoints under ``build/chip_smoke/``;
+7. eval: ``python -m qdml_tpu_torch.cli eval`` over those checkpoints (the
+   SNR sweep 5..15 dB, batch 200, test_len 2000 per point, cut from the
+   reference's 10000 for time), results under ``build/chip_smoke/``, counters
+   zeroed before and read after; one SNR point's per-batch sums are held
+   against the same per-batch function on the CPU with the same weights and
+   the same test batches;
+8. times: each kernel and its plain version at its path's shapes (CUDA
    events), each kernel's device time per launch (torch profiler) over batch
    sizes, each bucket's ``infer`` latency and each trainer's step time with
    its forward/backward/update split (host clock).
 
 The line before the last is a JSON object with one record per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and
+writes only under ``build/``.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -56,6 +74,14 @@ TRAIN_DATA_LEN = 2048
 TRAIN_BATCH = 256
 TWIN_STEPS = 2
 DEVICE = "cuda"
+# eval: the trainers' checkpoints and the sweep's results, under build/
+EVAL_WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# test samples per SNR point, cut from the reference's 10000 for time only
+EVAL_TEST_LEN = 2000
+# the trainers whose checkpoints the eval phase restores
+EVAL_TRAINERS = ("hdce", "sc", "qsc_n6_pallas")
+# the rotation-layer kernel's timed shape, and the unitary kernel's (the microbench's)
+ROT_N, UNI_N, WIDE_BATCH = 8, 6, 2304
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and fp32 non-tensor rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -101,6 +127,28 @@ def circuit_work(batch: int, n: int, layers: int) -> tuple[float, float]:
     dim = 1 << n
     bytes_moved = 4 * (batch * n + layers * n * 4 + batch * n)
     flops = batch * dim * n + 12 * batch * layers * n * dim + 3 * batch * dim + 2 * batch * dim * n
+    return bytes_moved, flops
+
+
+def rotation_work(batch: int, n: int) -> tuple[float, float]:
+    """Bytes (the state's re and im in and out, the gate table in, each once)
+    and flops of one rotation layer: about 12 per amplitude per wire (RY's
+    two real 2x2 products, 6 flops a component pair, and RZ's complex phase,
+    6 more)."""
+    dim = 1 << n
+    bytes_moved = 4 * (4 * batch * dim + 4 * n)
+    flops = 12 * batch * dim * n
+    return bytes_moved, flops
+
+
+def unitary_work(batch: int, n: int) -> tuple[float, float]:
+    """Bytes (psi re and im and U re and im in, <Z> out, each once) and flops
+    of one unitary call, counted as the least the function needs: three real
+    B x 2^n x 2^n products (Gauss's trick, as the TPU kernel does it), |c|^2
+    (3 per amplitude) and the sign contraction (2n per amplitude)."""
+    dim = 1 << n
+    bytes_moved = 4 * (2 * batch * dim + 2 * dim * dim + batch * n)
+    flops = 3 * 2 * batch * dim * dim + 3 * batch * dim + 2 * batch * dim * n
     return bytes_moved, flops
 
 
@@ -177,6 +225,21 @@ def device_sweep(torch, K, circuits, card: str) -> None:
             a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
             us = profiled_device_us(torch, lambda: K.fused_circuit_expvals(a, w, n, 3), "circuit_expvals_kernel")
             log(f"device sweep circuit_expvals n={n} L=3 B={b}: {us} us per launch [{card}]")
+    from qdml_tpu_torch.utils.complexops import CArr
+
+    for n in (8, 14):
+        w = torch.tensor(rng.uniform(-3, 3, (n, 2)), dtype=torch.float32, device=dev)
+        for b in (1, 64, 2304):
+            psi = CArr(torch.randn(b, 1 << n, device=dev), torch.randn(b, 1 << n, device=dev))
+            us = profiled_device_us(torch, lambda: K.apply_rotation_layer(psi, w, n), "rotation_layer_kernel")
+            log(f"device sweep rotation_layer n={n} B={b}: {us} us per launch [{card}]")
+    for n in (6, 10):
+        w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
+        u = circuits.ansatz_unitary(w, n, 3)
+        for b in (1, 64, 2304):
+            psi = CArr(torch.randn(b, 1 << n, device=dev), torch.randn(b, 1 << n, device=dev))
+            us = profiled_device_us(torch, lambda: K.fused_unitary_expvals(psi, u, n), "unitary_expvals_kernel")
+            log(f"device sweep unitary_expvals n={n} B={b}: {us} us per launch [{card}]")
 
 
 def check_kernels(torch, K, circuits) -> dict[str, float]:
@@ -184,7 +247,7 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
     absolute error seen per kernel. Raises on any mismatch."""
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    worst = {"qsc_expvals": 0.0, "circuit_expvals": 0.0, "circuit_adjoint": 0.0}
+    worst = {name: 0.0 for name in K.KERNELS}
 
     def close(name, got, want, rtol, atol, what):
         torch.cuda.synchronize()
@@ -256,6 +319,93 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
                         ratio = max(ratio, err / tol)
         log(f"check circuit_adjoint n={n}: ok, largest error {100 * ratio:.1f}% of its tolerance "
             f"(2e-5 * max|ref| + 1e-6; against the plain adjoint and autograd of the plain forward)")
+
+    from qdml_tpu_torch.quantum import statevector as sv
+    from qdml_tpu_torch.utils.complexops import CArr
+
+    def randn(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+    def embedded(b, n):
+        a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
+        return circuits.angle_embed(sv.zero_state(n, (b,), device=dev), a, n)
+
+    # rotation layer: atol 2e-6 of the largest amplitude, fp32 rounding of 2n
+    # gate updates (fused multiply-adds in the kernel, rounded products in
+    # the plain version), on unnormalised random states and embedded ones
+    for n in (1, 3, 6, 7, 8, 12, 14):
+        w = torch.tensor(rng.uniform(-3, 3, (n, 2)), dtype=torch.float32, device=dev)
+        for b in (1, 11, 64, 2304):
+            for kind, psi in (("random", CArr(randn(b, 1 << n), randn(b, 1 << n))), ("embedded", embedded(b, n))):
+                got = K.apply_rotation_layer(psi, w, n)
+                want = K.rotation_layer_plain(psi.re, psi.im, w, n)
+                tol = 2e-6 * max(want.re.abs().max().item(), want.im.abs().max().item())
+                for x, y, what in ((got.re, want.re, "re"), (got.im, want.im, "im")):
+                    close("rotation_layer", x, y, 0.0, tol, f"n={n} B={b} {kind} {what}")
+        log(f"check rotation_layer n={n}: ok")
+
+    # unitary: atol 5e-6 on unit-norm states, fp32 sums over 2^n terms (each
+    # a 2^n-term product) taken in another order than the plain matmuls'
+    for n in (1, 2, 4, 6, 8, 10, 12):
+        w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
+        u = circuits.ansatz_unitary(w, n, 3) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
+        for b in (1, 9, 64, 2304):
+            re, im = randn(b, 1 << n), randn(b, 1 << n)
+            norm = torch.sqrt((re * re + im * im).sum(-1, keepdim=True))
+            for kind, psi in (("random", CArr(re / norm, im / norm)), ("embedded", embedded(b, n))):
+                got = K.fused_unitary_expvals(psi, u, n)
+                want = K.unitary_expvals_plain(psi.re, psi.im, u.re, u.im, n)
+                close("unitary_expvals", got, want, 0.0, 5e-6, f"n={n} B={b} {kind}")
+        log(f"check unitary_expvals n={n}: ok")
+
+    # both backwards are autograd through the plain versions: the same values
+    for n in (3, 8):
+        psi = CArr(randn(37, 1 << n), randn(37, 1 << n))
+        w = torch.tensor(rng.uniform(-3, 3, (n, 2)), dtype=torch.float32, device=dev)
+        g_re, g_im = randn(37, 1 << n), randn(37, 1 << n)
+        grads = []
+        for fn in (lambda p, w_: K.apply_rotation_layer(p, w_, n),
+                   lambda p, w_: K.rotation_layer_plain(p.re, p.im, w_, n)):
+            xs = [t.clone().requires_grad_(True) for t in (psi.re, psi.im, w)]
+            out = fn(CArr(xs[0], xs[1]), xs[2])
+            (out.re * g_re + out.im * g_im).sum().backward()
+            grads.append([t.grad for t in xs])
+        for k, (gk, gp) in enumerate(zip(*grads)):
+            close("rotation_layer", gk, gp, 1e-5, 1e-6, f"n={n} grad of input {k}")
+    for n in (2, 6):
+        w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
+        u = circuits.ansatz_unitary(w, n, 3)
+        ins = (randn(37, 1 << n), randn(37, 1 << n), u.re.contiguous(), u.im.contiguous())
+        g = randn(37, n)
+        grads = []
+        for fn in (lambda a, b, c, d: K.fused_unitary_expvals(CArr(a, b), CArr(c, d), n),
+                   lambda a, b, c, d: K.unitary_expvals_plain(a, b, c, d, n)):
+            xs = [t.clone().requires_grad_(True) for t in ins]
+            (fn(*xs) * g).sum().backward()
+            grads.append([t.grad for t in xs])
+        for k, (gk, gp) in enumerate(zip(*grads)):
+            close("unitary_expvals", gk, gp, 1e-5, 1e-6, f"n={n} grad of input {k}")
+    log("check rotation_layer and unitary_expvals gradients: ok")
+
+    # outside their windows both wrappers raise before any launch
+    for n in (0, 15):
+        z = CArr(torch.zeros(1, 1 << n, device=dev), torch.zeros(1, 1 << n, device=dev))
+        try:
+            K.apply_rotation_layer(z, torch.zeros(max(n, 1), 2, device=dev), n)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"rotation_layer accepted n={n}")
+    for n in (0, 13):
+        z = CArr(torch.zeros(1, 1 << n, device=dev), torch.zeros(1, 1 << n, device=dev))
+        u = CArr(torch.empty(1 << n, 1 << n, device=dev), torch.empty(1 << n, 1 << n, device=dev))
+        try:
+            K.fused_unitary_expvals(z, u, n)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"unitary_expvals accepted n={n}")
+    log("check out-of-window n raises (rotation_layer n=0, 15; unitary_expvals n=0, 13): ok")
     return worst
 
 
@@ -335,6 +485,133 @@ def serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod):
                 f"routed rows agreeing {int(same.sum())}/{n}, sure {int(sure.sum())}"
             )
     return launches, engines, requests
+
+
+def microbench(torch, K, card: str) -> dict[str, int]:
+    """The port's circuit micro-benchmark at its full shape on the card, the
+    counters zeroed just before and read just after; every row's <Z> within
+    1e-5 of the ``dense`` row's. Returns the launches."""
+    from qdml_tpu_torch.scripts import quantum_microbench as mb
+
+    K.reset_launch_counts()
+    res, outs = mb.run(mb.BATCH, DEVICE)
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    ref = outs["dense"]
+    for name, out in outs.items():
+        err = (out - ref).abs().max().item()
+        log(f"microbench fwd_{name}: {res[f'fwd_{name}_us']} us a call, {res[f'fwd_{name}_sps']} "
+            f"samples/s (B={mb.BATCH}, n={mb.N}, L={mb.L}, mean of {mb.REPS}); max |<Z> - dense| "
+            f"{err:.3e} (tol 1e-5) [{card}]")
+        if out.shape != (mb.BATCH, mb.N) or not torch.isfinite(out).all() or err > 1e-5:
+            raise AssertionError(f"microbench row {name}: shape {tuple(out.shape)}, max err {err:.3e}")
+    log(f"microbench json: {json.dumps(res)}; launches {json.dumps(counts)}")
+    if counts["unitary_expvals"] == 0 or counts["qsc_expvals"] == 0:
+        raise AssertionError("the microbench never launched the unitary or the QSC kernel")
+    return counts
+
+
+def _cpu_batch(batch: dict) -> dict:
+    from qdml_tpu_torch.utils.complexops import CArr
+
+    return {k: CArr(v.re.cpu(), v.im.cpu()) if isinstance(v, CArr) else v.cpu() for k, v in batch.items()}
+
+
+def evaluate(torch, K, mods, card: str) -> dict[str, int]:
+    """``cli eval`` over the training phase's checkpoints, counters zeroed
+    just before and read just after; then one SNR point's per-batch sums
+    against the same per-batch function on the CPU (same weights, the same
+    test batches drawn on the card and copied over): rtol 1e-4 (float32 sums
+    in another order, cuDNN vs CPU convs), and the routed predictions equal
+    wherever the top-two log-prob margin exceeds 1e-4. Returns the launches."""
+    cli, cfg_mod = mods["cli"], mods["config"]
+    from qdml_tpu_torch.data.baselines import beam_delay_profile
+    from qdml_tpu_torch.data.channels import ChannelGeometry
+    from qdml_tpu_torch.data.datasets import sweep_batch
+    from qdml_tpu_torch.eval.sweep import SweepModels, batch_metrics
+    from qdml_tpu_torch.train.checkpoint import latest_tag, reconcile_quantum_cfg, restore_params
+
+    overrides = [
+        f"--train.workdir={EVAL_WORK / 'ws'}",
+        f"--eval.results_dir={EVAL_WORK / 'results'}",
+        f"--eval.test_len={EVAL_TEST_LEN}",
+        "--quantum.n_qubits=6", "--quantum.n_layers=3", "--quantum.impl=pallas",
+    ]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    if cli.main(["eval", *overrides]) != 0:
+        raise AssertionError("cli eval failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launches)
+    cfg = cfg_mod.from_args(overrides)
+    workdir = cli.workdir_of(cfg)
+    with open(EVAL_WORK / "results" / "quantum_classical_comparison.json") as fh:
+        results = json.load(fh)
+    curves, grid = results["nmse_db"], list(cfg.eval.snr_grid)
+    if results["snr"] != grid or set(curves) != {"ls", "mmse", "mmse_oracle", "hdce_classical", "hdce_quantum"}:
+        raise AssertionError(f"eval results: snr {results['snr']}, curves {sorted(curves)}")
+    if not all(len(v) == len(grid) and np.isfinite(v).all() for v in curves.values()):
+        raise AssertionError(f"eval results: non-finite or short curves {curves}")
+    if not all(m < ls for m, ls in zip(curves["mmse"], curves["ls"])):
+        raise AssertionError(f"eval: MMSE {curves['mmse']} not below LS {curves['ls']}")
+    if set(results["acc"]) != {"classical", "quantum"}:
+        raise AssertionError(f"eval accuracies: {results['acc']}")
+    points = []
+    with open(Path(workdir) / "eval.metrics.jsonl") as fh:
+        points = [json.loads(line) for line in fh if '"snr_db"' in line][-len(grid):]
+    log(f"eval: sweep over {len(grid)} SNR points of {EVAL_TEST_LEN} samples (cut from 10000 for time "
+        f"only), batch {cfg.eval.batch_size}, wall {wall:.3f} s for the whole command; per point "
+        f"{[round(r['seconds'], 4) for r in points]} s; launches {json.dumps(counts)} [{card}]")
+    if counts["qsc_expvals"] == 0:
+        raise AssertionError("eval never launched the QSC kernel (impl pallas)")
+
+    # the CPU twin of one SNR point
+    qsc_vars, qsc_meta = restore_params(workdir, latest_tag(workdir, "qsc"))
+    cfg = reconcile_quantum_cfg(cfg, qsc_meta)
+    sd = {name: restore_params(workdir, latest_tag(workdir, name))[0]["params"] for name in ("hdce", "sc")}
+    sd["qsc"] = qsc_vars["params"]
+    models = {}
+    for dev in (DEVICE, "cpu"):
+        hdce = mods["hdce"].build_hdce(cfg, dev)
+        hdce.load_state_dict(sd["hdce"])
+        clf = {}
+        for name, quantum in (("sc", False), ("qsc", True)):
+            clf[name] = mods["models_qsc"].build_classifier(cfg, quantum, dev)
+            clf[name].load_state_dict(sd[name])
+        models[dev] = SweepModels(hdce, clf["sc"], clf["qsc"])
+    geom = ChannelGeometry.from_config(cfg.data)
+    profile = beam_delay_profile(geom, device=DEVICE)
+    snr, bs = float(grid[-1]), cfg.eval.batch_size
+    worst, skipped = 0.0, 0
+    with torch.inference_mode():
+        for b in range(EVAL_TEST_LEN // bs):
+            batch = sweep_batch(cfg.data, cfg.data.data_len * 3, b * bs, bs, snr, DEVICE, geom)
+            got = batch_metrics(models[DEVICE], batch, snr, profile, geom)
+            cb = _cpu_batch(batch)
+            want = batch_metrics(models["cpu"], cb, snr, profile.cpu(), geom)
+            x = batch["yp_img"].permute(0, 3, 1, 2).contiguous()
+            routed_alike = {}
+            for name, key in (("sc", "classical"), ("qsc", "quantum")):
+                pred = getattr(models[DEVICE], name)(x).argmax(-1).cpu().numpy()
+                logp = getattr(models["cpu"], name)(x.cpu()).numpy()
+                top2 = np.sort(logp, axis=-1)[:, -2:]
+                sure = (top2[:, 1] - top2[:, 0]) > 1e-4
+                if not np.array_equal(pred[sure], logp.argmax(-1)[sure]):
+                    raise AssertionError(f"eval twin batch {b}: {name} predictions differ on sure rows")
+                routed_alike[key] = bool(np.array_equal(pred, logp.argmax(-1)))
+            for key, value in want.items():
+                if key.endswith(("_classical", "_quantum")) and not routed_alike[key.rsplit("_", 1)[1]]:
+                    skipped += 1  # a near-tie row routed the other way: a different sum, not an error
+                    continue
+                g, w_ = float(got[key]), float(value)
+                rel = abs(g - w_) / max(abs(w_), 1e-30)
+                worst = max(worst, rel)
+                if rel > 1e-4:
+                    raise AssertionError(f"eval twin batch {b} {key}: card {g} vs CPU {w_} (rel {rel:.2e})")
+    log(f"eval twin at {snr:g} dB over {EVAL_TEST_LEN // bs} batches: per-batch sums within rel "
+        f"{worst:.3e} of the CPU's (rtol 1e-4); {skipped} sums skipped for near-tie routing")
+    return counts
 
 
 class Recorder:
@@ -458,16 +735,20 @@ def train(torch, K, mods, card: str):
     ]
     launches = {k: 0 for k in K.launches}
     per_step_adjoint = None
+    shutil.rmtree(EVAL_WORK, ignore_errors=True)
     for name, (cfg, quantum) in trainer_configs(mods["config"]).items():
         cpu_twin(torch, mods, name, cfg, quantum, batches, spe)
 
+        # the eval phase's checkpoints (cli eval's workdir scheme)
+        workdir = mods["cli"].workdir_of(mods["config"].from_args([f"--train.workdir={EVAL_WORK / 'ws'}"]))
+        workdir = workdir if name in EVAL_TRAINERS else None
         rec = Recorder()
         K.reset_launch_counts()
         t0 = time.perf_counter()
         if quantum is None:
-            _, hist = mods["hdce"].train_hdce(cfg, data=data, logger=rec)
+            _, hist = mods["hdce"].train_hdce(cfg, data=data, logger=rec, workdir=workdir)
         else:
-            _, hist = mods["qsc"].train_classifier(cfg, quantum, data=data, logger=rec)
+            _, hist = mods["qsc"].train_classifier(cfg, quantum, data=data, logger=rec, workdir=workdir)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(K.launches)
@@ -531,6 +812,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
 
+    from qdml_tpu_torch import cli
     from qdml_tpu_torch import config as cfg_mod
     from qdml_tpu_torch.data import datasets
     from qdml_tpu_torch.models import qsc as qsc_mod
@@ -557,14 +839,25 @@ def main() -> int:
             if "ptxas" in line and ("registers" in line or "spill" in line or "smem" in line):
                 log(f"ptxas {name}: {line.strip()}")
 
+    K.reset_launch_counts()
     worst = check_kernels(torch, K, circuits)
+    kernel_phase = dict(K.launches)
     launches, engines, requests = serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod)
-    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc}
+    micro_launches = microbench(torch, K, card)
+    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc,
+            "cli": cli, "models_qsc": qsc_mod}
     train_launches, adjoint_per_step = train(torch, K, mods, card)
-    launches = {k: launches[k] + train_launches[k] for k in launches}
+    eval_launches = evaluate(torch, K, mods, card)
+    launches = {
+        k: launches[k] + micro_launches[k] + train_launches[k] + eval_launches[k] for k in launches
+    }
+    # No entry point reaches B.3 (the JAX package runs its kernel only from
+    # tests/test_pallas.py:65-83), so its path is the kernel phase.
+    launches["rotation_layer"] = kernel_phase["rotation_layer"]
+    log(f"launches on each kernel's path: {json.dumps(launches)}")
     for k, v in launches.items():
         if v == 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
+            raise AssertionError(f"kernel {k} was not launched on its path")
 
     # times at the serving shapes, plain version beside each kernel
     dev = torch.device("cuda")
@@ -596,6 +889,30 @@ def main() -> int:
                 "bound": bound(*adjoint_work(b, 8, 3)),
             }
 
+        # the rotation layer at n=8, B=2304 and the unitary kernel at the
+        # microbench's n=6, B=2304, with the complex product alone beside it
+        from qdml_tpu_torch.utils.complexops import CArr
+
+        r_re = torch.tensor(rng.standard_normal((WIDE_BATCH, 1 << ROT_N)), dtype=torch.float32, device=dev)
+        r_im = torch.tensor(rng.standard_normal((WIDE_BATCH, 1 << ROT_N)), dtype=torch.float32, device=dev)
+        w_l = torch.tensor(rng.uniform(-3, 3, (ROT_N, 2)), dtype=torch.float32, device=dev)
+        rot_args = (CArr(r_re, r_im), w_l, ROT_N)
+        rot = {
+            "ms": event_ms(torch, lambda: K.apply_rotation_layer(*rot_args)),
+            "plain_ms": event_ms(torch, lambda: K.rotation_layer_plain(r_re, r_im, w_l, ROT_N), reps=10, inner=5),
+            "bound": bound(*rotation_work(WIDE_BATCH, ROT_N)),
+        }
+        p_re = torch.tensor(rng.standard_normal((WIDE_BATCH, 1 << UNI_N)), dtype=torch.float32, device=dev)
+        p_im = torch.tensor(rng.standard_normal((WIDE_BATCH, 1 << UNI_N)), dtype=torch.float32, device=dev)
+        uni_psi, uni_u = CArr(p_re, p_im), CArr(u6.re.contiguous(), u6.im.contiguous())
+        psi_c, ut_c = torch.complex(p_re, p_im), torch.complex(u6.re, u6.im).T.contiguous()
+        uni = {
+            "ms": event_ms(torch, lambda: K.fused_unitary_expvals(uni_psi, uni_u, UNI_N)),
+            "plain_ms": event_ms(torch, lambda: K.unitary_expvals_plain(p_re, p_im, uni_u.re, uni_u.im, UNI_N)),
+            "matmul_ms": event_ms(torch, lambda: torch.matmul(psi_c, ut_c)),
+            "bound": bound(*unitary_work(WIDE_BATCH, UNI_N)),
+        }
+
     for name, (gpu, _) in engines.items():
         for b in BUCKETS:
             x = requests[64][:b]
@@ -621,6 +938,10 @@ def main() -> int:
             t["device_us"] = profiled_device_us(
                 torch, lambda: K.circuit_adjoint(*t["args"]), "circuit_adjoint_kernel"
             )
+        rot["device_us"] = profiled_device_us(torch, lambda: K.apply_rotation_layer(*rot_args), "rotation_layer_kernel")
+        uni["device_us"] = profiled_device_us(
+            torch, lambda: K.fused_unitary_expvals(uni_psi, uni_u, UNI_N), "unitary_expvals_kernel"
+        )
         device_sweep(torch, K, circuits, card)
         after = event_ms(torch, lambda: K.circuit_adjoint(*adj[SERVE_BATCH]["args"]))
     K.launches.update(saved)  # timing launches are not main-path launches
@@ -637,6 +958,17 @@ def main() -> int:
             f"{adjoint_per_step} launches per training step [{card}]")
     log(f"time circuit_adjoint n=8 L=3 B={SERVE_BATCH} wrapper again after the profiler sessions: "
         f"{after:.5f} ms (before them: {adj[SERVE_BATCH]['ms']:.5f} ms) [{card}]")
+
+    def shown_us(us):
+        return f"{us:.3f} us" if us is not None else "not measured (no device time in the trace)"
+
+    log(f"time rotation_layer n={ROT_N} B={WIDE_BATCH}: wrapper {rot['ms']:.5f} ms, device "
+        f"{shown_us(rot['device_us'])} per launch, plain {rot['plain_ms']:.5f} ms, bound "
+        f"{rot['bound'][0]:.3e} ms ({rot['bound'][1]}) [{card}]")
+    log(f"time unitary_expvals n={UNI_N} B={WIDE_BATCH}: wrapper {uni['ms']:.5f} ms, device "
+        f"{shown_us(uni['device_us'])} per launch, plain {uni['plain_ms']:.5f} ms, the complex product "
+        f"alone (torch.matmul, complex64) {uni['matmul_ms']:.5f} ms, bound {uni['bound'][0]:.3e} ms "
+        f"({uni['bound'][1]}) [{card}]")
 
     train_adj = adj[TRAIN_BATCH * 9]  # the adjoint's main-path shape is the training step's
     qsc_bound, qsc_by = bound(*qsc_work(SERVE_BATCH, 6))
@@ -685,6 +1017,24 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    for name, t, replaces in (
+        ("rotation_layer", rot, "qdml_tpu/quantum/pallas_kernels.py:587"),
+        ("unitary_expvals", uni, "qdml_tpu/quantum/pallas_kernels.py:75"),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"qdml_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": worst[name],
+            "ms": t["ms"],
+            "device_ms": None if t["device_us"] is None else t["device_us"] / 1e3,
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1],
+            "library_ms": None,  # no one PyTorch call computes either function
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -4,9 +4,9 @@ Field names and defaults are the JAX package's, so a JAX config and the
 port's describe the same model. Only the fields the ported paths read are
 carried: the channel geometry and dataset fields of ``DataConfig``,
 ``ModelConfig``, ``QuantumConfig`` with its training knobs, ``TrainConfig``,
-the ``ServeConfig`` bucket fields, and the geometry-derived widths of
-``ExperimentConfig``. Mesh, eval, fleet and control configuration arrive with
-the slices that use them. :func:`override` and :func:`from_args` take the
+``EvalConfig``, the ``ServeConfig`` bucket fields, and the geometry-derived
+widths of ``ExperimentConfig``. Mesh, fleet and control configuration arrive
+with the slices that use them. :func:`override` and :func:`from_args` take the
 JAX package's dotted CLI flags (``--train.lr=3e-4``).
 """
 
@@ -101,12 +101,25 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class EvalConfig:
+    """The SNR sweep (``qdml_tpu/config.py:530-537``, reference ``Test.py:11-21,
+    66``). ``results_dir`` is the port's own: the JAX package's default,
+    ``results/``, holds that package's committed figures and tables."""
+
+    snr_grid: tuple[float, ...] = (5.0, 7.0, 9.0, 11.0, 13.0, 15.0)
+    test_len: int = 10000     # reference data_len_for_test
+    batch_size: int = 200     # reference batch_size=200
+    results_dir: str = "results_torch"
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     name: str = "default"
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     quantum: QuantumConfig = field(default_factory=QuantumConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
 
     @property

@@ -14,7 +14,13 @@ function. The port splits that into two steps:
   into ``H (n_ant, n_sub)`` and is held exactly against JAX's
   ``sample_channel`` fed the same draws. :func:`sound_pilots` and
   :func:`ls_label` do the same for the pilots ``Yp = F_beam H + noise`` and
-  the full-pilot LS label ``H + noise``.
+  the full-pilot LS label ``H + noise``;
+- :func:`generate_samples` chains the two over flat ``(N,)`` scenario and
+  user vectors, the counterpart of the JAX ``generate_samples``.
+
+The constant tables (family parameters, DFT matrices) are copied to a device
+once and cached there: a host-to-device copy from pageable memory waits for
+the device, so a per-call copy would put a host sync into every batch.
 
 Complex values are :class:`~qdml_tpu_torch.utils.complexops.CArr` real pairs;
 the family table and constants are verbatim copies (host numpy).
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -160,14 +167,41 @@ class ChannelGeometry:
 
     def beam_matrix(self, device: str | torch.device = "cpu") -> CArr:
         """First ``n_beam`` rows of the unitary ``n_ant``-point DFT: (n_beam, n_ant)."""
-        m = np.arange(self.n_beam)[:, None]
-        a = np.arange(self.n_ant)[None, :]
-        ang = -2.0 * np.pi * m * a / self.n_ant
-        scale = 1.0 / np.sqrt(self.n_ant)
-        return CArr(
-            torch.tensor((np.cos(ang) * scale).astype(np.float32), device=device),
-            torch.tensor((np.sin(ang) * scale).astype(np.float32), device=device),
-        )
+        return _dft(self.n_beam, self.n_ant, str(torch.device(device)))
+
+    def ant_dft(self, device: str | torch.device = "cpu") -> CArr:
+        """Full unitary antenna DFT (n_ant, n_ant): the beam-domain transform."""
+        return _dft(self.n_ant, self.n_ant, str(torch.device(device)))
+
+    def sub_dft(self, device: str | torch.device = "cpu") -> CArr:
+        """Full unitary subcarrier DFT (n_sub, n_sub): the delay-domain transform."""
+        return _dft(self.n_sub, self.n_sub, str(torch.device(device)))
+
+
+@lru_cache(maxsize=None)
+def _dft(rows: int, n: int, device: str) -> CArr:
+    """The first ``rows`` rows of the unitary ``n``-point DFT on ``device``
+    (``qdml_tpu/data/channels.py:249-257``), cached per device. Callers must
+    not write into it."""
+    m = np.arange(rows)[:, None]
+    a = np.arange(n)[None, :]
+    ang = -2.0 * np.pi * m * a / n
+    scale = 1.0 / np.sqrt(n)
+    return CArr(
+        torch.tensor((np.cos(ang) * scale).astype(np.float32), device=device),
+        torch.tensor((np.sin(ang) * scale).astype(np.float32), device=device),
+    )
+
+
+@lru_cache(maxsize=None)
+def _family_tensors(geom: "ChannelGeometry", device: str) -> dict[str, torch.Tensor]:
+    """The geometry's family table and user sector centres on ``device``,
+    cached per device."""
+    fam = geom.family()
+    out = {k: _f32(fam[k], device) for k in ("angle_spread", "delay_spread", "k_factor", "mobility")}
+    out["n_paths"] = torch.as_tensor(fam["n_paths"], device=device)
+    out["center"] = _f32(USER_CENTER_F, device)
+    return out
 
 
 def _f32(x, device=None) -> torch.Tensor:
@@ -246,13 +280,13 @@ def channels_from_draws(
     channels H, (N, n_ant, n_sub), as ``sample_channel``
     (``qdml_tpu/data/channels.py:323-388``) shapes its draws."""
     dev = draws["trunc"].device
-    fam = geom.family()
+    fam = _family_tensors(geom, str(dev))
     s, u = scenario.long().to(dev), user.long().to(dev)
-    n_paths = torch.as_tensor(fam["n_paths"], device=dev)[s][:, None]
-    spread = _f32(fam["angle_spread"], dev)[s][:, None]
-    dly = _f32(fam["delay_spread"], dev)[s][:, None]
-    kfac = _f32(fam["k_factor"], dev)[s][:, None]
-    center = _f32(USER_CENTER_F, dev)[u][:, None]
+    n_paths = fam["n_paths"][s][:, None]
+    spread = fam["angle_spread"][s][:, None]
+    dly = fam["delay_spread"][s][:, None]
+    kfac = fam["k_factor"][s][:, None]
+    center = fam["center"][u][:, None]
     path = torch.arange(MAX_PATHS, device=dev)
     mask = (path < n_paths).float()
 
@@ -270,7 +304,7 @@ def channels_from_draws(
     g = draws["gain"]
     alpha = CArr(amp * g[..., 0], amp * g[..., 1])  # (N, L)
     if "phi" in draws:
-        phi = _f32(fam["mobility"], dev)[s][:, None] * draws["phi"]
+        phi = fam["mobility"][s][:, None] * draws["phi"]
         rot = _cexp_i(phi)
         alpha = CArr(
             alpha.re * rot.re - alpha.im * rot.im, alpha.re * rot.im + alpha.im * rot.re
@@ -297,7 +331,7 @@ def sound_pilots(
     """``Yp = F_beam H + noise`` (``qdml_tpu/data/channels.py:391-400``) from
     unit normal ``noise`` (N, 2, pilot_num): (N, pilot_num) complex."""
     x = clean_pilots(h, geom)
-    scale = torch.sqrt(noise_var(geom, snr_db) / 2.0).to(x.re.device)
+    scale = float(torch.sqrt(noise_var(geom, snr_db) / 2.0))  # a float32 scalar, no copy to the device
     return CArr(x.re + scale * noise[:, 0], x.im + scale * noise[:, 1])
 
 
@@ -305,5 +339,33 @@ def ls_label(h: CArr, noise: torch.Tensor, snr_db, geom: ChannelGeometry) -> CAr
     """The full-pilot LS label ``H + CN(0, label_noise_var)`` from unit normal
     ``noise`` (N, 2, h_dim) (``qdml_tpu/data/channels.py:455-459``)."""
     hf = h.reshape(h.re.shape[0], geom.h_dim)
-    scale = torch.sqrt(label_noise_var(geom, snr_db) / 2.0).to(hf.re.device)
+    scale = float(torch.sqrt(label_noise_var(geom, snr_db) / 2.0))
     return CArr(hf.re + scale * noise[:, 0], hf.im + scale * noise[:, 1])
+
+
+def generate_samples(
+    generator: torch.Generator,
+    scenarios: torch.Tensor,
+    users: torch.Tensor,
+    snr_db: float,
+    geom: ChannelGeometry,
+) -> dict:
+    """Flat sample synthesis over ``(N,)`` scenario and user vectors on the
+    generator's device, the counterpart of ``generate_samples``
+    (``qdml_tpu/data/channels.py:434-468``): ``yp (N, pilot_num)``,
+    ``h_perf (N, h_dim)`` and ``h_ls (N, h_dim)`` as CArr, the LS label's
+    noise independent of the pilots', and ``indicator (N,)``. The draws come
+    from ``generator`` in a fixed order (the channels', then the pilot noise,
+    then the label noise), so a generator seeded alike gives the same samples."""
+    dev = generator.device
+    scenarios, users = scenarios.to(dev), users.to(dev)
+    n = scenarios.shape[0]
+    h = channels_from_draws(draw_channels(generator, scenarios, geom), scenarios, users, geom)
+    pilot_noise = torch.randn((n, 2, geom.pilot_num), generator=generator, device=dev)
+    label_noise = torch.randn((n, 2, geom.h_dim), generator=generator, device=dev)
+    return {
+        "yp": sound_pilots(h, pilot_noise, snr_db, geom),
+        "h_perf": h.reshape(n, geom.h_dim),
+        "h_ls": ls_label(h, label_noise, snr_db, geom),
+        "indicator": scenarios.long(),
+    }

@@ -22,6 +22,17 @@ Batches carry the JAX package's fields and layouts: ``yp_img (S, U, B,
 n_sub, n_beam, 2)`` (NHWC), ``h_label`` and ``h_perf`` ``(S, U, B,
 2*h_dim)``, ``indicator (S, U, B)``, the complex ``yp``, ``h_ls`` and
 ``h_perf_c``, and ``index``, the (S, U, B) sample indices of the step.
+
+Test data (:func:`generate_datapair`, :func:`sweep_batch`) is drawn anew on
+the device: flat ``(N,)`` scenario and user vectors assigned as the JAX
+package assigns them, through :func:`make_network_batch`. ``jax.random``'s
+bits cannot be reproduced, so where JAX offsets the sample index past the
+training data (``qdml_tpu/eval/sweep.py:260``), the port draws test samples
+from generators of their own: each is seeded with a SeedSequence of
+``(data seed, a test-stream tag, start, ...)``, while the training grid's
+generator is seeded with the bare data seed. The seeds differ, so the test
+streams never hand out the training draws. :func:`save_npy_cache` writes the
+training grid itself in the reference's ``.npy`` format.
 """
 
 from __future__ import annotations
@@ -38,10 +49,11 @@ from qdml_tpu_torch.data.channels import (
     channels_from_draws,
     clean_pilots,
     draw_channels,
+    generate_samples,
     label_noise_var,
     noise_var,
 )
-from qdml_tpu_torch.utils.complexops import CArr, unpack_h
+from qdml_tpu_torch.utils.complexops import CArr, pack_h, unpack_h, yp_to_image
 from qdml_tpu_torch.utils.device import resolve_device
 
 
@@ -95,6 +107,31 @@ def _npy_names(dirpath: str, cfg: DataConfig, scenario: int, user: int) -> dict[
 
 # samples synthesized per draw: bounds the transform's temporaries
 _SYNTH_CHUNK = 4096
+# SeedSequence tag of the test-data streams (eval sweep, generate_datapair)
+_TEST_STREAM = 0x7E57
+
+
+def _synth_chunks(cfg: DataConfig, dev: torch.device):
+    """The training grid's draws, chunk by chunk, from ONE generator seeded
+    with ``cfg.seed`` in a fixed (scenario, user, index) order: yields
+    ``((s, u, lo), rows)`` with the packed channel, clean pilots and unit
+    pilot and label noises of samples ``lo ..`` of cell (s, u)."""
+    geom = ChannelGeometry.from_config(cfg)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    p2, h2 = 2 * geom.pilot_num, 2 * geom.h_dim
+    for s in range(cfg.n_scenarios):
+        for u in range(cfg.n_users):
+            for lo in range(0, cfg.data_len, _SYNTH_CHUNK):
+                m = min(_SYNTH_CHUNK, cfg.data_len - lo)
+                scen = torch.full((m,), s, device=dev)
+                user = torch.full((m,), u, device=dev)
+                h = channels_from_draws(draw_channels(gen, scen, geom), scen, user, geom)
+                yield (s, u, lo), {
+                    "h_perf": _packed(h.reshape(m, geom.h_dim)),
+                    "pilots": _packed(clean_pilots(h, geom)),
+                    "pilot_noise": torch.randn((m, p2), generator=gen, device=dev),
+                    "label_noise": torch.randn((m, h2), generator=gen, device=dev),
+                }
 
 
 def _packed(c: CArr) -> torch.Tensor:
@@ -128,7 +165,6 @@ class GridData:
         ``cfg.seed``: the same (seed, data_len) gives the same data."""
         dev = resolve_device(device)
         geom = ChannelGeometry.from_config(cfg)
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         s_n, u_n, n = cfg.n_scenarios, cfg.n_users, cfg.data_len
         p2, h2 = 2 * geom.pilot_num, 2 * geom.h_dim
         rows = {
@@ -137,21 +173,9 @@ class GridData:
             "pilot_noise": torch.empty((s_n, u_n, n, p2), device=dev),
             "label_noise": torch.empty((s_n, u_n, n, h2), device=dev),
         }
-        for s in range(s_n):
-            for u in range(u_n):
-                for lo in range(0, n, _SYNTH_CHUNK):
-                    m = min(_SYNTH_CHUNK, n - lo)
-                    scen = torch.full((m,), s, device=dev)
-                    user = torch.full((m,), u, device=dev)
-                    h = channels_from_draws(draw_channels(gen, scen, geom), scen, user, geom)
-                    rows["h_perf"][s, u, lo : lo + m] = _packed(h.reshape(m, geom.h_dim))
-                    rows["pilots"][s, u, lo : lo + m] = _packed(clean_pilots(h, geom))
-                    rows["pilot_noise"][s, u, lo : lo + m] = torch.randn(
-                        (m, p2), generator=gen, device=dev
-                    )
-                    rows["label_noise"][s, u, lo : lo + m] = torch.randn(
-                        (m, h2), generator=gen, device=dev
-                    )
+        for (s, u, lo), chunk in _synth_chunks(cfg, dev):
+            for key, value in chunk.items():
+                rows[key][s, u, lo : lo + value.shape[0]] = value
         return cls(cfg, rows, cached=False)
 
     @classmethod
@@ -250,3 +274,138 @@ class DMLGridLoader:
             yield self.data.batch(
                 idx[:, :, step * bs : (step + 1) * bs], self._snr_for(epoch, step, shuffle)
             )
+
+
+# ---------------------------------------------------------------------------
+# Test data: flat batches drawn on the device
+# ---------------------------------------------------------------------------
+
+
+def make_network_batch(
+    generator: torch.Generator,
+    scenarios: torch.Tensor,
+    users: torch.Tensor,
+    snr_db: float,
+    geom: ChannelGeometry,
+) -> dict:
+    """Flat ``(N,)`` samples as network-ready arrays, the flat form of
+    ``make_network_batch`` (``qdml_tpu/data/datasets.py:37-71``): complex
+    ``yp``, ``h_ls``, ``h_perf_c``; ``yp_img (N, n_sub, n_beam, 2)`` NHWC;
+    packed ``h_label`` and ``h_perf (N, 2*h_dim)``; ``indicator (N,)``."""
+    flat = generate_samples(generator, scenarios, users, snr_db, geom)
+    return {
+        "yp": flat["yp"],
+        "h_ls": flat["h_ls"],
+        "h_perf_c": flat["h_perf"],
+        "yp_img": yp_to_image(flat["yp"], geom.n_sub, geom.n_beam).contiguous(),
+        "h_label": pack_h(flat["h_ls"]),
+        "h_perf": pack_h(flat["h_perf"]),
+        "indicator": flat["indicator"],
+    }
+
+
+def _eval_generator(cfg: DataConfig, device: torch.device, *key: int) -> torch.Generator:
+    """A test-data generator on ``device`` seeded from ``(cfg.seed, the
+    test-stream tag, *key)``; never the training grid's stream (seeded with
+    ``cfg.seed`` alone)."""
+    words = (int(cfg.seed), _TEST_STREAM, *(int(k) for k in key))
+    seed = int(np.random.SeedSequence(words).generate_state(2, np.uint64)[0] >> np.uint64(1))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+
+def sweep_batch(
+    cfg: DataConfig,
+    start: int,
+    count_base: int,
+    batch_size: int,
+    snr_db: float,
+    device: str | torch.device | None = None,
+    geom: ChannelGeometry | None = None,
+) -> dict:
+    """One eval-sweep batch (``qdml_tpu/eval/sweep.py:112-118``): rows
+    ``i = count_base .. count_base + batch_size - 1``, scenario ``i % S``, user
+    ``(i // S) % U``, drawn from the test generator of ``(start,
+    count_base)``. The draws do not depend on ``snr_db``, so every SNR point
+    sees the same channels and unit noises, as in JAX."""
+    dev = resolve_device(device)
+    geom = geom or ChannelGeometry.from_config(cfg)
+    i = count_base + torch.arange(batch_size, device=dev)
+    scen = i % cfg.n_scenarios
+    user = (i // cfg.n_scenarios) % cfg.n_users
+    gen = _eval_generator(cfg, dev, start, count_base)
+    return make_network_batch(gen, scen, user, snr_db, geom)
+
+
+def generate_datapair(
+    ns: int,
+    pilot_num: int,
+    index: int,
+    snr_db: float,
+    start: int,
+    cfg: DataConfig | None = None,
+    geom: ChannelGeometry | None = None,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Test-set synthesis for the reference call ``generate_datapair(Ns,
+    Pilot_num, index, SNRdb, start, training_data_len)`` (``Test.py:127-129``,
+    ``qdml_tpu/data/datasets.py:230-258``): ``index=-1`` mixes all scenarios
+    round-robin over the grid, ``index=k`` takes scenario ``k % S`` with users
+    round-robin. The samples come from the test generator of ``(start,
+    index)``, never from the training stream."""
+    cfg = cfg or DataConfig()
+    geom = geom or ChannelGeometry.from_config(cfg)
+    if pilot_num != geom.pilot_num:
+        raise ValueError(f"pilot_num {pilot_num} != geometry pilot_num {geom.pilot_num}")
+    dev = resolve_device(device)
+    i = torch.arange(ns, device=dev)
+    if index == -1:
+        scen = i % cfg.n_scenarios
+        user = (i // cfg.n_scenarios) % cfg.n_users
+    else:
+        scen = torch.full((ns,), index % cfg.n_scenarios, device=dev)
+        user = i % cfg.n_users
+    gen = _eval_generator(cfg, dev, start, index + 1, ns)
+    return make_network_batch(gen, scen, user, snr_db, geom)
+
+
+# ---------------------------------------------------------------------------
+# Reference-format .npy cache (``available_data/`` naming, Runner...py:49-55)
+# ---------------------------------------------------------------------------
+
+
+def _complex(rows: torch.Tensor) -> np.ndarray:
+    """Packed ``[re | im]`` rows -> a complex64 numpy array, as JAX's
+    ``CArr.to_numpy`` writes them."""
+    c = unpack_h(rows.cpu())
+    return c.re.numpy() + 1j * c.im.numpy()
+
+
+def save_npy_cache(
+    dirpath: str, cfg: DataConfig, device: str | torch.device | None = None
+) -> None:
+    """Write the training grid that :meth:`GridData.synthesize` draws, at the
+    fixed ``cfg.snr_db``, as the reference's ``.npy`` cache
+    (``qdml_tpu/data/datasets.py:285-307``): per (scenario, user) cell the
+    complex ``Yp (data_len, pilot_num)``, ``Hlabel`` and ``Hperf (data_len,
+    h_dim)``, under the reference's file names. One cell is held at a time."""
+    dev = resolve_device(device)
+    os.makedirs(dirpath, exist_ok=True)
+    geom = ChannelGeometry.from_config(cfg)
+    yp_scale = float(torch.sqrt(noise_var(geom, cfg.snr_db) / 2.0))
+    h_scale = float(torch.sqrt(label_noise_var(geom, cfg.snr_db) / 2.0))
+    parts: dict[str, list[np.ndarray]] = {"Yp": [], "Hlabel": [], "Hperf": []}
+    for (s, u, lo), chunk in _synth_chunks(cfg, dev):
+        parts["Yp"].append(_complex(chunk["pilots"] + yp_scale * chunk["pilot_noise"]))
+        parts["Hlabel"].append(_complex(chunk["h_perf"] + h_scale * chunk["label_noise"]))
+        parts["Hperf"].append(_complex(chunk["h_perf"]))
+        if lo + chunk["h_perf"].shape[0] == cfg.data_len:  # the cell is complete
+            for name, path in _npy_names(dirpath, cfg, s, u).items():
+                np.save(path, np.concatenate(parts[name], axis=0))
+            parts = {name: [] for name in parts}
+
+
+def load_npy_cache(dirpath: str, cfg: DataConfig, scenario: int, user: int) -> dict[str, np.ndarray]:
+    """One (scenario, user) cell of a reference-format ``.npy`` cache
+    (``qdml_tpu/data/datasets.py:310-312``)."""
+    return {n: np.load(p) for n, p in _npy_names(dirpath, cfg, scenario, user).items()}

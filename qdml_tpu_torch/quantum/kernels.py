@@ -1,7 +1,7 @@
 """The circuit kernels: CUDA C++ for Hopper, their build, bindings and plain versions.
 
-Counterpart of ``qdml_tpu/quantum/pallas_kernels.py``. Two of its four Pallas
-kernels are on the serving and training paths and are ported here:
+Counterpart of ``qdml_tpu/quantum/pallas_kernels.py``. All four of its Pallas
+kernels are ported here, each as a CUDA C++ source under ``csrc/``:
 
 - :func:`fused_qsc_expvals` (``csrc/qsc_expvals.cu``, replaces ``_qsc_kernel``):
   angles + a precompiled ansatz unitary -> per-wire <Z>; its backward is
@@ -10,7 +10,14 @@ kernels are on the serving and training paths and are ported here:
 - :func:`fused_circuit_expvals` (``csrc/circuit_expvals.cu``, replaces
   ``_circuit_kernel``): angles + weights -> the L-layer gate chain -> <Z>
   (and the final state); its adjoint backward is a kernel too
-  (``csrc/circuit_adjoint.cu``, replaces ``_circuit_bwd``).
+  (``csrc/circuit_adjoint.cu``, replaces ``_circuit_bwd``);
+- :func:`apply_rotation_layer` (``csrc/rotation_layer.cu``, replaces
+  ``_layer_kernel_body``): one layer's RY then RZ on every wire of a batch of
+  states; its backward is autograd through the plain version;
+- :func:`fused_unitary_expvals` (``csrc/unitary_expvals.cu``, replaces
+  ``_fused_kernel``): states through a unitary -> per-wire <Z>, the complex
+  product computed in the kernel; its backward is autograd through the plain
+  version.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface the first time it is needed, under
@@ -40,7 +47,7 @@ import torch
 from qdml_tpu_torch.quantum import statevector as sv
 from qdml_tpu_torch.utils.complexops import CArr
 
-KERNELS = ("qsc_expvals", "circuit_expvals", "circuit_adjoint")
+KERNELS = ("qsc_expvals", "circuit_expvals", "circuit_adjoint", "rotation_layer", "unitary_expvals")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qdml_tpu_torch"
 NVCC_FLAGS = (
@@ -63,6 +70,13 @@ QSC_MAX_QUBITS = 8
 # 128-lane roll and does not apply here. The ring needs two wires.
 CIRCUIT_MIN_QUBITS = 2
 CIRCUIT_MAX_QUBITS = 12
+# Rotation-layer kernel window: one sample's state in shared memory, 128 KB of
+# re+im at n = 14. The JAX kernel's dim >= 128 floor (pallas_kernels.py:668)
+# came from the TPU's lane rolls and does not apply here.
+ROTATION_MAX_QUBITS = 14
+# Unitary kernel window: U streams through shared memory, so the bound is the
+# template instantiations (n a compile-time constant), not on-chip memory.
+UNITARY_MAX_QUBITS = 12
 
 
 def reset_launch_counts() -> None:
@@ -144,6 +158,8 @@ def _load(name: str) -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
     elif name == "circuit_expvals":
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    elif name in ("rotation_layer", "unitary_expvals"):
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
     else:
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
         lib.circuit_adjoint_blocks.restype = ctypes.c_int
@@ -453,3 +469,155 @@ def fused_circuit_expvals(
     if not return_state:
         return ev
     return ev, fre.reshape(lead + (-1,)), fim.reshape(lead + (-1,))
+
+
+# ---------------------------------------------------------------------------
+# Rotation-layer kernel: one layer's RY then RZ on every wire of a state
+# ---------------------------------------------------------------------------
+
+
+def rotation_layer_plain(re: torch.Tensor, im: torch.Tensor, weights_l: torch.Tensor, n: int) -> CArr:
+    """Plain version (the JAX ``_xla_rotation_layer``, pallas_kernels.py:622):
+    RY(w[q, 0]) then RZ(w[q, 1]) on wires q = 0..n-1 of a (B, 2^n) state."""
+    psi = CArr(re, im)
+    for q in range(n):
+        psi = sv.apply_ry(psi, n, q, weights_l[q, 0])
+        psi = sv.apply_rz(psi, n, q, weights_l[q, 1])
+    return psi
+
+
+def _rotation_launch(re, im, weights_l, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    dev = re.device
+    batch, dim = re.shape[0], 1 << n
+    if not 1 <= n <= ROTATION_MAX_QUBITS:
+        raise ValueError(f"the rotation-layer kernel takes 1 <= n <= {ROTATION_MAX_QUBITS}, got n={n}")
+    _check(re, "re", (batch, dim), dev)
+    _check(im, "im", (batch, dim), dev)
+    _check(weights_l, "weights_l", (n, 2), dev)
+    out_re = torch.empty((batch, dim), dtype=torch.float32, device=dev)
+    out_im = torch.empty((batch, dim), dtype=torch.float32, device=dev)
+    if batch == 0:
+        return out_re, out_im
+    cs = circuit_gate_table(weights_l[None])[0].contiguous()
+    fn = _load("rotation_layer").rotation_layer_launch
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(re.data_ptr(), im.data_ptr(), cs.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+                 batch, n, stream)
+    _raise_on(err, "rotation_layer")
+    launches["rotation_layer"] += 1
+    return out_re, out_im
+
+
+class _RotationLayer(torch.autograd.Function):
+    """Kernel forward; backward is autograd through the plain version, as the
+    JAX ``_rotation_layer_bwd`` differentiates its XLA twin
+    (pallas_kernels.py:640-646)."""
+
+    @staticmethod
+    def forward(ctx, re, im, weights_l, n):
+        ctx.save_for_backward(re, im, weights_l)
+        ctx.n = n
+        return _rotation_launch(re, im, weights_l, n)
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        saved = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = rotation_layer_plain(*saved, ctx.n)
+            grads = torch.autograd.grad((out.re, out.im), saved, (g_re, g_im))
+        return (*grads, None)
+
+
+def apply_rotation_layer(psi: CArr, weights_l: torch.Tensor, n: int) -> CArr:
+    """One ansatz rotation layer, RY(w[q, 0]) then RZ(w[q, 1]) on every wire,
+    of states ``psi`` (..., 2^n) with ``weights_l`` (n, 2): one kernel launch
+    on the card (1 <= n <= 14, else ``ValueError``); the ring CNOT that follows
+    in the ansatz is a permutation, applied outside
+    (:func:`~qdml_tpu_torch.quantum.statevector.apply_perm`)."""
+    lead = psi.re.shape[:-1]
+    dim = psi.re.shape[-1]
+    if dim != 1 << n:
+        raise ValueError(f"states of width {dim} are not of {n} qubits")
+    re, im = psi.re.reshape(-1, dim), psi.im.reshape(-1, dim)
+    if re.device.type == "cpu":
+        out = rotation_layer_plain(re, im, weights_l, n)
+    else:
+        out = CArr(*_RotationLayer.apply(re.contiguous(), im.contiguous(), weights_l.contiguous(), n))
+    return CArr(out.re.reshape(lead + (dim,)), out.im.reshape(lead + (dim,)))
+
+
+# ---------------------------------------------------------------------------
+# Unitary kernel: states through a unitary -> <Z>
+# ---------------------------------------------------------------------------
+
+
+def unitary_expvals_plain(
+    psi_re: torch.Tensor, psi_im: torch.Tensor, u_re: torch.Tensor, u_im: torch.Tensor, n: int
+) -> torch.Tensor:
+    """Plain version: ``expvals_z(psi @ U^T)`` with the complex product as
+    four real matmuls. psi (B, 2^n), U (2^n, 2^n) -> (B, n)."""
+    c_re = psi_re @ u_re.T - psi_im @ u_im.T
+    c_im = psi_re @ u_im.T + psi_im @ u_re.T
+    return sv.expvals_z(CArr(c_re, c_im), n)
+
+
+def _unitary_launch(psi_re, psi_im, u_re, u_im, n: int) -> torch.Tensor:
+    dev = psi_re.device
+    batch, dim = psi_re.shape[0], 1 << n
+    if not 1 <= n <= UNITARY_MAX_QUBITS:
+        raise ValueError(f"the unitary kernel takes 1 <= n <= {UNITARY_MAX_QUBITS}, got n={n}")
+    _check(psi_re, "psi_re", (batch, dim), dev)
+    _check(psi_im, "psi_im", (batch, dim), dev)
+    _check(u_re, "u_re", (dim, dim), dev)
+    _check(u_im, "u_im", (dim, dim), dev)
+    out = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    if batch == 0:
+        return out
+    fn = _load("unitary_expvals").unitary_expvals_launch
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(psi_re.data_ptr(), psi_im.data_ptr(), u_re.data_ptr(), u_im.data_ptr(),
+                 out.data_ptr(), batch, n, stream)
+    _raise_on(err, "unitary_expvals")
+    launches["unitary_expvals"] += 1
+    return out
+
+
+class _UnitaryExpvals(torch.autograd.Function):
+    """Kernel forward; backward is autograd through the plain version for
+    psi's and U's real and imaginary parts, the counterpart of the JAX
+    ``_fused_bwd`` (pallas_kernels.py:135-153), which is XLA code."""
+
+    @staticmethod
+    def forward(ctx, psi_re, psi_im, u_re, u_im, n):
+        ctx.save_for_backward(psi_re, psi_im, u_re, u_im)
+        ctx.n = n
+        return _unitary_launch(psi_re, psi_im, u_re, u_im, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = unitary_expvals_plain(*saved, ctx.n)
+            grads = torch.autograd.grad(out, saved, g)
+        return (*grads, None)
+
+
+def fused_unitary_expvals(psi: CArr, u: CArr, n: int) -> torch.Tensor:
+    """``psi (..., 2^n) -> per-wire <Z> (..., n)`` through the unitary ``u``,
+    ``expvals_z(psi @ u^T)``: one kernel launch on the card (1 <= n <= 12, else
+    ``ValueError``), which computes the complex product, |.|^2 and the sign
+    contraction itself."""
+    lead = psi.re.shape[:-1]
+    dim = psi.re.shape[-1]
+    if dim != 1 << n:
+        raise ValueError(f"states of width {dim} are not of {n} qubits")
+    re, im = psi.re.reshape(-1, dim), psi.im.reshape(-1, dim)
+    if re.device.type == "cpu":
+        ev = unitary_expvals_plain(re, im, u.re, u.im, n)
+    else:
+        ev = _UnitaryExpvals.apply(
+            re.contiguous(), im.contiguous(), u.re.contiguous(), u.im.contiguous(), n
+        )
+    return ev.reshape(lead + (n,))

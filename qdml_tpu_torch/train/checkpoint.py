@@ -4,13 +4,16 @@ A tag ``<workdir>/<tag>.pt`` is one ``torch.save`` file with a JSON sidecar
 ``<tag>.meta.json`` (epoch, metric, config name). The trainers write
 ``*_best`` (the model's state dict at the best validation metric), ``*_last``
 (at the end) and ``*_resume`` (model, optimizer, update count, epoch and the
-running best, every epoch), and resume from ``*_resume``. Reading the JAX
-package's orbax checkpoints is not part of the port: weights cross through
-:mod:`qdml_tpu_torch.interop`.
+running best, every epoch), and resume from ``*_resume``. Eval restores
+model weights only (:func:`restore_params`) and rebuilds the quantum
+classifier a checkpoint was trained as (:func:`reconcile_quantum_cfg`).
+Reading the JAX package's orbax checkpoints is not part of the port: weights
+cross through :mod:`qdml_tpu_torch.interop`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pickle
@@ -85,6 +88,88 @@ def latest_tag(workdir: str, prefix: str) -> str | None:
         if has_checkpoint(workdir, cand):
             return cand
     return None
+
+
+def restore_params(
+    workdir: str, tag: str, map_location: str | torch.device = "cpu"
+) -> tuple[dict, dict]:
+    """Eval-only restore (``qdml_tpu/train/checkpoint.py:204-217``): the model's
+    state dict without optimizer state, from ``*_best``/``*_last`` and
+    ``*_resume`` tags alike. Returns ``({"params": state_dict}, meta)``."""
+    payload, meta = restore_checkpoint(workdir, tag, map_location)
+    return {"params": payload["params"]}, meta
+
+
+# Impls the port has no counterpart for yet (ROADMAP A.10); run_circuit
+# raises NotImplementedError for them.
+_UNPORTED_IMPLS = ("mps", "sharded_statevector")
+# The JAX dispatcher's capacity caps (qdml_tpu/quantum/autotune.py:92-93).
+_DENSE_MAX_QUBITS = 12
+_TENSOR_MAX_QUBITS = 14
+
+
+def impl_eligible(impl: str, n_qubits: int) -> tuple[bool, str | None]:
+    """Whether ``impl`` can run at ``n_qubits`` in the port: ``(ok, reason)``.
+    The caps of ``qdml_tpu/quantum/autotune.py:122-156``; the impls the port
+    lacks are never eligible."""
+    from qdml_tpu_torch.quantum.circuits import canonical_impl
+
+    impl = canonical_impl(impl)
+    if impl in _UNPORTED_IMPLS:
+        return False, f"circuit impl {impl!r} is not ported yet (ROADMAP A.10, scaling impls)"
+    if impl in ("dense", "dense_fused", "pallas", "pallas_circuit") and n_qubits > _DENSE_MAX_QUBITS:
+        return False, f"impl {impl!r} is capped at n <= {_DENSE_MAX_QUBITS}; n={n_qubits}"
+    if impl == "tensor" and n_qubits > _TENSOR_MAX_QUBITS:
+        return False, f"the 2^n statevector per sample is capped at n <= {_TENSOR_MAX_QUBITS}; n={n_qubits}"
+    return True, None
+
+
+def reconcile_quantum_cfg(cfg, meta: dict):
+    """The config a QSC checkpoint was trained for
+    (``qdml_tpu/train/checkpoint.py:27-120``): the architecture facts in
+    ``meta["quantum"]`` (n_qubits, n_layers, n_classes, input_norm) replace
+    the config's, while ``backend`` and ``impl`` are execution strategies, so
+    the eval config's win. An explicit eval pin (``quantum.impl``, else the
+    legacy ``quantum.backend``) that cannot run at the checkpoint's qubit count
+    raises: ``NotImplementedError`` for an impl the port lacks, as
+    ``run_circuit`` raises it, ``ValueError`` past a capacity cap. A no-op
+    for meta without ``quantum``."""
+    from qdml_tpu_torch.quantum.circuits import canonical_impl, resolve_backend
+
+    stored = dict((meta or {}).get("quantum") or {})
+    if not stored:
+        return cfg
+    trained_backend = stored.pop("backend", None)
+    trained_impl = stored.pop("impl", None)
+    if trained_impl not in (None, "", "auto"):
+        trained_impl = canonical_impl(trained_impl)
+    stored.pop("mps_chi", None)
+    n_q = stored.get("n_qubits", cfg.quantum.n_qubits)
+    q = cfg.quantum
+    pinned = q.impl if q.impl not in ("", "auto") else (q.backend if q.backend != "auto" else None)
+    if pinned is not None:
+        pinned = canonical_impl(pinned)
+        ok, why = impl_eligible(pinned, n_q)
+        if not ok:
+            err = NotImplementedError if pinned in _UNPORTED_IMPLS else ValueError
+            raise err(f"checkpoint (n_qubits={n_q}) pins circuit impl {pinned!r}, which cannot run here: {why}")
+    elif trained_impl not in (None, "", "auto"):
+        ok, why = impl_eligible(trained_impl, n_q)
+        if not ok:
+            print(f"note: checkpoint was trained with circuit impl {trained_impl!r}, "
+                  f"ineligible here ({why}); the dispatcher re-resolves")
+    if trained_backend is not None:
+        trained_res = resolve_backend(trained_backend, n_q)
+        eval_res = resolve_backend(q.backend, n_q)
+        if trained_res != eval_res:
+            print(f"note: checkpoint was trained on the {trained_res!r} circuit path "
+                  f"(backend={trained_backend!r}); evaluating on {eval_res!r} "
+                  "(numerically equivalent execution strategies)")
+    mismatch = {k: v for k, v in stored.items() if getattr(q, k) != v}
+    if mismatch:
+        print(f"using checkpoint quantum config {mismatch}")
+        cfg = dataclasses.replace(cfg, quantum=dataclasses.replace(q, **mismatch))
+    return cfg
 
 
 def save_train_state(

@@ -43,7 +43,7 @@ def test_import_everything_leaves_jax_out():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 31  # every module of both slices was imported
+    assert int(out.stdout.strip()) >= 38  # every module of the three slices was imported
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -73,9 +73,13 @@ def test_every_module_has_a_jax_counterpart_or_is_the_kernels():
         if rel == Path("utils/device.py"):
             assert (ROOT / "qdml_tpu/utils/platform.py").exists()
             continue
+        if rel == Path("scripts/quantum_microbench.py"):
+            assert (ROOT / "scripts/r3_quantum_microbench.py").exists()
+            continue
         assert (ROOT / "qdml_tpu" / rel).exists(), rel
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "circuit_adjoint.cu", "circuit_expvals.cu", "qsc_expvals.cu"
+        "circuit_adjoint.cu", "circuit_expvals.cu", "qsc_expvals.cu", "rotation_layer.cu",
+        "unitary_expvals.cu",
     ]
 
 
@@ -101,8 +105,19 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         build_classifier(cfg, quantum=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         zero_state(2)
+    from qdml_tpu_torch.data import baselines, channels, datasets
+    from qdml_tpu_torch.eval.sweep import SweepModels, run_snr_sweep
+    from qdml_tpu_torch.scripts import quantum_microbench
+
+    geom = channels.ChannelGeometry()
     for entry in (lambda: train_hdce(cfg), lambda: train_classifier(cfg, True),
-                  lambda: init_hdce_state(cfg), lambda: GridData.synthesize(cfg.data)):
+                  lambda: init_hdce_state(cfg), lambda: GridData.synthesize(cfg.data),
+                  lambda: datasets.generate_datapair(4, 128, -1, 10.0, 0),
+                  lambda: datasets.sweep_batch(cfg.data, 0, 0, 4, 10.0),
+                  lambda: datasets.save_npy_cache("unused", cfg.data),
+                  lambda: baselines.beam_delay_profile(geom),
+                  lambda: run_snr_sweep(cfg, SweepModels(None, None)),
+                  lambda: quantum_microbench.run(4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -149,7 +164,10 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     pev, pre, pim = tk.circuit_expvals_plain(a, w, 5, 2)
     assert torch.equal(ev, pev) and torch.equal(re, pre) and torch.equal(im, pim)
     assert tk.fused_circuit_expvals(a[None], w, 5, 2).shape == (1, 3, 5)  # lead axes kept
-    assert tk.launches == {"qsc_expvals": 0, "circuit_expvals": 0, "circuit_adjoint": 0}
+    assert tk.launches == {name: 0 for name in tk.KERNELS}
+    assert set(tk.KERNELS) == {
+        "qsc_expvals", "circuit_expvals", "circuit_adjoint", "rotation_layer", "unitary_expvals"
+    }
 
 
 def test_library_path_is_keyed_by_source_and_lives_in_build():
@@ -186,5 +204,7 @@ def test_submodules_import():
         importlib.import_module(name)
     assert "qdml_tpu_torch.quantum.kernels" in mods and "qdml_tpu_torch.serve.engine" in mods
     for name in ("data.channels", "data.datasets", "train.optim", "train.qsc", "train.checkpoint",
-                 "ops.quantumnat", "ops.grad_prune", "models.losses", "utils.metrics", "cli"):
+                 "ops.quantumnat", "ops.grad_prune", "models.losses", "utils.metrics", "cli",
+                 "data.baselines", "eval.sweep", "eval.report", "eval.loss_curves",
+                 "scripts.quantum_microbench"):
         assert f"qdml_tpu_torch.{name}" in mods, name
