@@ -528,8 +528,7 @@ def evaluate(torch, K, mods, card: str) -> dict[str, int]:
     from qdml_tpu_torch.data.baselines import beam_delay_profile
     from qdml_tpu_torch.data.channels import ChannelGeometry
     from qdml_tpu_torch.data.datasets import sweep_batch
-    from qdml_tpu_torch.eval.sweep import SweepModels, batch_metrics
-    from qdml_tpu_torch.train.checkpoint import latest_tag, reconcile_quantum_cfg, restore_params
+    from qdml_tpu_torch.eval.sweep import batch_metrics, load_sweep_models
 
     overrides = [
         f"--train.workdir={EVAL_WORK / 'ws'}",
@@ -566,20 +565,10 @@ def evaluate(torch, K, mods, card: str) -> dict[str, int]:
     if counts["qsc_expvals"] == 0:
         raise AssertionError("eval never launched the QSC kernel (impl pallas)")
 
-    # the CPU twin of one SNR point
-    qsc_vars, qsc_meta = restore_params(workdir, latest_tag(workdir, "qsc"))
-    cfg = reconcile_quantum_cfg(cfg, qsc_meta)
-    sd = {name: restore_params(workdir, latest_tag(workdir, name))[0]["params"] for name in ("hdce", "sc")}
-    sd["qsc"] = qsc_vars["params"]
+    # the CPU twin of one SNR point, over the models eval itself restores
     models = {}
     for dev in (DEVICE, "cpu"):
-        hdce = mods["hdce"].build_hdce(cfg, dev)
-        hdce.load_state_dict(sd["hdce"])
-        clf = {}
-        for name, quantum in (("sc", False), ("qsc", True)):
-            clf[name] = mods["models_qsc"].build_classifier(cfg, quantum, dev)
-            clf[name].load_state_dict(sd[name])
-        models[dev] = SweepModels(hdce, clf["sc"], clf["qsc"])
+        cfg, models[dev] = load_sweep_models(cfg, workdir, dev)
     geom = ChannelGeometry.from_config(cfg.data)
     profile = beam_delay_profile(geom, device=DEVICE)
     snr, bs = float(grid[-1]), cfg.eval.batch_size
@@ -844,8 +833,7 @@ def main() -> int:
     kernel_phase = dict(K.launches)
     launches, engines, requests = serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod)
     micro_launches = microbench(torch, K, card)
-    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc,
-            "cli": cli, "models_qsc": qsc_mod}
+    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "cli": cli}
     train_launches, adjoint_per_step = train(torch, K, mods, card)
     eval_launches = evaluate(torch, K, mods, card)
     launches = {

@@ -42,29 +42,10 @@ def _eval(cfg: cfg_mod.ExperimentConfig, workdir: str, device, logger: MetricsLo
         results_markdown_table,
         save_results_json,
     )
-    from qdml_tpu_torch.eval.sweep import SweepModels, run_snr_sweep
-    from qdml_tpu_torch.models.qsc import build_classifier
-    from qdml_tpu_torch.train.checkpoint import latest_tag, reconcile_quantum_cfg, restore_params
-    from qdml_tpu_torch.train.hdce import build_hdce
-    from qdml_tpu_torch.utils.device import resolve_device
+    from qdml_tpu_torch.eval.sweep import load_sweep_models, run_snr_sweep
 
-    dev = resolve_device(device)
-    hdce_vars, _ = restore_params(workdir, latest_tag(workdir, "hdce") or "hdce_best", dev)
-    sc_vars, _ = restore_params(workdir, latest_tag(workdir, "sc") or "sc_best", dev)
-    qsc_vars = None
-    qsc_tag = latest_tag(workdir, "qsc")
-    if qsc_tag is not None:  # the quantum curve only when one was trained (Test.py:81-86)
-        qsc_vars, qsc_meta = restore_params(workdir, qsc_tag, dev)
-        cfg = reconcile_quantum_cfg(cfg, qsc_meta)
-    hdce = build_hdce(cfg, dev)
-    hdce.load_state_dict(hdce_vars["params"])
-    sc = build_classifier(cfg, False, dev)
-    sc.load_state_dict(sc_vars["params"])
-    qsc = None
-    if qsc_vars is not None:
-        qsc = build_classifier(cfg, True, dev)
-        qsc.load_state_dict(qsc_vars["params"])
-    results = run_snr_sweep(cfg, SweepModels(hdce, sc, qsc), logger=logger, device=dev)
+    cfg, models = load_sweep_models(cfg, workdir, device)
+    results = run_snr_sweep(cfg, models, logger=logger, device=device)
     out_json = save_results_json(results, cfg.eval.results_dir)
     out_png = create_comparison_plots(results, cfg.eval.results_dir)
     table = results_markdown_table(results)

@@ -15,7 +15,8 @@ For each SNR of ``cfg.eval.snr_grid`` over ``test_len`` fresh test samples:
 - NMSE against the perfect channel for LS, MMSE, MMSE-oracle and HDCE behind
   each classifier, and both classifiers' accuracy.
 
-:func:`batch_metrics` is one batch's error and power sums as a function of
+:func:`load_sweep_models` restores the models a sweep evaluates from a
+workdir's checkpoints. :func:`batch_metrics` is one batch's error and power sums as a function of
 ``(models, batch, snr_db, profile)``, so a test can hand it the JAX package's
 own batch. :func:`run_snr_sweep` draws each batch on the device
 (:func:`~qdml_tpu_torch.data.datasets.sweep_batch`), keeps the per-batch
@@ -42,7 +43,10 @@ from qdml_tpu_torch.config import ExperimentConfig
 from qdml_tpu_torch.data.baselines import beam_delay_profile, mmse_estimate, mmse_generic_estimate
 from qdml_tpu_torch.data.channels import ChannelGeometry, label_noise_var
 from qdml_tpu_torch.data.datasets import sweep_batch
+from qdml_tpu_torch.models.qsc import build_classifier
 from qdml_tpu_torch.ops.routing import select_expert
+from qdml_tpu_torch.train.checkpoint import latest_tag, reconcile_quantum_cfg, restore_params
+from qdml_tpu_torch.train.hdce import build_hdce
 from qdml_tpu_torch.utils.complexops import CArr
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.metrics import MetricsLogger, nmse_db
@@ -56,6 +60,31 @@ class SweepModels:
     hdce: nn.Module
     sc: nn.Module
     qsc: nn.Module | None = None
+
+
+def load_sweep_models(
+    cfg: ExperimentConfig, workdir: str, device: str | torch.device | None = None
+) -> tuple[ExperimentConfig, SweepModels]:
+    """The HDCE, the SC and, when one was trained, the QSC (``Test.py:81-86``)
+    restored from ``workdir`` on ``device`` (``qdml_tpu/cli.py:307-330``):
+    each family's :func:`latest_tag`, or its ``*_best`` tag, which raises as
+    missing. Returns the config reconciled with the QSC checkpoint's quantum
+    architecture, and the models."""
+    dev = resolve_device(device)
+    hdce_vars, _ = restore_params(workdir, latest_tag(workdir, "hdce") or "hdce_best", dev)
+    sc_vars, _ = restore_params(workdir, latest_tag(workdir, "sc") or "sc_best", dev)
+    qsc_tag = latest_tag(workdir, "qsc")
+    qsc = None
+    if qsc_tag is not None:
+        qsc_vars, qsc_meta = restore_params(workdir, qsc_tag, dev)
+        cfg = reconcile_quantum_cfg(cfg, qsc_meta)
+        qsc = build_classifier(cfg, True, dev)
+        qsc.load_state_dict(qsc_vars["params"])
+    hdce = build_hdce(cfg, dev)
+    hdce.load_state_dict(hdce_vars["params"])
+    sc = build_classifier(cfg, False, dev)
+    sc.load_state_dict(sc_vars["params"])
+    return cfg, SweepModels(hdce, sc, qsc)
 
 
 def _sum_sq(x) -> torch.Tensor:

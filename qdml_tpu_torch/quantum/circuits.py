@@ -162,6 +162,28 @@ def resolve_impl(impl: str, backend: str, n_qubits: int) -> str:
     return resolve_backend("auto", n_qubits)
 
 
+# Impls the port has no counterpart for yet (ROADMAP A.10); run_circuit
+# raises NotImplementedError for them.
+UNPORTED_IMPLS = ("mps", "sharded_statevector")
+# The JAX dispatcher's capacity caps (qdml_tpu/quantum/autotune.py:92-93).
+_DENSE_MAX_QUBITS = 12
+_TENSOR_MAX_QUBITS = 14
+
+
+def impl_eligible(impl: str, n_qubits: int) -> tuple[bool, str | None]:
+    """Whether ``impl`` can run at ``n_qubits`` in the port: ``(ok, reason)``.
+    The caps of ``qdml_tpu/quantum/autotune.py:122-156``; the impls the port
+    lacks are never eligible."""
+    impl = canonical_impl(impl)
+    if impl in UNPORTED_IMPLS:
+        return False, f"circuit impl {impl!r} is not ported yet (ROADMAP A.10, scaling impls)"
+    if impl in ("dense", "dense_fused", "pallas", "pallas_circuit") and n_qubits > _DENSE_MAX_QUBITS:
+        return False, f"impl {impl!r} is capped at n <= {_DENSE_MAX_QUBITS}; n={n_qubits}"
+    if impl == "tensor" and n_qubits > _TENSOR_MAX_QUBITS:
+        return False, f"the 2^n statevector per sample is capped at n <= {_TENSOR_MAX_QUBITS}; n={n_qubits}"
+    return True, None
+
+
 def run_circuit(
     angles: torch.Tensor,
     weights: torch.Tensor,
@@ -187,7 +209,7 @@ def run_circuit(
         from qdml_tpu_torch.quantum.kernels import fused_circuit_expvals
 
         return fused_circuit_expvals(angles, weights, n_qubits, n_layers)
-    if backend in ("mps", "sharded_statevector"):
+    if backend in UNPORTED_IMPLS:
         raise NotImplementedError(
             f"circuit impl {backend!r} is not ported yet (ROADMAP A.10, scaling impls)"
         )

@@ -179,9 +179,43 @@ def _check(t: torch.Tensor, what: str, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{what} must be contiguous")
 
 
-def _raise_on(err: int, name: str) -> None:
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Call ``<name>_launch(*args, stream)`` on ``dev``'s current stream
+    (tensors passed as their data pointers), raise on a CUDA error, count the
+    launch."""
+    fn = getattr(_load(name), f"{name}_launch")
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
+    launches[name] += 1
+
+
+def _kernel_fwd_plain_bwd(launch, plain, doc: str) -> type[torch.autograd.Function]:
+    """An autograd Function over ``(*tensors, n)`` whose forward is
+    ``launch(*tensors, n)`` and whose backward is autograd through
+    ``plain(*tensors, n)`` (a tensor or a :class:`CArr`), for every tensor."""
+
+    class _Function(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            *tensors, n = args
+            ctx.save_for_backward(*tensors)
+            ctx.n = n
+            return launch(*tensors, n)
+
+        @staticmethod
+        def backward(ctx, *grads_out):
+            saved = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                out = plain(*saved, ctx.n)
+                outs = (out.re, out.im) if isinstance(out, CArr) else (out,)
+                grads = torch.autograd.grad(outs, saved, grads_out)
+            return (*grads, None)
+
+    _Function.__doc__ = doc
+    return _Function
 
 
 # ---------------------------------------------------------------------------
@@ -209,33 +243,15 @@ def _qsc_launch(angles, u_re, u_im, n: int) -> torch.Tensor:
     out = torch.empty((batch, n), dtype=torch.float32, device=dev)
     if batch == 0:
         return out
-    fn = _load("qsc_expvals").qsc_expvals_launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(angles.data_ptr(), u_re.data_ptr(), u_im.data_ptr(), out.data_ptr(),
-                 batch, n, stream)
-    _raise_on(err, "qsc_expvals")
-    launches["qsc_expvals"] += 1
+    _launch("qsc_expvals", dev, angles, u_re, u_im, out, batch, n)
     return out
 
 
-class _QSCExpvals(torch.autograd.Function):
+_QSCExpvals = _kernel_fwd_plain_bwd(
+    _qsc_launch, qsc_expvals_plain,
     """Kernel forward; backward is autograd through the plain version, as the
-    JAX ``_qsc_bwd`` differentiates its XLA twin (pallas_kernels.py:285-288)."""
-
-    @staticmethod
-    def forward(ctx, angles, u_re, u_im, n):
-        ctx.save_for_backward(angles, u_re, u_im)
-        ctx.n = n
-        return _qsc_launch(angles, u_re, u_im, n)
-
-    @staticmethod
-    def backward(ctx, g):
-        saved = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = qsc_expvals_plain(*saved, ctx.n)
-            grads = torch.autograd.grad(out, saved, g)
-        return (*grads, None)
+    JAX ``_qsc_bwd`` differentiates its XLA twin (pallas_kernels.py:285-288).""",
+)
 
 
 def fused_qsc_expvals(
@@ -304,17 +320,7 @@ def _circuit_launch(angles, weights, n: int, layers: int, with_state: bool):
     if batch == 0:
         return ev, fre, fim
     cs = circuit_gate_table(weights)
-    fn = _load("circuit_expvals").circuit_expvals_launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            angles.data_ptr(), cs.data_ptr(), ev.data_ptr(),
-            fre.data_ptr() if with_state else None,
-            fim.data_ptr() if with_state else None,
-            batch, n, layers, int(with_state), stream,
-        )
-    _raise_on(err, "circuit_expvals")
-    launches["circuit_expvals"] += 1
+    _launch("circuit_expvals", dev, angles, cs, ev, fre, fim, batch, n, layers, int(with_state))
     return ev, fre, fim
 
 
@@ -387,18 +393,11 @@ def _adjoint_launch(fre, fim, g, angles, weights, n: int, layers: int):
     if batch == 0:
         return dangles, torch.zeros((layers, n, 2), dtype=torch.float32, device=dev)
     cs = circuit_gate_table(weights)
-    lib = _load("circuit_adjoint")
     partials = torch.empty(
-        (lib.circuit_adjoint_blocks(batch, n), layers, n, 2), dtype=torch.float32, device=dev
+        (_load("circuit_adjoint").circuit_adjoint_blocks(batch, n), layers, n, 2),
+        dtype=torch.float32, device=dev,
     )
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.circuit_adjoint_launch(
-            fre.data_ptr(), fim.data_ptr(), g.data_ptr(), cs.data_ptr(), angles.data_ptr(),
-            dangles.data_ptr(), partials.data_ptr(), batch, n, layers, stream,
-        )
-    _raise_on(err, "circuit_adjoint")
-    launches["circuit_adjoint"] += 1
+    _launch("circuit_adjoint", dev, fre, fim, g, cs, angles, dangles, partials, batch, n, layers)
     # the batch sum over per-block partials, in a fixed order: no atomics
     return dangles, partials.sum(dim=0)
 
@@ -499,34 +498,16 @@ def _rotation_launch(re, im, weights_l, n: int) -> tuple[torch.Tensor, torch.Ten
     if batch == 0:
         return out_re, out_im
     cs = circuit_gate_table(weights_l[None])[0].contiguous()
-    fn = _load("rotation_layer").rotation_layer_launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(re.data_ptr(), im.data_ptr(), cs.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-                 batch, n, stream)
-    _raise_on(err, "rotation_layer")
-    launches["rotation_layer"] += 1
+    _launch("rotation_layer", dev, re, im, cs, out_re, out_im, batch, n)
     return out_re, out_im
 
 
-class _RotationLayer(torch.autograd.Function):
+_RotationLayer = _kernel_fwd_plain_bwd(
+    _rotation_launch, rotation_layer_plain,
     """Kernel forward; backward is autograd through the plain version, as the
     JAX ``_rotation_layer_bwd`` differentiates its XLA twin
-    (pallas_kernels.py:640-646)."""
-
-    @staticmethod
-    def forward(ctx, re, im, weights_l, n):
-        ctx.save_for_backward(re, im, weights_l)
-        ctx.n = n
-        return _rotation_launch(re, im, weights_l, n)
-
-    @staticmethod
-    def backward(ctx, g_re, g_im):
-        saved = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = rotation_layer_plain(*saved, ctx.n)
-            grads = torch.autograd.grad((out.re, out.im), saved, (g_re, g_im))
-        return (*grads, None)
+    (pallas_kernels.py:640-646).""",
+)
 
 
 def apply_rotation_layer(psi: CArr, weights_l: torch.Tensor, n: int) -> CArr:
@@ -574,34 +555,16 @@ def _unitary_launch(psi_re, psi_im, u_re, u_im, n: int) -> torch.Tensor:
     out = torch.empty((batch, n), dtype=torch.float32, device=dev)
     if batch == 0:
         return out
-    fn = _load("unitary_expvals").unitary_expvals_launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(psi_re.data_ptr(), psi_im.data_ptr(), u_re.data_ptr(), u_im.data_ptr(),
-                 out.data_ptr(), batch, n, stream)
-    _raise_on(err, "unitary_expvals")
-    launches["unitary_expvals"] += 1
+    _launch("unitary_expvals", dev, psi_re, psi_im, u_re, u_im, out, batch, n)
     return out
 
 
-class _UnitaryExpvals(torch.autograd.Function):
+_UnitaryExpvals = _kernel_fwd_plain_bwd(
+    _unitary_launch, unitary_expvals_plain,
     """Kernel forward; backward is autograd through the plain version for
     psi's and U's real and imaginary parts, the counterpart of the JAX
-    ``_fused_bwd`` (pallas_kernels.py:135-153), which is XLA code."""
-
-    @staticmethod
-    def forward(ctx, psi_re, psi_im, u_re, u_im, n):
-        ctx.save_for_backward(psi_re, psi_im, u_re, u_im)
-        ctx.n = n
-        return _unitary_launch(psi_re, psi_im, u_re, u_im, n)
-
-    @staticmethod
-    def backward(ctx, g):
-        saved = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = unitary_expvals_plain(*saved, ctx.n)
-            grads = torch.autograd.grad(out, saved, g)
-        return (*grads, None)
+    ``_fused_bwd`` (pallas_kernels.py:135-153), which is XLA code.""",
+)
 
 
 def fused_unitary_expvals(psi: CArr, u: CArr, n: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Circuit forward micro-benchmark (``scripts/r3_quantum_microbench.py:79-104``) on the port.
 
-    python -m qdml_tpu_torch.scripts.quantum_microbench [out.json] [--device=cpu] [--batch=N]
+    python -m qdml_tpu_torch.scripts.quantum_microbench [out.json] [--device=cpu]
 
 At the JAX script's shape (n=6 qubits, L=3 layers, batch 2304; angles
 U(-1, 1) and weights U(-3, 3) from ``np.random.default_rng(0)``) it times four
@@ -72,20 +72,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def timed(fn, args, device: torch.device, reps: int = REPS) -> tuple[float, torch.Tensor]:
-    """Seconds per call over ``reps`` calls after one warm-up call, the
+def timed(fn, args, device: torch.device) -> tuple[float, torch.Tensor]:
+    """Seconds per call over ``REPS`` calls after one warm-up call, the
     device synchronized before and after the loop; and the warm-up's output."""
     out = fn(*args)
     _sync(device)
     t0 = time.perf_counter()
-    for _ in range(reps):
+    for _ in range(REPS):
         fn(*args)
     _sync(device)
-    return (time.perf_counter() - t0) / reps, out
+    return (time.perf_counter() - t0) / REPS, out
 
 
 def run(
-    batch: int = BATCH, device: str | torch.device | None = None, reps: int = REPS
+    batch: int = BATCH, device: str | torch.device | None = None
 ) -> tuple[dict, dict[str, torch.Tensor]]:
     """Every row at ``batch``: the JAX script's result dict and each row's
     <Z> (batch, N)."""
@@ -95,7 +95,7 @@ def run(
     outs = {}
     with torch.inference_mode():
         for name, fn in ROWS.items():
-            dt, outs[name] = timed(fn, (angles, w), dev, reps)
+            dt, outs[name] = timed(fn, (angles, w), dev)
             res[f"fwd_{name}_us"] = round(dt * 1e6, 1)
             res[f"fwd_{name}_sps"] = round(batch / dt, 1)
     return res, outs
@@ -103,15 +103,13 @@ def run(
 
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    device, batch, out_path = None, BATCH, "runs/quantum_microbench.json"
+    device, out_path = None, "runs/quantum_microbench.json"
     for arg in argv:
         if arg.startswith("--device="):
             device = arg.split("=", 1)[1]
-        elif arg.startswith("--batch="):
-            batch = int(arg.split("=", 1)[1])
         else:
             out_path = arg
-    res, _ = run(batch, device)
+    res, _ = run(BATCH, device)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as fh:
         json.dump(res, fh, indent=1)

@@ -100,30 +100,6 @@ def restore_params(
     return {"params": payload["params"]}, meta
 
 
-# Impls the port has no counterpart for yet (ROADMAP A.10); run_circuit
-# raises NotImplementedError for them.
-_UNPORTED_IMPLS = ("mps", "sharded_statevector")
-# The JAX dispatcher's capacity caps (qdml_tpu/quantum/autotune.py:92-93).
-_DENSE_MAX_QUBITS = 12
-_TENSOR_MAX_QUBITS = 14
-
-
-def impl_eligible(impl: str, n_qubits: int) -> tuple[bool, str | None]:
-    """Whether ``impl`` can run at ``n_qubits`` in the port: ``(ok, reason)``.
-    The caps of ``qdml_tpu/quantum/autotune.py:122-156``; the impls the port
-    lacks are never eligible."""
-    from qdml_tpu_torch.quantum.circuits import canonical_impl
-
-    impl = canonical_impl(impl)
-    if impl in _UNPORTED_IMPLS:
-        return False, f"circuit impl {impl!r} is not ported yet (ROADMAP A.10, scaling impls)"
-    if impl in ("dense", "dense_fused", "pallas", "pallas_circuit") and n_qubits > _DENSE_MAX_QUBITS:
-        return False, f"impl {impl!r} is capped at n <= {_DENSE_MAX_QUBITS}; n={n_qubits}"
-    if impl == "tensor" and n_qubits > _TENSOR_MAX_QUBITS:
-        return False, f"the 2^n statevector per sample is capped at n <= {_TENSOR_MAX_QUBITS}; n={n_qubits}"
-    return True, None
-
-
 def reconcile_quantum_cfg(cfg, meta: dict):
     """The config a QSC checkpoint was trained for
     (``qdml_tpu/train/checkpoint.py:27-120``): the architecture facts in
@@ -134,7 +110,12 @@ def reconcile_quantum_cfg(cfg, meta: dict):
     raises: ``NotImplementedError`` for an impl the port lacks, as
     ``run_circuit`` raises it, ``ValueError`` past a capacity cap. A no-op
     for meta without ``quantum``."""
-    from qdml_tpu_torch.quantum.circuits import canonical_impl, resolve_backend
+    from qdml_tpu_torch.quantum.circuits import (
+        UNPORTED_IMPLS,
+        canonical_impl,
+        impl_eligible,
+        resolve_backend,
+    )
 
     stored = dict((meta or {}).get("quantum") or {})
     if not stored:
@@ -151,7 +132,7 @@ def reconcile_quantum_cfg(cfg, meta: dict):
         pinned = canonical_impl(pinned)
         ok, why = impl_eligible(pinned, n_q)
         if not ok:
-            err = NotImplementedError if pinned in _UNPORTED_IMPLS else ValueError
+            err = NotImplementedError if pinned in UNPORTED_IMPLS else ValueError
             raise err(f"checkpoint (n_qubits={n_q}) pins circuit impl {pinned!r}, which cannot run here: {why}")
     elif trained_impl not in (None, "", "auto"):
         ok, why = impl_eligible(trained_impl, n_q)

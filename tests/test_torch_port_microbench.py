@@ -37,7 +37,7 @@ def _jax_rows(angles, w):
 
 def test_rows_match_the_jax_script():
     tk.reset_launch_counts()
-    res, outs = mb.run(BATCH, "cpu", reps=1)
+    res, outs = mb.run(BATCH, "cpu")
     assert set(tk.launches.values()) == {0}  # CPU tensors: plain versions
     keys = {"backend", "batch", "n", "layers"} | {
         f"fwd_{row}_{unit}" for row in ("dense", "pallas", "tensor", "pallas_old") for unit in ("us", "sps")
@@ -59,9 +59,10 @@ def test_rows_match_the_jax_script():
         np.testing.assert_allclose(out.numpy(), want[row], rtol=0, atol=1e-5, err_msg=row)
 
 
-def test_main_writes_the_json(tmp_path, capsys):
+def test_main_writes_the_json(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(mb, "BATCH", 4)  # the script's shape, cut for CPU time
     out = tmp_path / "sub" / "mb.json"
-    assert mb.main([str(out), "--device=cpu", "--batch=4"]) == 0
+    assert mb.main([str(out), "--device=cpu"]) == 0
     res = json.loads(out.read_text())
     assert res["batch"] == 4 and "fwd_pallas_old_us" in res
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
