@@ -44,8 +44,12 @@ Phases, each of which exits non-zero on failure:
    the same test batches;
 8. times: each kernel and its plain version at its path's shapes (CUDA
    events), each kernel's device time per launch (torch profiler) over batch
-   sizes, each bucket's ``infer`` latency and each trainer's step time with
-   its forward/backward/update split (host clock).
+   sizes (the adjoint at n 8 and 12, L=3, B 64 and 2304; the QSC kernel at
+   the batches its launches run at), the card's launch floor (the device
+   time of a one-element in-place ``add_``, a yardstick on no path), the
+   adjoint's resident blocks per SM (occupancy query), each bucket's
+   ``infer`` latency and each trainer's step time with its
+   forward/backward/update split (host clock).
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and
@@ -205,20 +209,37 @@ def profiled_device_us(torch, fn, kernel: str, calls: int = 20) -> float | None:
     return total / count if count and total > 0 else None
 
 
-def device_sweep(torch, K, circuits, card: str) -> None:
+def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
     """Each kernel's device time per launch (profiler) over batch sizes, at
     the serving qubit counts and the circuit kernel's largest: shows whether
-    a kernel's time follows its work or is fixed per block."""
+    a kernel's time follows its work or is fixed per block. The QSC kernel
+    runs at B 64 (serving), 200 (eval) and 2304 (microbench, training); the
+    adjoint at 2304 (training) and 64. Each line carries the bound and the
+    card's launch floor."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 3)
-    for n in (6, 8):
+    for n, batches in ((6, (1, 64, 200, 2304, 4096)), (8, (1, 64, 2304, 4096))):
         w = torch.tensor(rng.uniform(0, 2 * np.pi, (3, n, 2)), dtype=torch.float32, device=dev)
         u = circuits.ansatz_unitary(w, n, 3)
         ur, ui = u.re.contiguous(), u.im.contiguous()
-        for b in (1, 64, 4096):
+        for b in batches:
             a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
             us = profiled_device_us(torch, lambda: K.fused_qsc_expvals(a, ur, ui, n), "qsc_expvals_kernel")
-            log(f"device sweep qsc_expvals n={n} B={b}: {us} us per launch [{card}]")
+            bnd, by = bound(*qsc_work(b, n))
+            log(f"device sweep qsc_expvals n={n} B={b}: {us} us per launch, bound {1e3 * bnd:.5f} us "
+                f"({by}), launch floor {floor_us} us [{card}]")
+    for n in (8, 12):
+        w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
+        for b in (64, 2304):
+            a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
+            g = torch.tensor(rng.standard_normal((b, n)), dtype=torch.float32, device=dev)
+            _, fre, fim = K.fused_circuit_expvals(a, w, n, 3, return_state=True)
+            us = profiled_device_us(
+                torch, lambda: K.circuit_adjoint(fre, fim, g, a, w, n, 3), "circuit_adjoint_kernel"
+            )
+            bnd, by = bound(*adjoint_work(b, n, 3))
+            log(f"device sweep circuit_adjoint n={n} L=3 B={b}: {us} us per launch, bound "
+                f"{1e3 * bnd:.5f} us ({by}), launch floor {floor_us} us [{card}]")
     for n in (8, 12):
         w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
         for b in (1, 64, 4096):
@@ -257,12 +278,13 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
             raise AssertionError(f"{name} {what}: max abs err {err:.3e} (rtol {rtol}, atol {atol})")
         return err
 
-    # QSC: rtol 1e-4 / atol 1e-5, as tests/test_pallas.py:33 holds the TPU kernel
-    for n in (4, 6, 8):
+    # QSC: rtol 1e-4 / atol 1e-5, as tests/test_pallas.py:33 holds the TPU
+    # kernel; every n of its window, at the batches its launches run at
+    for n in range(1, 9):
         w = torch.tensor(rng.uniform(0, 2 * np.pi, (3, n, 2)), dtype=torch.float32, device=dev)
-        u = circuits.ansatz_unitary(w, n, 3)
+        u = circuits.ansatz_unitary(w, n, 3) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
         ur, ui = u.re.contiguous(), u.im.contiguous()
-        for b in (1, 37, 64, 4096):
+        for b in (1, 37, 64, 200, 2304, 4096):
             a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
             got = K.fused_qsc_expvals(a, ur, ui, n)
             want = K.qsc_expvals_plain(a, ur, ui, n)
@@ -296,8 +318,10 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
         log(f"check circuit_expvals n={n}: ok")
 
     # adjoint: atol 2e-5 of the largest cotangent plus 1e-6 — fp32 rounding
-    # over 2nL rotations undone and a batch sum taken in another order
-    for n in (2, 4, 6, 8, 10, 12):
+    # over 2nL rotations undone and a batch sum taken in another order; every
+    # n (one kernel instantiation each), and dweights bitwise equal on a
+    # second launch (no atomics)
+    for n in range(2, 13):
         ratio = 0.0
         for layers in (1, 3, 5):
             w = torch.tensor(rng.uniform(-3, 3, (layers, n, 2)), dtype=torch.float32, device=dev)
@@ -306,6 +330,10 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
                 g = torch.tensor(rng.standard_normal((b, n)), dtype=torch.float32, device=dev)
                 _, fre, fim = K.fused_circuit_expvals(a, w, n, layers, return_state=True)
                 got = K.circuit_adjoint(fre, fim, g, a, w, n, layers)
+                again = K.circuit_adjoint(fre, fim, g, a, w, n, layers)
+                torch.cuda.synchronize()
+                if not torch.equal(again[1], got[1]):
+                    raise AssertionError(f"circuit_adjoint n={n} L={layers} B={b}: dweights differ run to run")
                 want = K.circuit_adjoint_plain(fre, fim, g, a, w, n, layers)
                 refs = [want]
                 if b <= 64:  # autograd keeps every gate's state: small batches only
@@ -825,8 +853,15 @@ def main() -> int:
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} wall {time.perf_counter() - t0:.2f} s")
     for name, text in K.build_log.items():
         for line in text.splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line or "smem" in line):
+            if ("ptxas" in line and ("registers" in line or "smem" in line or "Compiling entry" in line)
+                    or "spill" in line):
                 log(f"ptxas {name}: {line.strip()}")
+
+    # the adjoint's resident blocks and warps per SM (L=3), beside ptxas's registers
+    for n in (6, 8, 10, 12):
+        blocks, threads = K.circuit_adjoint_occupancy(n, 3)
+        log(f"occupancy circuit_adjoint n={n} L=3: {blocks} resident blocks of {threads} threads per SM, "
+            f"{blocks * threads // 32} warps (cudaOccupancyMaxActiveBlocksPerMultiprocessor) [{card}]")
 
     K.reset_launch_counts()
     worst = check_kernels(torch, K, circuits)
@@ -920,6 +955,9 @@ def main() -> int:
 
     # device times last: a profiler session can slow the host's launches after it
     with torch.inference_mode():
+        # the launch floor on this card: a one-element in-place add, on no path
+        one = torch.zeros(1, device=dev)
+        floor_us = profiled_device_us(torch, lambda: one.add_(1.0), "elementwise_kernel")
         qsc_dev_us = profiled_device_us(torch, lambda: K.fused_qsc_expvals(a6, ur, ui, 6), "qsc_expvals_kernel")
         circ_dev_us = profiled_device_us(torch, lambda: K.fused_circuit_expvals(a8, w8, 8, 3), "circuit_expvals_kernel")
         for t in adj.values():
@@ -930,9 +968,10 @@ def main() -> int:
         uni["device_us"] = profiled_device_us(
             torch, lambda: K.fused_unitary_expvals(uni_psi, uni_u, UNI_N), "unitary_expvals_kernel"
         )
-        device_sweep(torch, K, circuits, card)
+        device_sweep(torch, K, circuits, card, floor_us)
         after = event_ms(torch, lambda: K.circuit_adjoint(*adj[SERVE_BATCH]["args"]))
     K.launches.update(saved)  # timing launches are not main-path launches
+    log(f"launch floor: one-element in-place add_ {floor_us} us of device time (profiler) [{card}]")
     for name, us in (("qsc_expvals_kernel", qsc_dev_us), ("circuit_expvals_kernel", circ_dev_us)):
         shown = f"{us:.3f} us per launch" if us is not None else "not measured (no device time in the trace)"
         log(f"profiler device time {name}: {shown} [{card}]")
@@ -1023,6 +1062,8 @@ def main() -> int:
             "bound_by": t["bound"][1],
             "library_ms": None,  # no one PyTorch call computes either function
         })
+    for rec in kernels:  # the card's launch floor beside every bound
+        rec["floor_ms"] = None if floor_us is None else floor_us / 1e3
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

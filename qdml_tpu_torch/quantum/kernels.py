@@ -164,6 +164,10 @@ def _load(name: str) -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
         lib.circuit_adjoint_blocks.restype = ctypes.c_int
         lib.circuit_adjoint_blocks.argtypes = [i32, i32]
+        lib.circuit_adjoint_occupancy.restype = ctypes.c_int
+        lib.circuit_adjoint_occupancy.argtypes = [i32, i32]
+        lib.circuit_adjoint_threads.restype = ctypes.c_int
+        lib.circuit_adjoint_threads.argtypes = [i32]
     _libs[name] = lib
     return lib
 
@@ -240,6 +244,11 @@ def _qsc_launch(angles, u_re, u_im, n: int) -> torch.Tensor:
     _check(angles, "angles", (batch, n), dev)
     _check(u_re, "u_re", (dim, dim), dev)
     _check(u_im, "u_im", (dim, dim), dev)
+    # the kernel copies U into shared memory in 16-byte pieces (8 at n = 1)
+    align = 4 * min(dim, 4)
+    for t, what in ((u_re, "u_re"), (u_im, "u_im")):
+        if t.data_ptr() % align:
+            raise ValueError(f"{what} must start on a {align}-byte boundary, got address {t.data_ptr():#x}")
     out = torch.empty((batch, n), dtype=torch.float32, device=dev)
     if batch == 0:
         return out
@@ -400,6 +409,19 @@ def _adjoint_launch(fre, fim, g, angles, weights, n: int, layers: int):
     _launch("circuit_adjoint", dev, fre, fim, g, cs, angles, dangles, partials, batch, n, layers)
     # the batch sum over per-block partials, in a fixed order: no atomics
     return dangles, partials.sum(dim=0)
+
+
+def circuit_adjoint_occupancy(n: int, layers: int) -> tuple[int, int]:
+    """``(blocks, threads)``: the adjoint kernel's resident blocks per SM for
+    ``n`` and ``layers`` on the current CUDA device
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and its threads per
+    block."""
+    _check_circuit_window(n, layers)
+    lib = _load("circuit_adjoint")
+    blocks = lib.circuit_adjoint_occupancy(n, layers)
+    if blocks < 0:
+        raise RuntimeError(f"circuit_adjoint occupancy query failed with cudaError {-blocks}")
+    return blocks, lib.circuit_adjoint_threads(n)
 
 
 def circuit_adjoint(fre, fim, g, angles, weights, n: int, layers: int):

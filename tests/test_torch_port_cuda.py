@@ -27,11 +27,18 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,batch", [(4, 37), (6, 64), (8, 300)])
+# every n at the batches the kernel's launches run at; 40000 rows reach the
+# large-batch tile at n <= 4 too (one block per two SMs of 64-512 rows)
+@pytest.mark.parametrize(
+    "n,batch",
+    [(4, 37), (6, 64), (8, 300)]
+    + [(n, b) for n in range(1, 9) for b in (1, 64, 200, 2304)]
+    + [(n, 40000) for n in range(1, 5)],
+)
 def test_qsc_kernel_matches_plain(dev, n, batch):
     rng = np.random.default_rng(n)
     w = torch.tensor(rng.uniform(0, 2 * np.pi, (3, n, 2)), dtype=torch.float32, device=dev)
-    u = circuits.ansatz_unitary(w, n, 3)
+    u = circuits.ansatz_unitary(w, n, 3) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
     a = torch.tensor(rng.uniform(-1, 1, (batch, n)), dtype=torch.float32, device=dev)
     before = tk.launches["qsc_expvals"]
     got = tk.fused_qsc_expvals(a, u.re.contiguous(), u.im.contiguous(), n)
@@ -39,6 +46,23 @@ def test_qsc_kernel_matches_plain(dev, n, batch):
     assert tk.launches["qsc_expvals"] == before + 1
     want = tk.qsc_expvals_plain(a, u.re, u.im, n)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 6, 8])
+def test_qsc_kernel_refuses_misaligned_u(dev, n):
+    """U copied with 16-byte cp.async (8-byte at n = 1): a contiguous view one
+    float into its storage is refused before launch, and the context stays
+    usable for the next launch."""
+    dim = 1 << n
+    a = torch.zeros(3, n, device=dev)
+    u = torch.eye(dim, device=dev)
+    shifted = torch.empty(dim * dim + 1, device=dev)[1:].view(dim, dim)
+    before = tk.launches["qsc_expvals"]
+    with pytest.raises(ValueError, match="byte boundary"):
+        tk.fused_qsc_expvals(a, shifted, u, n)
+    assert tk.launches["qsc_expvals"] == before
+    got = tk.fused_qsc_expvals(a, u, torch.zeros_like(u), n)
+    torch.testing.assert_close(got, torch.ones(3, n, device=dev))
 
 
 @pytest.mark.parametrize("n,layers,batch", [(3, 1, 37), (8, 3, 64), (12, 3, 5)])
@@ -53,7 +77,14 @@ def test_circuit_kernel_matches_plain(dev, n, layers, batch):
         torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("n,layers,batch", [(2, 1, 3), (8, 3, 2304), (12, 5, 7)])
+# every n (one kernel instantiation each) at L = 1 and 3, with batches that
+# span several blocks and end in a ragged one (64 samples a block at n = 2,
+# 2 at n = 8, 1 from n = 10)
+@pytest.mark.parametrize(
+    "n,layers,batch",
+    [(2, 1, 3), (8, 3, 2304), (12, 5, 7)]
+    + [(n, layers, max(5, ((3 << 11) >> n) + 1)) for n in range(2, 13) for layers in (1, 3)],
+)
 def test_circuit_adjoint_kernel_matches_plain(dev, n, layers, batch):
     """Tolerance: 2e-5 of the largest cotangent plus 1e-6 (fp32 rounding over
     2nL rotations and a batch sum taken in another order)."""
@@ -153,3 +184,13 @@ def test_rotation_and_unitary_gradients_match_plain(dev):
         grads.append([t.grad for t in xs])
     for gk, gp in zip(*grads):
         torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-6)
+
+
+def test_circuit_adjoint_occupancy(dev):
+    """At n = 8, L = 3 (the trained 8-qubit circuit) at least 32 warps of the
+    adjoint (four blocks' worth of 256 threads) stay resident per SM; every n
+    fits one block."""
+    blocks, threads = tk.circuit_adjoint_occupancy(8, 3)
+    assert blocks * threads >= 4 * 256
+    for n in range(2, 13):
+        assert tk.circuit_adjoint_occupancy(n, 3)[0] >= 1
