@@ -44,8 +44,11 @@ Phases, each of which exits non-zero on failure:
    the same test batches;
 8. times: each kernel and its plain version at its path's shapes (CUDA
    events), each kernel's device time per launch (torch profiler) over batch
-   sizes (the adjoint at n 8 and 12, L=3, B 64 and 2304; the QSC kernel at
-   the batches its launches run at), the card's launch floor (the device
+   sizes (the adjoint at n 8 and 12, L=3, B 64 and 2304; the forward at n 8
+   and 12, L=3, B 1, 64, 2304 with and without the state and 4096; the QSC
+   kernel at the batches its launches run at; the unitary kernel at n 6 and
+   10, B 1, 64 and 2304 beside the complex64 ``torch.matmul`` alone), each
+   with its bound, the card's launch floor (the device
    time of a one-element in-place ``add_``, a yardstick on no path), the
    adjoint's resident blocks per SM (occupancy query), each bucket's
    ``infer`` latency and each trainer's step time with its
@@ -124,12 +127,13 @@ def adjoint_work(batch: int, n: int, layers: int) -> tuple[float, float]:
     return bytes_moved, flops
 
 
-def circuit_work(batch: int, n: int, layers: int) -> tuple[float, float]:
-    """Bytes (angles and gate table in, <Z> out) and flops of one circuit call
-    without the final state: embedding, 24 flops per amplitude pair per wire
-    per layer (RY then RZ), and the <Z> contraction."""
+def circuit_work(batch: int, n: int, layers: int, with_state: bool = False) -> tuple[float, float]:
+    """Bytes (angles and gate table in, <Z> out, and the final state's re and
+    im out when it is written) and flops of one circuit call: embedding, 24
+    flops per amplitude pair per wire per layer (RY then RZ), and the <Z>
+    contraction."""
     dim = 1 << n
-    bytes_moved = 4 * (batch * n + layers * n * 4 + batch * n)
+    bytes_moved = 4 * (batch * n + layers * n * 4 + batch * n + (2 * batch * dim if with_state else 0))
     flops = batch * dim * n + 12 * batch * layers * n * dim + 3 * batch * dim + 2 * batch * dim * n
     return bytes_moved, flops
 
@@ -189,10 +193,12 @@ def host_ms(torch, fn, reps: int = 20) -> tuple[float, float]:
     return statistics.median(lat), min(lat)
 
 
-def profiled_device_us(torch, fn, kernel: str, calls: int = 20) -> float | None:
-    """Mean device time of ``kernel`` per launch over ``calls`` calls of ``fn``,
-    read from the torch profiler's CUDA trace; None when the trace holds no
-    device time for it."""
+def profiled_device_us(torch, fn, kernel: str | None, calls: int = 20) -> float | None:
+    """Device time per call of ``fn`` spent in the kernels whose name holds
+    ``kernel`` (every device kernel when None), over ``calls`` calls, read
+    from the torch profiler's CUDA trace; None when the trace holds no device
+    time for them. A call may launch several (the unitary kernel's second
+    pass sums its column tiles)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -201,12 +207,11 @@ def profiled_device_us(torch, fn, kernel: str, calls: int = 20) -> float | None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total += getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)
-            count += evt.count
-    return total / count if count and total > 0 else None
+    total = 0.0
+    for evt in prof.events():
+        if "CUDA" in str(getattr(evt, "device_type", "")) and (kernel is None or kernel in evt.name):
+            total += evt.time_range.elapsed_us()
+    return total / calls if total > 0 else None
 
 
 def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
@@ -240,12 +245,18 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
             bnd, by = bound(*adjoint_work(b, n, 3))
             log(f"device sweep circuit_adjoint n={n} L=3 B={b}: {us} us per launch, bound "
                 f"{1e3 * bnd:.5f} us ({by}), launch floor {floor_us} us [{card}]")
+    # the forward at the serving batches (no state) and at the training
+    # launch's B=2304 with the state written for the adjoint
     for n in (8, 12):
         w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
-        for b in (1, 64, 4096):
+        for b, state in ((1, False), (64, False), (2304, True), (2304, False), (4096, False)):
             a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
-            us = profiled_device_us(torch, lambda: K.fused_circuit_expvals(a, w, n, 3), "circuit_expvals_kernel")
-            log(f"device sweep circuit_expvals n={n} L=3 B={b}: {us} us per launch [{card}]")
+            us = profiled_device_us(
+                torch, lambda: K.fused_circuit_expvals(a, w, n, 3, return_state=state), "circuit_expvals_kernel"
+            )
+            bnd, by = bound(*circuit_work(b, n, 3, with_state=state))
+            log(f"device sweep circuit_expvals n={n} L=3 B={b}{' with the state' if state else ''}: {us} us "
+                f"per launch, bound {1e3 * bnd:.5f} us ({by}), launch floor {floor_us} us [{card}]")
     from qdml_tpu_torch.utils.complexops import CArr
 
     for n in (8, 14):
@@ -254,13 +265,21 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
             psi = CArr(torch.randn(b, 1 << n, device=dev), torch.randn(b, 1 << n, device=dev))
             us = profiled_device_us(torch, lambda: K.apply_rotation_layer(psi, w, n), "rotation_layer_kernel")
             log(f"device sweep rotation_layer n={n} B={b}: {us} us per launch [{card}]")
+    # the unitary kernel (both of its passes) beside the complex product alone,
+    # torch.matmul on complex64, which the port never calls
     for n in (6, 10):
         w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
         u = circuits.ansatz_unitary(w, n, 3)
+        u = CArr(u.re.contiguous(), u.im.contiguous())
+        ut_c = torch.complex(u.re, u.im).T.contiguous()
         for b in (1, 64, 2304):
             psi = CArr(torch.randn(b, 1 << n, device=dev), torch.randn(b, 1 << n, device=dev))
-            us = profiled_device_us(torch, lambda: K.fused_unitary_expvals(psi, u, n), "unitary_expvals_kernel")
-            log(f"device sweep unitary_expvals n={n} B={b}: {us} us per launch [{card}]")
+            psi_c = torch.complex(psi.re, psi.im)
+            us = profiled_device_us(torch, lambda: K.fused_unitary_expvals(psi, u, n), "unitary_expvals_")
+            mm_us = profiled_device_us(torch, lambda: torch.matmul(psi_c, ut_c), None)
+            bnd, by = bound(*unitary_work(b, n))
+            log(f"device sweep unitary_expvals n={n} B={b}: {us} us per launch, complex64 torch.matmul "
+                f"alone {mm_us} us, bound {1e3 * bnd:.5f} us ({by}), launch floor {floor_us} us [{card}]")
 
 
 def check_kernels(torch, K, circuits) -> dict[str, float]:
@@ -302,12 +321,14 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
         log(f"check qsc_expvals n={n}: ok")
 
     # circuit: atol 2e-5 — fp32 rounding over 2nL gate updates taken in
-    # another order (and with fused multiply-adds) than the plain version's
-    for n in (3, 7, 8, 10, 12):
+    # another order (and with fused multiply-adds) than the plain version's;
+    # every n (one kernel instantiation each), at the serving batches and the
+    # training launch's 2304
+    for n in range(2, 13):
         for layers in (1, 3):
             w = torch.tensor(rng.uniform(-3, 3, (layers, n, 2)), dtype=torch.float32, device=dev)
-            for b in (1, 37, 64, 4096):
-                b = min(b, max(1, (1 << 20) >> n))  # cap B * 2^n at 2^20 amplitudes
+            for b in (1, 37, 64, 2304, 4096):
+                b = min(b, max(1, (1 << 21) >> n))  # cap B * 2^n at 2^21 amplitudes
                 a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
                 ev, fre, fim = K.fused_circuit_expvals(a, w, n, layers, return_state=True)
                 pev, pre, pim = K.circuit_expvals_plain(a, w, n, layers)
@@ -373,17 +394,22 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
         log(f"check rotation_layer n={n}: ok")
 
     # unitary: atol 5e-6 on unit-norm states, fp32 sums over 2^n terms (each
-    # a 2^n-term product) taken in another order than the plain matmuls'
-    for n in (1, 2, 4, 6, 8, 10, 12):
+    # a 2^n-term product) taken in another order than the plain matmuls';
+    # every n, at batches that reach each tile plan of the launcher, and the
+    # same bits on a second launch (no atomics)
+    for n in range(1, 13):
         w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
         u = circuits.ansatz_unitary(w, n, 3) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
-        for b in (1, 9, 64, 2304):
+        for b in (1, 3, 9, 33, 64, 600, 2304):
             re, im = randn(b, 1 << n), randn(b, 1 << n)
             norm = torch.sqrt((re * re + im * im).sum(-1, keepdim=True))
             for kind, psi in (("random", CArr(re / norm, im / norm)), ("embedded", embedded(b, n))):
                 got = K.fused_unitary_expvals(psi, u, n)
+                again = K.fused_unitary_expvals(psi, u, n)
                 want = K.unitary_expvals_plain(psi.re, psi.im, u.re, u.im, n)
                 close("unitary_expvals", got, want, 0.0, 5e-6, f"n={n} B={b} {kind}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"unitary_expvals n={n} B={b} {kind}: outputs differ run to run")
         log(f"check unitary_expvals n={n}: ok")
 
     # both backwards are autograd through the plain versions: the same values
@@ -966,8 +992,10 @@ def main() -> int:
             )
         rot["device_us"] = profiled_device_us(torch, lambda: K.apply_rotation_layer(*rot_args), "rotation_layer_kernel")
         uni["device_us"] = profiled_device_us(
-            torch, lambda: K.fused_unitary_expvals(uni_psi, uni_u, UNI_N), "unitary_expvals_kernel"
+            torch, lambda: K.fused_unitary_expvals(uni_psi, uni_u, UNI_N), "unitary_expvals_"
         )
+        # the yardstick: the complex product alone, one PyTorch call the port never makes
+        uni["matmul_device_us"] = profiled_device_us(torch, lambda: torch.matmul(psi_c, ut_c), None)
         device_sweep(torch, K, circuits, card, floor_us)
         after = event_ms(torch, lambda: K.circuit_adjoint(*adj[SERVE_BATCH]["args"]))
     K.launches.update(saved)  # timing launches are not main-path launches
@@ -994,8 +1022,8 @@ def main() -> int:
         f"{rot['bound'][0]:.3e} ms ({rot['bound'][1]}) [{card}]")
     log(f"time unitary_expvals n={UNI_N} B={WIDE_BATCH}: wrapper {uni['ms']:.5f} ms, device "
         f"{shown_us(uni['device_us'])} per launch, plain {uni['plain_ms']:.5f} ms, the complex product "
-        f"alone (torch.matmul, complex64) {uni['matmul_ms']:.5f} ms, bound {uni['bound'][0]:.3e} ms "
-        f"({uni['bound'][1]}) [{card}]")
+        f"alone (torch.matmul, complex64) {uni['matmul_ms']:.5f} ms event-timed, device "
+        f"{shown_us(uni['matmul_device_us'])}, bound {uni['bound'][0]:.3e} ms ({uni['bound'][1]}) [{card}]")
 
     train_adj = adj[TRAIN_BATCH * 9]  # the adjoint's main-path shape is the training step's
     qsc_bound, qsc_by = bound(*qsc_work(SERVE_BATCH, 6))
@@ -1044,9 +1072,13 @@ def main() -> int:
             "library_ms": None,
         },
     ]
-    for name, t, replaces in (
-        ("rotation_layer", rot, "qdml_tpu/quantum/pallas_kernels.py:587"),
-        ("unitary_expvals", uni, "qdml_tpu/quantum/pallas_kernels.py:75"),
+    for name, t, replaces, library_us in (
+        # no one PyTorch call computes a rotation layer
+        ("rotation_layer", rot, "qdml_tpu/quantum/pallas_kernels.py:587", None),
+        # the unitary kernel's yardstick: the profiled device time of the
+        # complex product alone (complex64 torch.matmul), which the kernel
+        # does along with |c|^2 and the sign contraction
+        ("unitary_expvals", uni, "qdml_tpu/quantum/pallas_kernels.py:75", uni["matmul_device_us"]),
     ):
         kernels.append({
             "name": name,
@@ -1060,7 +1092,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1],
-            "library_ms": None,  # no one PyTorch call computes either function
+            "library_ms": None if library_us is None else library_us / 1e3,
         })
     for rec in kernels:  # the card's launch floor beside every bound
         rec["floor_ms"] = None if floor_us is None else floor_us / 1e3

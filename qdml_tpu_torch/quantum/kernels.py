@@ -158,8 +158,12 @@ def _load(name: str) -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
     elif name == "circuit_expvals":
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    elif name in ("rotation_layer", "unitary_expvals"):
+    elif name == "rotation_layer":
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
+    elif name == "unitary_expvals":
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
+        lib.unitary_expvals_tiles.restype = ctypes.c_int
+        lib.unitary_expvals_tiles.argtypes = [i32, i32]
     else:
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
         lib.circuit_adjoint_blocks.restype = ctypes.c_int
@@ -565,6 +569,12 @@ def unitary_expvals_plain(
     return sv.expvals_z(CArr(c_re, c_im), n)
 
 
+def _unitary_align(n: int) -> int:
+    """Bytes the unitary kernel's ``cp.async`` copies need psi and U to start
+    on: 16 (8 at n = 1, where a row is two floats)."""
+    return 4 * min(1 << n, 4)
+
+
 def _unitary_launch(psi_re, psi_im, u_re, u_im, n: int) -> torch.Tensor:
     dev = psi_re.device
     batch, dim = psi_re.shape[0], 1 << n
@@ -574,10 +584,18 @@ def _unitary_launch(psi_re, psi_im, u_re, u_im, n: int) -> torch.Tensor:
     _check(psi_im, "psi_im", (batch, dim), dev)
     _check(u_re, "u_re", (dim, dim), dev)
     _check(u_im, "u_im", (dim, dim), dev)
+    align = _unitary_align(n)
+    for t, what in ((psi_re, "psi_re"), (psi_im, "psi_im"), (u_re, "u_re"), (u_im, "u_im")):
+        if t.data_ptr() % align:
+            raise ValueError(f"{what} must start on a {align}-byte boundary, got address {t.data_ptr():#x}")
     out = torch.empty((batch, n), dtype=torch.float32, device=dev)
     if batch == 0:
         return out
-    _launch("unitary_expvals", dev, psi_re, psi_im, u_re, u_im, out, batch, n)
+    # the column tiles' signed sums, summed in a fixed order by the kernel's
+    # second pass: scratch only when the columns span several blocks
+    tiles = _load("unitary_expvals").unitary_expvals_tiles(batch, n)
+    partial = torch.empty((tiles, batch, n), dtype=torch.float32, device=dev) if tiles > 1 else None
+    _launch("unitary_expvals", dev, psi_re, psi_im, u_re, u_im, out, partial, batch, n)
     return out
 
 
@@ -591,9 +609,9 @@ _UnitaryExpvals = _kernel_fwd_plain_bwd(
 
 def fused_unitary_expvals(psi: CArr, u: CArr, n: int) -> torch.Tensor:
     """``psi (..., 2^n) -> per-wire <Z> (..., n)`` through the unitary ``u``,
-    ``expvals_z(psi @ u^T)``: one kernel launch on the card (1 <= n <= 12, else
+    ``expvals_z(psi @ u^T)``: one kernel call on the card (1 <= n <= 12, else
     ``ValueError``), which computes the complex product, |.|^2 and the sign
-    contraction itself."""
+    contraction itself (its second pass adds the column tiles' sums)."""
     lead = psi.re.shape[:-1]
     dim = psi.re.shape[-1]
     if dim != 1 << n:
@@ -602,7 +620,10 @@ def fused_unitary_expvals(psi: CArr, u: CArr, n: int) -> torch.Tensor:
     if re.device.type == "cpu":
         ev = unitary_expvals_plain(re, im, u.re, u.im, n)
     else:
-        ev = _UnitaryExpvals.apply(
-            re.contiguous(), im.contiguous(), u.re.contiguous(), u.im.contiguous(), n
-        )
+        # a contiguous view that starts off the kernel's copy boundary (a
+        # slice at an odd float) is copied to fresh storage, which is aligned
+        align = _unitary_align(n) if 1 <= n <= UNITARY_MAX_QUBITS else 1
+        ins = [t.contiguous() for t in (re, im, u.re, u.im)]
+        ins = [t.clone() if t.data_ptr() % align else t for t in ins]
+        ev = _UnitaryExpvals.apply(*ins, n)
     return ev.reshape(lead + (n,))

@@ -65,15 +65,26 @@ def test_qsc_kernel_refuses_misaligned_u(dev, n):
     torch.testing.assert_close(got, torch.ones(3, n, device=dev))
 
 
-@pytest.mark.parametrize("n,layers,batch", [(3, 1, 37), (8, 3, 64), (12, 3, 5)])
-def test_circuit_kernel_matches_plain(dev, n, layers, batch):
-    rng = np.random.default_rng(n + layers)
+# the serving batches (1, 64) and the training launch's 2304, with and
+# without the state, at n from one-warp samples (2, 5, 8) to whole blocks (9, 12)
+@pytest.mark.parametrize(
+    "n,layers,batch,state",
+    [(3, 1, 37, True), (8, 3, 64, True), (12, 3, 5, True)]
+    + [(n, 3, b, st) for n in (2, 5, 8, 9, 12) for b in (1, 64, 2304) for st in (True, False)],
+)
+def test_circuit_kernel_matches_plain(dev, n, layers, batch, state):
+    """Tolerance: 2e-5 absolute on <Z> and the unit-norm state (fp32 rounding
+    over 2nL gate updates in another wire order)."""
+    rng = np.random.default_rng(n + layers + batch)
     w = torch.tensor(rng.uniform(-3, 3, (layers, n, 2)), dtype=torch.float32, device=dev)
     a = torch.tensor(rng.uniform(-1, 1, (batch, n)), dtype=torch.float32, device=dev)
-    ev, re, im = tk.fused_circuit_expvals(a, w, n, layers, return_state=True)
+    before = tk.launches["circuit_expvals"]
+    out = tk.fused_circuit_expvals(a, w, n, layers, return_state=state)
     torch.cuda.synchronize()
+    assert tk.launches["circuit_expvals"] == before + 1
     pev, pre, pim = tk.circuit_expvals_plain(a, w, n, layers)
-    for got, want in ((ev, pev), (re, pre), (im, pim)):
+    pairs = zip(out, (pev, pre, pim)) if state else [(out, pev)]
+    for got, want in pairs:
         torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
@@ -144,7 +155,12 @@ def test_rotation_layer_kernel_matches_plain(dev, n, batch):
         tk.apply_rotation_layer(_states(rng, 1, 15, dev), torch.zeros(15, 2, device=dev), 15)
 
 
-@pytest.mark.parametrize("n,batch", [(1, 3), (6, 2304), (9, 40), (12, 33)])
+# every tile plan of the launcher: B <= 4, moderate B, n <= 7 at B >= 512,
+# n >= 8 at B >= 1024
+@pytest.mark.parametrize(
+    "n,batch",
+    [(1, 3), (6, 2304), (9, 40), (12, 33)] + [(n, b) for n in (1, 6, 7, 10, 12) for b in (1, 33, 2304)],
+)
 def test_unitary_kernel_matches_plain(dev, n, batch):
     """Tolerance: 5e-6 on unit-norm states (sums over 2^n terms, each a
     2^n-term product, in another order than the plain matmuls')."""
@@ -160,6 +176,37 @@ def test_unitary_kernel_matches_plain(dev, n, batch):
     torch.testing.assert_close(got, want, rtol=0, atol=5e-6)
     again = tk.fused_unitary_expvals(psi, u, n)
     assert torch.equal(again, got)  # no atomics: the same sums every run
+
+
+@pytest.mark.parametrize("n,batch", [(6, 1), (6, 2304), (10, 1), (10, 64), (10, 2304)])
+def test_unitary_kernel_is_bitwise_repeatable(dev, n, batch):
+    """The column tiles' sums are added in a fixed order, never by atomics:
+    two launches give the same bits."""
+    rng = np.random.default_rng(40 + n)
+    psi = _states(rng, batch, n, dev)
+    u = circuits.ansatz_unitary(torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev), n, 3)
+    first = tk.fused_unitary_expvals(psi, u, n)
+    second = tk.fused_unitary_expvals(psi, u, n)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_unitary_kernel_takes_misaligned_views_through_a_copy(dev):
+    """A contiguous view one float into its storage is refused by the launch
+    path before any launch, and the public function copies it to aligned
+    storage and launches the kernel."""
+    rng = np.random.default_rng(5)
+    psi = _states(rng, 9, 6, dev)
+    u = circuits.ansatz_unitary(torch.tensor(rng.uniform(-3, 3, (3, 6, 2)), dtype=torch.float32, device=dev), 6, 3)
+    shifted = torch.empty(9 * 64 + 1, device=dev)[1:].view(9, 64)
+    shifted.copy_(psi.re)
+    before = tk.launches["unitary_expvals"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tk._unitary_launch(shifted, psi.im, u.re.contiguous(), u.im.contiguous(), 6)
+    assert tk.launches["unitary_expvals"] == before
+    got = tk.fused_unitary_expvals(CArr(shifted, psi.im), u, 6)
+    assert tk.launches["unitary_expvals"] == before + 1
+    torch.testing.assert_close(got, tk.unitary_expvals_plain(psi.re, psi.im, u.re, u.im, 6), rtol=0, atol=5e-6)
 
 
 def test_rotation_and_unitary_gradients_match_plain(dev):

@@ -119,8 +119,9 @@ def test_wrappers_keep_lead_axes_and_do_not_count_on_cpu():
 
 
 def test_launch_paths_validate_before_loading(monkeypatch):
-    """The launch paths check the window, shapes, dtype and contiguity
-    before they touch the library (which cannot be built here)."""
+    """The launch paths check the window, shapes, dtype, contiguity and (the
+    unitary kernel's) alignment before they touch the library (which cannot
+    be built here)."""
     monkeypatch.setattr(tk, "_load", lambda name: pytest.fail("reached the loader"))
     z = torch.zeros(3, 16)
     w = torch.zeros(4, 2)
@@ -141,3 +142,10 @@ def test_launch_paths_validate_before_loading(monkeypatch):
         tk._unitary_launch(z, z, torch.zeros(8, 16), u, 4)
     with pytest.raises(ValueError, match="contiguous"):
         tk._unitary_launch(z, z, u.t(), u, 4)
+    # the unitary kernel's cp.async copies: 16-byte starts (8 at n = 1)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tk._unitary_launch(torch.zeros(3 * 16 + 1)[1:].view(3, 16), z, u, u, 4)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tk._unitary_launch(z, z, u, torch.zeros(16 * 16 + 2)[2:].view(16, 16), 4)
+    with pytest.raises(ValueError, match="8-byte boundary"):
+        tk._unitary_launch(torch.zeros(3 * 2 + 1)[1:].view(3, 2), torch.zeros(3, 2), torch.zeros(2, 2), torch.zeros(2, 2), 1)
