@@ -9,7 +9,8 @@ Phases, each of which exits non-zero on failure:
 2. build: compile the five circuit kernels from ``qdml_tpu_torch/csrc/`` with
    nvcc for sm_90a, in parallel, and print the build seconds and ptxas reports;
 3. kernels: hold each kernel against its plain PyTorch version on the card,
-   over qubit counts, layer counts and batch sizes, plus the autograd
+   over qubit counts (the rotation layer to n=20, the unitary kernel to
+   n=14), layer counts and batch sizes, plus the autograd
    gradients of the QSC, rotation-layer and unitary kernels against autograd
    through the plain versions, the adjoint kernel against autograd through
    the plain forward, and the out-of-window qubit counts that must raise.
@@ -46,8 +47,10 @@ Phases, each of which exits non-zero on failure:
    events), each kernel's device time per launch (torch profiler) over batch
    sizes (the adjoint at n 8 and 12, L=3, B 64 and 2304; the forward at n 8
    and 12, L=3, B 1, 64, 2304 with and without the state and 4096; the QSC
-   kernel at the batches its launches run at; the unitary kernel at n 6 and
-   10, B 1, 64 and 2304 beside the complex64 ``torch.matmul`` alone), each
+   kernel at the batches its launches run at; the rotation layer at n 8 and
+   14, B 1, 64 and 2304, and at n 16 and 20, B 1 and 64; the unitary kernel
+   at n 6 and 10, B 1, 64 and 2304, and at n 14, B 1 and 64, beside the
+   complex64 ``torch.matmul`` alone), each
    with its bound, the card's launch floor (the device
    time of a one-element in-place ``add_``, a yardstick on no path), the
    adjoint's resident blocks per SM (occupancy query), each bucket's
@@ -259,20 +262,26 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
                 f"per launch, bound {1e3 * bnd:.5f} us ({by}), launch floor {floor_us} us [{card}]")
     from qdml_tpu_torch.utils.complexops import CArr
 
-    for n in (8, 14):
+    # the rotation layer: every pass of a call summed (one launch a pass)
+    for n, batches in ((8, (1, 64, 2304)), (14, (1, 64, 2304)), (16, (1, 64)), (20, (1, 64))):
         w = torch.tensor(rng.uniform(-3, 3, (n, 2)), dtype=torch.float32, device=dev)
-        for b in (1, 64, 2304):
+        for b in batches:
             psi = CArr(torch.randn(b, 1 << n, device=dev), torch.randn(b, 1 << n, device=dev))
             us = profiled_device_us(torch, lambda: K.apply_rotation_layer(psi, w, n), "rotation_layer_kernel")
-            log(f"device sweep rotation_layer n={n} B={b}: {us} us per launch [{card}]")
+            bnd, by = bound(*rotation_work(b, n))
+            tile_bits, reg_bits, passes = K.rotation_layer_plan(b, n)
+            log(f"device sweep rotation_layer n={n} B={b}: {us} us per call ({passes} pass(es) of 2^{tile_bits} "
+                f"tiles, 2^{reg_bits} amplitudes a thread), bound {1e3 * bnd:.5f} us ({by}), launch floor "
+                f"{floor_us} us [{card}]")
+            del psi
     # the unitary kernel (both of its passes) beside the complex product alone,
     # torch.matmul on complex64, which the port never calls
-    for n in (6, 10):
+    for n, batches in ((6, (1, 64, 2304)), (10, (1, 64, 2304)), (14, (1, 64))):
         w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
-        u = circuits.ansatz_unitary(w, n, 3)
+        u = circuits.ansatz_unitary(w, n, 3 if n <= 12 else 1)  # one layer at n = 14: U is 2 GB
         u = CArr(u.re.contiguous(), u.im.contiguous())
         ut_c = torch.complex(u.re, u.im).T.contiguous()
-        for b in (1, 64, 2304):
+        for b in batches:
             psi = CArr(torch.randn(b, 1 << n, device=dev), torch.randn(b, 1 << n, device=dev))
             psi_c = torch.complex(psi.re, psi.im)
             us = profiled_device_us(torch, lambda: K.fused_unitary_expvals(psi, u, n), "unitary_expvals_")
@@ -379,28 +388,46 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
         a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
         return circuits.angle_embed(sv.zero_state(n, (b,), device=dev), a, n)
 
-    # rotation layer: atol 2e-6 of the largest amplitude, fp32 rounding of 2n
-    # gate updates (fused multiply-adds in the kernel, rounded products in
-    # the plain version), on unnormalised random states and embedded ones
-    for n in (1, 3, 6, 7, 8, 12, 14):
+    # rotation layer: atol 2e-6 of the largest amplitude through n = 14, fp32
+    # rounding of 2n gate updates (fused multiply-adds in the kernel, rounded
+    # products in the plain version); from n = 15 8n unit roundoffs (2^-24)
+    # of it, the same rounding's bound: 2n rotations, each rounding a
+    # two-term sum twice, in two implementations. On unnormalised random
+    # states and embedded ones, at batches that reach every tile plan (2^10,
+    # 2^12, 2^14) and pass count (one pass to n = 12, two from n = 13 at
+    # small B and from n = 15)
+    rot_batches = {13: (1, 11, 64, 264, 2304), 14: (1, 11, 64, 132, 2304), 15: (1, 2, 64), 16: (1, 2, 64),
+                   20: (1, 2, 64)}
+    for n in (1, 3, 6, 7, 8, 12, 13, 14, 15, 16, 20):
         w = torch.tensor(rng.uniform(-3, 3, (n, 2)), dtype=torch.float32, device=dev)
-        for b in (1, 11, 64, 2304):
+        for b in rot_batches.get(n, (1, 11, 64, 2304)):
             for kind, psi in (("random", CArr(randn(b, 1 << n), randn(b, 1 << n))), ("embedded", embedded(b, n))):
+                before = K.launches["rotation_layer"]
                 got = K.apply_rotation_layer(psi, w, n)
+                if K.launches["rotation_layer"] != before + 1:
+                    raise AssertionError(f"rotation_layer n={n} B={b}: not one kernel call")
                 want = K.rotation_layer_plain(psi.re, psi.im, w, n)
-                tol = 2e-6 * max(want.re.abs().max().item(), want.im.abs().max().item())
+                amax = max(want.re.abs().max().item(), want.im.abs().max().item())
+                tol = (2e-6 if n <= 14 else 8 * n * 2.0**-24) * amax
                 for x, y, what in ((got.re, want.re, "re"), (got.im, want.im, "im")):
                     close("rotation_layer", x, y, 0.0, tol, f"n={n} B={b} {kind} {what}")
-        log(f"check rotation_layer n={n}: ok")
+                del psi, got, want
+        tile_bits, reg_bits, passes = K.rotation_layer_plan(b, n)
+        log(f"check rotation_layer n={n}: ok (at B={b}: {passes} pass(es) of 2^{tile_bits} tiles, "
+            f"2^{reg_bits} amplitudes a thread)")
 
     # unitary: atol 5e-6 on unit-norm states, fp32 sums over 2^n terms (each
     # a 2^n-term product) taken in another order than the plain matmuls';
     # every n, at batches that reach each tile plan of the launcher, and the
     # same bits on a second launch (no atomics)
-    for n in range(1, 13):
+    # n = 13, 14 at one layer (U is 0.5 and 2 GB; the three-layer product
+    # alone would take 17 TFLOP at n = 14) and at batches that reach the
+    # three plans those n select
+    for n in range(1, 15):
         w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
-        u = circuits.ansatz_unitary(w, n, 3) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
-        for b in (1, 3, 9, 33, 64, 600, 2304):
+        layers = 3 if n <= 12 else 1
+        u = circuits.ansatz_unitary(w, n, layers) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
+        for b in (1, 3, 9, 33, 64, 600, 2304) if n <= 12 else (1, 9, 64, 1024) if n == 13 else (1, 9, 64):
             re, im = randn(b, 1 << n), randn(b, 1 << n)
             norm = torch.sqrt((re * re + im * im).sum(-1, keepdim=True))
             for kind, psi in (("random", CArr(re / norm, im / norm)), ("embedded", embedded(b, n))):
@@ -441,25 +468,32 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
             close("unitary_expvals", gk, gp, 1e-5, 1e-6, f"n={n} grad of input {k}")
     log("check rotation_layer and unitary_expvals gradients: ok")
 
-    # outside their windows both wrappers raise before any launch
-    for n in (0, 15):
-        z = CArr(torch.zeros(1, 1 << n, device=dev), torch.zeros(1, 1 << n, device=dev))
+    # outside their windows both wrappers raise before any launch (the
+    # rotation layer past n = 32 through its launch path: the state would
+    # not fit; a unitary of n = 15 is checked with a stand-in U of 1 x 1,
+    # since the window is checked first)
+    before = dict(K.launches)
+    refusals = (
+        ("rotation_layer n=0", lambda: K.apply_rotation_layer(
+            CArr(torch.zeros(1, 1, device=dev), torch.zeros(1, 1, device=dev)), torch.zeros(1, 2, device=dev), 0)),
+        ("rotation_layer n=33", lambda: K._rotation_launch(
+            torch.zeros(1, 1, device=dev), torch.zeros(1, 1, device=dev), torch.zeros(33, 2, device=dev), 33)),
+    ) + tuple(
+        (f"unitary_expvals n={n}", lambda n=n: K.fused_unitary_expvals(
+            CArr(torch.zeros(1, 1 << n, device=dev), torch.zeros(1, 1 << n, device=dev)),
+            CArr(torch.zeros(1, 1, device=dev), torch.zeros(1, 1, device=dev)), n))
+        for n in (0, 15)
+    )
+    for what, call in refusals:
         try:
-            K.apply_rotation_layer(z, torch.zeros(max(n, 1), 2, device=dev), n)
+            call()
         except ValueError:
             pass
         else:
-            raise AssertionError(f"rotation_layer accepted n={n}")
-    for n in (0, 13):
-        z = CArr(torch.zeros(1, 1 << n, device=dev), torch.zeros(1, 1 << n, device=dev))
-        u = CArr(torch.empty(1 << n, 1 << n, device=dev), torch.empty(1 << n, 1 << n, device=dev))
-        try:
-            K.fused_unitary_expvals(z, u, n)
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"unitary_expvals accepted n={n}")
-    log("check out-of-window n raises (rotation_layer n=0, 15; unitary_expvals n=0, 13): ok")
+            raise AssertionError(f"{what} was accepted")
+    if K.launches != before:
+        raise AssertionError("an out-of-window call launched a kernel")
+    log("check out-of-window n raises (rotation_layer n=0, 33; unitary_expvals n=0, 15): ok")
     return worst
 
 

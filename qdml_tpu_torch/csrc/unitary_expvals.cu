@@ -39,8 +39,11 @@
 //     the signs 1 - 2 * bit_q(j) taken from the column index, and sums across
 //     the threads of a row by shuffles.
 // The TPU kernel's 128-lane padding and whole-U residency in VMEM were TPU
-// artifacts; here U streams through shared memory, so n reaches 12. Plain
-// fp32 FMAs: no TF32.
+// artifacts; here U streams through shared memory, so n reaches 14 (U is
+// 0.5 GB of re+im at n = 13, 2 GB at n = 14; n = 13, 14 instantiate only the
+// plans n >= 8 can select: the small-batch, moderate and 64 x 64 tiles).
+// Past 14, U alone (8 GB at n = 15) outgrows any practical use, as the JAX
+// kernel's whole-U VMEM residency does. Plain fp32 FMAs: no TF32.
 // Measured (device time of both passes, torch profiler; NVIDIA H100 80GB
 // HBM3, 700.00 W; the first design in brackets, same call; the complex64
 // torch.matmul alone in braces): n = 6: 2.96 us at B = 1 [9.38] {4.54},
@@ -61,7 +64,7 @@
 
 namespace {
 
-constexpr int kMaxN = 12;
+constexpr int kMaxN = 14;
 constexpr int kStaticSmem = 48 * 1024;
 
 // A tile plan: RT x CT outputs a thread, TY x TX threads over the tile's rows
@@ -366,7 +369,7 @@ extern "C" int unitary_expvals_tiles(int batch, int n) {
 // psi_re, psi_im (batch, 2^n): the states; u_re, u_im (2^n, 2^n): U row-major;
 // out (batch, n); partial (tiles, batch, n) scratch when
 // unitary_expvals_tiles(batch, n) > 1, else may be null. All float32 on the
-// device, psi and U on a 4 * min(2^n, 4)-byte boundary. 1 <= n <= 12,
+// device, psi and U on a 4 * min(2^n, 4)-byte boundary. 1 <= n <= 14,
 // batch >= 1. One or two kernel launches (the second sums the column tiles).
 // Returns the first CUDA error, or 0.
 extern "C" int unitary_expvals_launch(const float* psi_re, const float* psi_im,
@@ -388,6 +391,8 @@ extern "C" int unitary_expvals_launch(const float* psi_re, const float* psi_im,
     case 9: err = run_n<9>(plan, psi_re, psi_im, u_re, u_im, out, partial, batch, s); break;
     case 10: err = run_n<10>(plan, psi_re, psi_im, u_re, u_im, out, partial, batch, s); break;
     case 11: err = run_n<11>(plan, psi_re, psi_im, u_re, u_im, out, partial, batch, s); break;
+    case 12: err = run_n<12>(plan, psi_re, psi_im, u_re, u_im, out, partial, batch, s); break;
+    case 13: err = run_n<13>(plan, psi_re, psi_im, u_re, u_im, out, partial, batch, s); break;
     case kMaxN: err = run_n<kMaxN>(plan, psi_re, psi_im, u_re, u_im, out, partial, batch, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -70,13 +70,19 @@ QSC_MAX_QUBITS = 8
 # 128-lane roll and does not apply here. The ring needs two wires.
 CIRCUIT_MIN_QUBITS = 2
 CIRCUIT_MAX_QUBITS = 12
-# Rotation-layer kernel window: one sample's state in shared memory, 128 KB of
-# re+im at n = 14. The JAX kernel's dim >= 128 floor (pallas_kernels.py:668)
-# came from the TPU's lane rolls and does not apply here.
-ROTATION_MAX_QUBITS = 14
+# Rotation-layer kernel window: the JAX kernel has no upper cap, and neither
+# has this one short of its index width: flat offsets are 64-bit, and B * 2^n
+# stays below 2^63 for every int32 batch up to n = 32 (a state of 2^32
+# amplitudes is already 32 GB of re+im). Past a tile (2^10-2^14 amplitudes)
+# the kernel makes passes through device memory. The JAX kernel's dim >= 128
+# floor (pallas_kernels.py:668) came from the TPU's lane rolls and does not
+# apply here.
+ROTATION_MAX_QUBITS = 32
 # Unitary kernel window: U streams through shared memory, so the bound is the
-# template instantiations (n a compile-time constant), not on-chip memory.
-UNITARY_MAX_QUBITS = 12
+# template instantiations (n a compile-time constant), not on-chip memory; U
+# is 2 GB of re+im at n = 14 and 8 GB at n = 15, and the JAX kernel, which
+# holds all of U in VMEM, has no practical window past that either.
+UNITARY_MAX_QUBITS = 14
 
 
 def reset_launch_counts() -> None:
@@ -160,6 +166,9 @@ def _load(name: str) -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     elif name == "rotation_layer":
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
+        for query in (lib.rotation_layer_tile_bits, lib.rotation_layer_reg_bits, lib.rotation_layer_passes):
+            query.restype = ctypes.c_int
+            query.argtypes = [i32, i32]
     elif name == "unitary_expvals":
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
         lib.unitary_expvals_tiles.restype = ctypes.c_int
@@ -511,14 +520,33 @@ def rotation_layer_plain(re: torch.Tensor, im: torch.Tensor, weights_l: torch.Te
     return psi
 
 
+def _check_rotation_window(n: int) -> None:
+    if not 1 <= n <= ROTATION_MAX_QUBITS:
+        raise ValueError(f"the rotation-layer kernel takes 1 <= n <= {ROTATION_MAX_QUBITS}, got n={n}")
+
+
+def rotation_layer_plan(batch: int, n: int) -> tuple[int, int, int]:
+    """``(tile_bits, reg_bits, passes)`` of the rotation-layer kernel's
+    launch at this batch and n: tiles of 2^tile_bits amplitudes, 2^reg_bits
+    of them a thread, and the passes through device memory, one launch each
+    (``csrc/rotation_layer.cu``, the plan's own exports)."""
+    _check_rotation_window(n)
+    lib = _load("rotation_layer")
+    return (lib.rotation_layer_tile_bits(batch, n), lib.rotation_layer_reg_bits(batch, n),
+            lib.rotation_layer_passes(batch, n))
+
+
 def _rotation_launch(re, im, weights_l, n: int) -> tuple[torch.Tensor, torch.Tensor]:
     dev = re.device
     batch, dim = re.shape[0], 1 << n
-    if not 1 <= n <= ROTATION_MAX_QUBITS:
-        raise ValueError(f"the rotation-layer kernel takes 1 <= n <= {ROTATION_MAX_QUBITS}, got n={n}")
+    _check_rotation_window(n)
     _check(re, "re", (batch, dim), dev)
     _check(im, "im", (batch, dim), dev)
     _check(weights_l, "weights_l", (n, 2), dev)
+    # the kernel loads and stores the state in 16-byte pieces
+    for t, what in ((re, "re"), (im, "im")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must start on a 16-byte boundary, got address {t.data_ptr():#x}")
     out_re = torch.empty((batch, dim), dtype=torch.float32, device=dev)
     out_im = torch.empty((batch, dim), dtype=torch.float32, device=dev)
     if batch == 0:
@@ -538,8 +566,9 @@ _RotationLayer = _kernel_fwd_plain_bwd(
 
 def apply_rotation_layer(psi: CArr, weights_l: torch.Tensor, n: int) -> CArr:
     """One ansatz rotation layer, RY(w[q, 0]) then RZ(w[q, 1]) on every wire,
-    of states ``psi`` (..., 2^n) with ``weights_l`` (n, 2): one kernel launch
-    on the card (1 <= n <= 14, else ``ValueError``); the ring CNOT that follows
+    of states ``psi`` (..., 2^n) with ``weights_l`` (n, 2): one kernel call on
+    the card (1 <= n <= 32, else ``ValueError``; one launch a pass, two passes
+    from n = 13 at small batches and from n = 15); the ring CNOT that follows
     in the ansatz is a permutation, applied outside
     (:func:`~qdml_tpu_torch.quantum.statevector.apply_perm`)."""
     lead = psi.re.shape[:-1]
@@ -550,7 +579,11 @@ def apply_rotation_layer(psi: CArr, weights_l: torch.Tensor, n: int) -> CArr:
     if re.device.type == "cpu":
         out = rotation_layer_plain(re, im, weights_l, n)
     else:
-        out = CArr(*_RotationLayer.apply(re.contiguous(), im.contiguous(), weights_l.contiguous(), n))
+        # a contiguous view that starts off a 16-byte boundary is copied to
+        # fresh storage, which is aligned
+        re, im = (t.contiguous() for t in (re, im))
+        re, im = (t.clone() if t.data_ptr() % 16 else t for t in (re, im))
+        out = CArr(*_RotationLayer.apply(re, im, weights_l.contiguous(), n))
     return CArr(out.re.reshape(lead + (dim,)), out.im.reshape(lead + (dim,)))
 
 
@@ -609,7 +642,7 @@ _UnitaryExpvals = _kernel_fwd_plain_bwd(
 
 def fused_unitary_expvals(psi: CArr, u: CArr, n: int) -> torch.Tensor:
     """``psi (..., 2^n) -> per-wire <Z> (..., n)`` through the unitary ``u``,
-    ``expvals_z(psi @ u^T)``: one kernel call on the card (1 <= n <= 12, else
+    ``expvals_z(psi @ u^T)``: one kernel call on the card (1 <= n <= 14, else
     ``ValueError``), which computes the complex product, |.|^2 and the sign
     contraction itself (its second pass adds the column tiles' sums)."""
     lead = psi.re.shape[:-1]

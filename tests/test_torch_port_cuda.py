@@ -137,10 +137,22 @@ def _states(rng, batch, n, dev):
     return CArr(*(torch.tensor(x / norm, dtype=torch.float32, device=dev) for x in (re, im)))
 
 
-@pytest.mark.parametrize("n,batch", [(1, 3), (7, 11), (8, 2304), (14, 5)])
+def _rotation_tol(n, amax):
+    """1e-6 on unit-norm states through n = 14 (one layer of fp32 gate
+    updates, fused multiply-adds in the kernel); from n = 15, 8 n unit
+    roundoffs (2^-24) of the largest amplitude: 2n rotations, each rounding a
+    two-term sum twice, in two implementations."""
+    return 1e-6 if n <= 14 else 8 * n * 2.0**-24 * amax
+
+
+# every plan: tiles of 2^10, 2^12 and 2^14 (a cluster of four blocks), two
+# or four register bits, one to three passes
+@pytest.mark.parametrize(
+    "n,batch",
+    [(1, 3), (7, 11), (8, 1), (8, 2304), (12, 7), (12, 600), (13, 3), (13, 300), (14, 5), (14, 64), (14, 2304),
+     (15, 2), (16, 2), (16, 64), (17, 1), (20, 1), (21, 1)],
+)
 def test_rotation_layer_kernel_matches_plain(dev, n, batch):
-    """Tolerance: 1e-6 on unit-norm states (one layer of fp32 gate updates,
-    fused multiply-adds in the kernel)."""
     rng = np.random.default_rng(20 + n)
     psi = _states(rng, batch, n, dev)
     w = torch.tensor(rng.uniform(-3, 3, (n, 2)), dtype=torch.float32, device=dev)
@@ -149,17 +161,48 @@ def test_rotation_layer_kernel_matches_plain(dev, n, batch):
     torch.cuda.synchronize()
     assert tk.launches["rotation_layer"] == before + 1
     want = tk.rotation_layer_plain(psi.re, psi.im, w, n)
+    tol = _rotation_tol(n, max(want.re.abs().max().item(), want.im.abs().max().item()))
+    torch.testing.assert_close(got.re, want.re, rtol=0, atol=tol)
+    torch.testing.assert_close(got.im, want.im, rtol=0, atol=tol)
+    # n = 0 raises before any launch; n = 15 is inside the window
+    with pytest.raises(ValueError, match="1 <= n <= 32"):
+        tk.apply_rotation_layer(CArr(torch.zeros(1, 1, device=dev), torch.zeros(1, 1, device=dev)), torch.zeros(0, 2, device=dev), 0)
+    assert tk.launches["rotation_layer"] == before + 1
+
+
+@pytest.mark.parametrize(
+    "n,batch,plan",
+    [(8, 1, (10, 2, 1)), (8, 2304, (10, 4, 1)), (12, 64, (12, 2, 1)), (13, 264, (14, 4, 1)),
+     (14, 2304, (14, 4, 1)), (14, 1, (10, 2, 2)), (14, 64, (10, 4, 2)), (16, 1, (10, 2, 2)),
+     (16, 64, (10, 4, 2)), (20, 1, (12, 4, 2)), (21, 1, (10, 4, 3))],
+)
+def test_rotation_layer_plan(dev, n, batch, plan):
+    """The launcher's (tile bits, register bits, passes): the plan the design
+    test emulates."""
+    assert tk.rotation_layer_plan(batch, n) == plan
+
+
+def test_rotation_layer_takes_misaligned_views_through_a_copy(dev):
+    rng = np.random.default_rng(6)
+    psi = _states(rng, 9, 6, dev)
+    w = torch.tensor(rng.uniform(-3, 3, (6, 2)), dtype=torch.float32, device=dev)
+    shifted = torch.empty(9 * 64 + 1, device=dev)[1:].view(9, 64)
+    shifted.copy_(psi.re)
+    before = tk.launches["rotation_layer"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tk._rotation_launch(shifted, psi.im, w, 6)
+    got = tk.apply_rotation_layer(CArr(shifted, psi.im), w, 6)
+    assert tk.launches["rotation_layer"] == before + 1
+    want = tk.rotation_layer_plain(psi.re, psi.im, w, 6)
     torch.testing.assert_close(got.re, want.re, rtol=0, atol=1e-6)
-    torch.testing.assert_close(got.im, want.im, rtol=0, atol=1e-6)
-    with pytest.raises(ValueError, match="1 <= n <= 14"):
-        tk.apply_rotation_layer(_states(rng, 1, 15, dev), torch.zeros(15, 2, device=dev), 15)
 
 
 # every tile plan of the launcher: B <= 4, moderate B, n <= 7 at B >= 512,
 # n >= 8 at B >= 1024
 @pytest.mark.parametrize(
     "n,batch",
-    [(1, 3), (6, 2304), (9, 40), (12, 33)] + [(n, b) for n in (1, 6, 7, 10, 12) for b in (1, 33, 2304)],
+    [(1, 3), (6, 2304), (9, 40), (12, 33)] + [(n, b) for n in (1, 6, 7, 10, 12) for b in (1, 33, 2304)]
+    + [(13, 1), (13, 33), (13, 1024), (14, 1), (14, 9)],
 )
 def test_unitary_kernel_matches_plain(dev, n, batch):
     """Tolerance: 5e-6 on unit-norm states (sums over 2^n terms, each a
@@ -167,7 +210,9 @@ def test_unitary_kernel_matches_plain(dev, n, batch):
     rng = np.random.default_rng(30 + n)
     psi = _states(rng, batch, n, dev)
     w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
-    u = circuits.ansatz_unitary(w, n, 3) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
+    # one layer past n = 12: the three-layer product alone would be 17 TFLOP at n = 14
+    layers = 3 if n <= 12 else 1
+    u = circuits.ansatz_unitary(w, n, layers) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
     before = tk.launches["unitary_expvals"]
     got = tk.fused_unitary_expvals(psi, u, n)
     torch.cuda.synchronize()

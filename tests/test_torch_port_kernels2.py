@@ -38,11 +38,13 @@ def _grads_torch(fn, inputs, cot):
     return [x.grad.numpy() for x in xs], [o.detach().numpy() for o in outs]
 
 
-@pytest.mark.parametrize("n", [3, 6, 7, 8])
+@pytest.mark.parametrize("n", [3, 6, 7, 8, 15, 16])
 def test_rotation_layer_matches_jax(n):
-    """n=3, 6 take JAX's XLA branch (dim < 128), n=7, 8 its Pallas kernel."""
+    """n=3, 6 take JAX's XLA branch (dim < 128), n=7, 8 its Pallas kernel;
+    n=15, 16 (two batch rows, for time) lie past the port kernel's old
+    n <= 14 cap, which JAX's kernel never had."""
     rng = np.random.default_rng(n)
-    batch = 5
+    batch = 5 if n <= 8 else 2
     re = rng.standard_normal((batch, 1 << n)).astype(np.float32)
     im = rng.standard_normal((batch, 1 << n)).astype(np.float32)
     norm = np.sqrt((re**2 + im**2).sum(-1, keepdims=True))
@@ -125,10 +127,17 @@ def test_launch_paths_validate_before_loading(monkeypatch):
     monkeypatch.setattr(tk, "_load", lambda name: pytest.fail("reached the loader"))
     z = torch.zeros(3, 16)
     w = torch.zeros(4, 2)
-    with pytest.raises(ValueError, match="1 <= n <= 14"):
-        tk._rotation_launch(torch.zeros(1, 1 << 15), torch.zeros(1, 1 << 15), torch.zeros(15, 2), 15)
-    with pytest.raises(ValueError, match="1 <= n <= 14"):
+    # n = 0 and past the 64-bit index's n = 32 raise; n = 15 passes the
+    # checks (it reaches the loader, the test's tripwire)
+    with pytest.raises(ValueError, match="1 <= n <= 32"):
         tk._rotation_launch(torch.zeros(1, 1), torch.zeros(1, 1), torch.zeros(0, 2), 0)
+    with pytest.raises(ValueError, match="1 <= n <= 32"):
+        tk._rotation_launch(torch.zeros(1, 1), torch.zeros(1, 1), torch.zeros(33, 2), 33)
+    with pytest.raises(pytest.fail.Exception, match="reached the loader"):
+        tk._rotation_launch(torch.zeros(1, 1 << 15), torch.zeros(1, 1 << 15), torch.zeros(15, 2), 15)
+    # the rotation kernel's 16-byte loads and stores
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tk._rotation_launch(torch.zeros(3 * 16 + 1)[1:].view(3, 16), z, w, 4)
     with pytest.raises(ValueError, match="shape"):
         tk._rotation_launch(z, z, torch.zeros(3, 2), 4)
     with pytest.raises(TypeError, match="float32"):
@@ -136,8 +145,10 @@ def test_launch_paths_validate_before_loading(monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         tk._rotation_launch(torch.zeros(16, 3).t(), z, w, 4)
     u = torch.zeros(16, 16)
-    with pytest.raises(ValueError, match="1 <= n <= 12"):
-        tk._unitary_launch(torch.zeros(1, 1 << 13), torch.zeros(1, 1 << 13), u, u, 13)
+    with pytest.raises(ValueError, match="1 <= n <= 14"):
+        tk._unitary_launch(torch.zeros(1, 1 << 15), torch.zeros(1, 1 << 15), u, u, 15)
+    with pytest.raises(ValueError, match="1 <= n <= 14"):
+        tk._unitary_launch(torch.zeros(1, 1), torch.zeros(1, 1), u, u, 0)
     with pytest.raises(ValueError, match="shape"):
         tk._unitary_launch(z, z, torch.zeros(8, 16), u, 4)
     with pytest.raises(ValueError, match="contiguous"):
