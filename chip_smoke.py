@@ -7,7 +7,9 @@ Phases, each of which exits non-zero on failure:
 
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile the five circuit kernels from ``qdml_tpu_torch/csrc/`` with
-   nvcc for sm_90a, in parallel, and print the build seconds and ptxas reports;
+   nvcc for sm_90a, in parallel (the unitary kernel's in a thread that the
+   kernel phase joins before its unitary checks), and print the build
+   seconds and ptxas reports;
 3. kernels: hold each kernel against its plain PyTorch version on the card,
    over qubit counts (the rotation layer to n=20, the unitary kernel to
    n=14), layer counts and batch sizes, plus the autograd
@@ -16,46 +18,64 @@ Phases, each of which exits non-zero on failure:
    the plain forward, and the out-of-window qubit counts that must raise.
    No entry point reaches the rotation-layer kernel (the JAX package reaches
    its own only from ``tests/test_pallas.py``), so this phase is its path;
-4. serving: three full-width engines (S=3 trunks of 32 features on the
+4. autotune: the circuit-impl race (``quantum/autotune.ensure``, forced) on
+   the card at n=6 L=3 buckets 64 and 4096 (the training step's 2304 rows)
+   and n=8 L=3 bucket 64, into a table under ``build/chip_smoke/autotune/``;
+   every candidate's ``fwd_ms`` and ``train_ms`` and the winners are printed.
+   It fails if a candidate records an error, if the QSC kernel, the circuit
+   forward or its adjoint was not launched by the race, or if a second
+   ``prewarm`` measures anything;
+5. serving: four full-width engines (S=3 trunks of 32 features on the
    16x8x2 image, the 4096->2048 head, seeded random weights) — quantum n=6
    L=3 through impl ``pallas``, quantum n=8 L=3 through impl
-   ``pallas_circuit``, and the classical SCP128 — answer batches of 1, 5, 64
-   and 100 requests over buckets (1, 8, 64); the kernels' launch counters are
-   zeroed just before and read just after, and every answer is held against
-   the same engine built on the CPU from the same weights;
-5. microbench: the port's circuit micro-benchmark
+   ``pallas_circuit``, quantum n=6 L=3 at impl ``auto`` (each bucket's impl
+   from the race's table, tuned at warmup where missing), and the classical
+   SCP128 — answer batches of 1, 5, 64 and 100 requests over buckets (1, 8,
+   64); the kernels' launch counters are zeroed just before and read just
+   after, and every answer is held against the same engine built on the CPU
+   from the same weights. Then, counters zeroed again: a forced
+   ``serve.dispatch=sparse`` engine on a balanced and on a skewed batch (every
+   row to one scenario, so it overflows) against the dense one; a forced
+   ``serve.batching=ragged`` engine at every fill 1..64 with NaN in the pad
+   rows against the bucket engine; ``swap_params`` of the ``auto`` engine to a
+   second set of weights against a fresh engine on them, and a mismatched
+   state dict that must raise. No engine may measure, write a table or build
+   a kernel in ``infer`` after its warmup;
+6. microbench: the port's circuit micro-benchmark
    (``qdml_tpu_torch.scripts.quantum_microbench``) at its full shape (n=6,
    L=3, B=2304), counters zeroed before and read after; every row's <Z> is
    held against the ``dense`` row's within 1e-5. Its ``pallas_old`` row is
    the unitary kernel's path;
-6. training: at full width on data synthesized on the card (data_len 2048 per
-   cell, cut from the reference's 20000 for time), four trainers each run one
+7. training: at full width on data synthesized on the card (data_len 2048 per
+   cell, cut from the reference's 20000 for time), five trainers each run one
    epoch (7 steps of 256 rows per cell, 2304 a step) and validate: HDCE
    (Adam), SC (Adam), QSC n=6 L=3 under impl ``pallas`` (AdamW, QuantumNAT
-   sigma 0.01) and QSC n=8 L=3 under impl ``pallas_circuit`` (AdamW, quantile
-   gradient pruning 0.5), with the counters zeroed just before and read just
-   after each; their first 2 steps are run again on a CPU twin from the same
-   weights and batches (the same QuantumNAT noise) and held against it. The
-   HDCE, SC and n=6 QSC write their checkpoints under ``build/chip_smoke/``;
-7. eval: ``python -m qdml_tpu_torch.cli eval`` over those checkpoints (the
+   sigma 0.01), QSC n=8 L=3 under impl ``pallas_circuit`` (AdamW, quantile
+   gradient pruning 0.5) and QSC n=6 L=3 at impl ``auto``, which must log its
+   ``quantum_autotune`` entry from the race's table without measuring; the
+   counters are zeroed just before and read just after each; the first 2
+   steps of the first four are run again on a CPU twin from the same weights
+   and batches (the same QuantumNAT noise) and held against it. The HDCE, SC
+   and n=6 ``pallas`` QSC write their checkpoints under ``build/chip_smoke/``;
+8. eval: ``python -m qdml_tpu_torch.cli eval`` over those checkpoints (the
    SNR sweep 5..15 dB, batch 200, test_len 2000 per point, cut from the
    reference's 10000 for time), results under ``build/chip_smoke/``, counters
    zeroed before and read after; one SNR point's per-batch sums are held
    against the same per-batch function on the CPU with the same weights and
-   the same test batches;
-8. times: each kernel and its plain version at its path's shapes (CUDA
+   the same test batches; then one SNR point of the sweep with
+   ``dispatch="sparse"`` against ``dense`` at rtol 1e-4;
+9. times: each kernel and its plain version at its path's shapes (CUDA
    events), each kernel's device time per launch (torch profiler) over batch
    sizes (the adjoint at n 8 and 12, L=3, B 64 and 2304; the forward at n 8
-   and 12, L=3, B 1, 64, 2304 with and without the state and 4096; the QSC
-   kernel at the batches its launches run at; the rotation layer at n 8 and
-   14, B 1, 64 and 2304, and at n 16 and 20, B 1 and 64; the unitary kernel
-   at n 6 and 10, B 1, 64 and 2304, and at n 14, B 1 and 64, beside the
-   complex64 ``torch.matmul`` alone), each
+   and 12, L=3, B 1 and 64, and 2304 with the state; the QSC kernel at the
+   batches its launches run at; the rotation layer at n 8 and 14, B 1 and
+   2304, and at n 20, B 64; the unitary kernel at n 6, B 2304, n 10, B 1 and
+   2304, and n 14, B 1, beside the complex64 ``torch.matmul`` alone), each
    with its bound, the card's launch floor (the device
    time of a one-element in-place ``add_``, a yardstick on no path), the
    adjoint's resident blocks per SM (occupancy query), each bucket's
    ``infer`` latency and each trainer's step time with its
-   forward/backward/update split (host clock).
+   forward/backward/update split (host clock), and each phase's wall time.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and
@@ -69,6 +89,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -90,6 +111,12 @@ EVAL_WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
 EVAL_TEST_LEN = 2000
 # the trainers whose checkpoints the eval phase restores
 EVAL_TRAINERS = ("hdce", "sc", "qsc_n6_pallas")
+# the impl race's table, under build/ (results_torch/ is the port's default,
+# results/ the JAX package's)
+TUNE_DIR = EVAL_WORK / "autotune"
+# (n, L, batch) of the race: the serving bucket at n=6 and n=8, and the
+# training step's 2304 rows (bucket 4096) at n=6
+RACE_SHAPES = ((6, 3, 64), (6, 3, 2304), (8, 3, 64))
 # the rotation-layer kernel's timed shape, and the unitary kernel's (the microbench's)
 ROT_N, UNI_N, WIDE_BATCH = 8, 6, 2304
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and fp32 non-tensor rate
@@ -226,7 +253,7 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
     card's launch floor."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 3)
-    for n, batches in ((6, (1, 64, 200, 2304, 4096)), (8, (1, 64, 2304, 4096))):
+    for n, batches in ((6, (1, 64, 200, 2304)), (8, (64, 2304))):
         w = torch.tensor(rng.uniform(0, 2 * np.pi, (3, n, 2)), dtype=torch.float32, device=dev)
         u = circuits.ansatz_unitary(w, n, 3)
         ur, ui = u.re.contiguous(), u.im.contiguous()
@@ -252,7 +279,7 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
     # launch's B=2304 with the state written for the adjoint
     for n in (8, 12):
         w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
-        for b, state in ((1, False), (64, False), (2304, True), (2304, False), (4096, False)):
+        for b, state in ((1, False), (64, False), (2304, True)):
             a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
             us = profiled_device_us(
                 torch, lambda: K.fused_circuit_expvals(a, w, n, 3, return_state=state), "circuit_expvals_kernel"
@@ -263,7 +290,7 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
     from qdml_tpu_torch.utils.complexops import CArr
 
     # the rotation layer: every pass of a call summed (one launch a pass)
-    for n, batches in ((8, (1, 64, 2304)), (14, (1, 64, 2304)), (16, (1, 64)), (20, (1, 64))):
+    for n, batches in ((8, (1, 2304)), (14, (1, 2304)), (20, (64,))):
         w = torch.tensor(rng.uniform(-3, 3, (n, 2)), dtype=torch.float32, device=dev)
         for b in batches:
             psi = CArr(torch.randn(b, 1 << n, device=dev), torch.randn(b, 1 << n, device=dev))
@@ -276,7 +303,7 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
             del psi
     # the unitary kernel (both of its passes) beside the complex product alone,
     # torch.matmul on complex64, which the port never calls
-    for n, batches in ((6, (1, 64, 2304)), (10, (1, 64, 2304)), (14, (1, 64))):
+    for n, batches in ((6, (2304,)), (10, (1, 2304)), (14, (1,))):
         w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
         u = circuits.ansatz_unitary(w, n, 3 if n <= 12 else 1)  # one layer at n = 14: U is 2 GB
         u = CArr(u.re.contiguous(), u.im.contiguous())
@@ -291,9 +318,10 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
                 f"alone {mm_us} us, bound {1e3 * bnd:.5f} us ({by}), launch floor {floor_us} us [{card}]")
 
 
-def check_kernels(torch, K, circuits) -> dict[str, float]:
+def check_kernels(torch, K, circuits, unitary_ready=lambda: None) -> dict[str, float]:
     """Each kernel against its plain version on the card; returns the largest
-    absolute error seen per kernel. Raises on any mismatch."""
+    absolute error seen per kernel. Raises on any mismatch. ``unitary_ready``
+    returns once the unitary kernel is built: its checks come last."""
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     worst = {name: 0.0 for name in K.KERNELS}
@@ -416,6 +444,7 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
         log(f"check rotation_layer n={n}: ok (at B={b}: {passes} pass(es) of 2^{tile_bits} tiles, "
             f"2^{reg_bits} amplitudes a thread)")
 
+    unitary_ready()
     # unitary: atol 5e-6 on unit-norm states, fp32 sums over 2^n terms (each
     # a 2^n-term product) taken in another order than the plain matmuls';
     # every n, at batches that reach each tile plan of the launcher, and the
@@ -497,8 +526,51 @@ def check_kernels(torch, K, circuits) -> dict[str, float]:
     return worst
 
 
+def autotune_phase(torch, K, cfg_mod, card: str) -> dict[str, int]:
+    """The circuit-impl race on the card at :data:`RACE_SHAPES`, forced, into
+    the table under :data:`TUNE_DIR`, with the counters zeroed just before and
+    read just after. Fails on a candidate error, on a kernel of the race not
+    launched, and on a second ``prewarm`` that measures. Returns the race's
+    launches."""
+    from dataclasses import replace
+
+    from qdml_tpu_torch.quantum import autotune
+    from qdml_tpu_torch.utils.tune_table import activity
+
+    K.reset_launch_counts()
+    entries = {}
+    for n, layers, batch in RACE_SHAPES:
+        entry = autotune.ensure(n, layers, batch, force=True, device=DEVICE)
+        entries[(n, layers, batch)] = entry
+        for impl, rec in entry["candidates"].items():
+            if "error" in rec:
+                raise AssertionError(f"autotune n={n} L={layers} B={batch}: candidate {impl} failed: {rec['error']}")
+            log(f"autotune n={n} L={layers} bucket {entry['batch_bucket']} {impl}: fwd_ms {rec['fwd_ms']}, "
+                f"train_ms {rec['train_ms']} (median of reps, host clock, synchronized) [{card}]")
+        log(f"autotune n={n} L={layers} bucket {entry['batch_bucket']}: winners train {entry['best_train']}, "
+            f"infer {entry['best_fwd']} [{card}]")
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    log(f"autotune race launches: {json.dumps(counts)}; table {autotune.table_path()}")
+    for k in ("qsc_expvals", "circuit_expvals", "circuit_adjoint"):
+        if counts[k] == 0:
+            raise AssertionError(f"the impl race never launched kernel {k}")
+    # a warm table: prewarm reads, and measures and writes nothing
+    base = cfg_mod.ExperimentConfig()
+    before = dict(activity)
+    for (n, layers, batch), entry in entries.items():
+        cfg = replace(base, quantum=replace(base.quantum, n_qubits=n, n_layers=layers))
+        again = autotune.prewarm(cfg, batch=batch, device=DEVICE)
+        if again is None or again["ts"] != entry["ts"]:
+            raise AssertionError(f"prewarm n={n} B={batch} did not return the race's entry")
+    if activity != before:
+        raise AssertionError(f"a second prewarm measured or wrote: {before} -> {dict(activity)}")
+    log("autotune: a second prewarm of every shape read the table without measuring: ok")
+    return counts
+
+
 def serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod):
-    """Build the three engines on the card and on the CPU, drive the card's
+    """Build the four engines on the card and on the CPU, drive the card's
     through the request sizes with the launch counters zeroed, and hold every
     answer against the CPU twin. Returns per-kernel launches, the engines and
     the requests."""
@@ -508,6 +580,9 @@ def serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod):
     variants = {
         "qsc_n6_pallas": (replace(base, quantum=replace(base.quantum, n_qubits=6, n_layers=3, impl="pallas")), True),
         "qsc_n8_pallas_circuit": (replace(base, quantum=replace(base.quantum, n_qubits=8, n_layers=3, impl="pallas_circuit")), True),
+        # impl auto: each bucket's impl from the race's table (tuned at warmup
+        # where the table has no entry); its CPU twin runs the heuristic's
+        "qsc_n6_auto": (replace(base, quantum=replace(base.quantum, n_qubits=6, n_layers=3)), True),
         "sc_classical": (base, False),
     }
     gen = torch.Generator().manual_seed(SEED)
@@ -520,13 +595,18 @@ def serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod):
         warm = gpu.warmup()
         cpu.warmup()
         log(f"engine {name}: warm {json.dumps(warm)}")
+        if gpu.quantum_impl:
+            log(f"engine {name}: per-bucket circuit impl "
+                f"{json.dumps({b: r['impl'] for b, r in gpu.quantum_impl.items()})}")
         engines[name] = (gpu, cpu)
 
     rng = np.random.default_rng(SEED + 1)
     hw = base.image_hw
     requests = {n: rng.standard_normal((n, *hw, 2)).astype(np.float32) for n in REQUEST_SIZES}
 
-    # the main path: counters zeroed just before, read just after
+    # the main path: counters zeroed just before, read just after; the work
+    # counters (measurements, table writes, kernel builds) must not move
+    work0 = {name: gpu.request_path_work() for name, (gpu, _) in engines.items()}
     K.reset_launch_counts()
     answers = {}
     per_engine = {}
@@ -572,7 +652,130 @@ def serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod):
                 f"rows {info.rows}, max|h-h_cpu| {err:.3e} (tol {tol:.3e}), "
                 f"routed rows agreeing {int(same.sum())}/{n}, sure {int(sure.sum())}"
             )
+        if gpu.request_path_work() != work0[name]:
+            raise AssertionError(f"{name}: the request path measured, wrote a table or built a kernel: "
+                                 f"{work0[name]} -> {gpu.request_path_work()}")
+    log("serve: no engine measured, wrote a table or built a kernel on its request path")
     return launches, engines, requests
+
+
+def serve_close(a, b, what: str) -> float:
+    """The serving tolerance: ``h`` within 1e-4 max|h| + 1e-5."""
+    tol = 1e-4 * np.abs(b).max() + 1e-5
+    err = float(np.abs(a - b).max()) if a.size else 0.0
+    if err > tol:
+        raise AssertionError(f"{what}: max |h - h_ref| {err:.3e} > {tol:.3e}")
+    return err
+
+
+def serve_dispatch(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod, engines, card: str) -> dict[str, int]:
+    """Sparse, ragged and hot-swapped engines on the card, counters zeroed
+    just before and read just after, each held against its twin at the
+    serving tolerance. Returns the launches."""
+    from dataclasses import replace
+
+    from qdml_tpu_torch.ops.routing import expert_capacity
+
+    base = cfg_mod.ExperimentConfig()
+    # the classical engine's weights: its bucket engine is the ragged one's twin
+    bucket_eng = engines["sc_classical"][0]
+    hdce_sd = {k: v.cpu() for k, v in bucket_eng.hdce.state_dict().items()}
+    sc_sd = {k: v.cpu() for k, v in bucket_eng.clf.state_dict().items()}
+    hw = base.image_hw
+    rng = np.random.default_rng(SEED + 11)
+    K.reset_launch_counts()
+
+    # sparse at S=3, forced: a balanced batch (no scenario past its capacity)
+    # picked from a pool by the dense engine's routing, and a skewed one
+    sparse_cfg = replace(base, serve=replace(base.serve, dispatch="sparse"))
+    cap = expert_capacity(SERVE_BATCH, 3, base.serve.capacity_factor)
+    for kind in ("balanced", "skewed"):
+        clf_sd = dict(sc_sd)
+        if kind == "skewed":  # every row to scenario 1
+            clf_sd["FC.bias"] = torch.tensor([0.0, 50.0, 0.0])
+        dense = engine_mod.ServeEngine(base, hdce_sd, clf_sd, buckets=BUCKETS)
+        sparse = engine_mod.ServeEngine(sparse_cfg, hdce_sd, clf_sd, buckets=BUCKETS)
+        dense.warmup()
+        sparse.warmup()
+        pool = rng.standard_normal((1024, *hw, 2)).astype(np.float32)
+        _, pool_pred, _, _ = dense.infer(pool)
+        if kind == "balanced":
+            rows = np.concatenate([np.flatnonzero(pool_pred == s)[:22] for s in range(3)])[:SERVE_BATCH]
+            if len(rows) < SERVE_BATCH or max(np.bincount(pool_pred[rows], minlength=3)) > cap:
+                raise AssertionError(f"no balanced batch in the pool: {np.bincount(pool_pred, minlength=3)}")
+            x = pool[rows]
+        else:
+            x = pool[:SERVE_BATCH]
+        work0 = sparse.request_path_work()
+        h, pred, conf, info = sparse.infer(x)
+        hd, pd, cd, _ = dense.infer(x)
+        if not np.array_equal(pred, pd):
+            raise AssertionError(f"sparse {kind}: routing differs from the dense engine")
+        err = serve_close(h, hd, f"sparse {kind}")
+        summary = sparse.dispatch_summary()
+        log(f"serve sparse S=3 {kind} batch of {SERVE_BATCH}: scenarios {np.bincount(pred, minlength=3).tolist()}, "
+            f"capacity {cap} a scenario, overflow rows {summary['overflow_rows']}, max|h - h_dense| {err:.3e}, "
+            f"|conf - conf_dense| {np.abs(conf - cd).max():.3e}")
+        if (summary["overflow_rows"] > 0) != (kind == "skewed"):
+            raise AssertionError(f"sparse {kind}: overflow rows {summary['overflow_rows']}")
+        if sparse.request_path_work() != work0:
+            raise AssertionError("the sparse engine's request path measured, wrote or built")
+
+    # ragged, forced, at every fill with NaN in the pad rows
+    ragged = engine_mod.ServeEngine(
+        replace(base, serve=replace(base.serve, batching="ragged")), hdce_sd, sc_sd, buckets=BUCKETS
+    )
+    ragged.warmup()
+    x = rng.standard_normal((SERVE_BATCH, *hw, 2)).astype(np.float32)
+    worst = 0.0
+    for n in range(1, SERVE_BATCH + 1):
+        b = next(bb for bb in BUCKETS if bb >= n)
+        xp = np.full((b, *hw, 2), np.nan, np.float32)
+        xp[:n] = x[:n]
+        h, pred, conf, _ = ragged.forward_tier(xp, n)
+        if not (torch.isfinite(h).all() and torch.isfinite(conf).all()):
+            raise AssertionError(f"ragged fill {n}: a NaN pad row reached the outputs")
+        hb, pb, _, _ = bucket_eng.infer(x[:n])
+        if not np.array_equal(pred[:n].cpu().numpy(), pb):
+            raise AssertionError(f"ragged fill {n}: routing differs from the bucket engine")
+        worst = max(worst, serve_close(h[:n].cpu().numpy(), hb, f"ragged fill {n}"))
+    log(f"serve ragged: fills 1..{SERVE_BATCH} with NaN pad rows, all outputs finite, max|h - h_bucket| "
+        f"{worst:.3e}; batching {json.dumps(ragged.batching_summary())}")
+
+    # hot-swap of the auto engine to a second set of weights
+    auto, _ = engines["qsc_n6_auto"]
+    gen2 = torch.Generator().manual_seed(SEED + 7)
+    new_h = hdce_mod.build_hdce(base, device="cpu", generator=gen2).state_dict()
+    new_c = qsc_mod.build_classifier(auto.cfg, True, device="cpu", generator=gen2).state_dict()
+    fresh = engine_mod.ServeEngine(auto.cfg, new_h, new_c, quantum=True, buckets=BUCKETS)
+    fresh.warmup()
+    rec = auto.swap_params(new_h, new_c)
+    work0 = auto.request_path_work()
+    if rec["epoch"] != 1 or any(rec["work"].values()):
+        raise AssertionError(f"swap_params: {rec}")
+    for n in REQUEST_SIZES:
+        x = rng.standard_normal((n, *hw, 2)).astype(np.float32)
+        h, pred, conf, _ = auto.infer(x)
+        hf, pf, cf, _ = fresh.infer(x)
+        if not np.array_equal(pred, pf) or np.abs(conf - cf).max() > 1e-4:
+            raise AssertionError(f"swapped engine n={n}: routing or confidence differs from a fresh engine")
+        err = serve_close(h, hf, f"swapped engine n={n}")
+    bad = dict(new_h)
+    bad["head.FC.bias"] = torch.zeros(7)
+    try:
+        auto.swap_params(bad, new_c)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("swap_params accepted a mismatched state dict")
+    if auto.swap_epoch != 1 or auto.request_path_work() != work0:
+        raise AssertionError("the swapped engine moved its epoch or did request-path work")
+    log(f"serve swap_params: epoch {rec['epoch']}, against a fresh engine on the new weights max|h - h_fresh| "
+        f"{err:.3e} at n={REQUEST_SIZES[-1]}; a mismatched state dict raised")
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    log(f"serve dispatch/ragged/swap launches: {json.dumps(counts)}")
+    return counts
 
 
 def microbench(torch, K, card: str) -> dict[str, int]:
@@ -688,6 +891,21 @@ def evaluate(torch, K, mods, card: str) -> dict[str, int]:
                     raise AssertionError(f"eval twin batch {b} {key}: card {g} vs CPU {w_} (rel {rel:.2e})")
     log(f"eval twin at {snr:g} dB over {EVAL_TEST_LEN // bs} batches: per-batch sums within rel "
         f"{worst:.3e} of the CPU's (rtol 1e-4); {skipped} sums skipped for near-tie routing")
+
+    # one SNR point of the sweep routed sparse against dense, on the card
+    from dataclasses import replace
+
+    from qdml_tpu_torch.eval.sweep import run_snr_sweep
+
+    point = replace(cfg, eval=replace(cfg.eval, snr_grid=(snr,)))
+    by = {d: run_snr_sweep(point, models[DEVICE], device=DEVICE, dispatch=d) for d in ("dense", "sparse")}
+    for key, dense_db in by["dense"]["nmse_db"].items():
+        if not np.allclose(by["sparse"]["nmse_db"][key], dense_db, rtol=1e-4, atol=0.0):
+            raise AssertionError(f"eval sparse {key}: {by['sparse']['nmse_db'][key]} dB vs dense {dense_db} dB")
+    if by["sparse"]["acc"] != by["dense"]["acc"]:
+        raise AssertionError(f"eval sparse accuracies {by['sparse']['acc']} vs dense {by['dense']['acc']}")
+    log(f"eval sparse dispatch at {snr:g} dB: NMSE dB {json.dumps(by['sparse']['nmse_db'])} within rtol 1e-4 "
+        f"of dense {json.dumps(by['dense']['nmse_db'])}")
     return counts
 
 
@@ -721,7 +939,12 @@ def trainer_configs(cfg_mod):
         "qsc_n8_pallas_circuit": (replace(base, quantum=replace(
             q, n_qubits=8, n_layers=3, impl="pallas_circuit", use_gradient_pruning=True,
             gradient_prune_mode="quantile", gradient_threshold=0.5)), True),
+        "qsc_n6_auto": (replace(base, quantum=replace(q, n_qubits=6, n_layers=3)), True),
     }
+
+
+# impl auto picks one of the impls whose trainers the twin already holds
+NO_TWIN = ("qsc_n6_auto",)
 
 
 def trainee(mods, cfg, quantum, device, steps_per_epoch):
@@ -810,16 +1033,19 @@ def train(torch, K, mods, card: str):
         {k: b[k] for k in ("yp_img", "h_label", "h_perf", "indicator")}
         for _, b in zip(range(TWIN_STEPS), loader.epoch(0))
     ]
+    from qdml_tpu_torch.utils.tune_table import activity
+
     launches = {k: 0 for k in K.launches}
     per_step_adjoint = None
-    shutil.rmtree(EVAL_WORK, ignore_errors=True)
     for name, (cfg, quantum) in trainer_configs(mods["config"]).items():
-        cpu_twin(torch, mods, name, cfg, quantum, batches, spe)
+        if name not in NO_TWIN:
+            cpu_twin(torch, mods, name, cfg, quantum, batches, spe)
 
         # the eval phase's checkpoints (cli eval's workdir scheme)
         workdir = mods["cli"].workdir_of(mods["config"].from_args([f"--train.workdir={EVAL_WORK / 'ws'}"]))
         workdir = workdir if name in EVAL_TRAINERS else None
         rec = Recorder()
+        work0 = dict(activity)
         K.reset_launch_counts()
         t0 = time.perf_counter()
         if quantum is None:
@@ -847,6 +1073,12 @@ def train(torch, K, mods, card: str):
             if counts["circuit_expvals"] == 0 or counts["circuit_adjoint"] == 0:
                 raise AssertionError("the pallas_circuit trainer never launched the circuit kernels")
             per_step_adjoint = counts["circuit_adjoint"] / spe
+        if name == "qsc_n6_auto":
+            tuned = [r for r in rec.records if r.get("kind") == "quantum_autotune"]
+            if len(tuned) != 1 or activity != work0:
+                raise AssertionError(f"train {name}: autotune records {tuned}, work {work0} -> {dict(activity)}")
+            log(f"train {name}: quantum_autotune {tuned[0]['key']}: impl {tuned[0]['impl']} (train), "
+                f"{tuned[0]['impl_infer']} (infer), read from the race's table without measuring")
 
         # step time and its split, on a fresh model: forward (loss), backward, update
         saved = dict(K.launches)
@@ -908,14 +1140,38 @@ def main() -> int:
     log(f"gpu: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    def log_build(secs: dict, t0: float) -> None:
+        log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} wall {time.perf_counter() - t0:.2f} s")
+        for name in secs:
+            for line in K.build_log.get(name, "").splitlines():
+                if ("ptxas" in line and ("registers" in line or "smem" in line or "Compiling entry" in line)
+                        or "spill" in line):
+                    log(f"ptxas {name}: {line.strip()}")
+
+    # every kernel's nvcc starts now; the unitary kernel's source (three tile
+    # plans for each n up to 14) compiles longest, so its build runs in a
+    # thread beside the other four kernels' checks, which come first
     t0 = time.perf_counter()
-    secs = K.build()
-    log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} wall {time.perf_counter() - t0:.2f} s")
-    for name, text in K.build_log.items():
-        for line in text.splitlines():
-            if ("ptxas" in line and ("registers" in line or "smem" in line or "Compiling entry" in line)
-                    or "spill" in line):
-                log(f"ptxas {name}: {line.strip()}")
+    slow = "unitary_expvals"
+    slow_build: dict = {}
+
+    def build_slow():
+        try:
+            slow_build["secs"] = K.build((slow,))
+        except Exception as e:  # re-raised in the main thread by unitary_ready
+            slow_build["error"] = e
+
+    slow_thread = threading.Thread(target=build_slow)
+    slow_thread.start()
+    log_build(K.build(tuple(k for k in K.KERNELS if k != slow)), t0)
+
+    def unitary_ready() -> None:
+        t = time.perf_counter()
+        slow_thread.join()
+        if "error" in slow_build:
+            raise slow_build["error"]
+        log_build(slow_build["secs"], t0)
+        log(f"build: waited {time.perf_counter() - t:.2f} s for {slow} after the other kernels' checks")
 
     # the adjoint's resident blocks and warps per SM (L=3), beside ptxas's registers
     for n in (6, 8, 10, 12):
@@ -923,16 +1179,36 @@ def main() -> int:
         log(f"occupancy circuit_adjoint n={n} L=3: {blocks} resident blocks of {threads} threads per SM, "
             f"{blocks * threads // 32} warps (cudaOccupancyMaxActiveBlocksPerMultiprocessor) [{card}]")
 
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 2)
+        return out
+
     K.reset_launch_counts()
-    worst = check_kernels(torch, K, circuits)
+    worst = phase("kernels", check_kernels, torch, K, circuits, unitary_ready)
     kernel_phase = dict(K.launches)
-    launches, engines, requests = serve(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod)
-    micro_launches = microbench(torch, K, card)
+    # the impl race's table of this run under build/chip_smoke/autotune/
+    from qdml_tpu_torch.quantum import autotune
+
+    shutil.rmtree(EVAL_WORK, ignore_errors=True)
+    autotune.set_table_path(str(TUNE_DIR / "qsc_impl.json"))
+    race_launches = phase("autotune", autotune_phase, torch, K, cfg_mod, card)
+    launches, engines, requests = phase("serve", serve, torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod)
+    dispatch_launches = phase(
+        "serve dispatch", serve_dispatch, torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod, engines, card
+    )
+    micro_launches = phase("microbench", microbench, torch, K, card)
     mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "cli": cli}
-    train_launches, adjoint_per_step = train(torch, K, mods, card)
-    eval_launches = evaluate(torch, K, mods, card)
+    train_launches, adjoint_per_step = phase("train", train, torch, K, mods, card)
+    eval_launches = phase("eval", evaluate, torch, K, mods, card)
+    t_times = time.perf_counter()
     launches = {
-        k: launches[k] + micro_launches[k] + train_launches[k] + eval_launches[k] for k in launches
+        k: race_launches[k] + launches[k] + dispatch_launches[k] + micro_launches[k] + train_launches[k]
+        + eval_launches[k]
+        for k in launches
     }
     # No entry point reaches B.3 (the JAX package runs its kernel only from
     # tests/test_pallas.py:65-83), so its path is the kernel phase.
@@ -956,7 +1232,8 @@ def main() -> int:
         qsc_ms = event_ms(torch, lambda: K.fused_qsc_expvals(a6, ur, ui, 6))
         qsc_plain_ms = event_ms(torch, lambda: K.qsc_expvals_plain(a6, ur, ui, 6))
         circ_ms = event_ms(torch, lambda: K.fused_circuit_expvals(a8, w8, 8, 3))
-        circ_plain_ms = event_ms(torch, lambda: K.circuit_expvals_plain(a8, w8, 8, 3))
+        # the plain gate chain takes about 15 ms a call: fewer reps
+        circ_plain_ms = event_ms(torch, lambda: K.circuit_expvals_plain(a8, w8, 8, 3), reps=5, inner=2)
         # the adjoint at the training shape (n=8, L=3, 2304 rows a step) and at
         # B=64; every event timing runs before the first profiler session
         adj = {}
@@ -1130,6 +1407,8 @@ def main() -> int:
         })
     for rec in kernels:  # the card's launch floor beside every bound
         rec["floor_ms"] = None if floor_us is None else floor_us / 1e3
+    phase_s["times"] = round(time.perf_counter() - t_times, 2)
+    log(f"phase wall seconds: {json.dumps(phase_s)} [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -8,7 +8,13 @@
     python -m qdml_tpu_torch.cli loss-curves --curves=LABEL:PATH[,LABEL:PATH...] [...]
 
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
-package. Runs on the card unless ``--device=cpu`` is given. Checkpoints and
+package, and ``--preset=NAME`` starts from one of its presets
+(``single_4q``, ``nat_sweep``, ``robust_qsc``; the mesh presets raise until
+ROADMAP A.10). Runs on the card unless ``--device=cpu`` is given. With
+``quantum.impl=auto`` (the default) ``train-qsc`` times the circuit impls on
+the card before its first step and logs the winners (``kind=
+"quantum_autotune"``); the table is ``results_torch/autotune/qsc_impl.json``
+unless ``--quantum.autotune_table`` names another. Checkpoints and
 the ``<command>.metrics.jsonl`` log go to ``<train.workdir>/Pn_<pilot_num>/
 <name>/``. ``eval`` restores ``hdce``, ``sc`` and, when trained, ``qsc`` from
 there and writes ``quantum_classical_comparison.json``, ``results_table.md``

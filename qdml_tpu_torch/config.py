@@ -4,10 +4,11 @@ Field names and defaults are the JAX package's, so a JAX config and the
 port's describe the same model. Only the fields the ported paths read are
 carried: the channel geometry and dataset fields of ``DataConfig``,
 ``ModelConfig``, ``QuantumConfig`` with its training knobs, ``TrainConfig``,
-``EvalConfig``, the ``ServeConfig`` bucket fields, and the geometry-derived
-widths of ``ExperimentConfig``. Mesh, fleet and control configuration arrive
-with the slices that use them. :func:`override` and :func:`from_args` take the
-JAX package's dotted CLI flags (``--train.lr=3e-4``).
+``EvalConfig``, the ``ServeConfig`` bucket and dispatch fields, and the
+geometry-derived widths of ``ExperimentConfig``. Mesh, fleet and control
+configuration are not ported yet (ROADMAP A.10, A.11). :func:`override` and
+:func:`from_args` take the JAX package's dotted CLI flags
+(``--train.lr=3e-4``) and ``--preset=NAME`` (:func:`presets`).
 """
 
 from __future__ import annotations
@@ -69,6 +70,13 @@ class QuantumConfig:
     use_gradient_pruning: bool = False
     gradient_threshold: float = 0.1   # absolute cutoff, or quantile fraction
     gradient_prune_mode: str = "absolute"  # "absolute" | "quantile"
+    # When the impl race may run (trainer start, serve warmup; never on the
+    # request path): "auto" = on the card only, "on"/"off" force it
+    # (qdml_tpu_torch.quantum.autotune).
+    autotune: str = "auto"
+    # Table location; "" = results_torch/autotune/qsc_impl.json
+    # (QDML_TORCH_QSC_AUTOTUNE_TABLE overrides the default).
+    autotune_table: str = ""
 
 
 @dataclass(frozen=True)
@@ -94,10 +102,22 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Bucket fields of the serving engine (``qdml_tpu/config.py:243-298``)."""
+    """Bucket and dispatch fields of the serving engine (``qdml_tpu/config.py:243-298``)."""
 
     max_batch: int = 64        # largest (and last) bucket
     buckets: tuple[int, ...] = ()  # () = powers of two up to max_batch
+    # Expert routing: "dense" runs every trunk and gathers, "sparse" runs each
+    # row's trunk on capacity buckets. "auto" races them in JAX; the port has
+    # no race yet (ROADMAP A.8) and takes JAX's no-table fallback, dense.
+    dispatch: str = "auto"
+    # Sparse per-expert bucket headroom: capacity = ceil(B * f / S); overflow
+    # rows are served by the dense path, never dropped.
+    capacity_factor: float = 1.25
+    # Pad handling per tier: "bucket" relies on row independence, "ragged"
+    # masks the pad rows inside the forward. "auto" races them in JAX; the
+    # port has no race yet (ROADMAP A.8) and takes JAX's no-table fallback,
+    # bucket.
+    batching: str = "auto"
 
 
 @dataclass(frozen=True)
@@ -165,12 +185,63 @@ def _coerce(value: Any, fld: dataclasses.Field) -> Any:
     return value
 
 
+# The JAX package's presets (qdml_tpu/config.py:587-626) that need a mesh;
+# the port runs on one device until ROADMAP A.10.
+UNPORTED_PRESETS = ("dp_8q", "sharded_16q", "federated")
+
+
+def _preset(name: str, **overrides: Any) -> ExperimentConfig:
+    cfg = ExperimentConfig(name=name)
+    for dotted, value in overrides.items():
+        cfg = override(cfg, dotted, value)
+    return cfg
+
+
+def presets() -> dict[str, ExperimentConfig]:
+    """The JAX package's presets that run on one device, with its values
+    (``qdml_tpu/config.py:587-626``). ``single_4q``'s ``mesh.data_axis=1`` is
+    the port's single-device layout; the mesh presets are
+    :data:`UNPORTED_PRESETS`."""
+    return {
+        # Runner_P128 single-worker, 4-qubit QuantumNAT classifier
+        "single_4q": _preset(
+            "single_4q", **{"quantum.n_qubits": 4, "quantum.use_quantumnat": True}
+        ),
+        # noise-aware training (pruning off: at the reference's 0.1 it
+        # freezes training)
+        "nat_sweep": _preset("nat_sweep", **{"quantum.use_quantumnat": True}),
+        # scale-invariant angle encoding + SNR-jittered training
+        "robust_qsc": _preset(
+            "robust_qsc",
+            **{"quantum.input_norm": True, "data.snr_jitter": (5.0, 15.0)},
+        ),
+    }
+
+
+def preset(name: str) -> ExperimentConfig:
+    """The preset ``name``; the mesh presets raise ``NotImplementedError``."""
+    if name in UNPORTED_PRESETS:
+        raise NotImplementedError(
+            f"preset {name!r} needs a device mesh, not ported yet (ROADMAP A.10)"
+        )
+    table = presets()
+    if name not in table:
+        raise KeyError(f"unknown preset {name!r}; want one of {sorted(table) + list(UNPORTED_PRESETS)}")
+    return table[name]
+
+
 def from_args(argv: Sequence[str], base: ExperimentConfig | None = None) -> ExperimentConfig:
-    """``--a.b.c=value`` dotted overrides onto ``base`` (default config)
-    (``qdml_tpu/config.py:666-680``; the JAX package's presets are not
-    carried)."""
+    """``--preset=NAME`` (applied first, wherever it stands) plus
+    ``--a.b.c=value`` dotted overrides onto ``base`` (default config), as
+    ``qdml_tpu/config.py:666-680`` parses them."""
     cfg = base or ExperimentConfig()
+    rest = []
     for arg in argv:
+        if arg.startswith("--preset="):
+            cfg = preset(arg.split("=", 1)[1])
+        else:
+            rest.append(arg)
+    for arg in rest:
         if not arg.startswith("--") or "=" not in arg:
             raise SystemExit(f"unrecognised argument {arg!r}; expected --path.to.field=value")
         dotted, value = arg[2:].split("=", 1)

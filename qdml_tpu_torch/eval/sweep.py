@@ -10,8 +10,11 @@ For each SNR of ``cfg.eval.snr_grid`` over ``test_len`` fresh test samples:
   (impl ``pallas`` launches the QSC kernel, ``pallas_circuit`` the circuit
   kernel);
 - the HDCE estimate with every row routed to its PREDICTED scenario's trunk:
-  all trunks run on the batch and :func:`select_expert` keeps each row's
-  (dense dispatch);
+  with ``dispatch="dense"`` all trunks run on the batch and
+  :func:`select_expert` keeps each row's; with ``"sparse"`` only each row's
+  trunk runs, on capacity buckets (:func:`sparse_dispatch`, capacity factor
+  ``serve.capacity_factor``, one host sync a classifier and batch to read the
+  overflow count), value-equivalent to float tolerance;
 - NMSE against the perfect channel for LS, MMSE, MMSE-oracle and HDCE behind
   each classifier, and both classifiers' accuracy.
 
@@ -23,8 +26,7 @@ own batch. :func:`run_snr_sweep` draws each batch on the device
 float32 sums there, and fetches them once per SNR point, adding them in
 float64 as the JAX ``make_snr_scan`` does (``:206-230``).
 
-Not ported yet: ``dispatch="sparse"`` (ROADMAP A.8) raises
-``NotImplementedError``; the ``mesh`` (A.10); the monolithic DCE curve,
+Not ported yet: the ``mesh`` (A.10); the monolithic DCE curve,
 which needs ``DCEP128`` and ``train-dce`` (A.3, A.9); and the scenario and
 qubit scaling axes (``:284-436``).
 """
@@ -44,7 +46,7 @@ from qdml_tpu_torch.data.baselines import beam_delay_profile, mmse_estimate, mms
 from qdml_tpu_torch.data.channels import ChannelGeometry, label_noise_var
 from qdml_tpu_torch.data.datasets import sweep_batch
 from qdml_tpu_torch.models.qsc import build_classifier
-from qdml_tpu_torch.ops.routing import select_expert
+from qdml_tpu_torch.ops.routing import select_expert, sparse_dispatch
 from qdml_tpu_torch.train.checkpoint import latest_tag, reconcile_quantum_cfg, restore_params
 from qdml_tpu_torch.train.hdce import build_hdce
 from qdml_tpu_torch.utils.complexops import CArr
@@ -102,11 +104,14 @@ def batch_metrics(
     snr_db: float,
     profile: torch.Tensor,
     geom: ChannelGeometry,
+    dispatch: str = "dense",
+    capacity_factor: float = 1.25,
 ) -> dict[str, torch.Tensor]:
     """Error and power sums and correct counts of one batch, as 0-dim float32
     tensors on the batch's device (``qdml_tpu/eval/sweep.py:109-201``).
     ``batch`` holds ``yp_img (B, n_sub, n_beam, 2)`` NHWC, the complex
-    ``h_ls`` and ``h_perf_c (B, h_dim)`` and ``indicator (B,)``."""
+    ``h_ls`` and ``h_perf_c (B, h_dim)`` and ``indicator (B,)``. ``dispatch``
+    routes the HDCE rows dense or sparse (``:60-82``)."""
     h = batch["h_perf_c"]
     h_ls = batch["h_ls"]
     sigma2 = label_noise_var(geom, snr_db)
@@ -114,7 +119,21 @@ def batch_metrics(
     h_mmse_oracle = mmse_estimate(h_ls, sigma2, profile, geom)
     x = batch["yp_img"].permute(0, 3, 1, 2).contiguous()  # NCHW
     n_scen = geom.n_scenarios
-    est_all = models.hdce(x.expand(n_scen, *x.shape))  # (S, B, 2 * h_dim)
+
+    if dispatch == "dense":
+        est_all = models.hdce(x.expand(n_scen, *x.shape))  # (S, B, 2 * h_dim), once for both classifiers
+
+        def route(pred):
+            return select_expert(est_all, pred)
+
+    else:
+
+        def dense(xb, pb):
+            return select_expert(models.hdce(xb.expand(n_scen, *xb.shape)), pb)
+
+        def route(pred):
+            return sparse_dispatch(models.hdce, dense, x, pred, n_scen, capacity_factor)[0]
+
     out = {
         "pow": _sum_sq(h),
         "err_ls": _sum_sq(_diff(h_ls, h)),
@@ -127,7 +146,7 @@ def batch_metrics(
         if model is None:
             continue
         pred = torch.argmax(model(x), dim=-1)
-        out[f"err_hdce_{name}"] = _sum_sq(select_expert(est_all, pred) - label2)
+        out[f"err_hdce_{name}"] = _sum_sq(route(pred) - label2)
         out[f"correct_{name}"] = (pred == batch["indicator"]).sum().to(torch.float32)
     return out
 
@@ -142,10 +161,10 @@ def run_snr_sweep(
     """The full sweep; returns ``{"snr": [...], "nmse_db": {curve: [...]},
     "acc": {classifier: [...]}}`` with the JAX package's keys. Every SNR row
     is also logged (curve NMSEs in dB, accuracies, sample count, and the
-    point's wall seconds up to its one fetch) when a logger is given."""
-    if dispatch == "sparse":
-        raise NotImplementedError("sparse expert dispatch is not ported yet (ROADMAP A.8)")
-    if dispatch != "dense":
+    point's wall seconds up to its one fetch) when a logger is given.
+    ``dispatch`` routes the HDCE rows dense or sparse (capacity factor
+    ``cfg.serve.capacity_factor``)."""
+    if dispatch not in ("dense", "sparse"):
         raise ValueError(f"dispatch must be dense|sparse, got {dispatch!r}")
     dev = resolve_device(device)
     geom = ChannelGeometry.from_config(cfg.data)
@@ -160,7 +179,10 @@ def run_snr_sweep(
         per_batch: dict[str, list[torch.Tensor]] = {}
         for b in range(n_batches):
             batch = sweep_batch(cfg.data, start, b * bs, bs, float(snr), dev, geom)
-            for key, value in batch_metrics(models, batch, float(snr), profile, geom).items():
+            metrics = batch_metrics(
+                models, batch, float(snr), profile, geom, dispatch, cfg.serve.capacity_factor
+            )
+            for key, value in metrics.items():
                 per_batch.setdefault(key, []).append(value)
         # one fetch per SNR point; float32 batch sums added in float64
         keys = list(per_batch)

@@ -63,10 +63,15 @@ class QSCP128(nn.Module):
         train: bool = False,
         noise: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        impl: str | None = None,
     ) -> torch.Tensor:
         """``train`` turns QuantumNAT on (when configured): the circuit weights
         get ``noise`` added, or ``noise_level * N(0, 1)`` drawn from
-        ``generator`` when no noise is passed."""
+        ``generator`` when no noise is passed. ``impl`` pins the circuit impl
+        for this call (the serving engine pins each bucket's warmup
+        resolution); otherwise the model's own ``impl`` resolves, with the
+        train winner in train mode and the forward winner in eval mode
+        (``qdml_tpu/models/qsc.py:117-126``)."""
         if self.input_norm:
             rms = torch.sqrt(torch.mean(x**2, dim=(1, 2, 3), keepdim=True) + 1e-12)
             x = x / rms
@@ -80,7 +85,13 @@ class QSCP128(nn.Module):
                 )
             weights = weights + noise.to(weights.device)
         expz = run_circuit(
-            angles, weights, self.n_qubits, self.n_layers, self.backend, impl=self.impl
+            angles,
+            weights,
+            self.n_qubits,
+            self.n_layers,
+            self.backend,
+            impl=impl or self.impl,
+            mode="train" if self.training else "infer",
         )
         return torch.log_softmax(self.classifier(expz), dim=-1)
 

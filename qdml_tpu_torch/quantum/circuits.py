@@ -21,15 +21,25 @@ means the same thing here:
   (:func:`kernels.fused_circuit_expvals`): the L-layer gate chain with the
   statevector resident in shared memory, one launch.
 
-``mps`` and ``sharded_statevector`` are not ported yet (ROADMAP A.10) and
-raise ``NotImplementedError``.
+``auto`` (impl and backend both) takes the measured table of
+:mod:`qdml_tpu_torch.quantum.autotune` for the call's shape, then the static
+heuristic. ``mps`` and ``sharded_statevector`` are not ported yet (ROADMAP
+A.10) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from qdml_tpu_torch.quantum import autotune
 from qdml_tpu_torch.quantum import statevector as sv
+# eligibility lives with the dispatcher; re-exported for the callers here
+from qdml_tpu_torch.quantum.autotune import (  # noqa: F401
+    UNPORTED_IMPLS,
+    ImplIneligibleError,
+    impl_eligible,
+)
 from qdml_tpu_torch.utils.complexops import CArr, ceinsum, ckron
 
 VALID_BACKENDS = (
@@ -74,7 +84,7 @@ def angle_embed(psi: CArr, angles: torch.Tensor, n: int) -> CArr:
 
 def apply_ansatz_tensor(psi: CArr, weights: torch.Tensor, n: int, n_layers: int) -> CArr:
     """Gate-by-gate ansatz on the statevector, trig derived once for the circuit."""
-    ring = sv.ring_cnot_perm(n)
+    ring = sv.ring_index(n, str(weights.device))
     half = 0.5 * weights
     cos_t, sin_t = torch.cos(half), torch.sin(half)  # (L, n, 2) each
     for l in range(n_layers):
@@ -89,7 +99,7 @@ def ansatz_unitary(weights: torch.Tensor, n: int, n_layers: int) -> CArr:
     """The ansatz as one (2**n, 2**n) unitary, built gate by gate: layer
     unitary = RingPerm . (u_0 x ... x u_{n-1}) with qubit 0 the most
     significant factor; total = U_{L-1} ... U_0. The unfused construction."""
-    ring = torch.as_tensor(sv.ring_cnot_perm(n), device=weights.device)
+    ring = sv.ring_index(n, str(weights.device))
     total: CArr | None = None
     for l in range(n_layers):
         u = rot_gate(weights[l, 0, 0], weights[l, 0, 1])
@@ -122,11 +132,11 @@ def fused_layer_unitaries(weights: torch.Tensor, n: int, n_layers: int) -> CArr:
         kron = kron[:, :, None, :, None] * m[:, None, :, None, :]
         d *= 2
         kron = kron.reshape(n_layers, d, d)
-    signs = torch.as_tensor(sv.z_signs(n), device=weights.device)  # (dim, n)
+    signs = sv.z_sign_table(n, str(weights.device))  # (dim, n)
     phase = -0.5 * torch.einsum("iq,lq->li", signs, weights[:, :, 1])  # (L, dim)
     re = torch.cos(phase)[:, :, None] * kron
     im = torch.sin(phase)[:, :, None] * kron
-    ring = torch.as_tensor(sv.ring_cnot_perm(n), device=weights.device)
+    ring = sv.ring_index(n, str(weights.device))
     return CArr(re[:, ring, :], im[:, ring, :])
 
 
@@ -150,38 +160,35 @@ def resolve_backend(backend: str, n_qubits: int) -> str:
     return "tensor" if n_qubits <= 14 else "mps"
 
 
-def resolve_impl(impl: str, backend: str, n_qubits: int) -> str:
-    """Precedence: an explicit ``impl`` wins, then an explicit legacy
-    ``backend``, then the static heuristic. (The JAX package consults its
-    measured autotune table before the heuristic; that table is a later
-    slice of the port, ROADMAP A.5.)"""
+def resolve_impl(
+    impl: str,
+    backend: str,
+    n_qubits: int,
+    n_layers: int,
+    batch: int,
+    mode: str = "train",
+    platform: str | None = None,
+) -> str:
+    """Dispatch for one circuit shape (``qdml_tpu/quantum/circuits.py:251-285``).
+
+    Precedence: an explicit ``impl`` wins, then an explicit legacy
+    ``backend``, then the measured table's winner for ``(platform, n_qubits,
+    n_layers, batch bucket)`` and ``mode`` ("train": forward plus backward,
+    "infer": forward only), then :func:`resolve_backend`'s heuristic. A
+    fallback caused by a table pathology prints one line per pathology
+    (:func:`autotune.emit_fallback`). ``platform`` is the device type of the
+    call (default: ``cuda`` when a card is visible)."""
     if impl not in ("", "auto"):
         return canonical_impl(impl)
     if backend != "auto":
         return canonical_impl(backend)
-    return resolve_backend("auto", n_qubits)
-
-
-# Impls the port has no counterpart for yet (ROADMAP A.10); run_circuit
-# raises NotImplementedError for them.
-UNPORTED_IMPLS = ("mps", "sharded_statevector")
-# The JAX dispatcher's capacity caps (qdml_tpu/quantum/autotune.py:92-93).
-_DENSE_MAX_QUBITS = 12
-_TENSOR_MAX_QUBITS = 14
-
-
-def impl_eligible(impl: str, n_qubits: int) -> tuple[bool, str | None]:
-    """Whether ``impl`` can run at ``n_qubits`` in the port: ``(ok, reason)``.
-    The caps of ``qdml_tpu/quantum/autotune.py:122-156``; the impls the port
-    lacks are never eligible."""
-    impl = canonical_impl(impl)
-    if impl in UNPORTED_IMPLS:
-        return False, f"circuit impl {impl!r} is not ported yet (ROADMAP A.10, scaling impls)"
-    if impl in ("dense", "dense_fused", "pallas", "pallas_circuit") and n_qubits > _DENSE_MAX_QUBITS:
-        return False, f"impl {impl!r} is capped at n <= {_DENSE_MAX_QUBITS}; n={n_qubits}"
-    if impl == "tensor" and n_qubits > _TENSOR_MAX_QUBITS:
-        return False, f"the 2^n statevector per sample is capped at n <= {_TENSOR_MAX_QUBITS}; n={n_qubits}"
-    return True, None
+    sel, reason = autotune.lookup_reason(n_qubits, n_layers, batch, mode=mode, platform=platform)
+    if sel is not None:
+        return sel
+    fallback = resolve_backend("auto", n_qubits)
+    if reason is not None:
+        autotune.emit_fallback(reason, n_qubits, n_layers, batch, mode, fallback, platform)
+    return fallback
 
 
 def run_circuit(
@@ -191,9 +198,17 @@ def run_circuit(
     n_layers: int,
     backend: str = "dense",
     impl: str = "auto",
+    mode: str = "train",
 ) -> torch.Tensor:
-    """Full reference circuit: angles (..., n) -> per-wire <Z> (..., n)."""
-    backend = resolve_impl(impl, backend, n_qubits)
+    """Full reference circuit: angles (..., n) -> per-wire <Z> (..., n).
+
+    With ``impl`` and ``backend`` both ``auto`` the measured table picks the
+    impl for this call's batch (``angles.shape[:-1]`` flattened) on the
+    angles' device; ``mode`` picks the train or the forward-only winner."""
+    batch = int(np.prod(angles.shape[:-1])) if angles.dim() > 1 else 1
+    backend = resolve_impl(
+        impl, backend, n_qubits, n_layers, batch, mode=mode, platform=angles.device.type
+    )
     if backend in ("dense", "dense_fused"):
         build = fused_ansatz_unitary if backend == "dense_fused" else ansatz_unitary
         u = build(weights, n_qubits, n_layers)

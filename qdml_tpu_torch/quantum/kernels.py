@@ -58,6 +58,9 @@ NVCC_FLAGS = (
 # Kernel launches per wrapper: a wrapper adds one where it launches its
 # kernel, nowhere else (the plain-version routes do not count).
 launches = {name: 0 for name in KERNELS}
+# nvcc builds started per kernel since the process started (the serving
+# engine reads them to show that its request path builds nothing)
+builds = {name: 0 for name in KERNELS}
 # nvcc's output (ptxas register/shared-memory report) per freshly built kernel
 build_log: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -131,6 +134,7 @@ def build(names=KERNELS) -> dict[str, float]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        builds[name] += 1
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
@@ -303,7 +307,7 @@ def circuit_expvals_plain(angles: torch.Tensor, weights: torch.Tensor, n: int, l
     angles (B, n), weights (layers, n, 2) -> (expvals (B, n), re, im (B, 2^n))."""
     amp = sv.ry_product_state(angles, n)
     psi = CArr(amp, torch.zeros_like(amp))
-    ring = sv.ring_cnot_perm(n)
+    ring = sv.ring_index(n, str(angles.device))
     for l in range(layers):
         for q in range(n):
             psi = sv.apply_ry(psi, n, q, weights[l, q, 0])
@@ -368,7 +372,7 @@ def circuit_adjoint_plain(fre, fim, g, angles, weights, n: int, layers: int):
     n, 2))``. It walks the layers in reverse, undoing each layer on the state
     (``_undo_layer``) and pulling the cotangent back through it by the gates'
     own derivatives, written out: not autograd through the forward."""
-    z = torch.as_tensor(sv.z_signs(n), device=fre.device)
+    z = sv.z_sign_table(n, str(fre.device))
     dprobs = g @ z.T
     psi = CArr(fre, fim)
     lam = CArr(2.0 * fre * dprobs, 2.0 * fim * dprobs)

@@ -4,7 +4,10 @@ Conventions are the reference's: qubit 0 is the MOST significant bit of the
 flat basis index, the statevector is a :class:`CArr` real pair of shape
 ``(..., 2**n)``, batching is the leading axes, and gradients come from
 autograd. Structure tables (``z_signs``, ``cnot_perm``, ``ring_cnot_perm``)
-are host numpy, cached per qubit count, exactly as in the JAX package.
+are host numpy, cached per qubit count, exactly as in the JAX package; the
+circuits read the ring and the sign table as tensors cached per
+``(n, device)`` (:func:`ring_index`, :func:`z_sign_table`), since copying a
+host table to the card on every call synchronises the host with it.
 """
 
 from __future__ import annotations
@@ -79,8 +82,13 @@ def apply_rz_cs(psi: CArr, n: int, q: int, c, s) -> CArr:
 
 
 def apply_perm(psi: CArr, perm) -> CArr:
-    """Apply a basis-state permutation: ``psi'[y] = psi[perm[y]]``."""
-    idx = torch.as_tensor(np.asarray(perm), dtype=torch.long, device=psi.re.device)
+    """Apply a basis-state permutation: ``psi'[y] = psi[perm[y]]``. ``perm``
+    is a long tensor on the state's device (:func:`ring_index`) or host
+    indices, which are copied over on each call."""
+    if isinstance(perm, torch.Tensor):
+        idx = perm
+    else:
+        idx = torch.as_tensor(np.asarray(perm), dtype=torch.long, device=psi.re.device)
     return CArr(psi.re[..., idx], psi.im[..., idx])
 
 
@@ -127,6 +135,25 @@ def z_signs(n: int) -> np.ndarray:
     return (1.0 - 2.0 * bits).astype(np.float32)
 
 
+@lru_cache(maxsize=None)
+def ring_index(n: int, device: str) -> torch.Tensor:
+    """:func:`ring_cnot_perm` as a long tensor on ``device``, cached per
+    ``(n, device)``. Callers must not write into it. Made outside inference
+    mode, since autograd cannot save an inference tensor for a later
+    backward."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(ring_cnot_perm(n), dtype=torch.long, device=device)
+
+
+@lru_cache(maxsize=None)
+def z_sign_table(n: int, device: str) -> torch.Tensor:
+    """:func:`z_signs` as a float32 tensor on ``device``, cached per
+    ``(n, device)``, made outside inference mode. Callers must not write
+    into it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(z_signs(n), device=device)
+
+
 def ry_product_state(angles: torch.Tensor, n: int) -> torch.Tensor:
     """Closed-form AngleEmbedding: RY(a_q) per qubit on |0...0> is the REAL
     product state ``amp[x] = prod_q (bit_q(x) ? sin(a_q/2) : cos(a_q/2))``.
@@ -143,5 +170,4 @@ def ry_product_state(angles: torch.Tensor, n: int) -> torch.Tensor:
 
 def expvals_z(psi: CArr, n: int) -> torch.Tensor:
     """Per-wire <PauliZ_i>: probabilities contracted with the sign matrix."""
-    signs = torch.as_tensor(z_signs(n), device=psi.re.device)
-    return psi.abs2() @ signs
+    return psi.abs2() @ z_sign_table(n, str(psi.re.device))

@@ -108,14 +108,15 @@ def reconcile_quantum_cfg(cfg, meta: dict):
     the eval config's win. An explicit eval pin (``quantum.impl``, else the
     legacy ``quantum.backend``) that cannot run at the checkpoint's qubit count
     raises: ``NotImplementedError`` for an impl the port lacks, as
-    ``run_circuit`` raises it, ``ValueError`` past a capacity cap. A no-op
-    for meta without ``quantum``."""
-    from qdml_tpu_torch.quantum.circuits import (
+    ``run_circuit`` raises it, and past a capacity cap
+    :class:`~qdml_tpu_torch.quantum.autotune.ImplIneligibleError` (a
+    ``ValueError``), as JAX raises it. A no-op for meta without ``quantum``."""
+    from qdml_tpu_torch.quantum.autotune import (
         UNPORTED_IMPLS,
-        canonical_impl,
+        ImplIneligibleError,
         impl_eligible,
-        resolve_backend,
     )
+    from qdml_tpu_torch.quantum.circuits import canonical_impl, resolve_backend
 
     stored = dict((meta or {}).get("quantum") or {})
     if not stored:
@@ -132,7 +133,7 @@ def reconcile_quantum_cfg(cfg, meta: dict):
         pinned = canonical_impl(pinned)
         ok, why = impl_eligible(pinned, n_q)
         if not ok:
-            err = NotImplementedError if pinned in UNPORTED_IMPLS else ValueError
+            err = NotImplementedError if pinned in UNPORTED_IMPLS else ImplIneligibleError
             raise err(f"checkpoint (n_qubits={n_q}) pins circuit impl {pinned!r}, which cannot run here: {why}")
     elif trained_impl not in (None, "", "auto"):
         ok, why = impl_eligible(trained_impl, n_q)

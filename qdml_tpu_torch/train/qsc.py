@@ -6,8 +6,11 @@ quantum classifier trains with AdamW (reference ``Runner...py:320``), its
 circuit under QuantumNAT noise when configured (the noise drawn from a
 generator seeded with ``(train.seed + 1, start_epoch)``, as the JAX trainer
 folds its key), and with gradient pruning in front of the update when
-configured. :func:`train_classifier` writes ``{sc,qsc}_best`` (best
-validation accuracy), ``_resume`` and ``_last``.
+configured. With ``quantum.impl=auto`` the circuit impls are timed on the
+card before the first step (``quantum/autotune.prewarm`` at the flattened
+grid batch, as ``qdml_tpu/train/qsc.py:194-201``), and the entry is logged
+as ``kind="quantum_autotune"``. :func:`train_classifier` writes
+``{sc,qsc}_best`` (best validation accuracy), ``_resume`` and ``_last``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from qdml_tpu_torch.data.datasets import DMLGridLoader, GridData
 from qdml_tpu_torch.models.cnn import SCP128, flax_init_
 from qdml_tpu_torch.models.losses import nll_loss
 from qdml_tpu_torch.models.qsc import QSCP128
+from qdml_tpu_torch.quantum import autotune
 from qdml_tpu_torch.quantum.circuits import resolve_backend
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
 from qdml_tpu_torch.train.hdce import run_device
@@ -162,6 +166,20 @@ def train_classifier(
     val_loader = DMLGridLoader(data, cfg.train.batch_size, "val")
     model, opt = make_trainer(cfg, quantum, dev, train_loader.steps_per_epoch, init_state)
     tag = "qsc" if quantum else "sc"
+    if quantum:
+        # the step flattens the grid into one batch, so the circuit's batch is
+        # the whole grid; a no-op when an impl is pinned or tuning is off
+        entry = autotune.prewarm(
+            cfg, batch=cfg.data.n_scenarios * cfg.data.n_users * cfg.train.batch_size, device=dev
+        )
+        if entry is not None:
+            logger.log(
+                kind="quantum_autotune",
+                key=entry["key"],
+                impl=entry["best_train"],
+                impl_infer=entry["best_fwd"],
+                candidates=entry["candidates"],
+            )
 
     start_epoch, best_acc = 0, -1.0
     if cfg.train.resume:

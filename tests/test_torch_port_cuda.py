@@ -286,3 +286,38 @@ def test_circuit_adjoint_occupancy(dev):
     assert blocks * threads >= 4 * 256
     for n in range(2, 13):
         assert tk.circuit_adjoint_occupancy(n, 3)[0] >= 1
+
+
+@pytest.mark.parametrize("n", [6, 8])
+def test_impl_race_on_the_card_has_no_candidate_error(dev, tmp_path, n):
+    """The impl race at the serving shape: every eligible candidate times on
+    the card without an error, and the race runs the QSC kernel, the circuit
+    forward and its adjoint."""
+    from qdml_tpu_torch.quantum import autotune
+
+    before = dict(tk.launches)
+    entry = autotune.ensure(n, 3, 64, path=str(tmp_path / "t.json"), budget_s=0.02, device=dev, force=True)
+    assert entry["platform"] == "cuda" and set(entry["candidates"]) == set(autotune.eligible_impls(n))
+    for impl, rec in entry["candidates"].items():
+        assert "error" not in rec and rec["fwd_ms"] > 0 and rec["train_ms"] > 0, (impl, rec)
+    for k in ("qsc_expvals", "circuit_expvals", "circuit_adjoint"):
+        assert tk.launches[k] > before[k], k
+
+
+def test_sparse_dispatch_on_the_card_matches_the_cpu(dev):
+    from qdml_tpu_torch.ops.routing import select_expert, sparse_dispatch
+
+    rng = np.random.default_rng(3)
+    w = torch.tensor(rng.standard_normal((6, 5, 4)), dtype=torch.float32)
+    x = torch.tensor(rng.standard_normal((64, 5)), dtype=torch.float32)
+    for pred in (torch.arange(64) % 6, torch.full((64,), 2)):
+        outs = []
+        for d in ("cpu", dev):
+            wd = w.to(d)
+            outs.append(sparse_dispatch(
+                lambda b: torch.einsum("scd,sde->sce", b, wd),
+                lambda xx, pp: select_expert(torch.einsum("bd,sde->sbe", xx, wd), pp),
+                x.to(d), pred.to(d), 6, 1.25,
+            ))
+        assert outs[0][1] == outs[1][1]
+        torch.testing.assert_close(outs[1][0].cpu(), outs[0][0], rtol=1e-5, atol=1e-5)

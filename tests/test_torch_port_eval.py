@@ -19,6 +19,7 @@
 """
 
 import dataclasses
+import itertools
 import json
 import os
 from pathlib import Path
@@ -217,7 +218,8 @@ def test_sweep_batch_metrics_match_jax_step(jax_profile):
     qsc_vars = {"params": _randomize(jax.device_get(
         JQSC(n_qubits=n_q, n_layers=2, impl="pallas").init(key, x0, train=False))["params"], rng)}
     jgeom = jch.ChannelGeometry.from_config(jcfg.data)
-    step = make_sweep_step(jcfg, jgeom, hdce_vars, sc_vars, qsc_vars, jax_profile)
+    steps = {d: make_sweep_step(jcfg, jgeom, hdce_vars, sc_vars, qsc_vars, jax_profile, dispatch=d)
+             for d in ("dense", "sparse")}
 
     hdce = build_hdce(tcfg, "cpu")
     hdce.load_state_dict(interop.hdce_state_dict_from_flax(hdce_vars))
@@ -228,7 +230,8 @@ def test_sweep_batch_metrics_match_jax_step(jax_profile):
     models = tsweep.SweepModels(hdce, sc, qsc)
     tgeom = tch.ChannelGeometry.from_config(tcfg.data)
     profile = torch.tensor(np.asarray(jax_profile))
-    for start, count_base, snr in ((600, 0, 5.0), (600, 24, 15.0)):
+    for (start, count_base, snr), dispatch in itertools.product(((600, 0, 5.0), (600, 24, 15.0)), steps):
+        step = steps[dispatch]
         want = {k: float(v) for k, v in step(jnp.asarray(start), jnp.asarray(count_base), jnp.float32(snr)).items()}
         i = count_base + jnp.arange(bs)
         jb = jds.make_network_batch(jnp.uint32(jcfg.data.seed), i % 3, (i // 3) % 3, start + i, jnp.float32(snr), jgeom)
@@ -238,12 +241,12 @@ def test_sweep_batch_metrics_match_jax_step(jax_profile):
             "h_perf_c": _carr(jb["h_perf_c"]),
             "indicator": torch.tensor(np.asarray(jb["indicator"])).long(),
         }
-        got = {k: float(v) for k, v in tsweep.batch_metrics(models, batch, snr, profile, tgeom).items()}
+        got = {k: float(v) for k, v in tsweep.batch_metrics(models, batch, snr, profile, tgeom, dispatch).items()}
         assert set(got) == set(want)
         for k in want:
-            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tsweep.run_snr_sweep(tcfg, models, device="cpu", dispatch="sparse")
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=f"{dispatch} {k}")
+    with pytest.raises(ValueError, match="dense|sparse"):
+        tsweep.run_snr_sweep(tcfg, models, device="cpu", dispatch="nope")
 
 
 def test_eval_cli_end_to_end(tmp_path, capsys):

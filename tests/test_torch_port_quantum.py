@@ -137,8 +137,8 @@ def test_dispatch_names_and_heuristic_match():
         assert tcirc.canonical_impl(name) == jcirc.canonical_impl(name)
     for n in (2, 6, 10, 11, 14, 15):
         assert tcirc.resolve_backend("auto", n) == jcirc.resolve_backend("auto", n)
-    assert tcirc.resolve_impl("pallas_tensor", "dense", 6) == "pallas_circuit"
-    assert tcirc.resolve_impl("auto", "tensor", 6) == "tensor"
+    assert tcirc.resolve_impl("pallas_tensor", "dense", 6, 3, 64) == "pallas_circuit"
+    assert tcirc.resolve_impl("auto", "tensor", 6, 3, 64) == "tensor"
     with pytest.raises(ValueError):
         tcirc.canonical_impl("nope")
     for impl in ("mps", "sharded", "sharded_statevector"):
