@@ -64,8 +64,36 @@ Phases, each of which exits non-zero on failure:
    against the same per-batch function on the CPU with the same weights and
    the same test batches; then one SNR point of the sweep with
    ``dispatch="sparse"`` against ``dense`` at rtol 1e-4;
+   The eval's workdir also holds the DCE (phase 7b), so the sweep reports
+   the monolithic DCE curve and the CPU twin holds its ``err_dce`` sums;
+7b. dce: the monolithic DCE at full width (one ``ConvP128`` of 32 features,
+   the 4096->2048 head) on the training grid: its first 2 steps against a
+   CPU twin, then one epoch of ``train_dce`` (counters zeroed before, read
+   after: it launches no circuit kernel), writing ``dce_best`` for eval;
+8b. interop: ``export-torch`` of the card-trained HDCE, SC and QSC as the
+   reference's ``.pth`` files, ``import-torch`` into a fresh workdir, and
+   both sets of weights on the card: equal tensors, forwards equal bit for
+   bit;
+8c. nat_sweep: the noise-sweep ensemble at the shipped n=6, L=3, E=4 sigmas,
+   batch 256 a cell: the member-axis circuit forward and adjoint (one launch
+   each for the whole ensemble) against their plain versions and each
+   member bit for bit against a one-member launch, also at n 2, 8, 12; the
+   first 2 ensemble steps against a CPU twin (the same member weights,
+   batches and noise); then two epochs of ``train_nat_sweep`` at the
+   ``nat_sweep`` preset's impl ``auto`` (prewarm, then the table's train and
+   infer winners; data_len 2560 a cell, cut from 20000 for time but kept
+   wide enough that the validation split still fills a batch of 256, the
+   shape the shipped config validates at) whose
+   counters must show one forward
+   launch per step and validation batch, one adjoint launch per step and no
+   one-member launch;
+8d. trajectories: the trajectory simulator at p=0 against the clean
+   ``tensor`` circuit, the one-wire anchor <Z> -> (1 - 4p/3) <Z> within its
+   Monte-Carlo band, and the peak memory (and, in phase 9, the device time)
+   of n=6, L=3, B=2304, 32 trajectories;
 9. times: each kernel and its plain version at its path's shapes (CUDA
-   events), each kernel's device time per launch (torch profiler) over batch
+   events), the member-axis forward and adjoint beside E one-member
+   launches of the same work, each kernel's device time per launch (torch profiler) over batch
    sizes (the adjoint at n 8 and 12, L=3, B 64 and 2304; the forward at n 8
    and 12, L=3, B 1 and 64, and 2304 with the state; the QSC kernel at the
    batches its launches run at; the rotation layer at n 8 and 14, B 1 and
@@ -75,7 +103,10 @@ Phases, each of which exits non-zero on failure:
    time of a one-element in-place ``add_``, a yardstick on no path), the
    adjoint's resident blocks per SM (occupancy query), each bucket's
    ``infer`` latency and each trainer's step time with its
-   forward/backward/update split (host clock), and each phase's wall time.
+   forward/backward/update split (host clock), and each phase's wall time;
+10. profile: ``python -m qdml_tpu_torch.cli profile`` at the default config
+   (12 traced HDCE steps of 2304 rows): samples/sec, step percentiles and
+   the device-busy share of the traced window, after every other timing.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and
@@ -270,7 +301,7 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
             g = torch.tensor(rng.standard_normal((b, n)), dtype=torch.float32, device=dev)
             _, fre, fim = K.fused_circuit_expvals(a, w, n, 3, return_state=True)
             us = profiled_device_us(
-                torch, lambda: K.circuit_adjoint(fre, fim, g, a, w, n, 3), "circuit_adjoint_kernel"
+                torch, lambda: K.circuit_adjoint(fre, fim, g, a, w, n, 3), "circuit_adjoint_"
             )
             bnd, by = bound(*adjoint_work(b, n, 3))
             log(f"device sweep circuit_adjoint n={n} L=3 B={b}: {us} us per launch, bound "
@@ -839,7 +870,7 @@ def evaluate(torch, K, mods, card: str) -> dict[str, int]:
     with open(EVAL_WORK / "results" / "quantum_classical_comparison.json") as fh:
         results = json.load(fh)
     curves, grid = results["nmse_db"], list(cfg.eval.snr_grid)
-    if results["snr"] != grid or set(curves) != {"ls", "mmse", "mmse_oracle", "hdce_classical", "hdce_quantum"}:
+    if results["snr"] != grid or set(curves) != {"ls", "mmse", "mmse_oracle", "dce", "hdce_classical", "hdce_quantum"}:
         raise AssertionError(f"eval results: snr {results['snr']}, curves {sorted(curves)}")
     if not all(len(v) == len(grid) and np.isfinite(v).all() for v in curves.values()):
         raise AssertionError(f"eval results: non-finite or short curves {curves}")
@@ -949,12 +980,31 @@ NO_TWIN = ("qsc_n6_auto",)
 
 def trainee(mods, cfg, quantum, device, steps_per_epoch):
     """The trainer's own model and optimizer (``make_trainer``), and its step
-    ``step(batch, noise) -> {"loss": ...}``."""
+    ``step(batch, noise) -> {"loss": ...}``. ``quantum``: None for the HDCE,
+    ``"dce"`` for the DCE, else the classifier's flag."""
+    if quantum == "dce":
+        model, opt = mods["dce"].make_trainer(cfg, device, steps_per_epoch)
+        return model, opt, lambda b, eps: mods["dce"].dce_train_step(model, opt, b)
     if quantum is None:
         model, opt = mods["hdce"].make_trainer(cfg, device, steps_per_epoch)
         return model, opt, lambda b, eps: mods["hdce"].hdce_train_step(model, opt, b)
     model, opt = mods["qsc"].make_trainer(cfg, quantum, device, steps_per_epoch)
     return model, opt, lambda b, eps: mods["qsc"].classifier_train_step(model, opt, b, noise=eps)
+
+
+def _twin_params_close(got: dict, want: dict, lr: float, steps: int, what: str) -> tuple[float, int, int]:
+    """Parameters of a card run against its CPU twin: every entry within the
+    Adam bound of ``steps`` updates, at most 1% outside 1e-5 + 1e-4|p|."""
+    bound = 1.1 * steps * lr + 1e-5
+    worst, outside, total = 0.0, 0, 0
+    for k, w in want.items():
+        diff = (got[k] - w).abs()
+        worst = max(worst, diff.max().item())
+        outside += int((diff > 1e-5 + 1e-4 * w.abs()).sum())
+        total += w.numel()
+    if worst > bound or outside > 0.01 * total:
+        raise AssertionError(f"{what}: parameters differ from the CPU twin ({worst:.3e}, {outside}/{total})")
+    return worst, outside, total
 
 
 def cpu_twin(torch, mods, name, cfg, quantum, batches, steps_per_epoch) -> None:
@@ -973,47 +1023,37 @@ def cpu_twin(torch, mods, name, cfg, quantum, batches, steps_per_epoch) -> None:
     gen = torch.Generator().manual_seed(SEED + 5)
     noises = [
         qcfg.noise_level * torch.randn((qcfg.n_layers, qcfg.n_qubits, 2), generator=gen)
-        if quantum and qcfg.use_quantumnat else None
+        if quantum is True and qcfg.use_quantumnat else None
         for _ in batches
     ]
     runs = []
     for dev in (DEVICE, "cpu"):
         model, opt, step = trainee(mods, cfg, quantum, dev, steps_per_epoch)
         grads = []
-        if quantum:  # the leaf's gradient as autograd delivers it, copied before pruning edits .grad in place
+        if quantum is True:  # the leaf's gradient as autograd delivers it, copied before pruning edits .grad in place
             hook = model.qlayer.weights.register_hook(lambda g: grads.append(g.detach().to("cpu", copy=True)))
         losses = []
         for b, eps in zip(batches, noises):
             b = {k: v.to(dev) for k, v in b.items()}
             losses.append(float(step(b, None if eps is None else eps.to(dev))["loss"]))
-        if quantum:
+        if quantum is True:
             hook.remove()
         runs.append((losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}, grads))
     (gl, gp, gg), (cl, cp, cg) = runs
     if not np.allclose(gl, cl, rtol=1e-4, atol=0.0):
         raise AssertionError(f"train {name}: losses {gl} on the card, {cl} on the CPU twin")
-    if quantum:
+    if quantum is True:
         gtol = 1e-4 * cg[0].abs().max().item() + 1e-7
         gerr = (gg[0] - cg[0]).abs().max().item()
         log(f"train {name}: circuit weights' first gradient, card vs CPU twin: max |diff| {gerr:.3e} "
             f"(tol 1e-4 max|g| + 1e-7 = {gtol:.3e}; max|g| {cg[0].abs().max().item():.3e})")
         if gerr > gtol:
             raise AssertionError(f"train {name}: circuit weights' gradient differs from the CPU twin")
-    lr = cfg.train.lr
-    bound = 1.1 * TWIN_STEPS * lr + 1e-5
-    worst, outside, total = 0.0, 0, 0
-    for k, want in cp.items():
-        if not want.is_floating_point():
-            continue
-        diff = (gp[k] - want).abs()
-        worst = max(worst, diff.max().item())
-        outside += int((diff > 1e-5 + 1e-4 * want.abs()).sum())
-        total += want.numel()
+    floats = {k: v for k, v in cp.items() if v.is_floating_point()}
+    worst, outside, total = _twin_params_close(gp, floats, cfg.train.lr, TWIN_STEPS, f"train {name}")
     log(f"train {name}: CPU twin over {TWIN_STEPS} steps: losses card {gl}, cpu {cl} (rtol 1e-4); "
-        f"params max |diff| {worst:.3e} (bound {bound:.1e}), {outside}/{total} entries outside "
-        f"1e-5 + 1e-4|p| (at most 1%)")
-    if worst > bound or outside > 0.01 * total:
-        raise AssertionError(f"train {name}: parameters differ from the CPU twin")
+        f"params max |diff| {worst:.3e} (bound {1.1 * TWIN_STEPS * cfg.train.lr + 1e-5:.1e}), {outside}/{total} "
+        f"entries outside 1e-5 + 1e-4|p| (at most 1%)")
 
 
 def train(torch, K, mods, card: str):
@@ -1111,7 +1151,320 @@ def train(torch, K, mods, card: str):
             f"after each part, 10 steps of {cfg.data.n_scenarios * cfg.data.n_users * TRAIN_BATCH} rows) [{card}]")
     log(f"main-path training launches: {json.dumps(launches)}; circuit_adjoint per training step "
         f"{per_step_adjoint}")
-    return launches, per_step_adjoint
+    return launches, per_step_adjoint, (data, batches, spe)
+
+
+def dce_phase(torch, K, mods, card: str, train_data) -> dict[str, int]:
+    """The monolithic DCE at full width (``ConvP128`` of 32 features, the
+    4096->2048 head) on the training phase's grid: its first 2 steps on the
+    card against a CPU twin (as the other trainers), then one epoch of
+    ``train_dce`` with the counters zeroed just before and read just after,
+    writing ``dce_best`` where ``cli eval`` finds it. The DCE runs no circuit
+    kernel: its launches must all be 0."""
+    data, batches, spe = train_data
+    cfg = trainer_configs(mods["config"])["hdce"][0]
+    cpu_twin(torch, mods, "dce", cfg, "dce", batches, spe)
+    workdir = mods["cli"].workdir_of(mods["config"].from_args([f"--train.workdir={EVAL_WORK / 'ws'}"]))
+    rec = Recorder()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, hist = mods["dce"].train_dce(cfg, data=data, logger=rec, workdir=workdir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launches)
+    steps = [r["loss"] for r in rec.records if "loss" in r]
+    log(f"train dce: one epoch ({len(steps)} steps of {cfg.data.n_scenarios * cfg.data.n_users * TRAIN_BATCH} "
+        f"rows) + validation in {wall:.2f} s; step losses {[round(x, 5) for x in steps]}; history "
+        f"{json.dumps(hist)}; launches {json.dumps(counts)} [{card}]")
+    if len(steps) != spe or not all(np.isfinite(steps)):
+        raise AssertionError(f"train dce: step losses {steps}")
+    if not all(np.isfinite(v).all() for v in hist.values()) or any(counts.values()):
+        raise AssertionError(f"train dce: history {hist}, launches {counts}")
+    return counts
+
+
+def interop_phase(torch, mods, card: str) -> None:
+    """``export-torch`` of the card-trained HDCE, SC and QSC (n=6, impl
+    ``pallas``) as reference ``.pth`` files, ``import-torch`` of them into a
+    fresh workdir, and both sets of tags restored on the card: equal state
+    dicts, and forwards on the card bit for bit equal."""
+    cli, cfg_mod = mods["cli"], mods["config"]
+    from qdml_tpu_torch.models.qsc import build_classifier
+    from qdml_tpu_torch.train.checkpoint import restore_params
+
+    pth = EVAL_WORK / "pth"
+    src_args = [f"--train.workdir={EVAL_WORK / 'ws'}"]
+    dst_args = [f"--train.workdir={EVAL_WORK / 'imported'}"]
+    if cli.main(["export-torch", *src_args, f"--out={pth}"]) != 0:
+        raise AssertionError("cli export-torch failed")
+    if cli.main(["import-torch", *dst_args, f"--out={pth}"]) != 0:
+        raise AssertionError("cli import-torch failed")
+    files = sorted(p.name for p in pth.glob("*.pth"))
+    qargs = ["--quantum.n_qubits=6", "--quantum.n_layers=3", "--quantum.impl=pallas"]
+    cfg = cfg_mod.from_args(qargs)
+    x = torch.tensor(np.random.default_rng(SEED + 9).standard_normal((SERVE_BATCH, 2, 16, 8)),
+                     dtype=torch.float32, device=DEVICE)
+    checked = []
+    for name, build in (
+        ("hdce", lambda: mods["hdce"].build_hdce(cfg, DEVICE)),
+        ("sc", lambda: build_classifier(cfg, False, DEVICE)),
+        ("qsc", lambda: build_classifier(cfg, True, DEVICE)),
+    ):
+        outs = []
+        for args in (src_args, dst_args):
+            sd, _ = restore_params(cli.workdir_of(cfg_mod.from_args(args)), f"{name}_best", DEVICE)
+            model = build()
+            model.load_state_dict(sd["params"])
+            with torch.inference_mode():
+                outs.append((sd["params"], model(x.expand(cfg.data.n_scenarios, *x.shape) if name == "hdce" else x)))
+        (sa, ya), (sb, yb) = outs
+        if set(sa) != set(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa) or not torch.equal(ya, yb):
+            raise AssertionError(f"interop {name}: the imported tag differs from the exported one")
+        checked.append(f"{name} ({len(sa)} tensors, forward {tuple(ya.shape)})")
+    log(f"interop: export-torch wrote {len(files)} reference files {files}; import-torch into a fresh workdir: "
+        f"{', '.join(checked)} equal bit for bit on the card [{card}]")
+
+
+def nat_sweep_phase(torch, K, mods, card: str) -> tuple[dict[str, int], dict]:
+    """The noise-sweep ensemble at the shipped n=6, L=3, E=4 sigmas and
+    batch 256 a cell (2304 rows a step): the member-axis forward and adjoint
+    against their plain versions at the one-member tolerances (2e-5
+    absolute; 2e-5 of the largest cotangent plus 1e-6) and each member bit for bit
+    against a one-member launch, there and at n 2, 8, 12; the first 2
+    ensemble steps on the card against a CPU twin (the same member states,
+    batches and noise: per-member losses rtol 1e-4, parameters within the
+    Adam rule); then two epochs of ``train_nat_sweep`` at the ``nat_sweep``
+    preset (impl ``auto``: ``prewarm`` at S*U*batch_size, then one
+    resolution for train mode and one for infer mode, from the table under
+    :data:`TUNE_DIR`; data_len 2560 a cell, cut from 20000 for time: the
+    validation split, a tenth, still fills one batch of 256 a cell, so
+    validation runs at the shipped config's shape, 2304 rows, as training
+    does) with
+    the counters zeroed just before and read just after, which must show one
+    forward launch per step and validation batch, one adjoint launch per
+    step, and no one-member launch. ``prewarm``'s own launches (a race, if
+    the table lacks the shape) are read before that reset. Returns the
+    launches of prewarm and training, and the timing shapes."""
+    from dataclasses import replace
+
+    from qdml_tpu_torch.quantum import autotune
+    from qdml_tpu_torch.quantum.circuits import resolve_impl
+    from qdml_tpu_torch.train import nat_sweep as ns
+    from qdml_tpu_torch.utils.tune_table import activity
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 11)
+    n, layers, members, rows = 6, 3, 4, 9 * TRAIN_BATCH
+    worst = {"fwd": 0.0, "adj": 0.0}
+    shapes = {}
+    for sn, sb in ((n, rows), (2, 64), (8, 64), (12, 64)):
+        a = torch.tensor(rng.uniform(-1, 1, (members, sb, sn)), dtype=torch.float32, device=dev)
+        w = torch.tensor(rng.uniform(0, 2 * np.pi, (members, layers, sn, 2)), dtype=torch.float32, device=dev)
+        g = torch.tensor(rng.standard_normal((members, sb, sn)), dtype=torch.float32, device=dev)
+        ev, fre, fim = K.fused_circuit_expvals_ensemble(a, w, sn, layers, return_state=True)
+        da, dw = K.circuit_adjoint_ensemble(fre, fim, g, a, w, sn, layers)
+        torch.cuda.synchronize()
+        for got, want in zip((ev, fre, fim), K.circuit_expvals_ensemble_plain(a, w, sn, layers)):
+            err = (got - want).abs().max().item()
+            worst["fwd"] = max(worst["fwd"], err)
+            if err > 2e-5:
+                raise AssertionError(f"nat_sweep forward n={sn} B={sb}: max abs err {err:.3e} (atol 2e-5)")
+        for got, want in zip((da, dw), K.circuit_adjoint_ensemble_plain(fre, fim, g, a, w, sn, layers)):
+            err, tol = (got - want).abs().max().item(), 2e-5 * want.abs().max().item() + 1e-6
+            worst["adj"] = max(worst["adj"], err)
+            if err > tol:
+                raise AssertionError(f"nat_sweep adjoint n={sn} B={sb}: max abs err {err:.3e} (atol {tol:.3e})")
+        for m in range(members):
+            sev, sre, sim = K.fused_circuit_expvals(a[m], w[m], sn, layers, return_state=True)
+            sda, sdw = K.circuit_adjoint(sre, sim, g[m].contiguous(), a[m], w[m], sn, layers)
+            if not all(torch.equal(x, y) for x, y in ((ev[m], sev), (fre[m], sre), (fim[m], sim), (da[m], sda), (dw[m], sdw))):
+                raise AssertionError(f"nat_sweep n={sn} B={sb}: member {m} differs from a one-member launch")
+        if sn == n:
+            shapes = {"a": a, "w": w, "g": g, "fre": fre, "fim": fim}
+    log(f"check member axis E={members} L={layers} at n={n} B={rows} and n=2/8/12 B=64: forward max abs err "
+        f"{worst['fwd']:.3e} (atol 2e-5), adjoint {worst['adj']:.3e} (atol 2e-5 max|ref| + 1e-6); every member "
+        f"bit for bit equal to a one-member launch [{card}]")
+
+    base = mods["config"].preset("nat_sweep")
+    cfg = replace(
+        base,
+        data=replace(base.data, data_len=10 * TRAIN_BATCH),
+        quantum=replace(base.quantum, n_qubits=n, n_layers=layers),
+        train=replace(base.train, batch_size=TRAIN_BATCH, n_epochs=2, print_freq=1),
+    )
+    if (cfg.quantum.impl, cfg.quantum.backend) != ("auto", "auto"):
+        raise AssertionError(f"the nat_sweep preset dispatches {cfg.quantum.impl!r}/{cfg.quantum.backend!r}, not auto")
+    levels = cfg.quantum.noise_sweep
+    # the preset's dispatch: prewarm at one member's flattened batch (as
+    # train_nat_sweep calls it), then the impl each mode resolves to
+    K.reset_launch_counts()
+    before = dict(activity)
+    entry = autotune.prewarm(cfg, batch=rows, device=DEVICE)
+    torch.cuda.synchronize()
+    prewarm_launches = dict(K.launches)
+    if entry is None:
+        raise AssertionError("nat_sweep: prewarm did not tune the preset's circuit")
+    resolved = {m: resolve_impl("auto", "auto", n, layers, rows, mode=m, platform="cuda") for m in ("train", "infer")}
+    log(f"nat_sweep prewarm n={n} L={layers} B={rows}: table {autotune.table_path()}, activity "
+        f"{json.dumps({k: activity[k] - before.get(k, 0) for k in activity})}, launches {json.dumps(prewarm_launches)}; "
+        f"resolved impl train {resolved['train']}, infer {resolved['infer']} [{card}]")
+    data = mods["datasets"].GridData.synthesize(cfg.data, DEVICE)
+    loader = mods["datasets"].DMLGridLoader(data, TRAIN_BATCH, "train")
+    val_steps = mods["datasets"].DMLGridLoader(data, TRAIN_BATCH, "val").steps_per_epoch
+    spe = loader.steps_per_epoch
+    batches = [{k: b[k] for k in ("yp_img", "indicator")} for _, b in zip(range(TWIN_STEPS), loader.epoch(0))]
+    states = ns.member_states(cfg, len(levels))
+    noise = ns.epoch_noise(cfg, 0, TWIN_STEPS, len(levels))
+    # the twin pins the impl the preset resolved to on the card, so the CPU
+    # runs that impl's plain version
+    twin_cfg = replace(cfg, quantum=replace(cfg.quantum, impl=resolved["train"]))
+    runs = []
+    saved = dict(K.launches)
+    for d in (DEVICE, "cpu"):
+        model, params, opt, sigmas = ns.init_sweep(twin_cfg, levels, spe, torch.device(d), states)
+        losses = [ns.sweep_train_step(model, params, opt, sigmas, {k: v.to(d) for k, v in b.items()},
+                                      noise[i].to(d))["loss"].cpu() for i, b in enumerate(batches)]
+        runs.append((torch.stack(losses), {k: v.detach().cpu() for k, v in params.items()}))
+    K.launches.update(saved)  # the twin's launches are not the main path's
+    (gl, gp), (cl, cp) = runs
+    if not torch.allclose(gl, cl, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"nat_sweep twin: per-member losses {gl.tolist()} on the card, {cl.tolist()} on the CPU")
+    pw, out, tot = _twin_params_close(gp, cp, cfg.train.lr, TWIN_STEPS, "nat_sweep twin")
+    log(f"nat_sweep CPU twin over {TWIN_STEPS} steps of E={len(levels)} members: per-member losses card "
+        f"{[[round(x, 6) for x in r] for r in gl.tolist()]}, cpu {[[round(x, 6) for x in r] for r in cl.tolist()]} "
+        f"(rtol 1e-4); params max |diff| {pw:.3e}, {out}/{tot} entries outside 1e-5 + 1e-4|p|")
+
+    rec = Recorder()
+    before = dict(activity)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, hist = ns.train_nat_sweep(cfg, data=data, logger=rec, workdir=str(EVAL_WORK / "nat_sweep"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launches)
+    if activity != before:
+        raise AssertionError(f"train_nat_sweep's prewarm measured or wrote after the phase's: {before} -> {activity}")
+    epochs = cfg.train.n_epochs
+    want = {"circuit_expvals_ensemble": epochs * (spe + val_steps), "circuit_adjoint_ensemble": epochs * spe}
+    log(f"nat_sweep: {epochs} epochs of {spe} ensemble steps ({rows} rows, E={len(levels)} sigmas {list(levels)}) "
+        f"+ validation in {wall:.2f} s; per-member val_acc {[a.tolist() for a in hist['val_acc']]}; "
+        f"launches {json.dumps(counts)} [{card}]")
+    if any(counts[k] != v for k, v in want.items()) or any(counts[k] for k in K.KERNELS):
+        raise AssertionError(f"nat_sweep launches {counts}: want {want} and no one-member launch")
+    if not all(np.isfinite(np.stack(v)).all() for v in hist.values()):
+        raise AssertionError(f"nat_sweep: non-finite history {hist}")
+    counts = {k: counts[k] + prewarm_launches[k] for k in counts}
+    return counts, {"worst": worst, "shapes": shapes, "members": members, "n": n, "layers": layers, "rows": rows}
+
+
+def ensemble_event_times(torch, K, ens: dict) -> dict:
+    """Event-timed ms of the member-axis forward (with the states, as a
+    training step writes them) and adjoint at the phase's shape, of E
+    one-member launches of the same work, and of the plain versions."""
+    sh, n, layers, members = ens["shapes"], ens["n"], ens["layers"], ens["members"]
+    a, w, g, fre, fim = sh["a"], sh["w"], sh["g"], sh["fre"], sh["fim"]
+    g_m = [g[m].contiguous() for m in range(members)]
+    calls = {
+        "fwd": lambda: K.fused_circuit_expvals_ensemble(a, w, n, layers, return_state=True),
+        "fwd_single": lambda: [K.fused_circuit_expvals(a[m], w[m], n, layers, return_state=True) for m in range(members)],
+        "adj": lambda: K.circuit_adjoint_ensemble(fre, fim, g, a, w, n, layers),
+        "adj_single": lambda: [K.circuit_adjoint(fre[m], fim[m], g_m[m], a[m], w[m], n, layers) for m in range(members)],
+    }
+    out = {"calls": calls}
+    for key, fn in calls.items():
+        out[f"{key}_ms"] = event_ms(torch, fn)
+    out["fwd_plain_ms"] = event_ms(torch, lambda: K.circuit_expvals_ensemble_plain(a, w, n, layers), reps=5, inner=2)
+    out["adj_plain_ms"] = event_ms(
+        torch, lambda: K.circuit_adjoint_ensemble_plain(fre, fim, g, a, w, n, layers), reps=5, inner=2
+    )
+    b = ens["rows"]
+    fb, ff = circuit_work(b, n, layers, with_state=True)
+    ab, af = adjoint_work(b, n, layers)
+    out["fwd_bound"] = bound(members * fb, members * ff)
+    out["adj_bound"] = bound(members * ab, members * af)
+    return out
+
+
+def trajectories_phase(torch, card: str):
+    """The trajectory simulator on the card: p=0 against the clean ``tensor``
+    circuit (atol 1e-6), the one-wire anchor <Z> -> (1 - 4p/3) <Z> within its
+    5-sigma Monte-Carlo band, and the peak memory of n=6, L=3, B=2304, 32
+    trajectories. Returns that call for the profiler's device time."""
+    from qdml_tpu_torch.quantum import circuits
+    from qdml_tpu_torch.quantum import statevector as sv
+    from qdml_tpu_torch.quantum import trajectories as tr
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 13)
+    a = torch.tensor(rng.uniform(-1, 1, (64, 6)), dtype=torch.float32, device=dev)
+    w = torch.tensor(rng.uniform(0, 2 * np.pi, (3, 6, 2)), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    got = tr.run_circuit_trajectories(a, w, 6, 3, 0.0, gen, n_traj=4)
+    err = (got - circuits.run_circuit(a, w, 6, 3, impl="tensor")).abs().max().item()
+    if err > 1e-6:
+        raise AssertionError(f"trajectories p=0: {err:.3e} from the clean circuit")
+    p, b, n_traj = 0.3, 2304, 32
+    angles = torch.linspace(-1.2, 1.2, b, device=dev)[:, None]
+    clean = torch.cos(angles[:, 0])
+    psi = circuits.angle_embed(sv.zero_state(1, (n_traj, b), device=dev), angles.expand(n_traj, b, 1), 1)
+    z = sv.expvals_z(tr.apply_random_paulis(psi, tr.draw_outcomes(gen, (n_traj, b, 1), p), 1), 1)[..., 0].mean(0)
+    ratio = float((z * clean).sum() / (clean * clean).sum())
+    band = 5.0 / np.sqrt(b * n_traj) / float(clean.abs().mean())
+    if abs(ratio - (1 - 4 * p / 3)) > band:
+        raise AssertionError(f"trajectories anchor: ratio {ratio} vs {1 - 4 * p / 3} (band {band:.3e})")
+    a_big = torch.tensor(rng.uniform(-1, 1, (b, 6)), dtype=torch.float32, device=dev)
+
+    def call():
+        return tr.run_circuit_trajectories(a_big, w, 6, 3, 0.05, gen, n_traj=n_traj)
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"trajectories: p=0 within {err:.1e} of the clean tensor circuit (atol 1e-6); one-wire anchor at p={p}: "
+        f"<Z> ratio {ratio:.5f} vs 1 - 4p/3 = {1 - 4 * p / 3:.5f} (5-sigma band {band:.2e}); n=6 L=3 B={b} "
+        f"{n_traj} trajectories: peak memory {peak / 2**20:.1f} MiB above the inputs [{card}]")
+    return call
+
+
+def profile_phase(torch, mods, card: str) -> dict:
+    """``cli profile`` at the default config (HDCE, S=3 trunks of 32 features,
+    the 4096->2048 head, 256 rows a cell): samples/sec, step percentiles and
+    the device-busy share of the traced window. The busy time is read a
+    second way, from the Chrome trace the command wrote: the union of its
+    kernel, memcpy and memset events must match the summary's within 1%;
+    the trace's GPU user annotations (``record_function`` ranges mirrored
+    onto the device) are printed beside it, counted in neither."""
+    from qdml_tpu_torch.utils.profiling import union_us
+
+    out = EVAL_WORK / "profile"
+    if mods["cli"].main(["profile", f"--out={out}"]) != 0:
+        raise AssertionError("cli profile failed")
+    with open(out / "summary.json") as fh:
+        summary = json.load(fh)
+    share = summary["device_busy_share"]
+    if summary["backend"] != "cuda" or not summary["samples_per_sec"] > 0 or share is None or not 0 < share <= 1.05:
+        raise AssertionError(f"profile summary {summary}")
+    with open(out / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    annotations = [e["dur"] for e in events if e.get("cat") == "gpu_user_annotation" and "dur" in e]
+    busy = union_us(spans)
+    log(f"profile trace.json: {len(spans)} device activities, {sum(s[1] - s[0] for s in spans):.1f} us summed, "
+        f"{busy:.1f} us as a union; {len(annotations)} GPU user annotations, {sum(annotations):.1f} us; summary "
+        f"device_busy_us {summary['device_busy_us']:.1f} [{summary['card']}]")
+    if not spans or abs(busy - summary["device_busy_us"]) > 0.01 * busy:
+        raise AssertionError(f"profile: the trace's device activities cover {busy:.1f} us, the summary says "
+                             f"{summary['device_busy_us']:.1f}")
+    log(f"profile HDCE: {summary['samples_per_sec']} samples/s over {summary['steps_traced']} traced steps of "
+        f"{summary['rows_per_step']} rows; step ms {json.dumps(summary['step_ms'])}; device busy "
+        f"{summary['device_busy_us']:.1f} us of a {summary['window_s'] * 1e3:.3f} ms window, share {share:.4f}; "
+        f"memory {json.dumps(summary['memory'])} [{summary['card']}]")
+    return summary
 
 
 def main() -> int:
@@ -1128,6 +1481,7 @@ def main() -> int:
     from qdml_tpu_torch.quantum import circuits
     from qdml_tpu_torch.quantum import kernels as K
     from qdml_tpu_torch.serve import engine as engine_mod
+    from qdml_tpu_torch.train import dce as dce_mod
     from qdml_tpu_torch.train import hdce as hdce_mod
     from qdml_tpu_torch.train import qsc as train_qsc
     from qdml_tpu_torch.utils.device import resolve_device
@@ -1201,13 +1555,18 @@ def main() -> int:
         "serve dispatch", serve_dispatch, torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod, engines, card
     )
     micro_launches = phase("microbench", microbench, torch, K, card)
-    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "cli": cli}
-    train_launches, adjoint_per_step = phase("train", train, torch, K, mods, card)
+    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "cli": cli, "dce": dce_mod}
+    train_launches, adjoint_per_step, train_data = phase("train", train, torch, K, mods, card)
+    dce_launches = phase("dce", dce_phase, torch, K, mods, card, train_data)
+    del train_data
     eval_launches = phase("eval", evaluate, torch, K, mods, card)
+    phase("interop", interop_phase, torch, mods, card)
+    nat_launches, ens = phase("nat_sweep", nat_sweep_phase, torch, K, mods, card)
+    traj_call = phase("trajectories", trajectories_phase, torch, card)
     t_times = time.perf_counter()
     launches = {
         k: race_launches[k] + launches[k] + dispatch_launches[k] + micro_launches[k] + train_launches[k]
-        + eval_launches[k]
+        + dce_launches[k] + eval_launches[k] + nat_launches[k]
         for k in launches
     }
     # No entry point reaches B.3 (the JAX package runs its kernel only from
@@ -1272,6 +1631,9 @@ def main() -> int:
             "matmul_ms": event_ms(torch, lambda: torch.matmul(psi_c, ut_c)),
             "bound": bound(*unitary_work(WIDE_BATCH, UNI_N)),
         }
+        # the member-axis circuit kernels at the ensemble's shape, beside E
+        # one-member launches of the same work
+        ens_t = ensemble_event_times(torch, K, ens)
 
     for name, (gpu, _) in engines.items():
         for b in BUCKETS:
@@ -1299,7 +1661,7 @@ def main() -> int:
         circ_dev_us = profiled_device_us(torch, lambda: K.fused_circuit_expvals(a8, w8, 8, 3), "circuit_expvals_kernel")
         for t in adj.values():
             t["device_us"] = profiled_device_us(
-                torch, lambda: K.circuit_adjoint(*t["args"]), "circuit_adjoint_kernel"
+                torch, lambda: K.circuit_adjoint(*t["args"]), "circuit_adjoint_"
             )
         rot["device_us"] = profiled_device_us(torch, lambda: K.apply_rotation_layer(*rot_args), "rotation_layer_kernel")
         uni["device_us"] = profiled_device_us(
@@ -1307,6 +1669,10 @@ def main() -> int:
         )
         # the yardstick: the complex product alone, one PyTorch call the port never makes
         uni["matmul_device_us"] = profiled_device_us(torch, lambda: torch.matmul(psi_c, ut_c), None)
+        for key, kname in (("fwd", "circuit_expvals_kernel"), ("fwd_single", "circuit_expvals_kernel"),
+                           ("adj", "circuit_adjoint_"), ("adj_single", "circuit_adjoint_")):
+            ens_t[f"{key}_device_us"] = profiled_device_us(torch, ens_t["calls"][key], kname)
+        traj_us = profiled_device_us(torch, traj_call, None, calls=5)
         device_sweep(torch, K, circuits, card, floor_us)
         after = event_ms(torch, lambda: K.circuit_adjoint(*adj[SERVE_BATCH]["args"]))
     K.launches.update(saved)  # timing launches are not main-path launches
@@ -1335,6 +1701,16 @@ def main() -> int:
         f"{shown_us(uni['device_us'])} per launch, plain {uni['plain_ms']:.5f} ms, the complex product "
         f"alone (torch.matmul, complex64) {uni['matmul_ms']:.5f} ms event-timed, device "
         f"{shown_us(uni['matmul_device_us'])}, bound {uni['bound'][0]:.3e} ms ({uni['bound'][1]}) [{card}]")
+
+    e, eb = ens["members"], ens["rows"]
+    for key, what in (("fwd", "circuit_expvals"), ("adj", "circuit_adjoint")):
+        log(f"time {what} member axis E={e} n={ens['n']} L={ens['layers']} B={eb}: one launch wrapper "
+            f"{ens_t[key + '_ms']:.5f} ms, device {shown_us(ens_t[key + '_device_us'])}; {e} one-member launches "
+            f"wrapper {ens_t[key + '_single_ms']:.5f} ms, device {shown_us(ens_t[key + '_single_device_us'])}; "
+            f"plain {ens_t[key + '_plain_ms']:.5f} ms; bound {ens_t[key + '_bound'][0]:.3e} ms "
+            f"({ens_t[key + '_bound'][1]}) [{card}]")
+    log(f"time trajectories n=6 L=3 B=2304 32 trajectories: device {shown_us(traj_us)} per call "
+        f"(every kernel of the call, profiler) [{card}]")
 
     train_adj = adj[TRAIN_BATCH * 9]  # the adjoint's main-path shape is the training step's
     qsc_bound, qsc_by = bound(*qsc_work(SERVE_BATCH, 6))
@@ -1405,9 +1781,34 @@ def main() -> int:
             "bound_by": t["bound"][1],
             "library_ms": None if library_us is None else library_us / 1e3,
         })
+    # the member-axis entry points (the noise-sweep ensemble's path); their
+    # TPU counterpart is the same Pallas kernel batched by vmap
+    for name, key, source, replaces, err in (
+        ("circuit_expvals_ensemble", "fwd", "circuit_expvals", "qdml_tpu/quantum/pallas_kernels.py:354", "fwd"),
+        ("circuit_adjoint_ensemble", "adj", "circuit_adjoint", "qdml_tpu/quantum/pallas_kernels.py:521", "adj"),
+    ):
+        dev_us, single_us = ens_t[f"{key}_device_us"], ens_t[f"{key}_single_device_us"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"qdml_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": ens["worst"][err],
+            "ms": ens_t[f"{key}_ms"],
+            "device_ms": None if dev_us is None else dev_us / 1e3,
+            "plain_ms": ens_t[f"{key}_plain_ms"],
+            "bound_ms": ens_t[f"{key}_bound"][0],
+            "bound_by": ens_t[f"{key}_bound"][1],
+            "library_ms": None,
+            "one_member_launches_ms": ens_t[f"{key}_single_ms"],
+            "one_member_launches_device_ms": None if single_us is None else single_us / 1e3,
+        })
     for rec in kernels:  # the card's launch floor beside every bound
         rec["floor_ms"] = None if floor_us is None else floor_us / 1e3
     phase_s["times"] = round(time.perf_counter() - t_times, 2)
+    # last: its profiler session would slow the host's launches of any timing after it
+    phase("profile", profile_phase, torch, mods, card)
     log(f"phase wall seconds: {json.dumps(phase_s)} [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

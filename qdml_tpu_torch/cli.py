@@ -1,11 +1,16 @@
 """Command-line entry points of the port (``qdml_tpu/cli.py``).
 
-    python -m qdml_tpu_torch.cli train-hdce  [--device=cpu] [--train.lr=3e-4 ...]
-    python -m qdml_tpu_torch.cli train-sc    [...]   # classical scenario classifier
-    python -m qdml_tpu_torch.cli train-qsc   [...]   # quantum scenario classifier
-    python -m qdml_tpu_torch.cli eval        [...]   # the SNR sweep over the trained models
-    python -m qdml_tpu_torch.cli gen-data    [--out=available_data] [...]
-    python -m qdml_tpu_torch.cli loss-curves --curves=LABEL:PATH[,LABEL:PATH...] [...]
+    python -m qdml_tpu_torch.cli train-hdce   [--device=cpu] [--train.lr=3e-4 ...]
+    python -m qdml_tpu_torch.cli train-dce    [...]   # the monolithic DCE baseline
+    python -m qdml_tpu_torch.cli train-sc     [...]   # classical scenario classifier
+    python -m qdml_tpu_torch.cli train-qsc    [...]   # quantum scenario classifier
+    python -m qdml_tpu_torch.cli nat-sweep    [...]   # QSC ensemble over quantum.noise_sweep
+    python -m qdml_tpu_torch.cli eval         [...]   # the SNR sweep over the trained models
+    python -m qdml_tpu_torch.cli profile      [--out=results_torch/trace] [...]
+    python -m qdml_tpu_torch.cli gen-data     [--out=available_data] [...]
+    python -m qdml_tpu_torch.cli import-torch [--out=DIR_OF_PTH_FILES] [...]
+    python -m qdml_tpu_torch.cli export-torch [--out=torch_ckpts] [...]
+    python -m qdml_tpu_torch.cli loss-curves  --curves=LABEL:PATH[,LABEL:PATH...] [...]
 
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
 package, and ``--preset=NAME`` starts from one of its presets
@@ -16,12 +21,19 @@ the card before its first step and logs the winners (``kind=
 "quantum_autotune"``); the table is ``results_torch/autotune/qsc_impl.json``
 unless ``--quantum.autotune_table`` names another. Checkpoints and
 the ``<command>.metrics.jsonl`` log go to ``<train.workdir>/Pn_<pilot_num>/
-<name>/``. ``eval`` restores ``hdce``, ``sc`` and, when trained, ``qsc`` from
-there and writes ``quantum_classical_comparison.json``, ``results_table.md``
+<name>/``. ``nat-sweep`` trains one QSC per ``quantum.noise_sweep`` sigma in
+one ensemble step. ``eval`` restores ``hdce``, ``sc`` and, when trained,
+``qsc`` and ``dce`` from there and writes ``quantum_classical_comparison.json``, ``results_table.md``
 and (with matplotlib) the comparison figure to ``eval.results_dir``, by
 default ``results_torch/``; ``results/`` holds the JAX package's own.
 ``gen-data`` writes the training grid as the reference's ``.npy`` cache,
 ``loss-curves`` the loss figure and its JSON from trainer metrics logs.
+``import-torch`` reads the reference's ``.pth`` files from ``--out`` into
+``{hdce,sc,qsc}_best``; ``export-torch`` writes those tags back as reference
+``.pth`` files. ``profile`` traces 12 HDCE steps after a warm-up step with
+``torch.profiler`` into ``--out`` and writes ``summary.json`` there
+(samples/sec, step percentiles, the card's memory and the device-busy share
+of the traced window, with the card's name and power limit).
 """
 
 from __future__ import annotations
@@ -31,9 +43,13 @@ import sys
 import time
 
 from qdml_tpu_torch import config as cfg_mod
+from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.metrics import MetricsLogger
 
-COMMANDS = ("train-hdce", "train-sc", "train-qsc", "eval", "gen-data", "loss-curves")
+COMMANDS = (
+    "train-hdce", "train-dce", "train-sc", "train-qsc", "nat-sweep", "eval", "profile", "gen-data",
+    "import-torch", "export-torch", "loss-curves",
+)
 
 
 def workdir_of(cfg: cfg_mod.ExperimentConfig) -> str:
@@ -59,6 +75,116 @@ def _eval(cfg: cfg_mod.ExperimentConfig, workdir: str, device, logger: MetricsLo
         fh.write(table + "\n")
     print(table)
     print(f"results: {out_json} plot: {out_png}")
+
+
+def _profile(cfg: cfg_mod.ExperimentConfig, out: str, device) -> dict:
+    """``qdml_tpu/cli.py:372-424``: one HDCE step to warm up, then 12 traced
+    steps. The batch comes from a grid cut to one batch a cell (the step's
+    speed does not depend on the data). The device-busy share is the time
+    the traced device activities cover (``profiling.device_busy_us``) over
+    the window's host wall time; on the CPU it and
+    the card's memory are not measured (None)."""
+    import dataclasses
+    import json
+
+    import torch
+
+    from qdml_tpu_torch.data.datasets import DMLGridLoader, GridData
+    from qdml_tpu_torch.train.hdce import hdce_train_step, make_trainer
+    from qdml_tpu_torch.utils.profiling import StepTimer, card, device_busy_us, force, trace
+
+    dev = resolve_device(device)
+    bs = cfg.train.batch_size
+    cut = dataclasses.replace(cfg.data, data_len=min(cfg.data.data_len, int(bs / cfg.data.train_split) + 2))
+    loader = DMLGridLoader(GridData.synthesize(cut, dev), bs)
+    batch = next(iter(loader.epoch(0)))
+    model, opt = make_trainer(cfg, dev, loader.steps_per_epoch)
+    force(hdce_train_step(model, opt, batch)["loss"])  # warm-up, outside the trace
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    timer = StepTimer(warmup=2)
+    n_steps = 12
+    with trace(out, dev) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            timer.tick(hdce_train_step(model, opt, batch)["loss"])
+        timer.elapsed()  # the timed span ends here, before the trace is written out
+        if cuda:
+            torch.cuda.synchronize(dev)
+        window_s = time.perf_counter() - t0
+    rows = bs * cfg.data.n_scenarios * cfg.data.n_users
+    busy_us = device_busy_us(prof.events()) if cuda else None
+    summary = {
+        "backend": dev.type,
+        "card": card() if cuda else None,
+        "steps_traced": n_steps,
+        "rows_per_step": rows,
+        "samples_per_sec": round(timer.samples_per_sec(rows), 1),
+        "step_ms": timer.histogram(),
+        "window_s": window_s,
+        "device_busy_us": busy_us,
+        "device_busy_share": busy_us / (window_s * 1e6) if cuda else None,
+        "memory": {
+            "allocated_bytes": torch.cuda.memory_allocated(dev),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+            "reserved_bytes": torch.cuda.memory_reserved(dev),
+        } if cuda else None,
+        "trace_dir": out,
+    }
+    with open(os.path.join(out, "summary.json"), "w") as fh:
+        json.dump(summary, fh, indent=2)
+    return summary
+
+
+def _loaded(cfg: cfg_mod.ExperimentConfig, name: str, state: dict, device) -> dict:
+    """``state`` loaded (strictly) into the port's ``name`` module on
+    ``device``, and that module's state dict: weights that do not fit the
+    port's modules are refused before anything is written."""
+    from qdml_tpu_torch.models.qsc import build_classifier
+    from qdml_tpu_torch.train.checkpoint import reconcile_quantum_cfg
+    from qdml_tpu_torch.train.hdce import build_hdce
+    from qdml_tpu_torch.train.torch_interop import qsc_meta_from_state
+
+    if name == "hdce":
+        model = build_hdce(cfg, device)
+    else:
+        qcfg = reconcile_quantum_cfg(cfg, {"quantum": qsc_meta_from_state(state)}) if name == "qsc" else cfg
+        model = build_classifier(qcfg, name == "qsc", device)
+    model.load_state_dict(state)
+    return model.state_dict()
+
+
+def _import_torch(cfg: cfg_mod.ExperimentConfig, src: str, workdir: str, device) -> list[str]:
+    """``qdml_tpu/cli.py:431-456``: the reference ``.pth`` files in ``src`` as
+    ``{hdce,sc,qsc}_best``, each loaded into its module on ``device`` first;
+    the QSC's architecture meta from its weights."""
+    from qdml_tpu_torch.train.checkpoint import save_checkpoint
+    from qdml_tpu_torch.train.torch_interop import import_reference_dir, qsc_meta_from_state
+
+    states = import_reference_dir(src, batch_size=cfg.train.batch_size, snr_db=int(cfg.data.snr_db))
+    checked = {name: _loaded(cfg, name, sd, device) for name, sd in states.items()}
+    for name, sd in checked.items():
+        meta: dict = {"source": src}
+        if name == "qsc":
+            meta["quantum"] = qsc_meta_from_state(sd, cfg.quantum.backend)
+        save_checkpoint(workdir, f"{name}_best", {"params": sd}, meta)
+    return sorted(states)
+
+
+def _export_torch(cfg: cfg_mod.ExperimentConfig, out: str, workdir: str, device) -> list[str]:
+    """``qdml_tpu/cli.py:457-471``: ``{hdce,sc,qsc}_best``, those trained,
+    loaded into their modules on ``device``, as reference ``.pth`` files
+    under ``out``."""
+    from qdml_tpu_torch.train.checkpoint import has_checkpoint, restore_params
+    from qdml_tpu_torch.train.torch_interop import export_reference_dir
+
+    kwargs = {}
+    for name in ("hdce", "sc", "qsc"):
+        if has_checkpoint(workdir, f"{name}_best"):
+            state = restore_params(workdir, f"{name}_best", device)[0]["params"]
+            kwargs[f"{name}_state"] = _loaded(cfg, name, state, device)
+    return export_reference_dir(out, batch_size=cfg.train.batch_size, snr_db=int(cfg.data.snr_db), **kwargs)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -104,6 +230,19 @@ def main(argv: list[str] | None = None) -> int:
         curves = [(label, read_loss_history(path)) for label, path in parse_curve_spec(spec)]
         print(f"loss curves: {create_loss_curve_plot(curves, cfg.eval.results_dir)}")
         return 0
+    if cmd == "profile":
+        import json
+
+        print(json.dumps(_profile(cfg, extra.get("--out", "results_torch/trace"), device)))
+        return 0
+    if cmd == "import-torch":
+        src = extra.get("--out", ".")
+        print(f"imported {_import_torch(cfg, src, workdir, resolve_device(device))} from {src} -> {workdir}")
+        return 0
+    if cmd == "export-torch":
+        written = _export_torch(cfg, extra.get("--out", "torch_ckpts"), workdir, resolve_device(device))
+        print("wrote:\n  " + "\n  ".join(written))
+        return 0
     logger = MetricsLogger(os.path.join(workdir, f"{cmd}.metrics.jsonl"))
     try:
         if cmd == "eval":
@@ -114,6 +253,15 @@ def main(argv: list[str] | None = None) -> int:
             from qdml_tpu_torch.train.hdce import train_hdce
 
             _, history = train_hdce(cfg, device=device, workdir=workdir, logger=logger)
+        elif cmd == "train-dce":
+            from qdml_tpu_torch.train.dce import train_dce
+
+            _, history = train_dce(cfg, device=device, workdir=workdir, logger=logger)
+        elif cmd == "nat-sweep":
+            from qdml_tpu_torch.train.nat_sweep import train_nat_sweep
+
+            _, history = train_nat_sweep(cfg, device=device, workdir=workdir, logger=logger)
+            history = {k: [[float(x) for x in v] for v in vals] for k, vals in history.items()}
         else:
             from qdml_tpu_torch.train.qsc import train_classifier
 

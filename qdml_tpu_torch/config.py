@@ -70,6 +70,8 @@ class QuantumConfig:
     use_gradient_pruning: bool = False
     gradient_threshold: float = 0.1   # absolute cutoff, or quantile fraction
     gradient_prune_mode: str = "absolute"  # "absolute" | "quantile"
+    # QuantumNAT sigma of each member of the nat-sweep ensemble
+    noise_sweep: tuple[float, ...] = (0.0, 0.01, 0.05, 0.1)
     # When the impl race may run (trainer start, serve warmup; never on the
     # request path): "auto" = on the card only, "on"/"off" force it
     # (qdml_tpu_torch.quantum.autotune).

@@ -56,8 +56,13 @@
 //     per-warp weight sums (double-buffered by layer) are folded in warp
 //     order into the block's partial;
 //   - the batch sum of dweights is a cross-block reduction: each block
-//     writes its partial (L, n, 2) and the caller sums the partials in a
-//     fixed order; no atomics, so the gradient is the same on every run;
+//     writes its partial (L, n, 2) and a second kernel of the same launch
+//     call sums the partials in a fixed order; no atomics, so the gradient
+//     is the same on every run;
+//   - a member axis (the noise-sweep ensemble) is the grid's y dimension,
+//     as the JAX package's vmap batches its custom_vjp: each member's blocks
+//     are a one-member launch's, offset to its slices, and the fold sums
+//     each member's own partials;
 //   - the embedding cotangent: each thread takes the amplitudes of one
 //     logical group, forms the leave-one-out products of the per-wire
 //     factors by prefix and suffix products, and the threads of a sample
@@ -178,6 +183,21 @@ circuit_adjoint_kernel(const float* __restrict__ fre, const float* __restrict__ 
   constexpr int IT = iters(N);
   constexpr int kTotal = SPB * kDim;
   constexpr bool kWarpLocal = GPS <= 32;  // a sample's groups lie in one warp
+
+  // Member m = blockIdx.y of a member-axis launch reads and writes its own
+  // slices; the blocks along x cut its batch exactly as a one-member launch
+  // does, so its dangles and block partials are those of a launch on its
+  // slices, bit for bit.
+  {
+    const size_t m = blockIdx.y;
+    fre += m * batch * kDim;
+    fim += m * batch * kDim;
+    g += m * batch * N;
+    cs += m * layers * N * 4;
+    angles += m * batch * N;
+    dangles += m * batch * N;
+    partials += m * gridDim.x * layers * N * 2;
+  }
 
   extern __shared__ float smem[];
   float* pre = smem;                     // psi, re and im (swizzled index)
@@ -431,6 +451,22 @@ circuit_adjoint_kernel(const float* __restrict__ fre, const float* __restrict__ 
   }
 }
 
+// dweights of each member: the sum of its blocks' partials (blocks, per),
+// per = layers * n * 2, in a fixed order with no atomics: block (k, m) of
+// one warp sums entry k of member m, lane j taking blocks j, j + 32, ... in
+// turn, then a fixed shuffle tree. A one-member launch sums the same way,
+// so a member's dweights equal a one-member launch's on its slices.
+__global__ void circuit_adjoint_fold_kernel(const float* __restrict__ partials,
+                                            float* __restrict__ dweights, int blocks, int per) {
+  const int k = blockIdx.x;
+  const size_t m = blockIdx.y;
+  const float* p = partials + m * blocks * per + k;
+  float sum = 0.f;
+  for (int b = threadIdx.x; b < blocks; b += 32) sum += p[static_cast<size_t>(b) * per];
+  sum = warp_sum(sum);
+  if (threadIdx.x == 0) dweights[m * per + k] = sum;
+}
+
 using Kernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                         float*, float*, int, int);
 
@@ -494,22 +530,33 @@ extern "C" int circuit_adjoint_threads(int n) {
   return n < kMinN || n > kMaxN ? 0 : threads(n);
 }
 
-// fre, fim (batch, 2^n): the forward's final state; g (batch, n): the
-// cotangent of <Z>; cs (layers, n, 4): cos, sin of the RY half-angle then of
-// the RZ half-angle; angles (batch, n). Writes dangles (batch, n) and
-// partials (circuit_adjoint_blocks(batch, n), layers, n, 2), whose sum over
-// the first axis is dweights. All float32 on the device. 2 <= n <= 12,
-// layers >= 1, batch >= 1. Returns the first CUDA error, or 0.
+// members independent circuits of one shape, each its own slice of every
+// array: fre, fim (members, batch, 2^n): the forward's final states; g
+// (members, batch, n): the cotangent of <Z>; cs (members, layers, n, 4):
+// cos, sin of the RY half-angle then of the RZ half-angle; angles (members,
+// batch, n). Writes dangles (members, batch, n) and dweights (members,
+// layers, n, 2), through partials (members, circuit_adjoint_blocks(batch,
+// n), layers, n, 2), scratch that the second kernel sums over its blocks
+// axis. All float32 on the device. 2 <= n <= 12, layers >= 1, batch >= 1,
+// 1 <= members <= 65535 (the grid's y extent). Returns the first CUDA
+// error, or 0.
 extern "C" int circuit_adjoint_launch(const float* fre, const float* fim, const float* g,
                                       const float* cs, const float* angles, float* dangles,
-                                      float* partials, int batch, int n, int layers,
-                                      void* stream) {
+                                      float* partials, float* dweights, int batch, int n,
+                                      int layers, int members, void* stream) {
   const Kernel kern = kernel_for(n);
-  if (kern == nullptr || layers < 1 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (kern == nullptr || layers < 1 || batch < 1 || members < 1 || members > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(n, layers);
-  const cudaError_t err = configure(kern, smem);
+  cudaError_t err = configure(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<circuit_adjoint_blocks(batch, n), threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
-      fre, fim, g, cs, angles, dangles, partials, batch, layers);
+  const int blocks = circuit_adjoint_blocks(batch, n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kern<<<dim3(blocks, members), threads_for(n), smem, s>>>(fre, fim, g, cs, angles, dangles,
+                                                           partials, batch, layers);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per = layers * n * 2;
+  circuit_adjoint_fold_kernel<<<dim3(per, members), 32, 0, s>>>(partials, dweights, blocks, per);
   return static_cast<int>(cudaGetLastError());
 }

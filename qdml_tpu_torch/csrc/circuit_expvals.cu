@@ -48,6 +48,10 @@
 //     a fixed order from n = 9.
 // The TPU's lower bound n >= 7 came from its 128-lane roll and does not
 // apply here; the ring itself needs n >= 2.
+// A member axis (the noise-sweep ensemble: E circuits of one shape with
+// their own weights and angles) is the grid's y dimension, as the JAX
+// package's vmap over `_circuit_forward` batches its Pallas call: each
+// member's blocks are those of a one-member launch, offset to its slices.
 // Measured (device time, torch profiler; NVIDIA H100 80GB HBM3, 700.00 W;
 // the first design in brackets, same call): n = 8, L = 3: 4.19 us at B = 1
 // [10.91], 4.22 at B = 64 [11.49], 11.75 at B = 2304 with the state
@@ -155,6 +159,21 @@ circuit_expvals_kernel(const float* __restrict__ angles, const float* __restrict
   constexpr int GPS = groups(N);
   constexpr int SPB = samples_per_block(N);
   constexpr int kTotal = SPB * kDim;
+
+  // Member m = blockIdx.y of a member-axis launch reads its own angles and
+  // gate table and writes its own outputs; the blocks along x cut its batch
+  // exactly as a one-member launch does, so its results are those of a
+  // launch on its slice, bit for bit.
+  {
+    const size_t m = blockIdx.y;
+    angles += m * batch * N;
+    cs += m * layers * N * 4;
+    ev += m * batch * N;
+    if (write_state) {
+      fre += m * batch * kDim;
+      fim += m * batch * kDim;
+    }
+  }
 
   extern __shared__ float smem[];
   float* pre = smem;                     // psi, re and im (swizzled index)
@@ -356,21 +375,27 @@ cudaError_t configure(Kernel kern, size_t smem) {
 
 }  // namespace
 
-// angles (batch, n); cs (layers, n, 4) = cos, sin of the RY half-angle then of
-// the RZ half-angle; ev (batch, n); fre/fim (batch, 2^n), written in logical
-// index order only when write_state != 0 (may be null otherwise; 16-byte
-// aligned). All float32 on the device. 2 <= n <= 12, layers >= 1, batch >= 1.
-// Returns the first CUDA error, or 0.
+// members independent circuits of one shape, each its own slice of every
+// array: angles (members, batch, n); cs (members, layers, n, 4) = cos, sin of
+// the RY half-angle then of the RZ half-angle; ev (members, batch, n);
+// fre/fim (members, batch, 2^n), written in logical index order only when
+// write_state != 0 (may be null otherwise; 16-byte aligned). All float32 on
+// the device. 2 <= n <= 12, layers >= 1, batch >= 1, 1 <= members <= 65535
+// (the grid's y extent; the JAX package's vmap over the Pallas call adds the
+// member axis as a grid dimension the same way). Returns the first CUDA
+// error, or 0.
 extern "C" int circuit_expvals_launch(const float* angles, const float* cs, float* ev,
                                       float* fre, float* fim, int batch, int n, int layers,
-                                      int write_state, void* stream) {
+                                      int write_state, int members, void* stream) {
   const Kernel kern = kernel_for(n);
-  if (kern == nullptr || layers < 1 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (kern == nullptr || layers < 1 || batch < 1 || members < 1 || members > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(n, layers);
   const cudaError_t err = configure(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int spb = samples_per_block(n);
-  kern<<<(batch + spb - 1) / spb, threads(n), smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((batch + spb - 1) / spb, members);
+  kern<<<grid, threads(n), smem, static_cast<cudaStream_t>(stream)>>>(
       angles, cs, ev, fre, fim, batch, layers, write_state);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 reference ``create_comparison_plots``, ``Test.py:277-336``).
 
 The reference's two-panel figure, NMSE (dB) vs SNR for LS / MMSE /
-HDCE-classical / HDCE-quantum and classifier accuracy vs SNR, is saved as
+HDCE-classical / HDCE-quantum (and the monolithic DCE under the JAX key
+``dce`` when the sweep has it) and classifier accuracy vs SNR, is saved as
 ``Quantum_vs_Classical_Comparison.png`` in the results directory, beside the
 results JSON (``quantum_classical_comparison.json``). Without matplotlib the
 figure is skipped (``None``) and the JSON still written. Framework-free: a

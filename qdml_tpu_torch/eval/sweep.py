@@ -15,8 +15,10 @@ For each SNR of ``cfg.eval.snr_grid`` over ``test_len`` fresh test samples:
   trunk runs, on capacity buckets (:func:`sparse_dispatch`, capacity factor
   ``serve.capacity_factor``, one host sync a classifier and batch to read the
   overflow count), value-equivalent to float tolerance;
-- NMSE against the perfect channel for LS, MMSE, MMSE-oracle and HDCE behind
-  each classifier, and both classifiers' accuracy.
+- when a DCE was trained, the monolithic estimate with no routing
+  (``err_dce``, ``qdml_tpu/eval/sweep.py:191-192``);
+- NMSE against the perfect channel for LS, MMSE, MMSE-oracle, DCE and HDCE
+  behind each classifier, and both classifiers' accuracy.
 
 :func:`load_sweep_models` restores the models a sweep evaluates from a
 workdir's checkpoints. :func:`batch_metrics` is one batch's error and power sums as a function of
@@ -26,9 +28,8 @@ own batch. :func:`run_snr_sweep` draws each batch on the device
 float32 sums there, and fetches them once per SNR point, adding them in
 float64 as the JAX ``make_snr_scan`` does (``:206-230``).
 
-Not ported yet: the ``mesh`` (A.10); the monolithic DCE curve,
-which needs ``DCEP128`` and ``train-dce`` (A.3, A.9); and the scenario and
-qubit scaling axes (``:284-436``).
+Not ported yet: the ``mesh`` (A.10), and the scenario and qubit scaling
+axes (``:284-436``).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from qdml_tpu_torch.data.datasets import sweep_batch
 from qdml_tpu_torch.models.qsc import build_classifier
 from qdml_tpu_torch.ops.routing import select_expert, sparse_dispatch
 from qdml_tpu_torch.train.checkpoint import latest_tag, reconcile_quantum_cfg, restore_params
+from qdml_tpu_torch.train.dce import build_dce
 from qdml_tpu_torch.train.hdce import build_hdce
 from qdml_tpu_torch.utils.complexops import CArr
 from qdml_tpu_torch.utils.device import resolve_device
@@ -57,18 +59,21 @@ from qdml_tpu_torch.utils.metrics import MetricsLogger, nmse_db
 @dataclass
 class SweepModels:
     """The models a sweep evaluates, in eval mode on one device: the HDCE,
-    the classical classifier and (optionally) the quantum one."""
+    the classical classifier and (optionally) the quantum one and the
+    monolithic DCE."""
 
     hdce: nn.Module
     sc: nn.Module
     qsc: nn.Module | None = None
+    dce: nn.Module | None = None
 
 
 def load_sweep_models(
     cfg: ExperimentConfig, workdir: str, device: str | torch.device | None = None
 ) -> tuple[ExperimentConfig, SweepModels]:
     """The HDCE, the SC and, when one was trained, the QSC (``Test.py:81-86``)
-    restored from ``workdir`` on ``device`` (``qdml_tpu/cli.py:307-330``):
+    and the DCE (``qdml_tpu/cli.py:327-329``) restored from ``workdir`` on
+    ``device`` (``qdml_tpu/cli.py:307-330``):
     each family's :func:`latest_tag`, or its ``*_best`` tag, which raises as
     missing. Returns the config reconciled with the QSC checkpoint's quantum
     architecture, and the models."""
@@ -86,7 +91,12 @@ def load_sweep_models(
     hdce.load_state_dict(hdce_vars["params"])
     sc = build_classifier(cfg, False, dev)
     sc.load_state_dict(sc_vars["params"])
-    return cfg, SweepModels(hdce, sc, qsc)
+    dce = None
+    dce_tag = latest_tag(workdir, "dce")
+    if dce_tag is not None:
+        dce = build_dce(cfg, dev)
+        dce.load_state_dict(restore_params(workdir, dce_tag, dev)[0]["params"])
+    return cfg, SweepModels(hdce, sc, qsc, dce)
 
 
 def _sum_sq(x) -> torch.Tensor:
@@ -142,6 +152,8 @@ def batch_metrics(
         "count": torch.full((), float(x.shape[0]), device=x.device),
     }
     label2 = torch.cat([h.re, h.im], dim=-1)
+    if models.dce is not None:
+        out["err_dce"] = _sum_sq(models.dce(x) - label2)
     for name, model in (("classical", models.sc), ("quantum", models.qsc)):
         if model is None:
             continue

@@ -78,6 +78,30 @@ def hdce_state_dict_from_flax(
     return _as_tensors(sd)
 
 
+def dce_state_dict_from_flax(
+    variables: Mapping[str, Any], image_hw: tuple[int, int] = (16, 8)
+) -> dict[str, torch.Tensor]:
+    """Flax ``DCEP128`` variables (``params`` + ``batch_stats``) -> the port's
+    :class:`~qdml_tpu_torch.models.cnn.DCEP128` state dict: the one trunk's
+    ``cnn.*`` and the head's ``FC.*``."""
+    params = variables["params"]["ConvP128_0"]
+    stats = variables["batch_stats"]["ConvP128_0"]
+    features = np.asarray(params["ConvBlock_0"]["Conv_0"]["kernel"]).shape[-1]
+    sd: dict[str, np.ndarray] = {}
+    for i, idx in enumerate(_TRUNK_BLOCKS):
+        p, st = params[f"ConvBlock_{i}"], stats[f"ConvBlock_{i}"]
+        sd[f"cnn.{idx}.weight"] = _conv_to_torch(p["Conv_0"]["kernel"])
+        sd[f"cnn.{idx + 1}.weight"] = _copy(p["BatchNorm_0"]["scale"])
+        sd[f"cnn.{idx + 1}.bias"] = _copy(p["BatchNorm_0"]["bias"])
+        sd[f"cnn.{idx + 1}.running_mean"] = _copy(st["BatchNorm_0"]["mean"])
+        sd[f"cnn.{idx + 1}.running_var"] = _copy(st["BatchNorm_0"]["var"])
+        sd[f"cnn.{idx + 1}.num_batches_tracked"] = np.asarray(0, np.int64)
+    dense = variables["params"]["FCP128_0"]["Dense_0"]
+    sd["FC.weight"] = _kernel_to_linear(dense["kernel"], _flat_perm(*image_hw, features))
+    sd["FC.bias"] = _copy(dense["bias"])
+    return _as_tensors(sd)
+
+
 def sc_state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Flax ``SCP128`` params -> the port's ``SCP128`` state dict."""
     return _as_tensors({

@@ -5,6 +5,8 @@ Reference architectures (``Estimators_QuantumNAT_onchipQNN.py``):
 - ``Conv_P128`` (:237-268): 3 x [Conv3x3(no bias) + BatchNorm + ReLU],
   channels 2->32->32->32, flatten to 32*16*8 = 4096;
 - ``FC_P128`` (:272-279): Linear(4096 -> 2048), the shared head;
+- ``DCE_P128`` (:40-75): the monolithic estimator, ``Conv_P128`` then the
+  ``FC_P128`` head in one module;
 - ``SC_P128`` (:79-101): the classical scenario classifier;
 - ``QSC_P128.preprocess`` (:152-162): the quantum classifier's CNN front end.
 
@@ -88,6 +90,31 @@ class FCP128(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.FC(x)
+
+
+class DCEP128(ConvP128):
+    """Monolithic direct channel estimator (reference ``DCE_P128``, SURVEY.md
+    C2): ``(B, 2, 16, 8) -> (B, out_dim)``, one ``Conv_P128`` trunk for every
+    scenario and the ``FC_P128`` head, as ``qdml_tpu/models/cnn.py:172-185``.
+    The survey fixes the layers (3 x [Conv k3 no-bias, BN, ReLU], then
+    ``Linear(4096, 2048)``) but not their names, so they are ``ConvP128``'s
+    ``cnn.{0,3,6}.weight`` / ``cnn.{1,4,7}.*`` and ``FCP128``'s ``FC.*``.
+    ``bn_decay`` keeps the default 0.9 per step: the JAX ``DCEP128`` builds
+    its trunk with the default momentum over the flattened grid batch, not
+    HDCE's ``0.9 ** n_users``."""
+
+    def __init__(
+        self,
+        features: int = 32,
+        out_dim: int = 2048,
+        image_hw: tuple[int, int] = (16, 8),
+        bn_decay: float = 0.9,
+    ):
+        super().__init__(features, bn_decay=bn_decay)
+        self.FC = nn.Linear(features * image_hw[0] * image_hw[1], out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.FC(super().forward(x))
 
 
 class StackedConvP128(nn.ModuleList):

@@ -234,3 +234,56 @@ def run_circuit(
     psi = angle_embed(psi, angles, n_qubits)
     psi = apply_ansatz_tensor(psi, weights, n_qubits, n_layers)
     return sv.expvals_z(psi, n_qubits)
+
+
+# impls whose member loop was already reported (one line per impl and process)
+_LOOP_REPORTED: set[str] = set()
+
+
+def run_circuit_ensemble(
+    angles: torch.Tensor,
+    weights: torch.Tensor,
+    n_qubits: int,
+    n_layers: int,
+    backend: str = "dense",
+    impl: str = "auto",
+    mode: str = "train",
+) -> torch.Tensor:
+    """E circuits of one shape, member m with angles ``angles[m]`` (..., n)
+    and weights ``weights[m]`` (L, n, 2): per-wire <Z> (E, ..., n), the
+    counterpart of the JAX package's ``vmap`` of :func:`run_circuit` over an
+    ensemble axis (``qdml_tpu/train/nat_sweep.py:87-108``).
+
+    The impl resolves as :func:`run_circuit` resolves it at one member's
+    shape (its flattened batch), and one that cannot run at ``n_qubits``
+    raises (``ImplIneligibleError``, or ``NotImplementedError`` for an impl
+    the port lacks). ``pallas_circuit`` makes ONE member-axis launch of the
+    circuit kernel (and one of its adjoint in the backward,
+    :func:`kernels.fused_circuit_expvals_ensemble`); every other impl runs
+    :func:`run_circuit` once per member, E calls, and says so in one line the
+    first time (a member axis for B.1 is ROADMAP B work)."""
+    members = angles.shape[0]
+    if weights.shape != (members, n_layers, n_qubits, 2):
+        raise ValueError(
+            f"weights must be (E={members}, {n_layers}, {n_qubits}, 2), got {tuple(weights.shape)}"
+        )
+    batch = int(np.prod(angles.shape[1:-1])) if angles.dim() > 2 else 1
+    resolved = resolve_impl(
+        impl, backend, n_qubits, n_layers, batch, mode=mode, platform=angles.device.type
+    )
+    ok, why = impl_eligible(resolved, n_qubits)
+    if not ok:
+        err = NotImplementedError if resolved in UNPORTED_IMPLS else ImplIneligibleError
+        raise err(why)
+    if resolved == "pallas_circuit":
+        from qdml_tpu_torch.quantum.kernels import fused_circuit_expvals_ensemble
+
+        return fused_circuit_expvals_ensemble(angles, weights, n_qubits, n_layers)
+    if resolved not in _LOOP_REPORTED:
+        _LOOP_REPORTED.add(resolved)
+        print(f"run_circuit_ensemble: impl {resolved!r} has no member axis; "
+              f"{members} calls, one a member", flush=True)
+    return torch.stack([
+        run_circuit(angles[m], weights[m], n_qubits, n_layers, impl=resolved, mode=mode)
+        for m in range(members)
+    ])

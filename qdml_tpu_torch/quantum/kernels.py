@@ -11,6 +11,10 @@ kernels are ported here, each as a CUDA C++ source under ``csrc/``:
   ``_circuit_kernel``): angles + weights -> the L-layer gate chain -> <Z>
   (and the final state); its adjoint backward is a kernel too
   (``csrc/circuit_adjoint.cu``, replaces ``_circuit_bwd``);
+  :func:`fused_circuit_expvals_ensemble` launches the same two kernels once
+  for E circuits of one shape (a member axis on the grid, as the JAX
+  package's ``vmap`` over the Pallas call adds a grid dimension): the
+  noise-sweep ensemble's path;
 - :func:`apply_rotation_layer` (``csrc/rotation_layer.cu``, replaces
   ``_layer_kernel_body``): one layer's RY then RZ on every wire of a batch of
   states; its backward is autograd through the plain version;
@@ -28,7 +32,8 @@ A wrapper takes its kernel's plain PyTorch version only for tensors on the
 CPU, and for the shapes the JAX package itself sends to its XLA twin (each
 such rule is an ``if`` citing the JAX line). On a CUDA tensor it launches the
 kernel or raises. ``launches`` counts kernel launches per wrapper and nothing
-else.
+else: one count per kernel source, and one per member-axis entry point
+(:data:`COUNTERS`).
 """
 
 from __future__ import annotations
@@ -48,6 +53,10 @@ from qdml_tpu_torch.quantum import statevector as sv
 from qdml_tpu_torch.utils.complexops import CArr
 
 KERNELS = ("qsc_expvals", "circuit_expvals", "circuit_adjoint", "rotation_layer", "unitary_expvals")
+# Launch counters: each kernel's one-call wrappers, then the member-axis
+# entry points, which launch the circuit kernels once for a whole ensemble.
+ENSEMBLE_COUNTERS = ("circuit_expvals_ensemble", "circuit_adjoint_ensemble")
+COUNTERS = KERNELS + ENSEMBLE_COUNTERS
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qdml_tpu_torch"
 NVCC_FLAGS = (
@@ -57,7 +66,7 @@ NVCC_FLAGS = (
 
 # Kernel launches per wrapper: a wrapper adds one where it launches its
 # kernel, nowhere else (the plain-version routes do not count).
-launches = {name: 0 for name in KERNELS}
+launches = {name: 0 for name in COUNTERS}
 # nvcc builds started per kernel since the process started (the serving
 # engine reads them to show that its request path builds nothing)
 builds = {name: 0 for name in KERNELS}
@@ -89,7 +98,7 @@ UNITARY_MAX_QUBITS = 14
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
+    for name in COUNTERS:
         launches[name] = 0
 
 
@@ -167,7 +176,7 @@ def _load(name: str) -> ctypes.CDLL:
     if name == "qsc_expvals":
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
     elif name == "circuit_expvals":
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     elif name == "rotation_layer":
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
         for query in (lib.rotation_layer_tile_bits, lib.rotation_layer_reg_bits, lib.rotation_layer_passes):
@@ -178,7 +187,7 @@ def _load(name: str) -> ctypes.CDLL:
         lib.unitary_expvals_tiles.restype = ctypes.c_int
         lib.unitary_expvals_tiles.argtypes = [i32, i32]
     else:
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.circuit_adjoint_blocks.restype = ctypes.c_int
         lib.circuit_adjoint_blocks.argtypes = [i32, i32]
         lib.circuit_adjoint_occupancy.restype = ctypes.c_int
@@ -200,17 +209,17 @@ def _check(t: torch.Tensor, what: str, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{what} must be contiguous")
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
+def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> None:
     """Call ``<name>_launch(*args, stream)`` on ``dev``'s current stream
     (tensors passed as their data pointers), raise on a CUDA error, count the
-    launch."""
+    launch under ``counter`` (default: the kernel's name)."""
     fn = getattr(_load(name), f"{name}_launch")
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
         err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
-    launches[name] += 1
+    launches[counter or name] += 1
 
 
 def _kernel_fwd_plain_bwd(launch, plain, doc: str) -> type[torch.autograd.Function]:
@@ -332,22 +341,59 @@ def _check_circuit_window(n: int, layers: int) -> None:
         )
 
 
-def _circuit_launch(angles, weights, n: int, layers: int, with_state: bool):
+# The member axis is the launch grid's y dimension, at most 65535 blocks.
+ENSEMBLE_MAX_MEMBERS = 65535
+
+
+def _check_members(members: int) -> None:
+    if not 1 <= members <= ENSEMBLE_MAX_MEMBERS:
+        raise ValueError(
+            f"the member-axis circuit kernels take 1 <= E <= {ENSEMBLE_MAX_MEMBERS} members, got {members}"
+        )
+
+
+def _counter(kernel: str, ensemble: bool) -> str:
+    """The launch counter: the member-axis entry point's, or the kernel's own."""
+    return f"{kernel}_ensemble" if ensemble else kernel
+
+
+def _circuit_launch_members(angles, weights, n: int, layers: int, with_state: bool, ensemble: bool):
+    """One launch of the circuit kernel for E circuits of one shape: angles
+    (E, B, n), weights (E, layers, n, 2) -> ev (E, B, n) and, ``with_state``,
+    the final states' re, im (E, B, 2^n). Counted under the member-axis
+    counter when ``ensemble``, else under the kernel's own (a one-member
+    call is E = 1)."""
     dev = angles.device
-    batch, dim = angles.shape[0], 1 << n
+    members, batch, dim = angles.shape[0], angles.shape[1], 1 << n
     _check_circuit_window(n, layers)
-    _check(angles, "angles", (batch, n), dev)
-    _check(weights, "weights", (layers, n, 2), dev)
-    ev = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    _check_members(members)
+    _check(angles, "angles", (members, batch, n), dev)
+    _check(weights, "weights", (members, layers, n, 2), dev)
+    ev = torch.empty((members, batch, n), dtype=torch.float32, device=dev)
     fre = fim = None
     if with_state:
-        fre = torch.empty((batch, dim), dtype=torch.float32, device=dev)
-        fim = torch.empty((batch, dim), dtype=torch.float32, device=dev)
+        fre = torch.empty((members, batch, dim), dtype=torch.float32, device=dev)
+        fim = torch.empty((members, batch, dim), dtype=torch.float32, device=dev)
     if batch == 0:
         return ev, fre, fim
-    cs = circuit_gate_table(weights)
-    _launch("circuit_expvals", dev, angles, cs, ev, fre, fim, batch, n, layers, int(with_state))
+    cs = circuit_gate_table(weights)  # (E, layers, n, 4), one call for every member
+    _launch("circuit_expvals", dev, angles, cs, ev, fre, fim, batch, n, layers, int(with_state), members,
+            counter=_counter("circuit_expvals", ensemble))
     return ev, fre, fim
+
+
+def _circuit_launch(angles, weights, n: int, layers: int, with_state: bool):
+    """One circuit: angles (B, n), weights (layers, n, 2), a launch of E = 1."""
+    ev, fre, fim = _circuit_launch_members(angles[None], weights[None], n, layers, with_state, False)
+    return ev[0], *(None if t is None else t[0] for t in (fre, fim))
+
+
+def circuit_expvals_ensemble_plain(angles: torch.Tensor, weights: torch.Tensor, n: int, layers: int):
+    """Plain version of the member-axis forward: :func:`circuit_expvals_plain`
+    for each member in turn. angles (E, B, n), weights (E, layers, n, 2) ->
+    (expvals (E, B, n), re, im (E, B, 2^n))."""
+    outs = [circuit_expvals_plain(a, w, n, layers) for a, w in zip(angles, weights)]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 def _product_state(factors: torch.Tensor) -> torch.Tensor:
@@ -406,26 +452,49 @@ def circuit_adjoint_plain(fre, fim, g, angles, weights, n: int, layers: int):
     return torch.stack(dangles, dim=-1), dweights
 
 
-def _adjoint_launch(fre, fim, g, angles, weights, n: int, layers: int):
+def circuit_adjoint_ensemble_plain(fre, fim, g, angles, weights, n: int, layers: int):
+    """Plain version of the member-axis adjoint: :func:`circuit_adjoint_plain`
+    for each member in turn. Every argument has a leading member axis E;
+    returns ``(dangles (E, B, n), dweights (E, layers, n, 2))``."""
+    outs = [circuit_adjoint_plain(*member, n, layers) for member in zip(fre, fim, g, angles, weights)]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _adjoint_launch_members(fre, fim, g, angles, weights, n: int, layers: int, ensemble: bool):
+    """One launch of the adjoint for E circuits of one shape: every argument
+    :func:`_adjoint_launch`'s with a leading member axis E; returns
+    ``(dangles (E, B, n), dweights (E, layers, n, 2))``. Counted as
+    :func:`_circuit_launch_members` counts."""
     dev = angles.device
-    batch, dim = angles.shape[0], 1 << n
+    members, batch, dim = angles.shape[0], angles.shape[1], 1 << n
     _check_circuit_window(n, layers)
-    _check(fre, "fre", (batch, dim), dev)
-    _check(fim, "fim", (batch, dim), dev)
-    _check(g, "g", (batch, n), dev)
-    _check(angles, "angles", (batch, n), dev)
-    _check(weights, "weights", (layers, n, 2), dev)
-    dangles = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    _check_members(members)
+    _check(fre, "fre", (members, batch, dim), dev)
+    _check(fim, "fim", (members, batch, dim), dev)
+    _check(g, "g", (members, batch, n), dev)
+    _check(angles, "angles", (members, batch, n), dev)
+    _check(weights, "weights", (members, layers, n, 2), dev)
+    dangles = torch.empty((members, batch, n), dtype=torch.float32, device=dev)
     if batch == 0:
-        return dangles, torch.zeros((layers, n, 2), dtype=torch.float32, device=dev)
+        return dangles, torch.zeros((members, layers, n, 2), dtype=torch.float32, device=dev)
     cs = circuit_gate_table(weights)
-    partials = torch.empty(
-        (_load("circuit_adjoint").circuit_adjoint_blocks(batch, n), layers, n, 2),
-        dtype=torch.float32, device=dev,
+    # per-block partials, which the launch's second kernel sums in a fixed
+    # order into each member's dweights: no atomics
+    blocks = _load("circuit_adjoint").circuit_adjoint_blocks(batch, n)
+    partials = torch.empty((members, blocks, layers, n, 2), dtype=torch.float32, device=dev)
+    dweights = torch.empty((members, layers, n, 2), dtype=torch.float32, device=dev)
+    _launch("circuit_adjoint", dev, fre, fim, g, cs, angles, dangles, partials, dweights, batch, n, layers,
+            members, counter=_counter("circuit_adjoint", ensemble))
+    return dangles, dweights
+
+
+def _adjoint_launch(fre, fim, g, angles, weights, n: int, layers: int):
+    """One circuit: fre, fim (B, 2^n), g and angles (B, n), weights (layers,
+    n, 2), a launch of E = 1."""
+    dangles, dweights = _adjoint_launch_members(
+        fre[None], fim[None], g[None], angles[None], weights[None], n, layers, False
     )
-    _launch("circuit_adjoint", dev, fre, fim, g, cs, angles, dangles, partials, batch, n, layers)
-    # the batch sum over per-block partials, in a fixed order: no atomics
-    return dangles, partials.sum(dim=0)
+    return dangles[0], dweights[0]
 
 
 def circuit_adjoint_occupancy(n: int, layers: int) -> tuple[int, int]:
@@ -449,30 +518,59 @@ def circuit_adjoint(fre, fim, g, angles, weights, n: int, layers: int):
     return _adjoint_launch(fre, fim, g, angles, weights, n, layers)
 
 
+def circuit_adjoint_ensemble(fre, fim, g, angles, weights, n: int, layers: int):
+    """The member-axis adjoint backward: one ``circuit_adjoint`` launch for
+    all E members on the card (each member's result bit for bit that of
+    :func:`circuit_adjoint` on its slices), its plain version for CPU
+    tensors. Arguments as :func:`circuit_adjoint`'s with a leading member
+    axis."""
+    if fre.device.type == "cpu":
+        return circuit_adjoint_ensemble_plain(fre, fim, g, angles, weights, n, layers)
+    return _adjoint_launch_members(fre, fim, g, angles, weights, n, layers, True)
+
+
 class _CircuitExpvals(torch.autograd.Function):
-    """The forward writes the final state; the backward is the adjoint walk
-    from it, as the JAX ``_circuit_expvals`` custom_vjp saves only the final
-    state (pallas_kernels.py:509-555). ``plain`` takes both plain versions."""
+    """E circuits of one shape (angles (E, B, n), weights (E, layers, n, 2);
+    one circuit is E = 1): the forward is one launch that writes every
+    member's final state, the backward one adjoint launch from them, as the
+    JAX ``_circuit_expvals`` custom_vjp saves only the final state
+    (pallas_kernels.py:509-555) and its ``vmap`` batches it over members.
+    ``plain`` takes both plain versions; ``ensemble`` counts the launches
+    under the member-axis counters. Not for ``torch.func`` transforms: the
+    launch is opaque to them, which is why the member axis is written out
+    here instead of vmapped."""
 
     @staticmethod
-    def forward(ctx, angles, weights, n, layers, plain):
+    def forward(ctx, angles, weights, n, layers, plain, ensemble):
         if plain:
-            ev, fre, fim = circuit_expvals_plain(angles, weights, n, layers)
+            ev, fre, fim = circuit_expvals_ensemble_plain(angles, weights, n, layers)
         else:
-            ev, fre, fim = _circuit_launch(angles, weights, n, layers, with_state=True)
+            ev, fre, fim = _circuit_launch_members(angles, weights, n, layers, True, ensemble)
         ctx.save_for_backward(angles, weights, fre, fim)
-        ctx.n, ctx.layers, ctx.plain = n, layers, plain
+        ctx.n, ctx.layers, ctx.plain, ctx.ensemble = n, layers, plain, ensemble
         ctx.mark_non_differentiable(fre, fim)
         return ev, fre, fim
 
     @staticmethod
     def backward(ctx, g, _g_re, _g_im):
         angles, weights, fre, fim = ctx.saved_tensors
-        adjoint = circuit_adjoint_plain if ctx.plain else _adjoint_launch
-        dangles, dweights = adjoint(
-            fre, fim, g.contiguous(), angles, weights, ctx.n, ctx.layers
-        )
-        return dangles, dweights, None, None, None
+        args = (fre, fim, g.contiguous(), angles, weights, ctx.n, ctx.layers)
+        if ctx.plain:
+            dangles, dweights = circuit_adjoint_ensemble_plain(*args)
+        else:
+            dangles, dweights = _adjoint_launch_members(*args, ctx.ensemble)
+        return dangles, dweights, None, None, None, None
+
+
+def _run_circuit(angles, weights, n: int, layers: int, return_state: bool, plain: bool, ensemble: bool):
+    """angles (E, B, n), weights (E, layers, n, 2) -> (ev, fre, fim): through
+    :class:`_CircuitExpvals` when autograd needs a gradient, else one
+    forward launch (or the plain version)."""
+    if torch.is_grad_enabled() and (angles.requires_grad or weights.requires_grad):
+        return _CircuitExpvals.apply(angles, weights, n, layers, plain, ensemble)
+    if plain:
+        return circuit_expvals_ensemble_plain(angles, weights, n, layers)
+    return _circuit_launch_members(angles, weights, n, layers, return_state, ensemble)
 
 
 def fused_circuit_expvals(
@@ -492,21 +590,46 @@ def fused_circuit_expvals(
     launch."""
     lead = angles.shape[:-1]
     a2 = angles.reshape(-1, n)
-    needs_grad = torch.is_grad_enabled() and (a2.requires_grad or weights.requires_grad)
     # plain versions on the CPU, and where JAX runs its XLA twin instead of
     # the kernel (pallas_kernels.py:441-442); its backward is still the
     # adjoint walk (pallas_kernels.py:521)
     plain = a2.device.type == "cpu" or n > CIRCUIT_MAX_QUBITS or layers < 1
-    if needs_grad:
-        ev, fre, fim = _CircuitExpvals.apply(a2, weights, n, layers, plain)
-    elif plain:
-        ev, fre, fim = circuit_expvals_plain(a2, weights, n, layers)
-    else:
-        ev, fre, fim = _circuit_launch(a2, weights, n, layers, return_state)
-    ev = ev.reshape(lead + (n,))
+    ev, fre, fim = _run_circuit(a2[None], weights[None], n, layers, return_state, plain, False)
+    ev = ev[0].reshape(lead + (n,))
     if not return_state:
         return ev
-    return ev, fre.reshape(lead + (-1,)), fim.reshape(lead + (-1,))
+    return ev, fre[0].reshape(lead + (-1,)), fim[0].reshape(lead + (-1,))
+
+
+def fused_circuit_expvals_ensemble(
+    angles: torch.Tensor,
+    weights: torch.Tensor,
+    n: int,
+    layers: int,
+    return_state: bool = False,
+):
+    """E circuits of one shape, member m with its own angles ``angles[m]``
+    (..., n) and weights ``weights[m]`` (layers, n, 2): per-wire <Z> (E, ...,
+    n), in ONE launch of the circuit kernel on the card (member m's result
+    bit for bit that of :func:`fused_circuit_expvals` on its slices), and
+    when autograd needs a gradient one launch of the adjoint. With
+    ``return_state`` also the final states' re and im, (E, ..., 2^n) each.
+    CPU tensors take the plain versions, member by member. On the card there
+    is no other route: outside the kernels' window (2 <= n <= 12, layers >=
+    1, 1 <= E <= 65535) it raises."""
+    members = angles.shape[0]
+    if weights.shape[:1] != (members,):
+        raise ValueError(f"weights {tuple(weights.shape)} and angles {tuple(angles.shape)} differ in members")
+    lead = angles.shape[1:-1]
+    a3 = angles.reshape(members, -1, n)
+    plain = a3.device.type == "cpu"
+    if not plain:
+        a3, weights = a3.contiguous(), weights.contiguous()
+    ev, fre, fim = _run_circuit(a3, weights, n, layers, return_state, plain, True)
+    ev = ev.reshape((members, *lead, n))
+    if not return_state:
+        return ev
+    return ev, fre.reshape((members, *lead, -1)), fim.reshape((members, *lead, -1))
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,11 @@
   (the rate of update k is ``schedule(k)``, k counting from 0);
 - gradient pruning, when the quantum config asks for it, runs on the
   gradients between ``backward()`` and the update, as it sits at the front of
-  the JAX package's optax chain.
+  the JAX package's optax chain; for stacked ensemble parameters
+  (``members=True``) it prunes each member on its own, as the JAX package's
+  ``vmap`` of the whole update does. Adam and AdamW are elementwise, so one
+  optimizer over stacked parameters takes each member's own update
+  (``tests/test_torch_port_nat_sweep.py`` holds it to E separate ones).
 """
 
 from __future__ import annotations
@@ -35,17 +39,21 @@ def lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], float
 class Optimizer:
     """A torch optimizer driven by the schedule, with optional gradient
     pruning in front. ``count`` is the number of updates taken; the pruned
-    fraction of the last update is ``prune_ratio`` (a 0-d tensor)."""
+    fraction of the last update is ``prune_ratio`` (a 0-d tensor, or (E,)
+    with ``members``: every parameter then carries a leading member axis and
+    is pruned member by member)."""
 
     def __init__(
         self,
         opt: torch.optim.Optimizer,
         schedule: Callable[[int], float],
         prune: tuple[float, str] | None = None,
+        members: bool = False,
     ):
         self.opt = opt
         self.schedule = schedule
         self.prune = prune
+        self.members = members
         self.count = 0
         self.prune_ratio: torch.Tensor | None = None
 
@@ -58,7 +66,9 @@ class Optimizer:
 
     def step(self) -> None:
         if self.prune is not None:
-            self.prune_ratio = gradient_prune_([p.grad for p in self.params], *self.prune)
+            self.prune_ratio = gradient_prune_(
+                [p.grad for p in self.params], *self.prune, members=self.members
+            )
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -78,6 +88,7 @@ def get_optimizer(
     params: Iterable[torch.Tensor],
     steps_per_epoch: int,
     quantum: QuantumConfig | None = None,
+    members: bool = False,
 ) -> Optimizer:
     if cfg.moments_dtype == "bfloat16":
         raise NotImplementedError(
@@ -103,4 +114,4 @@ def get_optimizer(
     if quantum is not None and quantum.use_gradient_pruning:
         check_prune_args(quantum.gradient_threshold, quantum.gradient_prune_mode)
         prune = (quantum.gradient_threshold, quantum.gradient_prune_mode)
-    return Optimizer(opt, sched, prune)
+    return Optimizer(opt, sched, prune, members)

@@ -85,7 +85,7 @@ def test_wrapper_gradient_on_cpu_is_the_plain_adjoint_and_counts_nothing():
         torch.tensor(w), n, layers,
     )
     assert torch.equal(at.grad.reshape(6, n), da) and torch.equal(wt.grad, dw)
-    assert tk.launches == {name: 0 for name in tk.KERNELS}
+    assert tk.launches == {name: 0 for name in tk.COUNTERS}
 
 
 def test_adjoint_launch_validates_before_loading(monkeypatch):

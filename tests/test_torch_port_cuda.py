@@ -1,4 +1,5 @@
-"""The five CUDA kernels against their plain versions, on the card.
+"""The five CUDA kernels (and the circuit kernels' member axis) against their
+plain versions, on the card.
 
 These tests need a CUDA GPU and nvcc; without a card they skip (the check is
 made inside the fixture, never at import). Run them on the card with
@@ -115,6 +116,55 @@ def test_circuit_adjoint_kernel_matches_plain(dev, n, layers, batch):
     assert torch.equal(again[1], got[1])  # no atomics: the same sum every run
 
 
+# the noise-sweep ensemble's member axis: one member and the shipped four, at
+# n from one-warp samples (2, 6, 8) to whole blocks (12), the serving batches
+# and the training launch's 2304 rows
+@pytest.mark.parametrize("members,n,batch", [(e, n, b) for e in (1, 4) for n in (2, 6, 8, 12) for b in (1, 64, 2304)])
+def test_member_axis_circuit_kernels_match_plain_and_single_launches(dev, members, n, batch):
+    """One member-axis launch each of the forward and the adjoint: against
+    their plain versions at the one-member tolerances above (2e-5 absolute;
+    2e-5 of the largest cotangent plus 1e-6), and member m bit for bit equal
+    to a one-member launch on its slices."""
+    layers = 3
+    rng = np.random.default_rng(100 * members + 10 * n + batch)
+    w = torch.tensor(rng.uniform(-3, 3, (members, layers, n, 2)), dtype=torch.float32, device=dev)
+    a = torch.tensor(rng.uniform(-1, 1, (members, batch, n)), dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.standard_normal((members, batch, n)), dtype=torch.float32, device=dev)
+    before = dict(tk.launches)
+    ev, fre, fim = tk.fused_circuit_expvals_ensemble(a, w, n, layers, return_state=True)
+    da, dw = tk.circuit_adjoint_ensemble(fre, fim, g, a, w, n, layers)
+    torch.cuda.synchronize()
+    assert tk.launches["circuit_expvals_ensemble"] == before["circuit_expvals_ensemble"] + 1
+    assert tk.launches["circuit_adjoint_ensemble"] == before["circuit_adjoint_ensemble"] + 1
+    assert tk.launches["circuit_expvals"] == before["circuit_expvals"]
+    for got, want in zip((ev, fre, fim), tk.circuit_expvals_ensemble_plain(a, w, n, layers)):
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    for got, want in zip((da, dw), tk.circuit_adjoint_ensemble_plain(fre, fim, g, a, w, n, layers)):
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5 * want.abs().max().item() + 1e-6)
+    for m in range(members):
+        sev, sre, sim = tk.fused_circuit_expvals(a[m], w[m], n, layers, return_state=True)
+        sda, sdw = tk.circuit_adjoint(sre, sim, g[m].contiguous(), a[m], w[m], n, layers)
+        for got, want in ((ev[m], sev), (fre[m], sre), (fim[m], sim), (da[m], sda), (dw[m], sdw)):
+            assert torch.equal(got, want), m
+
+
+def test_member_axis_autograd_is_one_launch_each_way(dev):
+    rng = np.random.default_rng(1)
+    a = torch.tensor(rng.uniform(-1, 1, (4, 2304, 6)), dtype=torch.float32, device=dev, requires_grad=True)
+    w = torch.tensor(rng.uniform(-3, 3, (4, 3, 6, 2)), dtype=torch.float32, device=dev, requires_grad=True)
+    g = torch.tensor(rng.standard_normal((4, 2304, 6)), dtype=torch.float32, device=dev)
+    tk.reset_launch_counts()
+    (circuits.run_circuit_ensemble(a, w, 6, 3, impl="pallas_circuit") * g).sum().backward()
+    torch.cuda.synchronize()
+    assert tk.launches == {name: int(name in tk.ENSEMBLE_COUNTERS) for name in tk.COUNTERS}
+    a2, w2 = a.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+    (tk.circuit_expvals_ensemble_plain(a2, w2, 6, 3)[0] * g).sum().backward()
+    torch.testing.assert_close(a.grad, a2.grad, rtol=0, atol=2e-5 * a2.grad.abs().max().item())
+    torch.testing.assert_close(w.grad, w2.grad, rtol=0, atol=2e-5 * w2.grad.abs().max().item())
+    with pytest.raises(ValueError, match="members"):
+        tk.fused_circuit_expvals_ensemble(a.detach(), w.detach()[:3], 6, 3)
+
+
 def test_circuit_autograd_launches_forward_and_adjoint(dev):
     rng = np.random.default_rng(0)
     a = torch.tensor(rng.uniform(-1, 1, (64, 8)), dtype=torch.float32, device=dev, requires_grad=True)
@@ -123,7 +173,7 @@ def test_circuit_autograd_launches_forward_and_adjoint(dev):
     tk.reset_launch_counts()
     (tk.fused_circuit_expvals(a, w, 8, 3) * g).sum().backward()
     torch.cuda.synchronize()
-    assert tk.launches == {name: int(name in ("circuit_expvals", "circuit_adjoint")) for name in tk.KERNELS}
+    assert tk.launches == {name: int(name in ("circuit_expvals", "circuit_adjoint")) for name in tk.COUNTERS}
     a2, w2 = a.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
     (tk.circuit_expvals_plain(a2, w2, 8, 3)[0] * g).sum().backward()
     torch.testing.assert_close(a.grad, a2.grad, rtol=0, atol=2e-5 * a2.grad.abs().max().item())
