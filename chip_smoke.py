@@ -91,6 +91,19 @@ Phases, each of which exits non-zero on failure:
    ``tensor`` circuit, the one-wire anchor <Z> -> (1 - 4p/3) <Z> within its
    Monte-Carlo band, and the peak memory (and, in phase 9, the device time)
    of n=6, L=3, B=2304, 32 trajectories;
+8e. scan: K steps as one CUDA graph (``train/scan.py``; every trainer above
+   already trained at the default ``train.scan_steps=1``, one step a
+   graph): HDCE, SC, QSC n=6 ``auto`` under QuantumNAT, the DCE and the
+   ensemble each run one epoch of 9 steps at ``scan_steps`` 0, 4 and 1 from
+   the same init; every K holds the per-step path's step losses (rtol 1e-5)
+   and parameters (the Adam bound), counts the same kernel launches, and
+   captures at most two graphs; bitwise equality and the host wall per step
+   of each path are printed;
+8f. routing: ``serve.dispatch=auto`` at S=3 resolves dense and times
+   nothing; the routing race at S=8 and S=64 (JAX's reduced geometry) with
+   ``dispatch_agreement`` within 1e-5;
+8g. bench: ``python -m qdml_tpu_torch.bench`` in-process (48 steps a row),
+   its one JSON line printed; every row must be measured;
 9. times: each kernel and its plain version at its path's shapes (CUDA
    events), the member-axis forward and adjoint beside E one-member
    launches of the same work, each kernel's device time per launch (torch profiler) over batch
@@ -106,7 +119,9 @@ Phases, each of which exits non-zero on failure:
    forward/backward/update split (host clock), and each phase's wall time;
 10. profile: ``python -m qdml_tpu_torch.cli profile`` at the default config
    (12 traced HDCE steps of 2304 rows): samples/sec, step percentiles and
-   the device-busy share of the traced window, after every other timing.
+   the device-busy share of the traced window, after every other timing;
+   then the device-busy share of the HDCE and QSC ``auto`` steps on the
+   per-step path and as K=16 graph replays.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and
@@ -947,7 +962,7 @@ class Recorder:
         self.records: list[dict] = []
 
     def log(self, step=None, **values) -> None:
-        self.records.append({"step": step, **values})
+        self.records.append({"step": step, **values, "t": time.perf_counter()})
 
 
 def trainer_configs(cfg_mod):
@@ -1464,7 +1479,242 @@ def profile_phase(torch, mods, card: str) -> dict:
         f"{summary['rows_per_step']} rows; step ms {json.dumps(summary['step_ms'])}; device busy "
         f"{summary['device_busy_us']:.1f} us of a {summary['window_s'] * 1e3:.3f} ms window, share {share:.4f}; "
         f"memory {json.dumps(summary['memory'])} [{summary['card']}]")
+    graph_busy_share(torch, mods, summary["card"])
     return summary
+
+
+GRAPH_K = 16
+GRAPH_CHUNKS = 2  # profiled chunks a path (the profiler's own processing grows with the events)
+
+
+def graph_busy_share(torch, mods, card: str) -> None:
+    """The device-busy share of the HDCE and the QSC n=6 ``auto`` step at
+    2304 rows (the bench's batch, gathered from the grid each step) on the
+    per-step path and as K=16 graph replays: 32 steps under the profiler,
+    no host read between steps, the window's host wall ended by one sync;
+    busy time the union of device activities (``profiling.device_busy_us``).
+    The profiler adds host time to the eager steps, so their share reads
+    low; replays have one launch a chunk to slow. After every other timing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qdml_tpu_torch import bench
+    from qdml_tpu_torch.utils.profiling import device_busy_us
+
+    dev = torch.device(DEVICE)
+    cfg = bench._grid_cfg()
+    data, idx, snr = bench._grid(cfg, dev)
+    idx_k = np.broadcast_to(idx, (GRAPH_K, *idx.shape)).copy()
+    snr_k = np.full(GRAPH_K, snr, np.float32)
+    idx_t, snr_t = torch.as_tensor(idx_k, device=dev), torch.as_tensor(snr_k, device=dev)
+    trainers = {
+        "hdce": lambda: mods["hdce"].make_trainer(cfg, dev, steps_per_epoch=10**6),
+        "qsc_n6_auto": lambda: mods["qsc"].make_trainer(cfg, True, dev, steps_per_epoch=10**6),
+    }
+    for name, make in trainers.items():
+        model, opt = make()
+        model.train()
+        if name == "hdce":
+            def step(batch, _noise, model=model, opt=opt):
+                return mods["hdce"].hdce_train_step(model, opt, batch)
+        else:
+            def step(batch, _noise, model=model, opt=opt):
+                return mods["qsc"].classifier_train_step(model, opt, batch)
+        run = mods["scan"].make_scan_steps(step, data, opt, GRAPH_K)
+        for _ in range(3):  # eager warm-up chunk, capture, one replay
+            run(idx_k, snr_k)
+
+        def eager(step=step):
+            for j in range(GRAPH_K):
+                step(data.batch(idx_t[j], snr_t[j]), None)
+
+        shares = {}
+        for path, fn in (("per-step", eager), (f"K={GRAPH_K} graph", lambda: run(idx_k, snr_k))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(GRAPH_CHUNKS):
+                    fn()
+                torch.cuda.synchronize()
+                window = time.perf_counter() - t0
+            busy = device_busy_us(prof.events())
+            shares[path] = (busy, window)
+        log(f"profile {name} {GRAPH_CHUNKS * GRAPH_K} steps of 2304 rows: " + "; ".join(
+            f"{path} device busy {busy:.1f} us of a {w * 1e3:.3f} ms window, share "
+            + (f"{busy / (w * 1e6):.4f}" if busy else "not measured (no device time in the trace)")
+            for path, (busy, w) in shares.items()) + f" [{card}]")
+
+SCAN_DATA_LEN = 10 * TRAIN_BATCH  # 9 training steps an epoch and one validation batch
+# the per-step path twice (whether two eager runs agree bit for bit), then K = 4 and 1
+SCAN_RUNS = (("eager", 0), ("eager again", 0), ("K=4", 4), ("K=1", 1))
+
+
+def _step_losses(records: list[dict]) -> list:
+    """Each step's loss from a trainer's log at print_freq 1: one record a
+    step on the per-step path, one a chunk (``losses``) on the K-step path."""
+    out = []
+    for r in records:
+        if "losses" in r:
+            out.extend(r["losses"])
+        elif "loss" in r:
+            out.append(r["loss"])
+    return out
+
+
+def scan_phase(torch, K, mods, card: str) -> dict[str, int]:
+    """K steps as one CUDA graph (``train/scan.py``) for every trainer at
+    full width: HDCE, SC, QSC n=6 L=3 at impl ``auto`` (the race's table;
+    QuantumNAT sigma 0.01, its generator registered with the graphs), the
+    DCE and the ``nat_sweep`` preset's ensemble (n=6, L=3, E=4), each one
+    epoch from the same init at ``scan_steps`` 0 (twice), 4 and 1 (9 steps of
+    2304 rows: K=4 runs an eager warm-up chunk, a graph of 4 and a tail graph
+    of 1). Every K must give the per-step path's step losses within rtol
+    1e-5 and its parameters within the Adam bound (1e-5 + 1e-4|p|, every
+    entry within 1.1 * steps * lr), the same kernel launches counted, at
+    most two captured graphs, and a ``scan_dispatch`` record with
+    ``eligible: true``; whether losses and parameters were equal bit for bit
+    is printed. Host wall per step on each path: the epoch (warm-up, capture
+    and one validation batch included) over its 9 steps, and the median
+    between consecutive step logs after the first two chunks (print_freq 1:
+    one host read a chunk). Returns the launches of the K >= 1 runs."""
+    from dataclasses import replace
+
+    from qdml_tpu_torch.train import nat_sweep as ns
+    from qdml_tpu_torch.train import scan
+
+    base = trainer_configs(mods["config"])["hdce"][0]
+    base = replace(base, data=replace(base.data, data_len=SCAN_DATA_LEN))
+    data = mods["datasets"].GridData.synthesize(base.data, DEVICE)
+    spe = mods["datasets"].DMLGridLoader(data, TRAIN_BATCH, "train").steps_per_epoch
+    q6 = replace(base.quantum, n_qubits=6, n_layers=3, use_quantumnat=True, noise_level=0.01)
+    sweep = mods["config"].preset("nat_sweep")
+    sweep = replace(base, quantum=replace(sweep.quantum, n_qubits=6, n_layers=3))
+    runs = {
+        "hdce": lambda c, rec: mods["hdce"].train_hdce(c, data=data, logger=rec)[0].state_dict(),
+        "sc": lambda c, rec: mods["qsc"].train_classifier(c, False, data=data, logger=rec)[0].state_dict(),
+        "qsc_n6_auto": lambda c, rec: mods["qsc"].train_classifier(
+            replace(c, quantum=q6), True, data=data, logger=rec)[0].state_dict(),
+        "dce": lambda c, rec: mods["dce"].train_dce(c, data=data, logger=rec)[0].state_dict(),
+        "nat_sweep": lambda c, rec: ns.train_nat_sweep(
+            replace(c, quantum=sweep.quantum), data=data, logger=rec)[0],
+    }
+    total = {k: 0 for k in K.launches}
+    for name, fn in runs.items():
+        got = {}
+        for label, k in SCAN_RUNS:
+            cfg = replace(base, train=replace(base.train, scan_steps=k))
+            rec = Recorder()
+            before = dict(scan.activity)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            params = fn(cfg, rec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = [r for r in rec.records if "loss" in r]
+            stamps = [r["t"] for r in steps]
+            per = [(b - a) / (len(r.get("losses", [0]))) for a, b, r in zip(stamps, stamps[1:], steps[1:])]
+            got[label] = {
+                "losses": np.asarray(_step_losses(rec.records), dtype=np.float64),
+                "params": {p: v.detach().cpu() for p, v in params.items()},
+                "launches": dict(K.launches),
+                "captures": scan.activity["captures"] - before["captures"],
+                "replays": scan.activity["replays"] - before["replays"],
+                "dispatch": [r for r in rec.records if r.get("kind") == "scan_dispatch"],
+                "wall_ms_per_step": 1e3 * wall / spe,
+                "steady_ms_per_step": 1e3 * statistics.median(per[2:]) if len(per) > 2 else None,
+            }
+            if k:
+                for c in total:
+                    total[c] += got[label]["launches"][c]
+        ref = got["eager"]
+        if len(ref["losses"].ravel()) != spe * (ref["losses"].shape[1] if ref["losses"].ndim > 1 else 1):
+            raise AssertionError(f"scan {name}: per-step path logged {ref['losses'].shape} losses for {spe} steps")
+        lr = base.train.lr
+        for label, k in SCAN_RUNS[1:]:
+            run = got[label]
+            if run["losses"].shape != ref["losses"].shape or not np.allclose(
+                    run["losses"], ref["losses"], rtol=1e-5, atol=0.0):
+                raise AssertionError(f"scan {name} {label}: losses {run['losses'].tolist()} vs per-step "
+                                     f"{ref['losses'].tolist()} (rtol 1e-5)")
+            floats = {p: v for p, v in ref["params"].items() if v.is_floating_point()}
+            worst, outside, tot = _twin_params_close(run["params"], floats, lr, spe, f"scan {name} {label}")
+            if any(not torch.equal(run["params"][p], v) for p, v in ref["params"].items() if p not in floats):
+                raise AssertionError(f"scan {name} {label}: integer buffers differ")
+            if run["launches"] != ref["launches"]:
+                raise AssertionError(f"scan {name} {label}: launches {run['launches']} vs per-step {ref['launches']}")
+            if run["captures"] > 2 or not run["dispatch"] or run["dispatch"][0]["eligible"] != (k > 0):
+                raise AssertionError(f"scan {name} {label}: {run['captures']} graphs, dispatch {run['dispatch']}")
+            bitwise = bool(np.array_equal(run["losses"], ref["losses"])) and all(
+                torch.equal(run["params"][p], v) for p, v in ref["params"].items())
+            log(f"scan {name} {label} against the per-step path: {spe} steps, {run['captures']} graphs captured, {run['replays']} replays; "
+                f"losses max rel diff {float(np.max(np.abs(run['losses'] - ref['losses']) / np.abs(ref['losses']))):.3e} "
+                f"(rtol 1e-5); params max |diff| {worst:.3e}, {outside}/{tot} outside 1e-5 + 1e-4|p|; bitwise "
+                f"{'yes' if bitwise else 'no'}; launches {json.dumps({c: v for c, v in run['launches'].items() if v})}")
+        walls = ", ".join(
+            f"{label} {got[label]['wall_ms_per_step']:.3f}" + (
+                f" (steady {got[label]['steady_ms_per_step']:.3f})" if got[label]["steady_ms_per_step"] else "")
+            for label, _ in SCAN_RUNS)
+        log(f"time scan {name}: host wall ms per step, epoch incl. warm-up/capture/validation: {walls} [{card}]")
+    return total
+
+
+def routing_phase(torch, mods, card: str) -> None:
+    """``serve.dispatch=auto`` at the shipped S=3: a full-width engine
+    resolves ``dense`` at warmup and times nothing. Then the race itself
+    (``ensure_route``, forced) at S=8 and S=64 at JAX's reduced geometry
+    (8x4 pilots, 16 channels, a 256-wide head, 64 rows), and
+    ``dispatch_agreement`` (balanced and skewed loads) within 1e-5 at each."""
+    from qdml_tpu_torch import bench
+    from qdml_tpu_torch.eval.sweep import dispatch_agreement
+    from qdml_tpu_torch.models.cnn import seeded_init_
+    from qdml_tpu_torch.models.qsc import build_classifier
+    from qdml_tpu_torch.ops import dispatch_autotune as da
+    from qdml_tpu_torch.serve.engine import ServeEngine
+    from qdml_tpu_torch.utils.tune_table import activity
+
+    da.set_table_path(str(TUNE_DIR / "routing_dispatch.json"))
+    from dataclasses import replace
+
+    cfg = mods["config"].ExperimentConfig()
+    cfg = replace(cfg, serve=replace(cfg.serve, buckets=(SERVE_BATCH,)))
+    gen = torch.Generator().manual_seed(SEED + 17)
+    engine = ServeEngine(cfg, mods["hdce"].build_hdce(cfg, "cpu", generator=gen).state_dict(),
+                         build_classifier(cfg, False, "cpu", generator=gen).state_dict(), device=DEVICE)
+    before = dict(activity)
+    warm = engine.warmup()
+    race = warm["dispatch"]["race"][str(SERVE_BATCH)]
+    if warm["dispatch"]["mode"] != {str(SERVE_BATCH): "dense"} or activity != before or "only_candidate" not in \
+            race["candidates"]["dense"]:
+        raise AssertionError(f"routing S=3: {warm['dispatch']}, activity {before} -> {activity}")
+    log(f"routing S=3 engine (serve.dispatch=auto): bucket {SERVE_BATCH} -> dense, nothing timed "
+        f"({race['excluded'][0]['reason']}) [{card}]")
+    dev = torch.device(DEVICE)
+    for s in (8, 64):
+        model = mods["hdce"].HDCE(s, bench.SCALING_FEATURES, out_dim=bench.SCALING_OUT, image_hw=bench.SCALING_HW)
+        model = seeded_init_(model, torch.Generator().manual_seed(s)).to(dev).eval()
+        x = torch.tensor(np.random.default_rng(s).standard_normal((SERVE_BATCH, 2, *bench.SCALING_HW)),
+                         dtype=torch.float32, device=dev)
+        entry = da.ensure_route(model, x, s, force=True)
+        agree = dispatch_agreement(s, batch=SERVE_BATCH, device=DEVICE)
+        if set(entry["candidates"]) != {"dense", "sparse"} or any("error" in c for c in entry["candidates"].values()):
+            raise AssertionError(f"routing S={s}: {entry}")
+        if agree["max_abs_delta"] > 1e-5 or agree["overflow_balanced"] != 0:
+            raise AssertionError(f"routing S={s}: agreement {agree}")
+        log(f"routing race S={s} b{SERVE_BATCH} (8x4 pilots, {bench.SCALING_FEATURES} channels): "
+            f"{json.dumps(entry['candidates'])} -> {entry['best_infer']}; agreement {json.dumps(agree)} "
+            f"(max |sparse - dense| <= 1e-5) [{card}]")
+
+
+def bench_phase(card: str) -> None:
+    """``python -m qdml_tpu_torch.bench`` in this process at 48 timed steps
+    a row (3 dispatches of K=16 on the scan rows): its JSON line is printed
+    here; it must exit 0 (every row measured)."""
+    from qdml_tpu_torch import bench
+
+    rc = bench.main(["--steps=48", "--scan-steps=16", f"--out={EVAL_WORK / 'bench.json'}"])
+    if rc != 0:
+        raise AssertionError(f"qdml_tpu_torch.bench exited {rc}")
+    log(f"bench: one JSON line above, also in {EVAL_WORK / 'bench.json'} [{card}]")
 
 
 def main() -> int:
@@ -1555,7 +1805,10 @@ def main() -> int:
         "serve dispatch", serve_dispatch, torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod, engines, card
     )
     micro_launches = phase("microbench", microbench, torch, K, card)
-    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "cli": cli, "dce": dce_mod}
+    from qdml_tpu_torch.train import scan as scan_mod
+
+    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "cli": cli, "dce": dce_mod,
+            "scan": scan_mod}
     train_launches, adjoint_per_step, train_data = phase("train", train, torch, K, mods, card)
     dce_launches = phase("dce", dce_phase, torch, K, mods, card, train_data)
     del train_data
@@ -1563,10 +1816,13 @@ def main() -> int:
     phase("interop", interop_phase, torch, mods, card)
     nat_launches, ens = phase("nat_sweep", nat_sweep_phase, torch, K, mods, card)
     traj_call = phase("trajectories", trajectories_phase, torch, card)
+    scan_launches = phase("scan", scan_phase, torch, K, mods, card)
+    phase("routing", routing_phase, torch, mods, card)
+    phase("bench", bench_phase, card)
     t_times = time.perf_counter()
     launches = {
         k: race_launches[k] + launches[k] + dispatch_launches[k] + micro_launches[k] + train_launches[k]
-        + dce_launches[k] + eval_launches[k] + nat_launches[k]
+        + dce_launches[k] + eval_launches[k] + nat_launches[k] + scan_launches[k]
         for k in launches
     }
     # No entry point reaches B.3 (the JAX package runs its kernel only from

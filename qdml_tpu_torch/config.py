@@ -94,12 +94,20 @@ class TrainConfig:
     weight_decay: float = 0.01   # AdamW weight decay (the QSC trainer's)
     momentum: float = 0.9        # SGD momentum
     print_freq: int = 50         # batch-loss log period, in steps
+    # Steps a dispatch (qdml_tpu_torch.train.scan): K >= 1 runs K steps as
+    # one CUDA-graph replay on the card (the eager chunk of K steps on the
+    # CPU), K = 1 included; 0 selects the per-step path. Negative raises.
+    scan_steps: int = 1
     # Adam moment storage: only "float32" is ported; the JAX package's
     # "bfloat16" (a documented non-default deviation) raises.
     moments_dtype: str = "float32"
     seed: int = 0
     workdir: str = "workspace"   # checkpoint root
     resume: bool = False
+
+    def __post_init__(self):
+        if self.scan_steps < 0:
+            raise ValueError(f"train.scan_steps must be >= 0 (0 = per-step dispatch), got {self.scan_steps}")
 
 
 @dataclass(frozen=True)
@@ -109,16 +117,17 @@ class ServeConfig:
     max_batch: int = 64        # largest (and last) bucket
     buckets: tuple[int, ...] = ()  # () = powers of two up to max_batch
     # Expert routing: "dense" runs every trunk and gathers, "sparse" runs each
-    # row's trunk on capacity buckets. "auto" races them in JAX; the port has
-    # no race yet (ROADMAP A.8) and takes JAX's no-table fallback, dense.
+    # row's trunk on capacity buckets. "auto" races them per bucket at warmup
+    # (qdml_tpu_torch.ops.dispatch_autotune; sparse enters the race from
+    # S = 6, so at S = 3 dense is chosen without timing anything).
     dispatch: str = "auto"
     # Sparse per-expert bucket headroom: capacity = ceil(B * f / S); overflow
     # rows are served by the dense path, never dropped.
     capacity_factor: float = 1.25
     # Pad handling per tier: "bucket" relies on row independence, "ragged"
     # masks the pad rows inside the forward. "auto" races them in JAX; the
-    # port has no race yet (ROADMAP A.8) and takes JAX's no-table fallback,
-    # bucket.
+    # port has no such race yet (it comes with continuous admission, ROADMAP
+    # A.11) and takes JAX's no-table fallback, bucket.
     batching: str = "auto"
 
 

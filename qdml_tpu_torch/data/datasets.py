@@ -206,22 +206,30 @@ class GridData:
         }
         return cls(cfg, rows, cached=True)
 
-    def batch(self, idx: torch.Tensor, snr_db: float) -> dict[str, torch.Tensor]:
+    def batch(self, idx: torch.Tensor, snr_db: float | torch.Tensor) -> dict[str, torch.Tensor]:
         """The network batch of the (S, U, B) sample indices ``idx`` at
-        ``snr_db`` (the fields of ``make_network_batch``)."""
+        ``snr_db`` (the fields of ``make_network_batch``): a Python number,
+        or a 0-d float32 tensor on the grid's device, which a captured CUDA
+        graph reads at every replay (a number would be frozen into it). The
+        noise scales are computed on the SNR's device in float32 either way.
+        Over an npy cache a number is checked against the cache's SNR; a
+        tensor is not read on the host, and the loaders only hand it
+        ``cfg.snr_db`` (a cache refuses ``snr_jitter``)."""
         geom = self.geom
         if self.cached:
-            if snr_db != self.cfg.snr_db:
+            if not isinstance(snr_db, torch.Tensor) and snr_db != self.cfg.snr_db:
                 raise ValueError(f"the npy cache holds SNR {self.cfg.snr_db} dB, not {snr_db}")
             yp = _gather(self.rows["yp"], idx)
             h_label = _gather(self.rows["h_label"], idx)
             h_perf = _gather(self.rows["h_perf"], idx)
         else:
             h_perf = _gather(self.rows["h_perf"], idx)
-            # float32 scales, as Python numbers: no host-to-device copy
-            yp_scale = float(torch.sqrt(noise_var(geom, snr_db) / 2.0))
+            yp_scale = torch.sqrt(noise_var(geom, snr_db) / 2.0)
+            h_scale = torch.sqrt(label_noise_var(geom, snr_db) / 2.0)
+            if not isinstance(snr_db, torch.Tensor):
+                # float32 scales, as Python numbers: no host-to-device copy
+                yp_scale, h_scale = float(yp_scale), float(h_scale)
             yp = _gather(self.rows["pilots"], idx) + yp_scale * _gather(self.rows["pilot_noise"], idx)
-            h_scale = float(torch.sqrt(label_noise_var(geom, snr_db) / 2.0))
             h_label = h_perf + h_scale * _gather(self.rows["label_noise"], idx)
         s_n, u_n, b = idx.shape
         img = yp.reshape(s_n, u_n, b, 2, geom.n_beam, geom.n_sub).permute(0, 1, 2, 5, 4, 3)
@@ -265,15 +273,45 @@ class DMLGridLoader:
         # jitter applies to shuffled (training) epochs only
         return self._step_snr(epoch, step) if shuffle else float(self.cfg.snr_db)
 
+    def _step_window(self, perms: np.ndarray, step: int) -> np.ndarray:
+        """This step's (S, U, bs) index window: one source for both
+        iterators below, as ``qdml_tpu/data/datasets.py:181-192``."""
+        bs = self.batch_size
+        return perms[:, :, step * bs : (step + 1) * bs]
+
     def epoch(self, epoch: int, shuffle: bool = True) -> Iterator[dict[str, torch.Tensor]]:
+        """The epoch's batches, one a step. The SNRs reach the device as a
+        tensor, the same float32 arithmetic as :meth:`epoch_chunks`'s
+        graph, so the per-step and the K-step paths take the same steps."""
         perms = _epoch_perms(self.cfg, self.n, self.index_base, epoch, shuffle)
-        # one host-to-device copy of the epoch's indices
-        idx = torch.as_tensor(np.ascontiguousarray(perms), dtype=torch.long, device=self.data.device)
+        # one host-to-device copy of the epoch's indices and one of its SNRs
+        dev = self.data.device
+        idx = torch.as_tensor(np.ascontiguousarray(perms), dtype=torch.long, device=dev)
+        snrs = torch.tensor(
+            [self._snr_for(epoch, step, shuffle) for step in range(self.steps_per_epoch)],
+            dtype=torch.float32, device=dev,
+        )
         bs = self.batch_size
         for step in range(self.steps_per_epoch):
-            yield self.data.batch(
-                idx[:, :, step * bs : (step + 1) * bs], self._snr_for(epoch, step, shuffle)
-            )
+            yield self.data.batch(idx[:, :, step * bs : (step + 1) * bs], snrs[step])
+
+    def epoch_chunks(
+        self, epoch: int, k: int, shuffle: bool = True
+    ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """The K-step view of :meth:`epoch` (``qdml_tpu/data/datasets.py:
+        211-227``): ``(idx (k', S, U, B) int64, snr (k',) float32)`` host
+        arrays covering the same per-step index windows and SNRs, ``k``
+        steps at a time; the last chunk may be shorter, so an epoch has at
+        most two chunk lengths. :mod:`qdml_tpu_torch.train.scan` copies each
+        chunk to the device once."""
+        if k < 1:
+            raise ValueError(f"epoch_chunks needs k >= 1, got {k}")
+        perms = _epoch_perms(self.cfg, self.n, self.index_base, epoch, shuffle)
+        for c0 in range(0, self.steps_per_epoch, k):
+            steps = range(c0, min(c0 + k, self.steps_per_epoch))
+            windows = np.stack([self._step_window(perms, step) for step in steps]).astype(np.int64)
+            snrs = np.asarray([self._snr_for(epoch, step, shuffle) for step in steps], np.float32)
+            yield windows, snrs
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,12 @@ own batch. :func:`run_snr_sweep` draws each batch on the device
 float32 sums there, and fetches them once per SNR point, adding them in
 float64 as the JAX ``make_snr_scan`` does (``:206-230``).
 
-Not ported yet: the ``mesh`` (A.10), and the scenario and qubit scaling
-axes (``:284-436``).
+The scenario-scaling axis (``:284-349``): :data:`SCENARIO_SCALING_GRID`,
+:func:`scenario_batch` and :func:`dispatch_agreement`, sparse routing held
+against dense at each S; the routing race that picks between them is
+:mod:`qdml_tpu_torch.ops.dispatch_autotune` and its timed points are
+``python -m qdml_tpu_torch.bench``'s. Not ported yet: the ``mesh`` (A.10) and
+the qubit-scaling axis (``:352-436``, which needs A.10's MPS).
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ from qdml_tpu_torch.models.qsc import build_classifier
 from qdml_tpu_torch.ops.routing import select_expert, sparse_dispatch
 from qdml_tpu_torch.train.checkpoint import latest_tag, reconcile_quantum_cfg, restore_params
 from qdml_tpu_torch.train.dce import build_dce
-from qdml_tpu_torch.train.hdce import build_hdce
+from qdml_tpu_torch.models.cnn import seeded_init_
+from qdml_tpu_torch.train.hdce import HDCE, build_hdce
 from qdml_tpu_torch.utils.complexops import CArr
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.metrics import MetricsLogger, nmse_db
@@ -215,3 +220,63 @@ def run_snr_sweep(
         if logger is not None:
             logger.log(snr_db=float(snr), n_samples=sums["count"], seconds=seconds, **row)
     return {"snr": list(cfg.eval.snr_grid), "nmse_db": curves, "acc": accs}
+
+
+# ---------------------------------------------------------------------------
+# Scenario-scaling axis (S = 3 ... 64)
+# ---------------------------------------------------------------------------
+
+# The reference's 3-scenario grid (the dense anchor), the near side of the
+# sparse-eligibility edge (4), the first raced point (8), and the scale-out
+# regime where the dense all-trunks pass burns O(S) work for O(1) useful
+# work (qdml_tpu/eval/sweep.py:289-293).
+SCENARIO_SCALING_GRID = (3, 4, 8, 16, 32, 64)
+
+
+def scenario_batch(n_scenarios: int) -> int:
+    """Each point's request batch: the serving engine's largest default
+    bucket, the same at every S, so the axis scales the expert count and not
+    the batch (``qdml_tpu/eval/sweep.py:296-303``)."""
+    return 64
+
+
+def dispatch_agreement(
+    n_scenarios: int,
+    batch: int = 32,
+    features: int = 8,
+    capacity_factor: float = 1.25,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+) -> dict:
+    """How far sparse routing sits from dense at one scenario-scaling point
+    (``qdml_tpu/eval/sweep.py:306-349``): the same trunks (seeded, 16x8
+    pilots, ``features`` channels, a 64-wide head), inputs and predictions,
+    under a balanced load (buckets fill evenly: the sparse path alone) and a
+    fully skewed one (every row to expert 0: the overflow rows take the
+    dense value). The two routes share no packing code, so a packing or
+    unpacking fault cannot cancel out. Returns ``{"max_abs_delta",
+    "overflow_balanced", "overflow_skewed"}``; runs on the card unless
+    ``device="cpu"``."""
+    dev = resolve_device(device)
+    s = int(n_scenarios)
+    rng = np.random.default_rng(seed)
+    model = HDCE(s, features, out_dim=64, image_hw=(16, 8))
+    seeded_init_(model, torch.Generator().manual_seed(seed))
+    model = model.to(dev).eval()
+    x = torch.tensor(rng.standard_normal((batch, 16, 8, 2)).astype(np.float32), device=dev)
+    x = x.permute(0, 3, 1, 2).contiguous()  # the trunks' NCHW
+
+    def dense_fb(xb, pb):
+        return select_expert(model(xb.expand(s, *xb.shape)), pb)
+
+    out: dict[str, Any] = {"max_abs_delta": 0.0}
+    with torch.inference_mode():
+        for name, pred in (
+            ("balanced", torch.arange(batch, device=dev) % s),
+            ("skewed", torch.zeros(batch, dtype=torch.long, device=dev)),
+        ):
+            routed, overflow = sparse_dispatch(model, dense_fb, x, pred, s, capacity_factor)
+            delta = float((routed - dense_fb(x, pred)).abs().max())
+            out["max_abs_delta"] = round(max(out["max_abs_delta"], delta), 8)
+            out[f"overflow_{name}"] = int(overflow)
+    return out

@@ -33,11 +33,16 @@ CPU, and for the shapes the JAX package itself sends to its XLA twin (each
 such rule is an ``if`` citing the JAX line). On a CUDA tensor it launches the
 kernel or raises. ``launches`` counts kernel launches per wrapper and nothing
 else: one count per kernel source, and one per member-axis entry point
-(:data:`COUNTERS`).
+(:data:`COUNTERS`). A launch captured into a CUDA graph runs at every
+replay, not when its wrapper is called: it is counted into the tally of
+:func:`counting_capture`, and :func:`count_replay` adds that tally on each
+replay (:mod:`qdml_tpu_torch.train.scan`). A launch captured outside such
+a tally raises, since its replays would go uncounted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -97,9 +102,32 @@ ROTATION_MAX_QUBITS = 32
 UNITARY_MAX_QUBITS = 14
 
 
+# the tallies of the CUDA graphs being captured, innermost last
+_capture_tallies: list[dict[str, int]] = []
+
+
 def reset_launch_counts() -> None:
     for name in COUNTERS:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def counting_capture():
+    """While a CUDA graph is captured: the wrappers' launches go into the
+    yielded tally (per counter) instead of :data:`launches`, because the
+    captured kernels run at each replay and not now."""
+    tally = {name: 0 for name in COUNTERS}
+    _capture_tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _capture_tallies.remove(tally)
+
+
+def count_replay(tally: dict[str, int]) -> None:
+    """One replay of a graph whose capture counted ``tally``."""
+    for name, n in tally.items():
+        launches[name] += n
 
 
 # ---------------------------------------------------------------------------
@@ -216,10 +244,16 @@ def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> 
     fn = getattr(_load(name), f"{name}_launch")
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
+        capturing = torch.cuda.is_current_stream_capturing()
+        if capturing and not _capture_tallies:
+            raise RuntimeError(
+                f"{name} launch captured into a CUDA graph outside kernels.counting_capture(): "
+                "its replays would go uncounted"
+            )
         err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
-    launches[counter or name] += 1
+    (_capture_tallies[-1] if capturing else launches)[counter or name] += 1
 
 
 def _kernel_fwd_plain_bwd(launch, plain, doc: str) -> type[torch.autograd.Function]:

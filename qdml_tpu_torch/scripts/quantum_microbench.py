@@ -18,9 +18,9 @@ after one warm-up, the device synchronized before and after the timed loop)
 and ``fwd_<row>_sps`` (samples per second), beside ``backend``, ``batch``,
 ``n`` and ``layers``: the JAX script's keys. The JSON goes to ``out.json``
 (default ``runs/quantum_microbench.json``). The JAX script's train-step rows
-call ``bench.py``, the JAX package's benchmark, which the port does not have
-yet; ``chip_smoke.py`` prints the port's step times. Runs on the card unless
-``--device=cpu``.
+call the root ``bench.py``'s step functions; the port's are the ``qsc_train`` and
+``hdce_train`` rows of ``python -m qdml_tpu_torch.bench``. Runs on the card
+unless ``--device=cpu``.
 """
 
 from __future__ import annotations

@@ -11,21 +11,22 @@ life:
   the bucket's batch, then the forward winner), so impls ``pallas`` and
   ``pallas_circuit`` launch the port's CUDA kernels where they win; a table
   that changes after warmup does not change a warmed engine;
-- the **routing** (``serve.dispatch``, default ``dense``): dense, every
-  trunk on the batch and :func:`~qdml_tpu_torch.ops.routing.select_expert`,
-  or capacity-bucketed ``sparse``,
-  :func:`~qdml_tpu_torch.ops.routing.sparse_dispatch`, whose overflow rows
-  take the dense value (one host sync a batch to read the overflow count);
+- the **routing** (``serve.dispatch``): dense, every trunk on the batch and
+  :func:`~qdml_tpu_torch.ops.routing.select_expert`, or capacity-bucketed
+  ``sparse``, :func:`~qdml_tpu_torch.ops.routing.sparse_dispatch`, whose
+  overflow rows take the dense value (one host sync a batch to read the
+  overflow count). ``auto``, the default, is the measured race
+  (:func:`~qdml_tpu_torch.ops.dispatch_autotune.ensure_route`, per bucket,
+  table-cached): sparse enters it from S = 6, so at the reference's S = 3
+  dense is chosen and nothing is timed;
 - the **batching** (``serve.batching``, default ``bucket``): bucket, where
   pad rows are inert because every op is row-independent in eval mode, or
   ``ragged``, where the forward first zeroes the rows at and past the valid
-  count so that garbage in them cannot reach a valid row.
-
-At ``auto``, the default of the last two, the JAX package races the modes
-per bucket at warmup. The port carries no such race yet (ROADMAP A.8): at
-its S = 3 the routing race times nothing, and ragged mode has no caller
-until continuous admission (A.11). So ``auto`` takes what JAX's lookup
-falls back to without a table entry: dense routing, bucket batching.
+  count so that garbage in them cannot reach a valid row. At ``auto`` the
+  JAX package races the two per bucket; the port has no such race yet
+  (ragged mode has no caller until continuous admission, ROADMAP A.11), so
+  ``auto`` takes what JAX's lookup falls back to without a table entry,
+  bucket.
 
 A batch pads with zeros to the smallest bucket that fits it, oversize
 batches are served in largest-bucket chunks, and requests arrive in the JAX
@@ -49,6 +50,7 @@ import torch
 
 from qdml_tpu_torch.config import ExperimentConfig
 from qdml_tpu_torch.models.qsc import build_classifier
+from qdml_tpu_torch.ops import dispatch_autotune
 from qdml_tpu_torch.ops.routing import select_expert, sparse_dispatch
 from qdml_tpu_torch.quantum import autotune
 from qdml_tpu_torch.quantum import kernels
@@ -82,9 +84,9 @@ def _restore_family(workdir: str, prefix: str, tags: dict | None):
     return vars_["params"], meta, tag
 
 
-# What JAX's serve races fall back to without a table entry
-# (qdml_tpu/ops/dispatch_autotune.py:lookup, qdml_tpu/serve/batching_autotune.py:lookup).
-_AUTO_MODES = {"dispatch": "dense", "batching": "bucket"}
+# What JAX's batching race falls back to without a table entry
+# (qdml_tpu/serve/batching_autotune.py:lookup); that race is not ported.
+_AUTO_BATCHING = "bucket"
 
 
 def _signature(sd: Mapping[str, torch.Tensor]) -> dict:
@@ -132,6 +134,8 @@ class ServeEngine:
         # race entry behind it), the routing and the batching mode
         self.quantum_impl: dict[str, dict] = {}
         self.dispatch_mode: dict[str, str] = {}
+        # per bucket: the routing race's entry, or {"forced": mode}
+        self.dispatch_race: dict[str, dict] = {}
         self.batching_mode: dict[str, str] = {}
         # sparse overflow accounting (overflow rows are served dense, never dropped)
         self._dispatch_lock = threading.Lock()
@@ -302,11 +306,29 @@ class ServeEngine:
 
     # -- warmup -------------------------------------------------------------------
 
-    def _mode(self, field: str) -> str:
-        """``serve.dispatch`` / ``serve.batching``, with ``auto`` taking JAX's
-        no-table fallback (the race is not ported, ROADMAP A.8)."""
-        mode = getattr(self.cfg.serve, field)
-        return _AUTO_MODES[field] if mode == "auto" else mode
+    def _batching(self) -> str:
+        """``serve.batching``, with ``auto`` taking JAX's no-table fallback."""
+        mode = self.cfg.serve.batching
+        return _AUTO_BATCHING if mode == "auto" else mode
+
+    def _bucket_dispatch(self, b: int) -> str:
+        """Bucket ``b``'s routing, decided at warmup
+        (``qdml_tpu/serve/engine.py:585-603``): a forced ``serve.dispatch``
+        wins outright; ``auto`` is the race on the live trunks at this
+        bucket, which times nothing below S = 6."""
+        mode = self.cfg.serve.dispatch
+        if mode != "auto":
+            self.dispatch_race[str(b)] = {"forced": mode}
+            return mode
+        hdce, _ = self.live_vars()
+        entry = dispatch_autotune.ensure_route(
+            hdce,
+            torch.zeros((b, 2, *self.cfg.image_hw), device=self.device),
+            self.cfg.data.n_scenarios,
+            capacity_factor=self.cfg.serve.capacity_factor,
+        )
+        self.dispatch_race[str(b)] = entry
+        return entry.get("best_infer") or "dense"
 
     @staticmethod
     def _work() -> dict[str, int]:
@@ -337,8 +359,8 @@ class ServeEngine:
                     rec["autotuned"] = True
                     rec["candidates"] = entry["candidates"]
                 self.quantum_impl[key] = rec
-            self.dispatch_mode[key] = self._mode("dispatch")
-            self.batching_mode[key] = self._mode("batching")
+            self.dispatch_mode[key] = self._bucket_dispatch(b)
+            self.batching_mode[key] = self._batching()
             self.forward_tier(np.zeros((b, *self.cfg.image_hw, 2), np.float32), b)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -350,6 +372,7 @@ class ServeEngine:
             "dispatch": {
                 "mode": dict(self.dispatch_mode),
                 "capacity_factor": float(self.cfg.serve.capacity_factor),
+                "race": dict(self.dispatch_race),
             },
             "batching": {"mode": dict(self.batching_mode)},
         }
@@ -366,15 +389,18 @@ class ServeEngine:
 
     def batching_summary(self) -> dict:
         """The batching mode and its per-tier record."""
-        return {"mode": self._mode("batching"), "per_tier": dict(self.batching_mode)}
+        return {"mode": self._batching(), "per_tier": dict(self.batching_mode)}
 
     def dispatch_summary(self) -> dict:
-        """Per-bucket routing modes, the capacity factor, and the sparse
-        overflow rate over everything served (``None`` before a sparse batch)."""
+        """Per-bucket routing modes (``mode`` one word when they agree, else
+        ``mixed``), the capacity factor, and the sparse overflow rate over
+        everything served (``None`` before a sparse batch)."""
+        modes = set(self.dispatch_mode.values())
+        mode = modes.pop() if len(modes) == 1 else ("mixed" if modes else "dense")
         with self._dispatch_lock:
             routed, overflow = self._routed_rows, self._overflow_rows
         return {
-            "mode": self._mode("dispatch"),
+            "mode": mode,
             "per_bucket": dict(self.dispatch_mode),
             "capacity_factor": float(self.cfg.serve.capacity_factor),
             "overflow_rows": overflow,

@@ -8,11 +8,10 @@ loop uses the HDCE hyperparameters, and so does this one: one step over the
 flattened (S, U, B) grid batch (the whole-batch NMSE against the noisy LS
 label ``h_label``, BatchNorm in train mode with decay 0.9 over the flattened
 batch), Adam with the halving schedule, and the tags ``dce_best`` (best
-validation NMSE), ``dce_resume`` (every epoch) and ``dce_last``. The JAX
-package's default dispatch is a K=1 scan of the same step; the port runs it
-one dispatch at a time (``train.scan_steps`` is not a port config field
-until ``train/scan.py`` is ported, ROADMAP A.9). Its flight recorder and
-cost records are not ported (ROADMAP A.12).
+validation NMSE), ``dce_resume`` (every epoch) and ``dce_last``. Dispatch is
+the other trainers': ``train.scan_steps=K >= 1`` (default 1) runs K steps a
+dispatch (:func:`make_dce_scan_steps`), 0 one at a time. Its flight recorder
+and cost records are not ported (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ from qdml_tpu_torch.models.losses import nmse_loss
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
 from qdml_tpu_torch.train.hdce import run_device
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
+from qdml_tpu_torch.train.scan import ScanSteps, make_scan_steps, run_epoch, run_steps, scan_eligible
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.metrics import MetricsLogger, nmse_db
 
@@ -82,6 +82,15 @@ def dce_train_step(model: DCEP128, opt: Optimizer, batch: dict) -> dict[str, tor
     return {"loss": loss.detach(), "loss_perf": loss_perf}
 
 
+def make_dce_scan_steps(model: DCEP128, opt: Optimizer, data: GridData, k: int) -> ScanSteps:
+    """K DCE steps a dispatch (``qdml_tpu/train/dce.py:95-105``)."""
+    return make_scan_steps(_step_fn(model, opt), data, opt, k)
+
+
+def _step_fn(model: DCEP128, opt: Optimizer):
+    return lambda batch, _noise: dce_train_step(model, opt, batch)
+
+
 @torch.no_grad()
 def dce_eval_step(model: DCEP128, batch: dict) -> dict[str, torch.Tensor]:
     """Error and power sums of one validation batch in eval mode, so the
@@ -118,15 +127,16 @@ def train_dce(
         start_epoch, rmeta = try_resume(workdir, "dce_resume", model, opt)
         best = float(rmeta.get("best", best))
 
+    scan_run = None
+    if scan_eligible(cfg, logger, dev):
+        scan_run = make_dce_scan_steps(model, opt, data, cfg.train.scan_steps)
+
     history: dict[str, list] = {"train_loss": [], "val_nmse": []}
     for epoch in range(start_epoch, cfg.train.n_epochs):
-        tot, n = None, 0
-        for batch in train_loader.epoch(epoch):
-            m = dce_train_step(model, opt, batch)
-            tot = m["loss"] if tot is None else tot + m["loss"]  # one fetch per epoch
-            n += 1
-            if n % cfg.train.print_freq == 0:
-                logger.log(step=opt.count, epoch=epoch, loss=float(m["loss"]))
+        if scan_run is not None:
+            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq)
+        else:
+            tot, n = run_steps(_step_fn(model, opt), opt, train_loader, epoch, logger, cfg.train.print_freq)
         train_loss = float(tot) / n if n else 0.0
 
         sums: dict[str, torch.Tensor | float] = {"err": 0.0, "pow": 0.0}

@@ -11,9 +11,11 @@ one update per grid step (``train/hdce.py:202``), with the biased batch
 variance (:class:`qdml_tpu_torch.models.cnn.BatchNorm2d`).
 
 :func:`train_hdce` runs epochs of that step over a :class:`GridData` grid,
-validates, and writes ``hdce_best`` / ``hdce_resume`` / ``hdce_last``. The
-JAX package's scan dispatch, mesh, flight recorder and cost records are not
-ported (ROADMAP A.9, A.10, A.12).
+validates, and writes ``hdce_best`` / ``hdce_resume`` / ``hdce_last``. With
+``train.scan_steps=K >= 1`` (the default, K = 1) the steps run K a dispatch
+(:func:`make_hdce_scan_steps`, one CUDA-graph replay on the card); 0 runs
+them one at a time. The JAX package's mesh, flight recorder and cost
+records are not ported (ROADMAP A.10, A.12).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from qdml_tpu_torch.data.datasets import DMLGridLoader, GridData
 from qdml_tpu_torch.models.cnn import FCP128, StackedConvP128, flax_init_, seeded_init_
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
+from qdml_tpu_torch.train.scan import ScanSteps, make_scan_steps, run_epoch, run_steps, scan_eligible
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.metrics import MetricsLogger, nmse_db
 
@@ -136,6 +139,16 @@ def hdce_train_step(model: HDCE, opt: Optimizer, batch: dict) -> dict[str, torch
     return {"loss": loss.detach(), "loss_perf": loss_perf}
 
 
+def make_hdce_scan_steps(model: HDCE, opt: Optimizer, data: GridData, k: int) -> ScanSteps:
+    """K fused HDCE steps a dispatch (``qdml_tpu/train/hdce.py:154-172``):
+    :func:`hdce_train_step` bound into :mod:`qdml_tpu_torch.train.scan`."""
+    return make_scan_steps(_step_fn(model, opt), data, opt, k)
+
+
+def _step_fn(model: HDCE, opt: Optimizer):
+    return lambda batch, _noise: hdce_train_step(model, opt, batch)
+
+
 @torch.no_grad()
 def hdce_eval_step(model: HDCE, batch: dict) -> dict[str, torch.Tensor]:
     """Error and power sums of one validation batch in eval mode, so the
@@ -187,16 +200,16 @@ def train_hdce(
         start_epoch, rmeta = try_resume(workdir, "hdce_resume", model, opt)
         best = float(rmeta.get("best", best))  # don't clobber a better *_best
 
+    scan_run = None
+    if scan_eligible(cfg, logger, dev):
+        scan_run = make_hdce_scan_steps(model, opt, data, cfg.train.scan_steps)
+
     history: dict[str, list] = {"train_loss": [], "val_nmse": [], "val_nmse_perf": []}
     for epoch in range(start_epoch, cfg.train.n_epochs):
-        tot, n = None, 0
-        for batch in train_loader.epoch(epoch):
-            m = hdce_train_step(model, opt, batch)
-            # the epoch sum stays on the device: one fetch per epoch
-            tot = m["loss"] if tot is None else tot + m["loss"]
-            n += 1
-            if n % cfg.train.print_freq == 0:
-                logger.log(step=opt.count, epoch=epoch, loss=float(m["loss"]))
+        if scan_run is not None:
+            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq)
+        else:
+            tot, n = run_steps(_step_fn(model, opt), opt, train_loader, epoch, logger, cfg.train.print_freq)
         train_loss = float(tot) / n if n else 0.0
 
         sums: dict[str, torch.Tensor | float] = {"err": 0.0, "pow": 0.0, "err_perf": 0.0, "pow_perf": 0.0}

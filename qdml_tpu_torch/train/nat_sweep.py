@@ -28,9 +28,11 @@ and a run on the card draws what a run on the CPU draws. Tags:
 ``nat_sweep_best`` (the single best member, loadable into one ``QSCP128``),
 ``nat_sweep_member_best`` (every member at its best validation accuracy),
 ``nat_sweep_resume`` (stacked parameters and optimizer, every epoch) and
-``nat_sweep_last``, with the JAX package's meta keys. The JAX package's mesh,
-scan dispatch, flight recorder and cost records are not ported (ROADMAP
-A.9, A.10, A.12).
+``nat_sweep_last``, with the JAX package's meta keys. With
+``train.scan_steps=K >= 1`` (default 1) the ensemble steps run K a dispatch
+(:func:`make_sweep_scan_steps`; each chunk reads its slice of the epoch's
+noise from a static device copy), 0 one at a time. The JAX package's mesh,
+flight recorder and cost records are not ported (ROADMAP A.10, A.12).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from qdml_tpu_torch.train import qsc as train_qsc
 from qdml_tpu_torch.train.checkpoint import has_checkpoint, restore_checkpoint, save_checkpoint
 from qdml_tpu_torch.train.hdce import run_device
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
+from qdml_tpu_torch.train.scan import ScanSteps, make_scan_steps, run_epoch, run_steps, scan_eligible
 from qdml_tpu_torch.utils.metrics import MetricsLogger
 
 QWEIGHTS = "qlayer.weights"
@@ -181,6 +184,24 @@ def sweep_train_step(
     return {"loss": losses.detach()}
 
 
+def make_sweep_scan_steps(
+    model: QSCP128,
+    params: dict[str, torch.Tensor],
+    opt: Optimizer,
+    sigmas: torch.Tensor,
+    data: GridData,
+    k: int,
+) -> ScanSteps:
+    """K ensemble steps a dispatch (``qdml_tpu/train/nat_sweep.py:139-161``):
+    each call takes its chunk's unit noise (k', E, L, n, 2) on the device."""
+    shape = (sigmas.shape[0], model.n_layers, model.n_qubits, 2)
+    return make_scan_steps(_step_fn(model, params, opt, sigmas), data, opt, k, noise_shape=shape)
+
+
+def _step_fn(model: QSCP128, params: dict[str, torch.Tensor], opt: Optimizer, sigmas: torch.Tensor):
+    return lambda batch, noise: sweep_train_step(model, params, opt, sigmas, batch, noise)
+
+
 @torch.no_grad()
 def sweep_eval_step(model: QSCP128, params: dict[str, torch.Tensor], batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Each member's clean NLL and accuracy on one batch, (E,) each
@@ -288,17 +309,19 @@ def train_nat_sweep(
         member_best_epoch = np.asarray(mb_meta.get("member_best_epoch", member_best_epoch), int)
         member_best_from_epoch = int(mb_meta.get("member_best_from_epoch", -1))
 
+    scan_run = None
+    if scan_eligible(cfg, logger, dev):
+        scan_run = make_sweep_scan_steps(model, params, opt, sigmas, data, cfg.train.scan_steps)
+
     history: dict[str, list] = {"train_loss": [], "val_loss": [], "val_acc": []}
     for epoch in range(start_epoch, cfg.train.n_epochs):
         # the epoch's noise, one copy to the device
         noise = epoch_noise(cfg, epoch, spe, n_members).to(dev)
-        tot, n = None, 0
-        for batch in train_loader.epoch(epoch):
-            m = sweep_train_step(model, params, opt, sigmas, batch, noise[n])
-            tot = m["loss"] if tot is None else tot + m["loss"]  # one fetch per epoch
-            n += 1
-            if n % cfg.train.print_freq == 0:
-                logger.log(step=opt.count, epoch=epoch, loss=[float(v) for v in m["loss"]])
+        if scan_run is not None:
+            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq, noise)
+        else:
+            step = _step_fn(model, params, opt, sigmas)
+            tot, n = run_steps(step, opt, train_loader, epoch, logger, cfg.train.print_freq, noise)
         train_loss = tot.cpu().numpy().astype(np.float64) / n if n else np.zeros(n_members)
 
         vloss = vacc = None

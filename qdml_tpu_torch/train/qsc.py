@@ -11,6 +11,10 @@ card before the first step (``quantum/autotune.prewarm`` at the flattened
 grid batch, as ``qdml_tpu/train/qsc.py:194-201``), and the entry is logged
 as ``kind="quantum_autotune"``. :func:`train_classifier` writes
 ``{sc,qsc}_best`` (best validation accuracy), ``_resume`` and ``_last``.
+With ``train.scan_steps=K >= 1`` (default 1) the steps run K a dispatch
+(:func:`make_sc_scan_steps`; on the card one CUDA-graph replay, the
+QuantumNAT generator registered with the graph so it draws what the
+per-step path draws), 0 one at a time.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from qdml_tpu_torch.quantum.circuits import resolve_backend
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
 from qdml_tpu_torch.train.hdce import run_device
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
+from qdml_tpu_torch.train.scan import ScanSteps, make_scan_steps, run_epoch, run_steps, scan_eligible
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.metrics import MetricsLogger
 
@@ -124,6 +129,21 @@ def classifier_train_step(
     return {"loss": loss.detach()}
 
 
+def make_sc_scan_steps(
+    model: nn.Module, opt: Optimizer, data: GridData, k: int, generator: torch.Generator | None = None
+) -> ScanSteps:
+    """K classifier steps a dispatch (``qdml_tpu/train/qsc.py:116-137``),
+    the QuantumNAT noise drawn from ``generator`` step by step; a generator
+    on the card is registered with the graphs (``presplit_keys`` in JAX)."""
+    draws = isinstance(model, QSCP128) and model.use_quantumnat and model.noise_level > 0
+    gens = (generator,) if draws and generator is not None and generator.device.type == "cuda" else ()
+    return make_scan_steps(_step_fn(model, opt, generator), data, opt, k, generators=gens)
+
+
+def _step_fn(model: nn.Module, opt: Optimizer, generator: torch.Generator | None):
+    return lambda batch, _noise: classifier_train_step(model, opt, batch, generator=generator)
+
+
 @torch.no_grad()
 def classifier_eval_step(model: nn.Module, batch: dict) -> dict[str, torch.Tensor]:
     """NLL sum, correct predictions and count of one validation batch
@@ -186,17 +206,17 @@ def train_classifier(
         start_epoch, rmeta = try_resume(workdir, f"{tag}_resume", model, opt)
         best_acc = float(rmeta.get("best", best_acc))
     gen = noise_generator(cfg, start_epoch, dev)
+    scan_run = None
+    if scan_eligible(cfg, logger, dev):
+        scan_run = make_sc_scan_steps(model, opt, data, cfg.train.scan_steps, gen)
 
     history: dict[str, list] = {"train_loss": [], "val_loss": [], "val_acc": []}
     for epoch in range(start_epoch, cfg.train.n_epochs):
         model.train()
-        tot, n = None, 0
-        for batch in train_loader.epoch(epoch):
-            m = classifier_train_step(model, opt, batch, generator=gen)
-            tot = m["loss"] if tot is None else tot + m["loss"]
-            n += 1
-            if n % cfg.train.print_freq == 0:
-                logger.log(step=opt.count, epoch=epoch, loss=float(m["loss"]))
+        if scan_run is not None:
+            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq)
+        else:
+            tot, n = run_steps(_step_fn(model, opt, gen), opt, train_loader, epoch, logger, cfg.train.print_freq)
         train_loss = float(tot) / n if n else 0.0
 
         model.eval()

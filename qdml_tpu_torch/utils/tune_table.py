@@ -1,8 +1,9 @@
 """Shared persistence for the measured-dispatch tables (``qdml_tpu/utils/tune_table.py``).
 
-The circuit-impl race (:mod:`qdml_tpu_torch.quantum.autotune`) keeps its
-table in a :class:`TableStore`, as the JAX package's three races do (the
-routing and batching races are not ported yet, ROADMAP A.8):
+The circuit-impl race (:mod:`qdml_tpu_torch.quantum.autotune`) and the
+routing race (:mod:`qdml_tpu_torch.ops.dispatch_autotune`) keep their
+tables in a :class:`TableStore` each, as the JAX package's three races do
+(the batching race is not ported yet, ROADMAP A.11):
 
 - loads never raise: any pathology degrades to ``{}`` entries with a status
   in ``ok|missing|corrupt|alien|unreadable``, so tuning can speed a hot path

@@ -371,3 +371,195 @@ def test_sparse_dispatch_on_the_card_matches_the_cpu(dev):
             ))
         assert outs[0][1] == outs[1][1]
         torch.testing.assert_close(outs[1][0].cpu(), outs[0][0], rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K steps as one CUDA graph (train/scan.py)
+# ---------------------------------------------------------------------------
+
+
+def _scan_cfg(k, **quantum):
+    from qdml_tpu_torch import config as tconfig
+
+    return tconfig.ExperimentConfig(
+        data=tconfig.DataConfig(n_ant=16, data_len=40),
+        model=tconfig.ModelConfig(features=8),
+        quantum=tconfig.QuantumConfig(n_qubits=4, n_layers=2, **quantum),
+        train=tconfig.TrainConfig(batch_size=8, n_epochs=2, print_freq=1, scan_steps=k),
+    )
+
+
+class _Recorder:
+    def __init__(self):
+        self.records = []
+
+    def log(self, **values):
+        self.records.append(values)
+
+
+def _scan_run(trainer, cfg, data):
+    from qdml_tpu_torch.train import hdce, qsc
+
+    rec = _Recorder()
+    tk.reset_launch_counts()
+    if trainer == "hdce":
+        model, hist = hdce.train_hdce(cfg, data=data, logger=rec)
+    else:
+        model, hist = qsc.train_classifier(cfg, True, data=data, logger=rec)
+    torch.cuda.synchronize()
+    losses = [r["loss"] for r in rec.records if "loss" in r and "losses" not in r]
+    losses += [x for r in rec.records if "losses" in r for x in r["losses"]]
+    return losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}, dict(tk.launches)
+
+
+@pytest.mark.parametrize("trainer,quantum", [
+    ("hdce", {}),
+    ("qsc", {"impl": "pallas_circuit", "use_quantumnat": True, "noise_level": 0.05}),
+    ("qsc", {"impl": "pallas"}),
+])
+def test_scan_graph_matches_the_per_step_path(dev, trainer, quantum):
+    """Two epochs of 4 steps at K = 3 (a graph of 3 and a tail graph of 1)
+    against scan_steps = 0 from the same init: step losses within rtol 1e-5,
+    parameters within the Adam bound (every entry within 1.1 lr a step, at
+    most 1% of all entries past 1e-5 + 1e-4|p|: the last layer's RZ weights
+    have rounding-only gradients), the same kernel launches counted on both
+    paths, and the QuantumNAT stream drawn step for step as the per-step path
+    draws it."""
+    from qdml_tpu_torch.data.datasets import GridData
+    from qdml_tpu_torch.train import scan
+
+    data = GridData.synthesize(_scan_cfg(0).data, dev)
+    l0, p0, n0 = _scan_run(trainer, _scan_cfg(0, **quantum), data)
+    before = dict(scan.activity)
+    l3, p3, n3 = _scan_run(trainer, _scan_cfg(3, **quantum), data)
+    assert scan.activity["captures"] - before["captures"] == 2
+    assert scan.activity["replays"] - before["replays"] == 3  # epoch 0's first chunk is the eager warm-up
+    assert len(l0) == len(l3) == 8
+    np.testing.assert_allclose(l3, l0, rtol=1e-5, atol=0)
+    outside = total = 0
+    for k, want in p0.items():
+        if want.is_floating_point():
+            diff = (p3[k] - want).abs()
+            assert diff.max().item() <= 1.1 * 8 * 1e-3 + 1e-5, k
+            outside += int((diff > 1e-5 + 1e-4 * want.abs()).sum())
+            total += want.numel()
+        else:
+            assert torch.equal(p3[k], want), k
+    assert outside <= 0.01 * total
+    assert n3 == n0
+
+
+def test_registered_generator_replays_the_eager_stream(dev):
+    shape = (2, 4, 2)
+    eager = torch.Generator(device=dev).manual_seed(11)
+    want = [torch.randn(shape, generator=eager, device=dev) for _ in range(6)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    out = torch.empty((3, *shape), device=dev)
+    with torch.cuda.graph(graph):
+        for j in range(3):
+            out[j].copy_(torch.randn(shape, generator=gen, device=dev))
+    for rep in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for j in range(3):
+            assert torch.equal(out[j], want[3 * rep + j]), (rep, j)
+
+
+def test_replays_count_their_kernel_launches(dev):
+    """A captured circuit launch counts at each replay, not at capture."""
+    a = torch.rand(2, 64, 4, device=dev)
+    w = torch.rand(2, 2, 4, 2, device=dev)
+    tk.fused_circuit_expvals_ensemble(a, w, 4, 2)  # built and loaded outside the capture
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with tk.counting_capture() as tally, torch.cuda.graph(graph):
+        tk.fused_circuit_expvals_ensemble(a, w, 4, 2)
+    assert tally["circuit_expvals_ensemble"] == 1 and tk.launches["circuit_expvals_ensemble"] == 0
+    for _ in range(3):
+        graph.replay()
+        tk.count_replay(tally)
+    assert tk.launches["circuit_expvals_ensemble"] == 3
+
+
+def test_an_uncounted_or_uncapturable_capture_raises(dev):
+    """A kernel launch captured outside ``counting_capture`` raises, and so
+    does a K-step capture that meets a host sync: the runner never falls
+    back to eager steps."""
+    from qdml_tpu_torch.data.datasets import GridData
+    from qdml_tpu_torch.train import hdce, scan
+
+    a = torch.rand(1, 64, 4, device=dev)
+    w = torch.rand(1, 2, 4, 2, device=dev)
+    tk.fused_circuit_expvals_ensemble(a, w, 4, 2)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(graph):
+            tk.fused_circuit_expvals_ensemble(a, w, 4, 2)
+
+    cfg = _scan_cfg(2)
+    data = GridData.synthesize(cfg.data, dev)
+    model, opt = hdce.make_trainer(cfg, dev, 4)
+
+    def synced_step(batch, _noise):
+        out = hdce.hdce_train_step(model, opt, batch)
+        float(out["loss"])  # a host read: cannot be captured
+        return out
+
+    run = scan.make_scan_steps(synced_step, data, opt, 2)
+    idx = np.zeros((2, 3, 3, 8), np.int64)
+    snrs = np.full(2, 10.0, np.float32)
+    run(idx, snrs)  # the eager warm-up reads the loss fine
+    count = opt.count
+    with pytest.raises(RuntimeError):
+        run(idx, snrs)
+    assert opt.count == count and not run.graphs
+
+
+_DETERMINISTIC_CHILD = """
+import json
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.backends.cudnn.benchmark = False
+from qdml_tpu_torch import config as c
+from qdml_tpu_torch.data.datasets import GridData
+from qdml_tpu_torch.train import hdce, qsc
+
+def cfg(k, **q):
+    return c.ExperimentConfig(
+        data=c.DataConfig(n_ant=16, data_len=40), model=c.ModelConfig(features=8),
+        quantum=c.QuantumConfig(n_qubits=4, n_layers=2, **q),
+        train=c.TrainConfig(batch_size=8, n_epochs=2, scan_steps=k))
+
+data = GridData.synthesize(cfg(0).data, "cuda")
+out = {}
+for name, q, train in (
+    ("hdce", {}, lambda k, q: hdce.train_hdce(cfg(k, **q), data=data)[0]),
+    ("qsc", {"impl": "pallas_circuit", "use_quantumnat": True, "noise_level": 0.05},
+     lambda k, q: qsc.train_classifier(cfg(k, **q), True, data=data)[0]),
+):
+    runs = [{n: v.detach().cpu() for n, v in train(k, q).state_dict().items()} for k in (0, 0, 3)]
+    out[name] = [all(torch.equal(r[n], runs[0][n]) for n in runs[0]) for r in runs[1:]]
+print(json.dumps(out))
+"""
+
+
+def test_graph_is_the_per_step_path_bit_for_bit_with_deterministic_algorithms(dev):
+    """With deterministic algorithms (``torch.use_deterministic_algorithms``
+    and cuBLAS's fixed workspace, which must be set before the card is first
+    used, hence a child process), two per-step runs of two epochs agree bit
+    for bit, and so does the K = 3 graph: the graph adds no error of its
+    own. With the default algorithms two eager runs differ (``PERF.md``)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, "-c", _DETERMINISTIC_CHILD], env=env, capture_output=True, text=True,
+                         timeout=600, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"hdce": [True, True], "qsc": [True, True]}

@@ -301,3 +301,35 @@ def test_reconcile_quantum_cfg():
     pin = dataclasses.replace(cfg, quantum=dataclasses.replace(cfg.quantum, impl="pallas"))
     with pytest.raises(ValueError, match="capped"):
         reconcile_quantum_cfg(pin, {"quantum": {"n_qubits": 13}})
+
+
+def test_scenario_scaling_grid_and_batch_are_jax_s():
+    from qdml_tpu.eval import sweep as jsweep
+
+    assert tsweep.SCENARIO_SCALING_GRID == jsweep.SCENARIO_SCALING_GRID
+    assert [tsweep.scenario_batch(s) for s in tsweep.SCENARIO_SCALING_GRID] == [
+        jsweep.scenario_batch(s) for s in jsweep.SCENARIO_SCALING_GRID
+    ]
+
+
+@pytest.mark.parametrize("s", [3, 8, 64])
+def test_dispatch_agreement_matches_jax(s):
+    """Sparse held against dense under a balanced and a fully skewed load:
+    the overflow counts are JAX's (they depend on the batch, S and the
+    capacity factor alone), and both packages' sparse answers sit within
+    1e-5 of their dense ones (the weights differ: each package draws its
+    own)."""
+    from qdml_tpu.eval import sweep as jsweep
+
+    want = jsweep.dispatch_agreement(s, batch=64)
+    got = tsweep.dispatch_agreement(s, batch=64, device="cpu")
+    assert set(got) == set(want) == {"max_abs_delta", "overflow_balanced", "overflow_skewed"}
+    assert got["overflow_balanced"] == want["overflow_balanced"] == 0
+    assert got["overflow_skewed"] == want["overflow_skewed"] == 64 - _capacity(s)
+    assert got["max_abs_delta"] <= 1e-5 and want["max_abs_delta"] <= 1e-5
+
+
+def _capacity(s):
+    from qdml_tpu_torch.ops.routing import expert_capacity
+
+    return expert_capacity(64, s, 1.25)

@@ -21,6 +21,7 @@ torch.set_num_threads(1)  # small shapes: leave the cores to the suite's other w
 
 from qdml_tpu_torch import config as tconfig  # noqa: E402
 from qdml_tpu_torch.models.qsc import build_classifier  # noqa: E402
+from qdml_tpu_torch.ops import dispatch_autotune  # noqa: E402
 from qdml_tpu_torch.quantum import autotune  # noqa: E402
 from qdml_tpu_torch.serve.engine import ServeEngine  # noqa: E402
 from qdml_tpu_torch.train.checkpoint import save_checkpoint  # noqa: E402
@@ -34,9 +35,12 @@ HW = (16, 8)
 @pytest.fixture(autouse=True)
 def _isolated_tables(tmp_path, monkeypatch):
     monkeypatch.setenv(autotune.ENV_TABLE, str(tmp_path / "qsc.json"))
+    monkeypatch.setenv(dispatch_autotune.ENV_TABLE, str(tmp_path / "routing.json"))
     autotune.invalidate_cache()
+    dispatch_autotune.invalidate_cache()
     yield
     autotune.invalidate_cache()
+    dispatch_autotune.invalidate_cache()
 
 
 def _cfg(n_scenarios=3, quantum=None, **serve):
@@ -258,9 +262,10 @@ def test_warmup_records_and_validation():
 
 @pytest.mark.parametrize("field,mode", [("dispatch", "dense"), ("batching", "bucket")])
 def test_auto_serve_modes_take_the_jax_fallback_without_a_race(field, mode):
-    """``serve.{dispatch,batching}=auto`` (the default, as in JAX) pins the
-    mode JAX's lookup falls back to without a table entry, and times and
-    writes nothing: the port carries no serve race (ROADMAP A.8)."""
+    """``serve.{dispatch,batching}=auto`` (the default, as in JAX) at S = 3
+    pins dense routing and bucket batching, and times and writes nothing:
+    the routing race's window leaves dense alone below S = 6, and the
+    batching race is not ported (ROADMAP A.11)."""
     cfg = _cfg()
     assert getattr(cfg.serve, field) == "auto"
     eng, warm = _engine(cfg, _weights(cfg))
