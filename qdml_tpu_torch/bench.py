@@ -1,6 +1,7 @@
 """Training and serving throughput rows of the port (the root ``bench.py``'s measurement rows).
 
     python -m qdml_tpu_torch.bench [--device=cpu] [--out=PATH] [--steps=20] [--scan-steps=16]
+                                   [--qubits=4,6,...,24]
 
 Prints one JSON line. Its rows, each the counterpart of a root ``bench.py``
 measurement at that package's shapes (a 3 x 3 grid of 256-row cells, 2304
@@ -14,6 +15,13 @@ rows a step):
   ``:273``): samples/s, the achieved TFLOP/s and, on the card, the MFU
   against the card's float32 peak (parity runs float32 with no TF32, so the
   tensor-core rates do not apply; the record names the peak it used);
+- ``hdce_bf16``, ``hdce_bf16_scan``: the same two at ``model.dtype=
+  bfloat16`` (``bench.py:1049, 1058``), and ``hdce_bf16_scan_bf16m``, the
+  scan row with ``train.moments_dtype=bfloat16`` as well (JAX's
+  ``hdce_bf16_scan_fast_bf16m``, ``:1093-1101``): their MFU is taken against
+  the card's dense bfloat16 tensor-core peak. JAX's ``_rbg`` and ``_fast``
+  levers act only on synthesis inside the scan, which these rows do not run,
+  so those rows are left out and the record says so;
 - ``qsc_train``: the quantum classifier step per dispatch at circuit impls
   ``dense``, ``pallas`` and ``pallas_circuit`` (``_bench_qsc``, ``:343``),
   and ``qsc_train_scan`` at impl ``auto`` (``_bench_qsc_scan``, ``:429``);
@@ -24,6 +32,18 @@ rows a step):
   (:func:`~qdml_tpu_torch.ops.dispatch_autotune.ensure_route`, forced), rows/s,
   and :func:`~qdml_tpu_torch.eval.sweep.dispatch_agreement`
   (``_bench_scenario_scaling``, ``:736``);
+- ``qsc_scaling``: one point per n of
+  :data:`~qdml_tpu_torch.eval.sweep.QUBIT_SCALING_GRID` (``--qubits``
+  narrows it): the circuit-impl race over every impl eligible at n, forced,
+  at :func:`~qdml_tpu_torch.eval.sweep.scaling_batch` rows and bond
+  dimension :func:`~qdml_tpu_torch.eval.sweep.scaling_chi` (the kernels run
+  for real on the card, so nothing is excluded); the winner's train step
+  (one forward and ``backward()``, JAX's ``value_and_grad``) timed as the
+  candidates were; and :func:`~qdml_tpu_torch.eval.sweep.impl_agreement`
+  (``_bench_qsc_scaling`` and ``run_scaling_child``, ``:538-735``), at a
+  truncating chi also at the exact one (``agreement_exact_chi``). XLA's
+  cost analysis has no counterpart, so a point has no ``cost`` or
+  ``roofline``;
 - ``serve_infer``: a warmed engine's ``infer`` at bucket 64 (``:897``).
 
 A row that fails is recorded as ``{"error": ...}`` (``bench.py:993``) and the
@@ -60,6 +80,9 @@ QSC_IMPLS = ("dense", "pallas", "pallas_circuit")
 # float32 outside the tensor cores, H100 SXM data sheet (no TF32: parity runs
 # float32 convs and products)
 FP32_PEAK = {"flops_per_s": 67e12, "source": "NVIDIA H100 SXM data sheet, FP32 (non-tensor-core)"}
+# the bfloat16 rows' products and convs run on the tensor cores
+BF16_PEAK = {"flops_per_s": 989e12, "source": "NVIDIA H100 SXM data sheet, BF16 tensor core, dense"}
+PEAKS = {"float32": ("mfu_fp32", FP32_PEAK), "bfloat16": ("mfu_bf16", BF16_PEAK)}
 # the scenario axis's reduced geometry (bench.py:757-760)
 SCALING_HW = (8, 4)
 SCALING_FEATURES = 16
@@ -110,21 +133,26 @@ def _rate(fn: Callable[[], Any], dev: torch.device, steps: int, warm: int = 2) -
     return {"calls_per_s": steps / wall, "ms": 1e3 * wall / steps}
 
 
-def _flop_rates(samples_per_s: float, fwd_flops: float, dev: torch.device) -> dict:
+def _flop_rates(samples_per_s: float, fwd_flops: float, dev: torch.device, dtype: str = "float32") -> dict:
+    """Model TFLOP/s and, on the card, the MFU against the peak of the
+    row's activation dtype, which the row names."""
     tflops = samples_per_s * 3.0 * fwd_flops / 1e12
     out: dict[str, Any] = {"model_tflops": round(tflops, 4)}
     if dev.type == "cuda":
-        out["mfu_fp32"] = round(tflops * 1e12 / FP32_PEAK["flops_per_s"], 5)
+        key, peak = PEAKS[dtype]
+        out[key] = round(tflops * 1e12 / peak["flops_per_s"], 5)
+        out["peak"] = peak["source"]
     return out
 
 
-def _grid_cfg(**quantum) -> cfg_mod.ExperimentConfig:
+def _grid_cfg(dtype: str = "float32", moments: str = "float32", **quantum) -> cfg_mod.ExperimentConfig:
     cfg = cfg_mod.ExperimentConfig()
     return dataclasses.replace(
         cfg,
         data=dataclasses.replace(cfg.data, data_len=CELL_BATCH),
+        model=dataclasses.replace(cfg.model, dtype=dtype),
         quantum=dataclasses.replace(cfg.quantum, **quantum),
-        train=dataclasses.replace(cfg.train, batch_size=CELL_BATCH, n_epochs=1),
+        train=dataclasses.replace(cfg.train, batch_size=CELL_BATCH, n_epochs=1, moments_dtype=moments),
     )
 
 
@@ -138,30 +166,56 @@ def _grid(cfg: cfg_mod.ExperimentConfig, dev: torch.device):
     return data, idx, np.float32(cfg.data.snr_db)
 
 
-def bench_hdce(dev: torch.device, steps: int, scan_k: int) -> dict:
-    """The fused HDCE step at 2304 rows: per dispatch and K a dispatch."""
+def _hdce_per_step(dev: torch.device, steps: int, dtype: str) -> dict:
+    """The fused HDCE step at 2304 rows, one dispatch a step."""
     from qdml_tpu_torch.train import hdce
 
-    cfg = _grid_cfg()
+    cfg = _grid_cfg(dtype)
     data, idx, snr = _grid(cfg, dev)
     rows = GRID[0] * GRID[1] * CELL_BATCH
-    fwd = hdce_fwd_flops_per_sample(cfg)
     model, opt = hdce.make_trainer(cfg, dev, steps_per_epoch=100)
     batch = data.batch(torch.as_tensor(idx, device=dev), float(snr))
     t = _rate(lambda: hdce.hdce_train_step(model, opt, batch), dev, steps)
     sps = t["calls_per_s"] * rows
-    per_step = {"samples_per_sec": round(sps, 1), "step_ms": round(t["ms"], 4), "rows": rows,
-                **_flop_rates(sps, fwd, dev)}
+    return {"samples_per_sec": round(sps, 1), "step_ms": round(t["ms"], 4), "rows": rows, "dtype": dtype,
+            **_flop_rates(sps, hdce_fwd_flops_per_sample(cfg), dev, dtype)}
 
+
+def _hdce_scan(dev: torch.device, steps: int, scan_k: int, dtype: str, moments: str = "float32") -> dict:
+    """The fused HDCE step at 2304 rows, K a dispatch (one CUDA graph on the card)."""
+    from qdml_tpu_torch.train import hdce
+
+    cfg = _grid_cfg(dtype, moments)
+    data, idx, snr = _grid(cfg, dev)
+    rows = GRID[0] * GRID[1] * CELL_BATCH
     model, opt = hdce.make_trainer(cfg, dev, steps_per_epoch=10**6)
     run = hdce.make_hdce_scan_steps(model, opt, data, scan_k)
     idx_k, snr_k = np.broadcast_to(idx, (scan_k, *idx.shape)).copy(), np.full(scan_k, snr, np.float32)
-    scan_steps = max(1, steps // scan_k)
-    t = _rate(lambda: run(idx_k, snr_k), dev, scan_steps)
+    t = _rate(lambda: run(idx_k, snr_k), dev, max(1, steps // scan_k))
     sps = t["calls_per_s"] * scan_k * rows
-    scan = {"samples_per_sec": round(sps, 1), "dispatch_ms": round(t["ms"], 4), "scan_steps": scan_k,
-            "rows": rows, "graphs": len(run.graphs), "synthesis": "gather", **_flop_rates(sps, fwd, dev)}
-    return {"hdce_train": per_step, "hdce_train_scan": scan}
+    return {"samples_per_sec": round(sps, 1), "dispatch_ms": round(t["ms"], 4), "scan_steps": scan_k,
+            "rows": rows, "graphs": len(run.graphs), "synthesis": "gather", "dtype": dtype,
+            "moments_dtype": moments, **_flop_rates(sps, hdce_fwd_flops_per_sample(cfg), dev, dtype)}
+
+
+def bench_hdce(dev: torch.device, steps: int, scan_k: int) -> dict:
+    """The fused HDCE step at 2304 rows: per dispatch and K a dispatch."""
+    return {"hdce_train": _hdce_per_step(dev, steps, "float32"),
+            "hdce_train_scan": _hdce_scan(dev, steps, scan_k, "float32")}
+
+
+def bench_hdce_bf16(dev: torch.device, steps: int, scan_k: int) -> dict:
+    """The HDCE rows at bfloat16 activations, and the scan row with bfloat16
+    Adam moments as well."""
+    bf16m = _hdce_scan(dev, steps, scan_k, "bfloat16", "bfloat16")
+    bf16m["left_out"] = (
+        "hdce_bf16_scan_rbg and hdce_bf16_scan_fast: their rng_impl=rbg and trig_impl=split act only "
+        "on synthesis inside the scan, and these rows gather their batches from a grid made before "
+        "(synthesis: gather)"
+    )
+    return {"hdce_bf16": _hdce_per_step(dev, steps, "bfloat16"),
+            "hdce_bf16_scan": _hdce_scan(dev, steps, scan_k, "bfloat16"),
+            "hdce_bf16_scan_bf16m": bf16m}
 
 
 def bench_qsc(dev: torch.device, steps: int, scan_k: int) -> dict:
@@ -249,6 +303,71 @@ def bench_scenario_scaling(dev: torch.device, capacity_factor: float = 1.25) -> 
             "out_dim": SCALING_OUT, "table": da.table_path()}
 
 
+def bench_qsc_scaling(
+    dev: torch.device,
+    budget_s: float = 0.25,
+    n_values: tuple[int, ...] | None = None,
+    n_layers: int = 3,
+    mps_chi: int = 16,
+) -> dict:
+    """The qubit-scaling axis: per n the impl race (forced), the winner's
+    train step, and its agreement with an independent formulation. A point
+    that fails records its error and the others still run."""
+    from qdml_tpu_torch.eval.sweep import QUBIT_SCALING_GRID, impl_agreement, scaling_batch, scaling_chi
+    from qdml_tpu_torch.quantum import autotune
+    from qdml_tpu_torch.quantum.circuits import run_circuit
+
+    points = []
+    for n in n_values or QUBIT_SCALING_GRID:
+        batch, chi = scaling_batch(n), scaling_chi(n, mps_chi)
+        impls = autotune.eligible_impls(n)
+        point: dict[str, Any] = {"n_qubits": n, "dim": 1 << n, "batch": batch, "candidates_raced": impls}
+        try:
+            entry = autotune.ensure(n, n_layers, batch, force=True, impls=impls, budget_s=budget_s,
+                                    device=dev, mps_chi=chi)
+            winner = entry.get("best_train")
+            point["candidates"] = entry["candidates"]
+            if winner is None:
+                point["error"] = "no candidate ran (see candidates.*.error)"
+                points.append(point)
+                continue
+            point["quantum_impl"] = winner
+            # chi belongs to the mps run: on the point only when mps won
+            if winner == "mps":
+                point["mps_chi"] = chi
+            elif isinstance(entry["candidates"].get("mps"), dict):
+                entry["candidates"]["mps"].setdefault("mps_chi", chi)
+            rng = np.random.default_rng(0)
+            angles = torch.tensor(rng.uniform(-1, 1, (batch, n)).astype(np.float32), device=dev)
+            weights = torch.tensor(rng.uniform(0, 2 * np.pi, (n_layers, n, 2)).astype(np.float32),
+                                   device=dev, requires_grad=True)
+
+            def step(a, w):
+                w.grad = None
+                loss = (run_circuit(a, w, n, n_layers, impl=winner, mps_chi=chi) ** 2).sum()
+                loss.backward()
+                return loss
+
+            ms = autotune._time_callable(step, (angles, weights), budget_s, 30)
+            point["train_ms"] = round(ms, 4)
+            point["steps_per_sec"] = round(1e3 / ms, 3)
+            point["samples_per_sec"] = round(1e3 / ms * batch, 1)
+            point["agreement"] = impl_agreement(n, winner, n_layers, batch=min(4, batch), mps_chi=chi, device=dev)
+            # at a truncating chi the agreement is the truncation error (as
+            # in JAX); where mps is the winner or the reference, the same
+            # check at the exact chi 2^(n/2) holds the numerics alone
+            ref = point["agreement"]["reference"]
+            if ref is not None and "mps" in (winner, ref) and chi < 1 << (n // 2):
+                point["agreement_exact_chi"] = impl_agreement(
+                    n, winner, n_layers, batch=min(4, batch), mps_chi=1 << (n // 2), device=dev)
+        except Exception as e:  # one n failing keeps the other points
+            point.update(_error(e))
+        points.append(point)
+    return {"points": points, "n_layers": n_layers, "mps_chi": mps_chi, "budget_s": budget_s,
+            "cost": "not measured: XLA's cost analysis (flops, bytes, roofline) has no PyTorch counterpart",
+            "table": autotune.table_path()}
+
+
 def bench_serve_infer(dev: torch.device, steps: int, bucket: int = 64) -> dict:
     """A warmed engine (classical classifier, seeded weights) serving full
     buckets: requests a second and ms a batch, host wall clock."""
@@ -299,9 +418,12 @@ def _card(dev: torch.device) -> dict:
     return out
 
 
-def run(device: str | None = None, steps: int = 20, scan_k: int = 16) -> dict:
-    """Every row on ``device`` (the card unless ``"cpu"``); a failed row is
-    an ``{"error": ...}`` entry. Returns the record."""
+def run(
+    device: str | None = None, steps: int = 20, scan_k: int = 16, qubits: tuple[int, ...] | None = None
+) -> dict:
+    """Every row on ``device`` (the card unless ``"cpu"``), ``qsc_scaling``
+    at ``qubits`` (default: the whole grid); a failed row is an ``{"error":
+    ...}`` entry. Returns the record."""
     dev = resolve_device(device)
     cfg = cfg_mod.ExperimentConfig()
     record: dict[str, Any] = {
@@ -309,12 +431,14 @@ def run(device: str | None = None, steps: int = 20, scan_k: int = 16) -> dict:
         "grid": {"scenarios": GRID[0], "users": GRID[1], "cell_batch": CELL_BATCH},
         "hdce_fwd_flops_per_sample": hdce_fwd_flops_per_sample(cfg),
         "qsc_fwd_flops_per_sample": qsc_fwd_flops_per_sample(cfg),
-        "peak": FP32_PEAK if dev.type == "cuda" else None,
+        "peak": {"float32": FP32_PEAK, "bfloat16": BF16_PEAK} if dev.type == "cuda" else None,
     }
     rows: list[tuple[tuple[str, ...], Callable[[], dict]]] = [
         (("hdce_train", "hdce_train_scan"), lambda: bench_hdce(dev, steps, scan_k)),
+        (("hdce_bf16", "hdce_bf16_scan", "hdce_bf16_scan_bf16m"), lambda: bench_hdce_bf16(dev, steps, scan_k)),
         (("qsc_train", "qsc_train_scan"), lambda: bench_qsc(dev, steps, scan_k)),
         (("scenario_scaling",), lambda: {"scenario_scaling": bench_scenario_scaling(dev)}),
+        (("qsc_scaling",), lambda: {"qsc_scaling": bench_qsc_scaling(dev, n_values=qubits)}),
         (("serve_infer",), lambda: {"serve_infer": bench_serve_infer(dev, steps)}),
     ]
     for names, fn in rows:
@@ -334,20 +458,23 @@ def errors(record: dict) -> list[str]:
             if isinstance(v, dict) and "error" in v]
     bad += [f"scenario_scaling.S{p['n_scenarios']}"
             for p in (record.get("scenario_scaling") or {}).get("points", []) if "error" in p]
+    bad += [f"qsc_scaling.n{p['n_qubits']}"
+            for p in (record.get("qsc_scaling") or {}).get("points", []) if "error" in p]
     return bad
 
 
 def main(argv: list[str] | None = None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    opts = {"device": None, "out": None, "steps": "20", "scan-steps": "16"}
+    opts = {"device": None, "out": None, "steps": "20", "scan-steps": "16", "qubits": None}
     for arg in args:
         key, sep, value = arg.lstrip("-").partition("=")
         if not arg.startswith("--") or not sep or key not in opts:
             print(f"usage: python -m qdml_tpu_torch.bench [--device=cpu] [--out=PATH] [--steps=N] "
-                  f"[--scan-steps=K]; got {arg!r}", file=sys.stderr)
+                  f"[--scan-steps=K] [--qubits=N,N,...]; got {arg!r}", file=sys.stderr)
             return 2
         opts[key] = value
-    record = run(opts["device"], int(opts["steps"]), int(opts["scan-steps"]))
+    qubits = tuple(int(v) for v in opts["qubits"].split(",")) if opts["qubits"] else None
+    record = run(opts["device"], int(opts["steps"]), int(opts["scan-steps"]), qubits)
     line = json.dumps(record)
     print(line, flush=True)
     if opts["out"]:

@@ -15,7 +15,11 @@
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
 package, and ``--preset=NAME`` starts from one of its presets
 (``single_4q``, ``nat_sweep``, ``robust_qsc``; the mesh presets raise until
-ROADMAP A.10). Runs on the card unless ``--device=cpu`` is given. With
+ROADMAP A.10's multi-rank half), among them the low-precision levers
+(``--model.dtype=bfloat16``, ``--train.moments_dtype=bfloat16``,
+``--data.trig_impl=split``, ``--data.rng_impl=``) and ``--quantum.mps_chi=``
+for the ``mps`` circuit impl. Runs on the card unless ``--device=cpu`` is
+given. With
 ``quantum.impl=auto`` (the default) ``train-qsc`` times the circuit impls on
 the card before its first step and logs the winners (``kind=
 "quantum_autotune"``); the table is ``results_torch/autotune/qsc_impl.json``

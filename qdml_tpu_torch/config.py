@@ -6,7 +6,11 @@ carried: the channel geometry and dataset fields of ``DataConfig``,
 ``ModelConfig``, ``QuantumConfig`` with its training knobs, ``TrainConfig``,
 ``EvalConfig``, the ``ServeConfig`` bucket and dispatch fields, and the
 geometry-derived widths of ``ExperimentConfig``. Mesh, fleet and control
-configuration are not ported yet (ROADMAP A.10, A.11). :func:`override` and
+configuration are not ported yet (ROADMAP A.10, multi-rank half; A.11).
+``model.dtype`` (bfloat16 activations), ``train.moments_dtype`` (bfloat16
+Adam first moments), ``data.trig_impl``, ``data.rng_impl`` and
+``quantum.mps_chi`` are the JAX package's low-precision and scaling knobs,
+with its defaults and its rejection messages. :func:`override` and
 :func:`from_args` take the JAX package's dotted CLI flags
 (``--train.lr=3e-4``) and ``--preset=NAME`` (:func:`presets`).
 """
@@ -36,6 +40,14 @@ class DataConfig:
     label_noise_factor: float = 1.9
     # Optional per-batch training-SNR jitter (lo, hi) dB; None = fixed SNR.
     snr_jitter: tuple[float, float] | None = None
+    # Sample-generator PRNG: "threefry" | "rbg" (qdml_tpu/config.py:70).
+    # Validated and recorded only: the port draws from torch.Generator's
+    # Philox whichever is named (data/channels.py).
+    rng_impl: str = "threefry"
+    # Steering/delay phase ramps: "direct" (one sin/cos per element) or
+    # "split" (angle-addition factorization, the same values to f32
+    # rounding; utils/complexops.cexp_i_ramp) (qdml_tpu/config.py:75).
+    trig_impl: str = "direct"
 
     @property
     def pilot_num(self) -> int:
@@ -51,6 +63,21 @@ class ModelConfig:
     """CNN estimator family (``qdml_tpu/config.py:91-103``)."""
 
     features: int = 32       # conv channels (reference self.features=32)
+    # Activation dtype of the HDCE and DCE trainers' convs and head:
+    # "float32" | "bfloat16" (parameters stay float32; qdml_tpu/config.py:98).
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        activation_dtype(self.dtype)
+
+
+def activation_dtype(name: str):
+    """``model.dtype`` as a torch dtype (``qdml_tpu/models/cnn.py:
+    activation_dtype``); anything but ``float32`` / ``bfloat16`` raises
+    ``KeyError``, as the JAX package's lookup does."""
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
 @dataclass(frozen=True)
@@ -72,6 +99,10 @@ class QuantumConfig:
     gradient_prune_mode: str = "absolute"  # "absolute" | "quantile"
     # QuantumNAT sigma of each member of the nat-sweep ensemble
     noise_sweep: tuple[float, ...] = (0.0, 0.01, 0.05, 0.1)
+    # Bond dimension of the "mps" impl (quantum/mps.py): chi >= 2^(n/2) is
+    # exact for this circuit, a smaller chi a controlled approximation
+    # (qdml_tpu/config.py:135).
+    mps_chi: int = 8
     # When the impl race may run (trainer start, serve warmup; never on the
     # request path): "auto" = on the card only, "on"/"off" force it
     # (qdml_tpu_torch.quantum.autotune).
@@ -98,8 +129,9 @@ class TrainConfig:
     # one CUDA-graph replay on the card (the eager chunk of K steps on the
     # CPU), K = 1 included; 0 selects the per-step path. Negative raises.
     scan_steps: int = 1
-    # Adam moment storage: only "float32" is ported; the JAX package's
-    # "bfloat16" (a documented non-default deviation) raises.
+    # Adam moment storage: "float32", or "bfloat16" (the first moment stored
+    # in bfloat16, the second in float32, all arithmetic in float32;
+    # train/optim.py). Only Adam takes it: adamw and sgd warn and keep f32.
     moments_dtype: str = "float32"
     seed: int = 0
     workdir: str = "workspace"   # checkpoint root
@@ -197,7 +229,7 @@ def _coerce(value: Any, fld: dataclasses.Field) -> Any:
 
 
 # The JAX package's presets (qdml_tpu/config.py:587-626) that need a mesh;
-# the port runs on one device until ROADMAP A.10.
+# the port runs on one device until ROADMAP A.10's multi-rank half.
 UNPORTED_PRESETS = ("dp_8q", "sharded_16q", "federated")
 
 
@@ -233,7 +265,7 @@ def preset(name: str) -> ExperimentConfig:
     """The preset ``name``; the mesh presets raise ``NotImplementedError``."""
     if name in UNPORTED_PRESETS:
         raise NotImplementedError(
-            f"preset {name!r} needs a device mesh, not ported yet (ROADMAP A.10)"
+            f"preset {name!r} needs a device mesh, not ported yet (ROADMAP A.10, multi-rank half)"
         )
     table = presets()
     if name not in table:

@@ -24,6 +24,13 @@ the device, so a per-call copy would put a host sync into every batch.
 
 Complex values are :class:`~qdml_tpu_torch.utils.complexops.CArr` real pairs;
 the family table and constants are verbatim copies (host numpy).
+
+``ChannelGeometry.trig_impl`` picks how the steering and delay phase ramps
+are evaluated, ``direct`` or ``split`` (:func:`~qdml_tpu_torch.utils.
+complexops.cexp_i_ramp`), as in JAX. ``rng_impl`` (``threefry`` | ``rbg``)
+is validated and carried so that JAX configs and presets load, but changes
+no draw: the port's draws come from ``torch.Generator`` (Philox on the
+card), and neither JAX stream can be reproduced anyway.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 
 from qdml_tpu_torch.config import DataConfig
-from qdml_tpu_torch.utils.complexops import CArr, ceinsum
+from qdml_tpu_torch.utils.complexops import CArr, ceinsum, cexp_i, cexp_i_ramp
 
 # Maximum paths across scenarios; per-scenario counts are masked.
 MAX_PATHS = 20
@@ -128,8 +135,23 @@ class ChannelGeometry:
     # Per-entry variance of the full-pilot LS label is
     # label_noise_factor * 10**(-SNR/10).
     label_noise_factor: float = 1.9
+    # "threefry" | "rbg": validated and recorded; the port's draws are
+    # torch.Generator's whichever is named (module docstring)
+    rng_impl: str = "threefry"
+    # phase ramps: "direct" (one sin/cos per element) | "split" (cexp_i_ramp)
+    trig_impl: str = "direct"
 
     def __post_init__(self):
+        # the JAX package's rejection contract (qdml_tpu/data/channels.py:209-217):
+        # a typo must not silently select the default
+        if self.rng_impl not in ("threefry", "rbg"):
+            raise ValueError(
+                f"rng_impl must be 'threefry' or 'rbg', got {self.rng_impl!r}"
+            )
+        if self.trig_impl not in ("direct", "split"):
+            raise ValueError(
+                f"trig_impl must be 'direct' or 'split', got {self.trig_impl!r}"
+            )
         if self.drift_step < 0:
             raise ValueError(f"drift_step must be >= 0, got {self.drift_step}")
         if not (-1 <= self.drift_scenario < self.n_scenarios):
@@ -146,6 +168,8 @@ class ChannelGeometry:
             n_beam=cfg.n_beam,
             n_scenarios=cfg.n_scenarios,
             label_noise_factor=cfg.label_noise_factor,
+            rng_impl=cfg.rng_impl,
+            trig_impl=cfg.trig_impl,
         )
 
     @property
@@ -218,20 +242,20 @@ def label_noise_var(geom: ChannelGeometry, snr_db) -> torch.Tensor:
     return geom.label_noise_factor * 10.0 ** (-_f32(snr_db) / 10.0)
 
 
-def _cexp_i(theta: torch.Tensor) -> CArr:
-    return CArr(torch.cos(theta), torch.sin(theta))
-
-
-def _steering(f: torch.Tensor, n_ant: int) -> CArr:
+def _steering(f: torch.Tensor, n_ant: int, trig_impl: str = "direct") -> CArr:
     """ULA steering vectors for spatial frequencies f: (..., L) -> (..., L, n_ant)."""
+    if trig_impl == "split":
+        return cexp_i_ramp(2.0 * math.pi * f, n_ant)
     n = torch.arange(n_ant, dtype=torch.float32, device=f.device)
-    return _cexp_i(2.0 * math.pi * f[..., None] * n)
+    return cexp_i(2.0 * math.pi * f[..., None] * n)
 
 
-def _delay_response(tau: torch.Tensor, n_sub: int) -> CArr:
+def _delay_response(tau: torch.Tensor, n_sub: int, trig_impl: str = "direct") -> CArr:
     """Subcarrier responses for delays tau (samples): (..., L) -> (..., L, n_sub)."""
+    if trig_impl == "split":
+        return cexp_i_ramp(-2.0 * math.pi * tau / n_sub, n_sub)
     k = torch.arange(n_sub, dtype=torch.float32, device=tau.device)
-    return _cexp_i(-2.0 * math.pi * tau[..., None] * k / n_sub)
+    return cexp_i(-2.0 * math.pi * tau[..., None] * k / n_sub)
 
 
 def truncated_normal(
@@ -305,13 +329,13 @@ def channels_from_draws(
     alpha = CArr(amp * g[..., 0], amp * g[..., 1])  # (N, L)
     if "phi" in draws:
         phi = fam["mobility"][s][:, None] * draws["phi"]
-        rot = _cexp_i(phi)
+        rot = cexp_i(phi)
         alpha = CArr(
             alpha.re * rot.re - alpha.im * rot.im, alpha.re * rot.im + alpha.im * rot.re
         )
 
-    a = _steering(f, geom.n_ant)  # (N, L, n_ant)
-    b = _delay_response(tau, geom.n_sub)  # (N, L, n_sub)
+    a = _steering(f, geom.n_ant, geom.trig_impl)  # (N, L, n_ant)
+    b = _delay_response(tau, geom.n_sub, geom.trig_impl)  # (N, L, n_sub)
     w = CArr(
         alpha.re[..., None] * a.re - alpha.im[..., None] * a.im,
         alpha.re[..., None] * a.im + alpha.im[..., None] * a.re,

@@ -32,8 +32,11 @@ The scenario-scaling axis (``:284-349``): :data:`SCENARIO_SCALING_GRID`,
 :func:`scenario_batch` and :func:`dispatch_agreement`, sparse routing held
 against dense at each S; the routing race that picks between them is
 :mod:`qdml_tpu_torch.ops.dispatch_autotune` and its timed points are
-``python -m qdml_tpu_torch.bench``'s. Not ported yet: the ``mesh`` (A.10) and
-the qubit-scaling axis (``:352-436``, which needs A.10's MPS).
+``python -m qdml_tpu_torch.bench``'s. The qubit-scaling axis (``:352-436``):
+:data:`QUBIT_SCALING_GRID`, :func:`scaling_batch`, :func:`scaling_chi` and
+:func:`impl_agreement`, a point's winning circuit impl held against an
+independent formulation; its timed points are the bench's ``qsc_scaling``.
+Not ported yet: the ``mesh`` (A.10, multi-rank half).
 """
 
 from __future__ import annotations
@@ -280,3 +283,70 @@ def dispatch_agreement(
             out["max_abs_delta"] = round(max(out["max_abs_delta"], delta), 8)
             out[f"overflow_{name}"] = int(overflow)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Qubit-scaling axis (n = 4 ... 24)
+# ---------------------------------------------------------------------------
+
+# The published 4/6/8-qubit regime, the dense and kernel windows' edges
+# (10/12), the tensor crossover (14), and the mps-only regime (16/20/24)
+# (qdml_tpu/eval/sweep.py:356-359).
+QUBIT_SCALING_GRID = (4, 6, 8, 10, 12, 14, 16, 20, 24)
+
+
+def scaling_batch(n_qubits: int) -> int:
+    """Each point's circuit batch: it shrinks as the statevector footprint
+    ``batch * 2^n`` grows, the same at every run of one n
+    (``qdml_tpu/eval/sweep.py:362-373``)."""
+    if n_qubits <= 16:
+        return 64
+    if n_qubits <= 20:
+        return 8
+    return 2
+
+
+def scaling_chi(n_qubits: int, chi: int) -> int:
+    """The mps bond dimension a point runs: ``chi`` capped at the exactness
+    bound 2^(n/2), past which it buys nothing (``qdml_tpu/eval/sweep.py:
+    376-380``)."""
+    return max(2, min(int(chi), 1 << (n_qubits // 2)))
+
+
+def impl_agreement(
+    n_qubits: int,
+    impl: str,
+    n_layers: int = 3,
+    batch: int = 4,
+    mps_chi: int | None = None,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+) -> dict:
+    """How far ``impl``'s per-wire <Z> sits from an independent formulation
+    at the same seeded angles and weights (``qdml_tpu/eval/sweep.py:
+    383-436``): ``dense`` up to 12 qubits, ``mps`` against a ``tensor``
+    winner at 13-14, ``tensor`` up to 14. Past 14 the port has only ``mps``
+    on one device (``sharded_statevector``, JAX's other reference there,
+    needs a mesh), so the point reports ``{"reference": None,
+    "max_abs_delta": None}`` rather than a self-check. Runs on the card
+    unless ``device="cpu"``."""
+    from qdml_tpu_torch.quantum.circuits import run_circuit
+
+    reference: str | None = None
+    if impl != "dense" and n_qubits <= 12:
+        reference = "dense"
+    elif impl == "tensor":
+        reference = "mps"
+    elif impl != "tensor" and n_qubits <= 14:
+        reference = "tensor"
+    if reference is None:
+        return {"reference": None, "max_abs_delta": None}
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    angles = torch.tensor(rng.uniform(-1, 1, (batch, n_qubits)).astype(np.float32), device=dev)
+    weights = torch.tensor(rng.uniform(0, 2 * np.pi, (n_layers, n_qubits, 2)).astype(np.float32), device=dev)
+    chi = scaling_chi(n_qubits, mps_chi or 16)
+    with torch.no_grad():
+        out = run_circuit(angles, weights, n_qubits, n_layers, impl=impl, mps_chi=chi)
+        ref = run_circuit(angles, weights, n_qubits, n_layers, impl=reference, mps_chi=chi)
+    return {"reference": reference, "max_abs_delta": round(float((out - ref).abs().max()), 8)}

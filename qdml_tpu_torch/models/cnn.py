@@ -24,6 +24,17 @@ the names ``qdml_tpu/train/torch_interop.py`` writes, so reference ``.pth``
 files and weights carried from Flax (:mod:`qdml_tpu_torch.interop`) load with
 one ``load_state_dict``. Inputs are NCHW ``(B, 2, n_sub, n_beam)`` and
 flattening is torch's C-major order, as in the reference.
+
+Activation dtype (``model.dtype``, ``qdml_tpu/models/cnn.py:70-185``): the
+trunks, the head and the DCE take a ``dtype`` and cast where Flax casts,
+with explicit casts rather than ``torch.autocast``, whose per-op policies
+are not Flax's. Each conv reads its input and weight in ``dtype`` and
+writes ``dtype``; BatchNorm and ReLU run in float32 on the conv's output
+(Flax ``BatchNorm(dtype=float32)``); the trunk's flattened output is
+float32; the head reads input, weight and bias in ``dtype``, adds the bias
+to the rounded product in ``dtype``, as Flax's ``Dense(dtype)``, and returns
+float32. Parameters and their names stay float32 whatever the dtype. The
+classifiers take no dtype: JAX's ignore ``model.dtype``.
 """
 
 from __future__ import annotations
@@ -59,13 +70,31 @@ class BatchNorm2d(nn.BatchNorm2d):
         return out
 
 
+def dense(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``fc(x)`` as Flax's ``Dense(dtype)`` computes it, returned in float32:
+    the product of ``x`` and the weight in ``dtype``, then the bias added in
+    ``dtype`` (``qdml_tpu/models/cnn.py:169``)."""
+    if dtype == torch.float32:
+        return fc(x)
+    y = F.linear(x.to(dtype), fc.weight.to(dtype)) + fc.bias.to(dtype)
+    return y.float()
+
+
 class ConvP128(nn.Module):
     """Per-scenario feature extractor: ``(B, 2, 16, 8) -> (B, features*16*8)``.
     ``bn_decay`` is the BatchNorm running-statistics decay per update (Flax
-    momentum; the reference's torch momentum 0.1 is decay 0.9)."""
+    momentum; the reference's torch momentum 0.1 is decay 0.9); ``dtype``
+    the convs' activation dtype (the module docstring)."""
 
-    def __init__(self, features: int = 32, n_layers: int = 3, bn_decay: float = 0.9):
+    def __init__(
+        self,
+        features: int = 32,
+        n_layers: int = 3,
+        bn_decay: float = 0.9,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
+        self.act_dtype = dtype
         blocks: list[nn.Module] = []
         ch = 2
         for _ in range(n_layers):
@@ -78,18 +107,25 @@ class ConvP128(nn.Module):
         self.cnn = nn.Sequential(*blocks)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cnn(x).flatten(1)
+        dt = self.act_dtype
+        for i in range(0, len(self.cnn), 3):
+            conv, bn, relu = self.cnn[i : i + 3]
+            x = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride, conv.padding)
+            x = relu(bn(x.float()))
+        return x.flatten(1)
 
 
 class FCP128(nn.Module):
-    """Shared estimation head: ``in_dim -> out_dim`` (4096 -> 2048 at full width)."""
+    """Shared estimation head: ``in_dim -> out_dim`` (4096 -> 2048 at full
+    width), computed in ``dtype`` (:func:`dense`), float32 out."""
 
-    def __init__(self, in_dim: int = 4096, out_dim: int = 2048):
+    def __init__(self, in_dim: int = 4096, out_dim: int = 2048, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.act_dtype = dtype
         self.FC = nn.Linear(in_dim, out_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.FC(x)
+        return dense(self.FC, x, self.act_dtype)
 
 
 class DCEP128(ConvP128):
@@ -101,7 +137,8 @@ class DCEP128(ConvP128):
     ``cnn.{0,3,6}.weight`` / ``cnn.{1,4,7}.*`` and ``FCP128``'s ``FC.*``.
     ``bn_decay`` keeps the default 0.9 per step: the JAX ``DCEP128`` builds
     its trunk with the default momentum over the flattened grid batch, not
-    HDCE's ``0.9 ** n_users``."""
+    HDCE's ``0.9 ** n_users``. ``dtype`` is the trunk's and the head's
+    activation dtype."""
 
     def __init__(
         self,
@@ -109,20 +146,27 @@ class DCEP128(ConvP128):
         out_dim: int = 2048,
         image_hw: tuple[int, int] = (16, 8),
         bn_decay: float = 0.9,
+        dtype: torch.dtype = torch.float32,
     ):
-        super().__init__(features, bn_decay=bn_decay)
+        super().__init__(features, bn_decay=bn_decay, dtype=dtype)
         self.FC = nn.Linear(features * image_hw[0] * image_hw[1], out_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.FC(super().forward(x))
+        return dense(self.FC, super().forward(x), self.act_dtype)
 
 
 class StackedConvP128(nn.ModuleList):
     """All ``n_scenarios`` trunks: ``(S, B, 2, H, W) -> (S, B, F)``; scenario s
     flows through trunk s only."""
 
-    def __init__(self, n_scenarios: int = 3, features: int = 32, bn_decay: float = 0.9):
-        super().__init__([ConvP128(features, bn_decay=bn_decay) for _ in range(n_scenarios)])
+    def __init__(
+        self,
+        n_scenarios: int = 3,
+        features: int = 32,
+        bn_decay: float = 0.9,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__([ConvP128(features, bn_decay=bn_decay, dtype=dtype) for _ in range(n_scenarios)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.stack([trunk(x[s]) for s, trunk in enumerate(self)])

@@ -2,7 +2,8 @@
 
 CNN front end -> tanh angles -> the variational circuit
 (:func:`qdml_tpu_torch.quantum.circuits.run_circuit`, whichever impl the
-config names) -> linear head -> log-softmax. Parameter names follow the
+config names, ``mps`` at bond dimension ``mps_chi``) -> linear head ->
+log-softmax. Parameter names follow the
 reference ``QSC_P128`` (``preprocess.{0,3,7}.*``, ``qlayer.weights`` of shape
 (L, n, 2), ``classifier.*``).
 
@@ -58,8 +59,10 @@ class QSCP128(nn.Module):
         noise_level: float = 0.01,
         depolarizing_p: float = 0.0,
         n_trajectories: int = 32,
+        mps_chi: int = 8,
     ):
         super().__init__()
+        self.mps_chi = mps_chi
         self.n_qubits, self.n_layers = n_qubits, n_layers
         self.backend, self.impl, self.input_norm = backend, impl, input_norm
         self.use_quantumnat, self.noise_level = use_quantumnat, noise_level
@@ -124,6 +127,7 @@ class QSCP128(nn.Module):
             self.backend,
             impl=impl,
             mode="train" if self.training else "infer",
+            mps_chi=self.mps_chi,
         )
         return torch.log_softmax(self.classifier(expz), dim=-1)
 
@@ -141,7 +145,7 @@ def build_classifier(
     q = cfg.quantum
     if quantum:
         clf: nn.Module = QSCP128(
-            q.n_qubits, q.n_layers, q.n_classes, q.backend, q.impl, q.input_norm
+            q.n_qubits, q.n_layers, q.n_classes, q.backend, q.impl, q.input_norm, mps_chi=q.mps_chi
         )
     else:
         clf = SCP128(q.n_classes)

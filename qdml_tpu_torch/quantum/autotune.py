@@ -1,8 +1,8 @@
 """Measured implementation dispatch for the circuit (``qdml_tpu/quantum/autotune.py``).
 
-The circuit has five interchangeable implementations in the port (``dense``,
-``dense_fused``, ``tensor``, and the CUDA kernels behind ``pallas`` and
-``pallas_circuit``), and which is fastest depends on the card, the qubit
+The circuit has six interchangeable implementations in the port (``dense``,
+``dense_fused``, ``tensor``, the CUDA kernels behind ``pallas`` and
+``pallas_circuit``, and the bond-chi ``mps``), and which is fastest depends on the card, the qubit
 count and the batch. So ``impl=auto`` does not guess: :func:`ensure` times
 every eligible implementation once per ``(platform, n_qubits, n_layers,
 batch bucket, dtype)`` key, the winners persist in a manifest-headed JSON
@@ -30,9 +30,10 @@ Where the port differs from the JAX package:
   The port's CUDA kernel runs for real from n = 2 (the ring needs two wires;
   ``kernels._check_circuit_window``), so the shipped n = 6 classifier gets a
   candidate that builds no unitary. The other windows are JAX's: ``dense``
-  and ``dense_fused`` n <= 12, ``pallas`` n <= 8, ``tensor`` 9 <= n <= 14.
-  ``mps`` and ``sharded_statevector`` are not ported yet (ROADMAP A.10) and
-  are never eligible.
+  and ``dense_fused`` n <= 12, ``pallas`` n <= 8, ``tensor`` 9 <= n <= 14,
+  ``mps`` from n = 13 (timed at ``quantum.mps_chi``, which the entry
+  records). ``sharded_statevector`` needs a device mesh (ROADMAP A.10,
+  multi-rank half) and is never eligible.
 - **Timing is eager on the device**: per candidate the median of reps of a
   forward (``fwd_ms``) and of one forward plus ``backward()`` of
   ``sum(out**2)`` with respect to the weights (``train_ms``, JAX's single
@@ -59,6 +60,7 @@ import numpy as np
 import torch
 
 from qdml_tpu_torch.quantum.kernels import CIRCUIT_MIN_QUBITS, QSC_MAX_QUBITS
+from qdml_tpu_torch.quantum.mps import DEFAULT_CHI
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.tune_table import TableStore, activity
 
@@ -95,8 +97,10 @@ _DISPATCHABLE = frozenset(
 DENSE_MAX_QUBITS = 12
 TENSOR_MAX_QUBITS = 14
 TENSOR_MIN_QUBITS = 9
-# Impls the port has no counterpart for yet (ROADMAP A.10).
-UNPORTED_IMPLS = ("mps", "sharded_statevector")
+# mps races tensor over the 13-14 crossover and is the only candidate past 14
+MPS_MIN_QUBITS = 13
+# Impls the port has no counterpart for yet (ROADMAP A.10, multi-rank half).
+UNPORTED_IMPLS = ("sharded_statevector",)
 
 
 class ImplIneligibleError(ValueError):
@@ -116,11 +120,14 @@ def impl_eligible(impl: str, n_qubits: int) -> tuple[bool, str | None]:
 
     impl = canonical_impl(impl)
     if impl in UNPORTED_IMPLS:
-        return False, f"circuit impl {impl!r} is not ported yet (ROADMAP A.10, scaling impls)"
+        return False, f"circuit impl {impl!r} is not ported yet (ROADMAP A.10, multi-rank half)"
     if impl in ("dense", "dense_fused", "pallas", "pallas_circuit") and n_qubits > DENSE_MAX_QUBITS:
         return False, f"impl {impl!r} is capped at n <= {DENSE_MAX_QUBITS}; n={n_qubits}"
     if impl == "tensor" and n_qubits > TENSOR_MAX_QUBITS:
-        return False, f"the 2^n statevector per sample is capped at n <= {TENSOR_MAX_QUBITS}; n={n_qubits}"
+        return False, (
+            f"the 2^n statevector per sample is capped at n <= {TENSOR_MAX_QUBITS}; "
+            f"n={n_qubits} needs mps"
+        )
     return True, None
 
 
@@ -136,6 +143,8 @@ def eligible_impls(n_qubits: int) -> list[str]:
         impls.append("pallas_circuit")
     if TENSOR_MIN_QUBITS <= n_qubits <= TENSOR_MAX_QUBITS:
         impls.append("tensor")
+    if n_qubits >= MPS_MIN_QUBITS:
+        impls.append("mps")
     return impls
 
 
@@ -248,9 +257,11 @@ def measure(
     budget_s: float = 0.25,
     max_reps: int = 30,
     device: str | torch.device | None = None,
+    mps_chi: int | None = None,
 ) -> dict[str, dict[str, Any]]:
     """``fwd_ms`` and ``train_ms`` of each candidate at this exact shape on
-    ``device``. A candidate that cannot run here (``ImplIneligibleError``,
+    ``device``, the ``mps`` candidate at bond dimension ``mps_chi``. A
+    candidate that cannot run here (``ImplIneligibleError``,
     ``NotImplementedError``) is recorded with its error and left out of the
     selection, as in JAX. Any other error, a kernel that fails to build or to
     launch among them, raises: the race must not hand ``impl=auto`` to the
@@ -272,7 +283,7 @@ def measure(
 
             def fwd(a, w, impl=impl):
                 with torch.no_grad():
-                    return run_circuit(a, w, n_qubits, n_layers, impl=impl)
+                    return run_circuit(a, w, n_qubits, n_layers, impl=impl, mps_chi=mps_chi)
 
             rec["fwd_ms"] = round(_time_callable(fwd, (angles, weights), budget_s, max_reps), 4)
             # train metric = ONE forward + backward (JAX's value_and_grad);
@@ -281,7 +292,7 @@ def measure(
 
             def step(a, w, impl=impl):
                 w.grad = None
-                loss = (run_circuit(a, w, n_qubits, n_layers, impl=impl) ** 2).sum()
+                loss = (run_circuit(a, w, n_qubits, n_layers, impl=impl, mps_chi=mps_chi) ** 2).sum()
                 loss.backward()
                 return loss
 
@@ -307,10 +318,13 @@ def ensure(
     budget_s: float = 0.25,
     impls: Sequence[str] | None = None,
     device: str | torch.device | None = None,
+    mps_chi: int | None = None,
 ) -> dict:
     """This shape's table entry on ``device``, measured and persisted first
     when absent (or ``force``). Host-side and eager: call it where a warm-up
-    is expected (trainer start, serve warmup), never on the request path."""
+    is expected (trainer start, serve warmup), never on the request path.
+    The ``mps`` candidate is timed at ``mps_chi``, which an entry that raced
+    it records (``qdml_tpu/quantum/autotune.py:468-471``)."""
     dev = resolve_device(device)
     platform = dev.type
     bucket = batch_bucket(batch)
@@ -321,7 +335,7 @@ def ensure(
         return entry
     if impls is None:
         impls = eligible_impls(n_qubits)
-    cands = measure(n_qubits, n_layers, bucket, impls=impls, budget_s=budget_s, device=dev)
+    cands = measure(n_qubits, n_layers, bucket, impls=impls, budget_s=budget_s, device=dev, mps_chi=mps_chi)
     entry = {
         "key": key,
         "platform": platform,
@@ -334,6 +348,8 @@ def ensure(
         "best_train": _pick(cands, "train_ms"),
         "ts": round(time.time(), 3),
     }
+    if "mps" in cands:
+        entry["mps_chi"] = int(mps_chi or DEFAULT_CHI)
     entries[key] = entry
     save_table(entries, path)
     return entry
@@ -433,5 +449,6 @@ def prewarm(
     if not autotune_enabled(q.autotune, dev.type):
         return None
     return ensure(
-        q.n_qubits, q.n_layers, batch, path=q.autotune_table or None, force=force, device=dev
+        q.n_qubits, q.n_layers, batch, path=q.autotune_table or None, force=force, device=dev,
+        mps_chi=q.mps_chi,
     )

@@ -19,12 +19,14 @@ means the same thing here:
   built by the unfused :func:`ansatz_unitary` on every call, as in JAX;
 - ``pallas_circuit``: the port's whole-circuit kernel
   (:func:`kernels.fused_circuit_expvals`): the L-layer gate chain with the
-  statevector resident in shared memory, one launch.
+  statevector resident in shared memory, one launch;
+- ``mps``: the bond-chi matrix-product state of :mod:`qdml_tpu_torch.quantum.
+  mps` (``quantum.mps_chi``), any n >= 2, the only impl past 14 qubits.
 
 ``auto`` (impl and backend both) takes the measured table of
 :mod:`qdml_tpu_torch.quantum.autotune` for the call's shape, then the static
-heuristic. ``mps`` and ``sharded_statevector`` are not ported yet (ROADMAP
-A.10) and raise ``NotImplementedError``.
+heuristic. ``sharded_statevector`` needs a device mesh, not ported yet
+(ROADMAP A.10, multi-rank half), and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from qdml_tpu_torch.quantum import autotune
 from qdml_tpu_torch.quantum import statevector as sv
+from qdml_tpu_torch.quantum.mps import DEFAULT_CHI, mps_circuit
 # eligibility lives with the dispatcher; re-exported for the callers here
 from qdml_tpu_torch.quantum.autotune import (  # noqa: F401
     UNPORTED_IMPLS,
@@ -199,12 +202,15 @@ def run_circuit(
     backend: str = "dense",
     impl: str = "auto",
     mode: str = "train",
+    mps_chi: int | None = None,
 ) -> torch.Tensor:
     """Full reference circuit: angles (..., n) -> per-wire <Z> (..., n).
 
     With ``impl`` and ``backend`` both ``auto`` the measured table picks the
     impl for this call's batch (``angles.shape[:-1]`` flattened) on the
-    angles' device; ``mode`` picks the train or the forward-only winner."""
+    angles' device; ``mode`` picks the train or the forward-only winner.
+    ``mps_chi`` is the ``mps`` impl's bond dimension (default
+    :data:`~qdml_tpu_torch.quantum.mps.DEFAULT_CHI`)."""
     batch = int(np.prod(angles.shape[:-1])) if angles.dim() > 1 else 1
     backend = resolve_impl(
         impl, backend, n_qubits, n_layers, batch, mode=mode, platform=angles.device.type
@@ -224,9 +230,11 @@ def run_circuit(
         from qdml_tpu_torch.quantum.kernels import fused_circuit_expvals
 
         return fused_circuit_expvals(angles, weights, n_qubits, n_layers)
+    if backend == "mps":
+        return mps_circuit(angles, weights, n_qubits, n_layers, chi=mps_chi or DEFAULT_CHI)
     if backend in UNPORTED_IMPLS:
         raise NotImplementedError(
-            f"circuit impl {backend!r} is not ported yet (ROADMAP A.10, scaling impls)"
+            f"circuit impl {backend!r} is not ported yet (ROADMAP A.10, multi-rank half)"
         )
     if backend != "tensor":
         raise ValueError(f"unknown backend {backend!r}; want one of {VALID_BACKENDS}")
@@ -248,6 +256,7 @@ def run_circuit_ensemble(
     backend: str = "dense",
     impl: str = "auto",
     mode: str = "train",
+    mps_chi: int | None = None,
 ) -> torch.Tensor:
     """E circuits of one shape, member m with angles ``angles[m]`` (..., n)
     and weights ``weights[m]`` (L, n, 2): per-wire <Z> (E, ..., n), the
@@ -284,6 +293,6 @@ def run_circuit_ensemble(
         print(f"run_circuit_ensemble: impl {resolved!r} has no member axis; "
               f"{members} calls, one a member", flush=True)
     return torch.stack([
-        run_circuit(angles[m], weights[m], n_qubits, n_layers, impl=resolved, mode=mode)
+        run_circuit(angles[m], weights[m], n_qubits, n_layers, impl=resolved, mode=mode, mps_chi=mps_chi)
         for m in range(members)
     ])

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from qdml_tpu_torch.config import ExperimentConfig
+from qdml_tpu_torch.config import ExperimentConfig, activation_dtype
 from qdml_tpu_torch.data.datasets import DMLGridLoader, GridData
 from qdml_tpu_torch.models.cnn import DCEP128, flax_init_
 from qdml_tpu_torch.models.losses import nmse_loss
@@ -34,7 +34,8 @@ from qdml_tpu_torch.utils.metrics import MetricsLogger, nmse_db
 
 def build_dce(cfg: ExperimentConfig, device: str | torch.device | None = None) -> DCEP128:
     """The DCE the config describes on ``device``, in eval mode (weights to
-    be loaded)."""
+    be loaded); float32 whatever ``model.dtype`` says, as eval builds it in
+    JAX."""
     return DCEP128(cfg.model.features, cfg.h_out_dim, cfg.image_hw).to(resolve_device(device)).eval()
 
 
@@ -46,10 +47,10 @@ def make_trainer(
 ) -> tuple[DCEP128, Optimizer]:
     """The DCE that :func:`train_dce` trains (``qdml_tpu/train/dce.py:125-
     136``): weights drawn as Flax draws them from a CPU generator seeded with
-    ``cfg.train.seed`` (or ``init_state``), in train mode, and
-    ``cfg.train``'s optimizer and schedule."""
+    ``cfg.train.seed`` (or ``init_state``), activations in ``model.dtype``,
+    in train mode, and ``cfg.train``'s optimizer and schedule."""
     dev = resolve_device(device)
-    model = DCEP128(cfg.model.features, cfg.h_out_dim, cfg.image_hw)
+    model = DCEP128(cfg.model.features, cfg.h_out_dim, cfg.image_hw, dtype=activation_dtype(cfg.model.dtype))
     flax_init_(model, torch.Generator().manual_seed(cfg.train.seed))
     if init_state is not None:
         model.load_state_dict(init_state)

@@ -14,8 +14,10 @@ variance (:class:`qdml_tpu_torch.models.cnn.BatchNorm2d`).
 validates, and writes ``hdce_best`` / ``hdce_resume`` / ``hdce_last``. With
 ``train.scan_steps=K >= 1`` (the default, K = 1) the steps run K a dispatch
 (:func:`make_hdce_scan_steps`, one CUDA-graph replay on the card); 0 runs
-them one at a time. The JAX package's mesh, flight recorder and cost
-records are not ported (ROADMAP A.10, A.12).
+them one at a time. With ``model.dtype=bfloat16`` the trainer's model, its
+validation included, runs bfloat16 activations on float32 parameters
+(``models/cnn.py``), as JAX's does. The JAX package's mesh, flight recorder
+and cost records are not ported (ROADMAP A.10, A.12).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import math
 import torch
 from torch import nn
 
-from qdml_tpu_torch.config import ExperimentConfig
+from qdml_tpu_torch.config import ExperimentConfig, activation_dtype
 from qdml_tpu_torch.data.datasets import DMLGridLoader, GridData
 from qdml_tpu_torch.models.cnn import FCP128, StackedConvP128, flax_init_, seeded_init_
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
@@ -39,7 +41,8 @@ class HDCE(nn.Module):
     """``(S, B, 2, H, W) -> (S, B, out_dim)``: scenario s flows through trunk s,
     every scenario shares the one head (reference ``Runner...py:139-142``).
     State-dict keys: ``trunks.{s}.cnn.*`` and ``head.FC.*``. ``bn_decay`` is
-    the trunks' BatchNorm running-statistics decay per update."""
+    the trunks' BatchNorm running-statistics decay per update, ``dtype`` the
+    activation dtype of the trunks and the head (parameters stay float32)."""
 
     def __init__(
         self,
@@ -48,10 +51,11 @@ class HDCE(nn.Module):
         out_dim: int = 2048,
         image_hw: tuple[int, int] = (16, 8),
         bn_decay: float = 0.9,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.trunks = StackedConvP128(n_scenarios, features, bn_decay)
-        self.head = FCP128(features * image_hw[0] * image_hw[1], out_dim)
+        self.trunks = StackedConvP128(n_scenarios, features, bn_decay, dtype)
+        self.head = FCP128(features * image_hw[0] * image_hw[1], out_dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.trunks(x))
@@ -63,7 +67,9 @@ def build_hdce(
     generator: torch.Generator | None = None,
 ) -> HDCE:
     """The HDCE the config describes on ``device``, in eval mode; its weights
-    are drawn from ``generator`` when one is given."""
+    are drawn from ``generator`` when one is given. float32 whatever
+    ``model.dtype`` says: serving and eval build it so, as the JAX engine
+    does (``qdml_tpu/serve/engine.py:137-141``)."""
     dev = resolve_device(device)
     model = HDCE(cfg.data.n_scenarios, cfg.model.features, cfg.h_out_dim, cfg.image_hw)
     if generator is not None:
@@ -77,12 +83,13 @@ def init_hdce_state(
     generator: torch.Generator | None = None,
 ) -> HDCE:
     """The HDCE to train (``qdml_tpu/train/hdce.py:196-216``): BatchNorm decay
-    ``0.9 ** n_users``, weights drawn as Flax draws them from ``generator``
-    (default: a CPU generator seeded with ``cfg.train.seed``), in train mode."""
+    ``0.9 ** n_users``, activations in ``model.dtype``, weights drawn as Flax
+    draws them from ``generator`` (default: a CPU generator seeded with
+    ``cfg.train.seed``), in train mode."""
     dev = resolve_device(device)
     model = HDCE(
         cfg.data.n_scenarios, cfg.model.features, cfg.h_out_dim, cfg.image_hw,
-        bn_decay=0.9**cfg.data.n_users,
+        bn_decay=0.9**cfg.data.n_users, dtype=activation_dtype(cfg.model.dtype),
     )
     flax_init_(model, generator or torch.Generator().manual_seed(cfg.train.seed))
     return model.to(dev).train()

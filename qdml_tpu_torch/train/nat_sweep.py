@@ -77,7 +77,7 @@ def build_sweep_model(cfg: ExperimentConfig) -> QSCP128:
     parameters are never used)."""
     q = cfg.quantum
     with torch.device("meta"):
-        return QSCP128(q.n_qubits, q.n_layers, q.n_classes, q.backend, q.impl, q.input_norm)
+        return QSCP128(q.n_qubits, q.n_layers, q.n_classes, q.backend, q.impl, q.input_norm, mps_chi=q.mps_chi)
 
 
 def member_states(cfg: ExperimentConfig, n_members: int) -> list[dict[str, torch.Tensor]]:
@@ -151,7 +151,7 @@ def ensemble_log_probs(
         params = perturb_members(params, sigmas, _is_qweight, {QWEIGHTS: noise})
     expz = run_circuit_ensemble(
         angles, params[QWEIGHTS], model.n_qubits, model.n_layers, model.backend,
-        impl=model.impl, mode="train" if train else "infer",
+        impl=model.impl, mode="train" if train else "infer", mps_chi=model.mps_chi,
     )
     logits = vmap(lambda p, e: functional_call(model.classifier, p, (e,)))(_sub(params, "classifier."), expz)
     return torch.log_softmax(logits, dim=-1)
@@ -310,7 +310,7 @@ def train_nat_sweep(
         member_best_from_epoch = int(mb_meta.get("member_best_from_epoch", -1))
 
     scan_run = None
-    if scan_eligible(cfg, logger, dev):
+    if scan_eligible(cfg, logger, dev, train_qsc.step_circuit_impl(cfg, dev)):
         scan_run = make_sweep_scan_steps(model, params, opt, sigmas, data, cfg.train.scan_steps)
 
     history: dict[str, list] = {"train_loss": [], "val_loss": [], "val_acc": []}

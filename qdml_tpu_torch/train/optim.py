@@ -4,6 +4,11 @@
   ``torch.optim.AdamW(weight_decay)``, ``sgd`` is ``torch.optim.SGD(momentum)``:
   each takes the same update as its optax counterpart on the same gradients
   (``tests/test_torch_port_optim.py``);
+- ``adam`` with ``train.moments_dtype="bfloat16"`` is :class:`AdamLowp`, the
+  JAX package's ``scale_by_adam_lowp`` (``qdml_tpu/train/optim.py:24-85``):
+  the first moment stored in bfloat16, the second in float32, every
+  product, bias correction and square root in float32. ``adamw`` and ``sgd``
+  warn and keep float32 moments, as in JAX;
 - the learning rate halves every ``lr_decay_epochs`` epochs down to
   ``lr_floor``, indexed by the update count as optax indexes its schedule
   (the rate of update k is ``schedule(k)``, k counting from 0);
@@ -23,11 +28,13 @@
   built with ``capturable=True`` (step count and bias correction on the
   card), on the per-step path too, so both paths take the same update. The
   CPU keeps the plain optimizers with a float rate: ``capturable`` is
-  CUDA-only.
+  CUDA-only. :class:`AdamLowp` keeps its count on the parameters' device
+  everywhere and reads :attr:`Optimizer.lr` on the card, so it captures.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Iterable
 
 import torch
@@ -44,6 +51,81 @@ def lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], float
         return max(cfg.lr * 0.5 ** (epoch // cfg.lr_decay_epochs), cfg.lr_floor)
 
     return sched
+
+
+class AdamLowp(torch.optim.Optimizer):
+    """Adam whose first moment ``exp_avg`` is stored in bfloat16 and second
+    moment ``exp_avg_sq`` in float32 (``qdml_tpu/train/optim.py:24-85``):
+
+        mu = bf16(b1 * f32(mu) + (1 - b1) * g)
+        nu = b2 * nu + ((1 - b2) * g) * g
+        p -= lr * ((f32(mu) / bc1) / (sqrt(nu / bc2) + eps)),  bc_i = 1 - b_i^count
+
+    each operation rounded in float32 as optax rounds it. A bfloat16 nu
+    could not decay: its per-step change (1 - b2 = 1e-3) is below half a
+    bfloat16 ulp. The count is a float32 tensor on the parameters' device
+    and the update reads the rate as a tensor when ``capturable`` (the card,
+    where the rate is :attr:`Optimizer.lr`), so a CUDA graph may capture it.
+    ``torch._foreach_*`` ops over each parameter group."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), eps: float = 1e-8, capturable: bool = False):
+        super().__init__(params, {"lr": lr, "betas": betas, "eps": eps, "capturable": capturable})
+
+    def _init_state(self, p: torch.Tensor) -> dict:
+        state = self.state[p]
+        if not state:
+            state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            state["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32, memory_format=torch.preserve_format)
+        return state
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamLowp.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            states = [self._init_state(p) for p in params]
+            grads = [p.grad for p in params]
+            mus = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            steps = [st["step"] for st in states]
+            torch._foreach_add_(steps, 1.0)
+            bc1 = 1.0 - torch.pow(b1, steps[0])
+            bc2 = 1.0 - torch.pow(b2, steps[0])
+            # first moment: f32 arithmetic, stored rounded to bf16
+            mu32 = [m.float() for m in mus]
+            torch._foreach_mul_(mu32, b1)
+            torch._foreach_add_(mu32, torch._foreach_mul(grads, 1.0 - b1))
+            torch._foreach_copy_(mus, mu32)
+            torch._foreach_copy_(mu32, mus)  # the update reads the stored mu
+            # second moment in f32
+            g2 = torch._foreach_mul(grads, 1.0 - b2)
+            torch._foreach_mul_(g2, grads)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, g2)
+            den = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            torch._foreach_div_(mu32, bc1)
+            torch._foreach_div_(mu32, den)
+            torch._foreach_mul_(mu32, group["lr"])
+            torch._foreach_sub_(params, mu32)
+        return None
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """torch casts a loaded state to its parameter's dtype; the moments
+        go back to their storage dtypes and the count to the parameter's
+        device."""
+        super().load_state_dict(state_dict)
+        for p, state in self.state.items():
+            if "exp_avg" in state:
+                state["exp_avg"] = state["exp_avg"].to(torch.bfloat16)
+                state["exp_avg_sq"] = state["exp_avg_sq"].to(torch.float32)
+                state["step"] = state["step"].to(torch.float32).to(p.device)
 
 
 class Optimizer:
@@ -147,6 +229,9 @@ class Optimizer:
         self._bind_groups()
 
 
+_MOMENTS_DTYPES = ("float32", "bfloat16")
+
+
 def get_optimizer(
     cfg: TrainConfig,
     params: Iterable[torch.Tensor],
@@ -154,21 +239,27 @@ def get_optimizer(
     quantum: QuantumConfig | None = None,
     members: bool = False,
 ) -> Optimizer:
-    if cfg.moments_dtype == "bfloat16":
-        raise NotImplementedError(
-            "moments_dtype='bfloat16' (bf16 Adam moments, a documented non-default "
-            "deviation of the JAX package) is not ported (ROADMAP A.6)"
+    # the JAX package's rejection contract: a typo like 'bf16' must not
+    # silently select the f32 path
+    if cfg.moments_dtype not in _MOMENTS_DTYPES:
+        raise ValueError(f"moments_dtype must be one of {_MOMENTS_DTYPES}, got {cfg.moments_dtype!r}")
+    lowp = cfg.moments_dtype == "bfloat16"
+    if lowp and cfg.optimizer != "adam":
+        warnings.warn(
+            f"moments_dtype='bfloat16' applies only to optimizer='adam'; "
+            f"optimizer {cfg.optimizer!r} keeps float32 moments",
+            stacklevel=2,
         )
-    if cfg.moments_dtype != "float32":
-        raise ValueError(f"moments_dtype must be float32 or bfloat16, got {cfg.moments_dtype!r}")
     sched = lr_schedule(cfg, steps_per_epoch)
     params = list(params)
     lr0 = sched(0)
     # capturable on the card: step count and bias correction stay there, so
     # a captured update replays right and the per-step path takes the same one
     cap = params[0].device.type == "cuda"
-    if cfg.optimizer == "adam":
-        opt: torch.optim.Optimizer = torch.optim.Adam(
+    if cfg.optimizer == "adam" and lowp:
+        opt: torch.optim.Optimizer = AdamLowp(params, lr=lr0, betas=(0.9, 0.999), eps=1e-8, capturable=cap)
+    elif cfg.optimizer == "adam":
+        opt = torch.optim.Adam(
             params, lr=lr0, betas=(0.9, 0.999), eps=1e-8, capturable=cap
         )
     elif cfg.optimizer == "adamw":

@@ -32,7 +32,7 @@ from qdml_tpu_torch.models.cnn import SCP128, flax_init_
 from qdml_tpu_torch.models.losses import nll_loss
 from qdml_tpu_torch.models.qsc import QSCP128
 from qdml_tpu_torch.quantum import autotune
-from qdml_tpu_torch.quantum.circuits import resolve_backend
+from qdml_tpu_torch.quantum.circuits import resolve_backend, resolve_impl
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
 from qdml_tpu_torch.train.hdce import run_device
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
@@ -57,7 +57,7 @@ def build_classifier(
     if quantum:
         clf: nn.Module = QSCP128(
             q.n_qubits, q.n_layers, q.n_classes, q.backend, q.impl, q.input_norm,
-            use_quantumnat=q.use_quantumnat, noise_level=q.noise_level,
+            use_quantumnat=q.use_quantumnat, noise_level=q.noise_level, mps_chi=q.mps_chi,
         )
     else:
         clf = SCP128(q.n_classes)
@@ -157,6 +157,15 @@ def classifier_eval_step(model: nn.Module, batch: dict) -> dict[str, torch.Tenso
     }
 
 
+def step_circuit_impl(cfg: ExperimentConfig, device: torch.device) -> str:
+    """The circuit impl a training step of the quantum classifier runs on
+    ``device``: its train-mode resolution at the flattened grid batch (after
+    :func:`~qdml_tpu_torch.quantum.autotune.prewarm`, the race's winner)."""
+    q = cfg.quantum
+    batch = cfg.data.n_scenarios * cfg.data.n_users * cfg.train.batch_size
+    return resolve_impl(q.impl, q.backend, q.n_qubits, q.n_layers, batch, mode="train", platform=device.type)
+
+
 def noise_generator(cfg: ExperimentConfig, start_epoch: int, device: torch.device) -> torch.Generator:
     """The QuantumNAT generator of a run starting at ``start_epoch``: seeded
     from ``(train.seed + 1, start_epoch)``, so a resumed run draws fresh noise
@@ -207,7 +216,7 @@ def train_classifier(
         best_acc = float(rmeta.get("best", best_acc))
     gen = noise_generator(cfg, start_epoch, dev)
     scan_run = None
-    if scan_eligible(cfg, logger, dev):
+    if scan_eligible(cfg, logger, dev, step_circuit_impl(cfg, dev) if quantum else None):
         scan_run = make_sc_scan_steps(model, opt, data, cfg.train.scan_steps, gen)
 
     history: dict[str, list] = {"train_loss": [], "val_loss": [], "val_acc": []}
@@ -243,6 +252,8 @@ def train_classifier(
                     "n_classes": q.n_classes,
                     "backend": resolve_backend(q.backend, q.n_qubits),
                     "impl": q.impl,
+                    # the mps knob, provenance only: the eval config's chi wins
+                    "mps_chi": q.mps_chi,
                     "input_norm": q.input_norm,
                 }
                 meta["training"] = {"use_quantumnat": q.use_quantumnat, "noise_level": q.noise_level}

@@ -61,11 +61,14 @@ MAX_GRAPHS = 2
 activity = {"captures": 0, "replays": 0}
 
 
-def scan_eligible(cfg, logger, device: torch.device | None = None) -> bool:
+def scan_eligible(cfg, logger, device: torch.device | None = None, circuit_impl: str | None = None) -> bool:
     """Whether the K-step path runs this training (``qdml_tpu/train/scan.py:
     109-161``): yes for ``train.scan_steps >= 1``, K = 1 included; 0 selects
     the per-step path. On the card an optimizer that reads its rate as a host
     float (SGD) declines too: a graph would replay the capture step's rate.
+    So does a step whose circuit resolves to ``mps`` (``circuit_impl``, the
+    resolved impl of a quantum trainer's step): each of its SVDs checks
+    cuSOLVER's status on the host, which no CUDA graph can capture.
     Every decision is logged as ``kind="scan_dispatch"`` with ``eligible``,
     ``scan_steps`` and ``reason``; a decline of a K >= 1 also logs a warning.
     JAX's other declines, a multi-process or non-dividing mesh and
@@ -86,6 +89,13 @@ def scan_eligible(cfg, logger, device: torch.device | None = None) -> bool:
             False,
             "optimizer: sgd reads its learning rate as a host float, which a CUDA graph would freeze",
             warn=f"scan_steps={k} ignored: train.optimizer=sgd forces per-step dispatch on the card",
+        )
+    if device is not None and device.type == "cuda" and circuit_impl == "mps":
+        return decide(
+            False,
+            "circuit impl mps: every torch.linalg.svd on the card checks cuSOLVER's status on the host, "
+            "which a CUDA graph cannot capture",
+            warn=f"scan_steps={k} ignored: the mps circuit impl forces per-step dispatch on the card",
         )
     return decide(
         True,

@@ -68,3 +68,32 @@ def yp_to_image(yp: CArr, n_sub: int = 16, n_beam: int = 8) -> torch.Tensor:
     im = yp.im.reshape(lead + (n_beam, n_sub))
     img = torch.stack([re, im], dim=-1)  # (..., n_beam, n_sub, 2)
     return img.transpose(-2, -3)  # (..., n_sub, n_beam, 2)
+
+
+def cexp_i(theta: torch.Tensor) -> CArr:
+    """``exp(i * theta)`` for real theta."""
+    return CArr(torch.cos(theta), torch.sin(theta))
+
+
+def cexp_i_ramp(theta: torch.Tensor, n: int, split: int | None = None) -> CArr:
+    """``exp(i * theta[..., None] * arange(n))`` from ``split + ceil(n /
+    split)`` sin/cos pairs per theta element instead of n
+    (``qdml_tpu/utils/complexops.py:180-209``): the ramp index factors as
+    ``k = a + split * b`` and ``e^{i theta k} = e^{i theta a} e^{i theta
+    split b}``, one complex outer product. Exact to float32 rounding, with
+    no recurrence error. ``split`` defaults to the divisor of n nearest
+    below ``round(sqrt(n))``, so no tail is sliced off."""
+    if split is None:
+        split = max(1, int(round(n**0.5)))
+        while n % split:  # prefer a divisor of n: no tail slice needed
+            split -= 1
+    n_hi = -(-n // split)
+    a = torch.arange(split, dtype=theta.dtype, device=theta.device)
+    b = torch.arange(n_hi, dtype=theta.dtype, device=theta.device) * split
+    lo = cexp_i(theta[..., None] * a)  # (..., split)
+    hi = cexp_i(theta[..., None] * b)  # (..., n_hi)
+    out = CArr(
+        hi.re[..., :, None] * lo.re[..., None, :] - hi.im[..., :, None] * lo.im[..., None, :],
+        hi.re[..., :, None] * lo.im[..., None, :] + hi.im[..., :, None] * lo.re[..., None, :],
+    ).reshape(*theta.shape, n_hi * split)
+    return CArr(out.re[..., :n], out.im[..., :n]) if n_hi * split != n else out

@@ -12,13 +12,18 @@ import torch
 
 
 def set_fp32_math() -> None:
-    """Full float32 for matmuls and cuDNN convolutions.
+    """Full float32 for matmuls and cuDNN convolutions, and float32 sums in
+    bfloat16 products.
 
     cuDNN convolutions default to TF32 on Hopper (about three decimal digits),
     which would break parity with the float32 reference; matmuls already run
-    in float32 by default, and this pins both explicitly."""
+    in float32 by default, and this pins both explicitly. cuBLAS may also
+    round a bfloat16 product's split-K partial sums to bfloat16 by default;
+    the JAX package accumulates its bfloat16 head and convs in float32
+    (``qdml_tpu/models/cnn.py:98-106``), so that is turned off too."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -4,7 +4,7 @@
 the same inputs to the same answers: buckets and keys exactly, eligibility
 exactly but for the two stated differences (the port adds ``pallas_circuit``
 at 2 <= n <= 6, where its CUDA kernel runs for real, and leaves out the
-unported ``mps`` and ``sharded_statevector``), and one table file written
+unported ``sharded_statevector``), and one table file written
 once gives the same ``lookup_reason`` and ``resolve_impl`` in both packages
 for every shape and mode, pathologies included. Then the port's own
 behaviour: the tuner round-trips a manifest-headed table and re-reads it
@@ -70,10 +70,10 @@ def test_eligible_impls_match_jax_but_for_the_stated_differences(n):
 
 
 def test_impl_eligible_matches_jax_on_ported_impls():
-    for impl in ("dense", "dense_fused", "pallas", "pallas_circuit", "pallas_tensor", "tensor"):
+    for impl in ("dense", "dense_fused", "pallas", "pallas_circuit", "pallas_tensor", "tensor", "mps"):
         for n in (2, 6, 8, 12, 13, 14, 15, 20):
             assert tat.impl_eligible(impl, n)[0] == jat.impl_eligible(impl, n)[0], (impl, n)
-    for impl in ("mps", "sharded", "sharded_statevector"):
+    for impl in ("sharded", "sharded_statevector"):
         ok, why = tat.impl_eligible(impl, 6)
         assert not ok and "A.10" in why
     assert tcirc.impl_eligible is tat.impl_eligible  # circuits re-exports it
@@ -173,8 +173,9 @@ def test_ensure_round_trips_a_manifest_headed_table(tmp_path):
 
 
 def test_a_failing_candidate_is_recorded_and_left_out(tmp_path):
-    entry = tat.ensure(3, 1, 4, path=str(tmp_path / "t.json"), impls=["dense", "mps"], budget_s=0.01, device="cpu")
-    assert "NotImplementedError" in entry["candidates"]["mps"]["error"]
+    entry = tat.ensure(3, 1, 4, path=str(tmp_path / "t.json"), impls=["dense", "sharded_statevector"],
+                       budget_s=0.01, device="cpu")
+    assert "NotImplementedError" in entry["candidates"]["sharded_statevector"]["error"]
     assert entry["best_train"] == entry["best_fwd"] == "dense"
 
 
@@ -314,9 +315,13 @@ def test_reconcile_raises_impl_ineligible():
         jcfg = jconfig.ExperimentConfig(quantum=jconfig.QuantumConfig(impl=impl))
         with pytest.raises(jat.ImplIneligibleError):
             jreconcile(jcfg, meta)
-    cfg = tconfig.ExperimentConfig(quantum=tconfig.QuantumConfig(impl="mps"))
+    cfg = tconfig.ExperimentConfig(quantum=tconfig.QuantumConfig(impl="sharded_statevector"))
     with pytest.raises(NotImplementedError, match="A.10"):
         reconcile_quantum_cfg(cfg, {"quantum": {"n_qubits": 6}})
+    # a checkpoint trained on mps (its chi dropped, as JAX drops it) reconciles
+    mps = tconfig.ExperimentConfig(quantum=tconfig.QuantumConfig(impl="mps", mps_chi=4))
+    got = reconcile_quantum_cfg(mps, {"quantum": {"n_qubits": 16, "impl": "mps", "mps_chi": 16}})
+    assert (got.quantum.n_qubits, got.quantum.impl, got.quantum.mps_chi) == (16, "mps", 4)
     out = reconcile_quantum_cfg(tconfig.ExperimentConfig(), meta)  # auto re-resolves: no raise
     assert out.quantum.n_qubits == 13
 

@@ -1,9 +1,10 @@
 """``python -m qdml_tpu_torch.bench`` on the CPU, one step a row.
 
 The run emits one JSON line with every row (HDCE per dispatch and K a
-dispatch, QSC at each fixed impl and K a dispatch, the scenario-scaling
-points, serving), names its platform and leaves the MFU out off the card;
-a failed row makes it exit 1. The FLOP models equal the root ``bench.py``'s
+dispatch, in float32 and bfloat16, the bfloat16 scan with bfloat16 Adam
+moments, QSC at each fixed impl and K a dispatch, the scenario-scaling
+points, the qubit-scaling points at n = 4 and 14, serving), names its
+platform and leaves the MFU out off the card; a failed row makes it exit 1. The FLOP models equal the root ``bench.py``'s
 for the default config. The cell batch is cut from 256 to 8 rows for time
 (the module's ``CELL_BATCH``, as the microbench's test patches its batch).
 """
@@ -54,15 +55,31 @@ def test_flop_models_equal_the_root_bench_s():
 
 def test_bench_emits_every_row_on_the_cpu(tmp_path, capsys):
     out = tmp_path / "bench.json"
-    assert bench.main(["--device=cpu", "--steps=1", "--scan-steps=2", f"--out={out}"]) == 0
+    assert bench.main(["--device=cpu", "--steps=1", "--scan-steps=2", "--qubits=4,14", f"--out={out}"]) == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert len(lines) == 1
     rec = json.loads(lines[0])
     assert json.loads(out.read_text()) == rec
     assert rec["device"] == {"platform": "cpu"} and rec["peak"] is None and not bench.errors(rec)
-    for row in ("hdce_train", "hdce_train_scan", "qsc_train_scan", "serve_infer"):
+    for row in ("hdce_train", "hdce_train_scan", "hdce_bf16", "hdce_bf16_scan", "hdce_bf16_scan_bf16m",
+                "qsc_train_scan", "serve_infer"):
         assert rec[row]["samples_per_sec"] > 0, row
-        assert "mfu_fp32" not in rec[row]
+        assert "mfu_fp32" not in rec[row] and "mfu_bf16" not in rec[row] and "peak" not in rec[row]
+    assert rec["hdce_bf16"]["dtype"] == rec["hdce_bf16_scan"]["dtype"] == "bfloat16"
+    assert rec["hdce_bf16_scan_bf16m"]["moments_dtype"] == "bfloat16" and "synthesis" in rec["hdce_bf16_scan_bf16m"]
+    assert "rbg" in rec["hdce_bf16_scan_bf16m"]["left_out"]
+    scaling = rec["qsc_scaling"]
+    assert [p["n_qubits"] for p in scaling["points"]] == [4, 14] and "XLA" in scaling["cost"]
+    for p in scaling["points"]:
+        assert p["quantum_impl"] in p["candidates_raced"] and p["samples_per_sec"] > 0 and p["train_ms"] > 0
+        assert set(p["candidates"]) == set(p["candidates_raced"]) == set(autotune.eligible_impls(p["n_qubits"]))
+        assert "cost" not in p and "roofline" not in p
+    n4, n14 = scaling["points"]
+    assert n4["agreement"]["reference"] == "dense" and n4["agreement"]["max_abs_delta"] <= 1e-5
+    # chi on the point when mps won, else on the raced mps candidate
+    chi = n14["mps_chi"] if n14["quantum_impl"] == "mps" else n14["candidates"]["mps"]["mps_chi"]
+    assert chi == 16 and n14["agreement"]["reference"] is not None
+    assert ("mps_chi" in n14) == (n14["quantum_impl"] == "mps") and "mps_chi" not in n4
     assert rec["hdce_train"]["rows"] == 72 and rec["hdce_train_scan"]["scan_steps"] == 2
     assert rec["hdce_train_scan"]["synthesis"] == "gather" and rec["hdce_train_scan"]["graphs"] == 0
     assert set(rec["qsc_train"]) == set(bench.QSC_IMPLS)
@@ -83,11 +100,13 @@ def test_a_failed_row_is_recorded_and_exits_nonzero(monkeypatch, capsys):
     monkeypatch.setattr(bench, "bench_serve_infer", broken)
     monkeypatch.setattr(bench, "bench_hdce", lambda dev, steps, k: {"hdce_train": {}, "hdce_train_scan": {}})
     monkeypatch.setattr(bench, "bench_qsc", lambda dev, steps, k: {"qsc_train": {"dense": {"error": "x"}}})
+    monkeypatch.setattr(bench, "bench_hdce_bf16", lambda dev, steps, k: {})
     monkeypatch.setattr(bench, "bench_scenario_scaling", lambda dev: {"points": [{"n_scenarios": 8, "error": "y"}]})
+    monkeypatch.setattr(bench, "bench_qsc_scaling", lambda dev, n_values: {"points": [{"n_qubits": 16, "error": "z"}]})
     assert bench.main(["--device=cpu", "--steps=1"]) == 1
     rec = json.loads(capsys.readouterr().out.strip())
     assert rec["serve_infer"] == {"error": "RuntimeError: planted"}
-    assert bench.errors(rec) == ["serve_infer", "qsc_train.dense", "scenario_scaling.S8"]
+    assert bench.errors(rec) == ["serve_infer", "qsc_train.dense", "scenario_scaling.S8", "qsc_scaling.n16"]
     assert bench.main(["--nope=1"]) == 2
 
 

@@ -1,5 +1,7 @@
 """The five CUDA kernels (and the circuit kernels' member axis) against their
-plain versions, on the card.
+plain versions, on the card; the K-step graphs against the per-step path
+(float32, bfloat16 activations, bfloat16 Adam moments); the mps impl
+against the circuit kernel and its decline of the graph.
 
 These tests need a CUDA GPU and nvcc; without a card they skip (the check is
 made inside the fixture, never at import). Run them on the card with
@@ -378,14 +380,14 @@ def test_sparse_dispatch_on_the_card_matches_the_cpu(dev):
 # ---------------------------------------------------------------------------
 
 
-def _scan_cfg(k, **quantum):
+def _scan_cfg(k, dtype="float32", moments="float32", **quantum):
     from qdml_tpu_torch import config as tconfig
 
     return tconfig.ExperimentConfig(
         data=tconfig.DataConfig(n_ant=16, data_len=40),
-        model=tconfig.ModelConfig(features=8),
+        model=tconfig.ModelConfig(features=8, dtype=dtype),
         quantum=tconfig.QuantumConfig(n_qubits=4, n_layers=2, **quantum),
-        train=tconfig.TrainConfig(batch_size=8, n_epochs=2, print_freq=1, scan_steps=k),
+        train=tconfig.TrainConfig(batch_size=8, n_epochs=2, print_freq=1, scan_steps=k, moments_dtype=moments),
     )
 
 
@@ -398,12 +400,14 @@ class _Recorder:
 
 
 def _scan_run(trainer, cfg, data):
-    from qdml_tpu_torch.train import hdce, qsc
+    from qdml_tpu_torch.train import dce, hdce, qsc
 
     rec = _Recorder()
     tk.reset_launch_counts()
     if trainer == "hdce":
         model, hist = hdce.train_hdce(cfg, data=data, logger=rec)
+    elif trainer == "dce":
+        model, hist = dce.train_dce(cfg, data=data, logger=rec)
     else:
         model, hist = qsc.train_classifier(cfg, True, data=data, logger=rec)
     torch.cuda.synchronize()
@@ -447,6 +451,112 @@ def test_scan_graph_matches_the_per_step_path(dev, trainer, quantum):
             assert torch.equal(p3[k], want), k
     assert outside <= 0.01 * total
     assert n3 == n0
+
+
+@pytest.mark.parametrize("trainer,moments", [("hdce", "float32"), ("dce", "float32"), ("hdce", "bfloat16")])
+def test_bf16_scan_graph_matches_the_per_step_path(dev, trainer, moments):
+    """``model.dtype=bfloat16`` (and bfloat16 Adam moments) inside the K = 3
+    graph against the per-step path from the same init: step losses within
+    rtol 1e-5, parameters within the Adam bound, as in float32."""
+    from qdml_tpu_torch.data.datasets import GridData
+    from qdml_tpu_torch.train import scan
+
+    data = GridData.synthesize(_scan_cfg(0).data, dev)
+    l0, p0, _ = _scan_run(trainer, _scan_cfg(0, "bfloat16", moments), data)
+    before = dict(scan.activity)
+    l3, p3, _ = _scan_run(trainer, _scan_cfg(3, "bfloat16", moments), data)
+    assert scan.activity["captures"] - before["captures"] == 2
+    assert len(l0) == len(l3) == 8
+    np.testing.assert_allclose(l3, l0, rtol=1e-5, atol=0)
+    for k, want in p0.items():
+        if want.is_floating_point():
+            assert want.dtype == torch.float32, k
+            assert (p3[k] - want).abs().max().item() <= 1.1 * 8 * 1e-3 + 1e-5, k
+        else:
+            assert torch.equal(p3[k], want), k
+
+
+def test_bf16_moments_adam_is_captured_with_its_storage_dtypes(dev):
+    """The bfloat16-moments Adam under a K-step graph: mu stays bfloat16 and
+    nu float32 on the card, the count lives on the card and advances at
+    every replay, and the parameters follow the per-step path's."""
+    from qdml_tpu_torch.data.datasets import GridData
+    from qdml_tpu_torch.train import hdce, optim
+
+    cfg = _scan_cfg(2, "bfloat16", "bfloat16")
+    data = GridData.synthesize(cfg.data, dev)
+    idx = np.stack([np.random.default_rng(i).integers(0, 20, (3, 3, 8)) for i in range(2)]).astype(np.int64)
+    snrs = np.full(2, 10.0, np.float32)
+    params = {}
+    for k in (0, 2):
+        model, opt = hdce.make_trainer(cfg, dev, 100)
+        assert isinstance(opt.opt, optim.AdamLowp) and opt.tensor_lr
+        if k:
+            run = hdce.make_hdce_scan_steps(model, opt, data, 2)
+            for _ in range(3):
+                run(idx, snrs)
+            assert run.graphs
+        else:
+            for _ in range(3):
+                for j in range(2):
+                    batch = data.batch(torch.as_tensor(idx[j], device=dev), torch.tensor(snrs[j], device=dev))
+                    hdce.hdce_train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        for p in opt.params:
+            st = opt.opt.state[p]
+            assert st["exp_avg"].dtype == torch.bfloat16 and st["exp_avg_sq"].dtype == torch.float32
+            assert st["step"].is_cuda and float(st["step"]) == 6
+        params[k] = {n: v.detach().cpu() for n, v in model.state_dict().items()}
+    for n, want in params[0].items():
+        if want.is_floating_point():
+            assert (params[2][n] - want).abs().max().item() <= 1.1 * 6 * 1e-3 + 1e-5, n
+
+
+def test_mps_cannot_be_captured_and_the_k_step_path_declines_it(dev):
+    """Every SVD of the mps impl checks cuSOLVER's status on the host: a
+    capture of its forward raises, and a QSC trainer whose circuit resolves
+    to mps declines the graph with a recorded reason and trains per step."""
+    from qdml_tpu_torch.data.datasets import GridData
+    from qdml_tpu_torch.quantum.mps import mps_circuit
+    from qdml_tpu_torch.train import qsc, scan
+
+    a = torch.rand(8, 6, device=dev)
+    w = torch.rand(2, 6, 2, device=dev)
+    mps_circuit(a, w, 6, 2, chi=4)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(graph):
+            mps_circuit(a, w, 6, 2, chi=4)
+    torch.cuda.synchronize()
+    cfg = _scan_cfg(2, impl="mps", mps_chi=4)
+    data = GridData.synthesize(cfg.data, dev)
+    rec = _Recorder()
+    before = dict(scan.activity)
+    qsc.train_classifier(cfg, True, data=data, logger=rec)
+    decision = [r for r in rec.records if r.get("kind") == "scan_dispatch"]
+    assert decision and decision[0]["eligible"] is False and "mps" in decision[0]["reason"]
+    assert any("mps" in str(r.get("warning", "")) for r in rec.records)
+    assert scan.activity == before
+
+
+@pytest.mark.parametrize("n", [6, 8])
+def test_mps_at_full_chi_matches_the_circuit_kernel(dev, n):
+    """mps at full chi against B.2 (``pallas_circuit``) on the card, L = 3,
+    B = 64: values within 1e-5, weight and angle gradients within 1e-4."""
+    rng = np.random.default_rng(n)
+    a0, w0 = rng.uniform(-1, 1, (64, n)), rng.uniform(0, 2 * np.pi, (3, n, 2))
+    out = {}
+    for impl in ("pallas_circuit", "mps"):
+        a = torch.tensor(a0, dtype=torch.float32, device=dev, requires_grad=True)
+        w = torch.tensor(w0, dtype=torch.float32, device=dev, requires_grad=True)
+        ev = circuits.run_circuit(a, w, n, 3, impl=impl, mps_chi=1 << (n // 2))
+        (ev**2).sum().backward()
+        out[impl] = (ev.detach(), w.grad, a.grad)
+    assert all(torch.isfinite(t).all() for t in out["mps"])
+    torch.testing.assert_close(out["mps"][0], out["pallas_circuit"][0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(out["mps"][1], out["pallas_circuit"][1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(out["mps"][2], out["pallas_circuit"][2], rtol=0, atol=1e-4)
 
 
 def test_registered_generator_replays_the_eager_stream(dev):

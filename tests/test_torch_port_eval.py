@@ -295,7 +295,7 @@ def test_reconcile_quantum_cfg():
     assert (out.quantum.n_qubits, out.quantum.n_layers, out.quantum.input_norm) == (4, 2, True)
     assert out.quantum.impl == cfg.quantum.impl  # an execution strategy: the eval config wins
     assert reconcile_quantum_cfg(cfg, {}) is cfg
-    pin = dataclasses.replace(cfg, quantum=dataclasses.replace(cfg.quantum, impl="mps"))
+    pin = dataclasses.replace(cfg, quantum=dataclasses.replace(cfg.quantum, impl="sharded_statevector"))
     with pytest.raises(NotImplementedError, match="A.10"):
         reconcile_quantum_cfg(pin, meta)
     pin = dataclasses.replace(cfg, quantum=dataclasses.replace(cfg.quantum, impl="pallas"))

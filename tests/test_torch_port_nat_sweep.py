@@ -209,7 +209,7 @@ def test_run_circuit_ensemble_dispatch_and_eligibility(capsys):
     a = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 4)).astype(np.float32))
     w = torch.from_numpy(rng.uniform(0, 2 * np.pi, (2, 2, 4, 2)).astype(np.float32))
     want = torch.stack([tcirc.run_circuit(a[m], w[m], 4, 2, impl="dense") for m in range(2)])
-    for impl in ("pallas_circuit", "pallas", "tensor", "dense"):
+    for impl in ("pallas_circuit", "pallas", "tensor", "dense", "mps"):
         got = tcirc.run_circuit_ensemble(a, w, 4, 2, impl=impl)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, msg=impl)
     out = capsys.readouterr().out
@@ -220,7 +220,7 @@ def test_run_circuit_ensemble_dispatch_and_eligibility(capsys):
     with pytest.raises(tcirc.ImplIneligibleError):
         tcirc.run_circuit_ensemble(*wide, 13, 1, impl="pallas_circuit")
     with pytest.raises(NotImplementedError):
-        tcirc.run_circuit_ensemble(a, w, 4, 2, impl="mps")
+        tcirc.run_circuit_ensemble(a, w, 4, 2, impl="sharded_statevector")
     with pytest.raises(ValueError):
         tcirc.run_circuit_ensemble(a, w[:1], 4, 2, impl="dense")
 

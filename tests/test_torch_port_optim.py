@@ -76,8 +76,8 @@ def test_schedule_matches_the_jax_schedule():
 
 
 def test_optimizer_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.get_optimizer(TrainConfig(moments_dtype="bfloat16"), [torch.zeros(1)], 1)
+    with pytest.raises(ValueError, match=r"moments_dtype must be one of \('float32', 'bfloat16'\), got 'bf16'"):
+        toptim.get_optimizer(TrainConfig(moments_dtype="bf16"), [torch.zeros(1)], 1)
     with pytest.raises(NotImplementedError, match="rmsprop"):
         toptim.get_optimizer(TrainConfig(optimizer="rmsprop"), [torch.zeros(1)], 1)
     with pytest.raises(ValueError, match="quantile"):

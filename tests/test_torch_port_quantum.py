@@ -141,7 +141,7 @@ def test_dispatch_names_and_heuristic_match():
     assert tcirc.resolve_impl("auto", "tensor", 6, 3, 64) == "tensor"
     with pytest.raises(ValueError):
         tcirc.canonical_impl("nope")
-    for impl in ("mps", "sharded", "sharded_statevector"):
+    for impl in ("sharded", "sharded_statevector"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcirc.run_circuit(torch.zeros(2, 4), torch.zeros(1, 4, 2), 4, 1, impl=impl)
 
