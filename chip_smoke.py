@@ -46,6 +46,25 @@ Phases, each of which exits non-zero on failure:
    L=3, B=2304), counters zeroed before and read after; every row's <Z> is
    held against the ``dense`` row's within 1e-5. Its ``pallas_old`` row is
    the unitary kernel's path;
+6b. serve_tier: the serving tier at full width (QSC n=6 L=3, buckets
+   1..64), counters zeroed at its start and read at its end: a workdir of
+   seeded weights written by ``save_checkpoint`` (``*_best`` and ``*_v2``),
+   ``ServeEngine.from_workdir`` and ``warmup()`` at ``serve.batching=auto``
+   (each tier's race and impl logged); ``run_loadgen`` with 4096 requests,
+   deadline 16 ms, through 2 replicas of 2 workers, poisson at 2000 rps and
+   bursty (burstiness 4) at 8000 rps, each once with ``batching=bucket``
+   (max_wait 2 ms) and once ``ragged``: rps, p50/p99, SLO, sheds, padding
+   waste, fill and B.2 launches logged, and it fails on a stranded future,
+   request-path work, a served ``h`` off the CPU twin's ``offline_forward``
+   by more than 1e-4 max|h| + 1e-5 (rows routed alike; routes equal where
+   the margin exceeds 1e-4) or fewer B.2 launches than served batches; then
+   ``run_server`` on port 0 in a thread with the port's ``ServeClient``
+   (256 requests against the twin, a retried id that must not dispatch
+   again, ``health``, ``metrics``, a ``swap`` to the ``v2`` tags whose
+   answers must follow the v2 twin), ``run_loadgen_socket`` with 1024,
+   and a clean stop; last, one injected ``worker_exception`` on replica 1:
+   its batch's futures fail, the supervisor restarts the replica, every
+   other request is served;
 7. training: at full width on data synthesized on the card (data_len 2048 per
    cell, cut from the reference's 20000 for time), five trainers each run one
    epoch (7 steps of 256 rows per cell, 2304 a step) and validate: HDCE
@@ -154,6 +173,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import Future
 from pathlib import Path
 
 import numpy as np
@@ -180,6 +200,11 @@ TUNE_DIR = EVAL_WORK / "autotune"
 # (n, L, batch) of the race: the serving bucket at n=6 and n=8, and the
 # training step's 2304 rows (bucket 4096) at n=6
 RACE_SHAPES = ((6, 3, 64), (6, 3, 2304), (8, 3, 64))
+# the serving tier: loadgen requests, arrival processes (rps), deadline (ms)
+TIER_REQUESTS = 4096
+TIER_ARRIVALS = (("poisson", 2000.0), ("bursty", 8000.0))
+TIER_DEADLINE_MS = 16.0
+TIER_WORK = EVAL_WORK / "serve_tier"
 # the rotation-layer kernel's timed shape, and the unitary kernel's (the microbench's)
 ROT_N, UNI_N, WIDE_BATCH = 8, 6, 2304
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and fp32 non-tensor rate
@@ -838,6 +863,230 @@ def serve_dispatch(torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod, engines, ca
     torch.cuda.synchronize()
     counts = dict(K.launches)
     log(f"serve dispatch/ragged/swap launches: {json.dumps(counts)}")
+    return counts
+
+
+def _tier_workdir(torch, mods, cfg) -> str:
+    """The serving tier's workdir: an HDCE and a QSC at n=6, L=3 from seeded
+    weights, written by the port's ``save_checkpoint`` as ``*_best`` and, a
+    second set, as ``*_v2`` (the swap's target)."""
+    from qdml_tpu_torch.models.qsc import build_classifier
+    from qdml_tpu_torch.train.checkpoint import save_checkpoint
+    from qdml_tpu_torch.train.torch_interop import qsc_meta_from_state
+
+    wd = mods["cli"].workdir_of(cfg)
+    for tag, seed in (("best", SEED + 31), ("v2", SEED + 32)):
+        gen = torch.Generator().manual_seed(seed)
+        hdce_sd = mods["hdce"].build_hdce(cfg, "cpu", generator=gen).state_dict()
+        qsc_sd = build_classifier(cfg, True, "cpu", generator=gen).state_dict()
+        save_checkpoint(wd, f"hdce_{tag}", {"params": hdce_sd}, {})
+        save_checkpoint(wd, f"qsc_{tag}", {"params": qsc_sd}, {"quantum": qsc_meta_from_state(qsc_sd)})
+    return wd
+
+
+def _twin_reference(torch, cpu, x: np.ndarray) -> tuple:
+    """The CPU twin's ``offline_forward`` on the requests and its classifier's
+    log-probs: ``(h, pred, logp)``."""
+    h_ref, pred_ref, _ = cpu.offline_forward(x)
+    _, clf = cpu.live_vars()
+    with torch.inference_mode():
+        logp = clf(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()).numpy()
+    return h_ref, pred_ref, logp
+
+
+def _hold_served(ref: tuple, h: np.ndarray, pred: np.ndarray, what: str) -> dict:
+    """Served answers against the CPU twin's (``ref``, :func:`_twin_reference`
+    on the same requests): the routed scenario on every row whose top-two
+    log-prob margin (the CPU's) exceeds 1e-4, and ``h`` within 1e-4 max|h| +
+    1e-5 on the rows routed alike."""
+    h_ref, pred_ref, logp = ref
+    top2 = np.sort(logp, axis=-1)[:, -2:]
+    sure = (top2[:, 1] - top2[:, 0]) > 1e-4
+    if not np.array_equal(pred[sure], pred_ref[sure]):
+        raise AssertionError(f"{what}: routed scenario differs from the CPU twin")
+    if not np.isfinite(h).all():
+        raise AssertionError(f"{what}: non-finite h")
+    same = pred == pred_ref
+    err = serve_close(h[same], h_ref[same], what)
+    return {"max_abs_err": err, "tol": 1e-4 * float(np.abs(h_ref).max()) + 1e-5, "rows": len(h),
+            "routed_alike": int(same.sum()), "sure": int(sure.sum())}
+
+
+def serve_tier_phase(torch, K, mods, card: str) -> dict[str, int]:
+    """The serving tier at full width: ``ServeEngine.from_workdir``, warmup
+    with ``serve.batching=auto`` (each tier's race logged), ``run_loadgen``
+    through a 2-replica pool of 2 workers each (poisson 2000 rps and bursty
+    8000 rps, 4096 requests, deadline 16 ms, once bucket with max_wait 2 ms
+    and once ragged), the socket server with the port's client (256
+    requests, a retried id, health, metrics, a swap to the ``v2`` tags,
+    then ``run_loadgen_socket`` with 1024), and one injected
+    ``worker_exception``. Counters zeroed at the start, read at the end."""
+    from dataclasses import replace
+
+    from qdml_tpu_torch.serve import batching_autotune
+    from qdml_tpu_torch.serve.client import ServeClient
+    from qdml_tpu_torch.serve.engine import ServeEngine, serve_mesh
+    from qdml_tpu_torch.serve.faults import FaultInjected, FaultPlan, FaultSpec
+    from qdml_tpu_torch.serve.loadgen import make_request_samples, run_loadgen, run_loadgen_socket
+    from qdml_tpu_torch.serve.server import ReplicaPool, run_server
+    from qdml_tpu_torch.serve.types import Prediction
+
+    zero = {"measure": 0, "table_write": 0, "kernel_build": 0}
+    cfg = mods["config"].from_args([
+        f"--train.workdir={TIER_WORK / 'ws'}", "--quantum.n_qubits=6", "--quantum.n_layers=3",
+        "--serve.replicas=2", "--serve.workers=2", "--serve.port=0",
+    ])
+    wd = _tier_workdir(torch, mods, cfg)
+    serve_mesh(cfg, DEVICE)  # one visible card: unsharded
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    auto = ServeEngine.from_workdir(cfg, wd, device=DEVICE)
+    warm = auto.warmup()
+    log(f"serve_tier warmup (batching=auto) {time.perf_counter() - t0:.2f} s, table "
+        f"{batching_autotune.table_path()} [{card}]")
+    for b, entry in warm["batching"]["race"].items():
+        times = {m: c.get("infer_ms") for m, c in entry["candidates"].items()}
+        log(f"serve_tier batching race tier {b}: bucket {times['bucket']} ms, ragged {times['ragged']} ms "
+            f"-> {entry['best_infer']}; impl {auto.quantum_impl[b]['impl']} [{card}]")
+    log(f"serve_tier batching {json.dumps(auto.batching_summary())}; dispatch {warm['dispatch']['mode']}")
+    if auto.request_path_work() != zero:
+        raise AssertionError(f"serve_tier: work after warmup {auto.request_path_work()}")
+
+    samples = make_request_samples(cfg, TIER_REQUESTS)
+    x = samples["x"]
+    ref = _twin_reference(torch, ServeEngine.from_workdir(cfg, wd, device="cpu"), x)
+    for mode, extra in (("bucket", {"max_wait_ms": 2.0}), ("ragged", {})):
+        mcfg = replace(cfg, serve=replace(cfg.serve, batching=mode, **extra))
+        eng = ServeEngine.from_workdir(mcfg, wd, device=DEVICE)
+        for process, rate in TIER_ARRIVALS:
+            mcfg_p = replace(mcfg, serve=replace(mcfg.serve, arrival=process))
+            before = dict(K.launches)
+            results: list = []
+            sm = run_loadgen(mcfg_p, eng, rate=rate, n=TIER_REQUESTS, deadline_ms=TIER_DEADLINE_MS,
+                             samples=samples, results=results)
+            torch.cuda.synchronize()
+            b2 = K.launches["circuit_expvals"] - before["circuit_expvals"]
+            served = [r for r in results if isinstance(r, Prediction)]
+            ids = np.array([r.rid for r in served], dtype=np.int64)
+            held = _hold_served(tuple(a[ids] for a in ref), np.stack([r.h for r in served]),
+                                np.array([r.scenario for r in served]), f"serve_tier {mode} {process}")
+            lat = sm["latency_ms"] or {}
+            log(f"serve_tier loadgen {mode} {process} {rate:g} rps n={TIER_REQUESTS} deadline "
+                f"{TIER_DEADLINE_MS:g} ms: rps {sm['rps']}, offered {sm['offered_rps']}, goodput {sm['goodput_rps']}, "
+                f"p50 {lat.get('p50_ms')} ms, p99 {lat.get('p99_ms')} ms, SLO {json.dumps(sm['slo'])}, "
+                f"shed {json.dumps(sm['shed'])}, padding waste {sm['padding_waste']}, fill "
+                f"{json.dumps(sm['batch_fill'])}, batches {sm['batches']}, B.2 launches {b2}, "
+                f"continuous {sm['batching']['continuous_admission']}, stranded {sm['stranded_futures']}, "
+                f"parity {sm['parity_max_abs_err']:.3e} (CPU twin {held['max_abs_err']:.3e}, tol "
+                f"{held['tol']:.3e}, routed alike {held['routed_alike']}/{held['rows']}) [{card}]")
+            if sm["stranded_futures"] or sm["failed_requests"]:
+                raise AssertionError(f"serve_tier {mode} {process}: stranded {sm['stranded_futures']}, "
+                                     f"failed {sm['failed_requests']}")
+            if sm["compile_cache_after_warmup"] != zero:
+                raise AssertionError(f"serve_tier {mode} {process}: request-path work {sm['compile_cache_after_warmup']}")
+            if sm["completed"] + sm["n_shed"] != TIER_REQUESTS or len(served) != sm["completed"]:
+                raise AssertionError(f"serve_tier {mode} {process}: {sm['completed']} + {sm['n_shed']} answers")
+            if sm["batching"]["continuous_admission"] != (mode == "ragged"):
+                raise AssertionError(f"serve_tier {mode}: {sm['batching']}")
+            if b2 < sm["batches"]:
+                raise AssertionError(f"serve_tier {mode} {process}: B.2 launched {b2} times for {sm['batches']} batches")
+
+    # beside the 2x2 pool: one replica of one worker, ragged, poisson (how
+    # much the four threads' contention for the interpreter costs); logged
+    one = replace(cfg, serve=replace(cfg.serve, batching="ragged", replicas=1, workers=1))
+    sm = run_loadgen(one, ServeEngine.from_workdir(one, wd, device=DEVICE), rate=TIER_ARRIVALS[0][1],
+                     n=TIER_REQUESTS, deadline_ms=TIER_DEADLINE_MS, samples=samples)
+    lat = sm["latency_ms"] or {}
+    log(f"serve_tier loadgen ragged poisson {TIER_ARRIVALS[0][1]:g} rps, 1 replica x 1 worker: rps {sm['rps']}, "
+        f"p50 {lat.get('p50_ms')} ms, p99 {lat.get('p99_ms')} ms, SLO {json.dumps(sm['slo'])}, shed "
+        f"{json.dumps(sm['shed'])}, batches {sm['batches']}, stranded {sm['stranded_futures']} [{card}]")
+    if sm["stranded_futures"] or sm["compile_cache_after_warmup"] != zero:
+        raise AssertionError(f"serve_tier 1x1: stranded {sm['stranded_futures']}, work {sm['compile_cache_after_warmup']}")
+
+    # the socket server, the port's client, a swap to the v2 tags
+    ready: Future = Future()
+    server = threading.Thread(target=run_server, args=(cfg, auto), kwargs={"workdir": wd, "ready": ready},
+                              daemon=True)
+    server.start()
+    handle = ready.result(timeout=120.0)
+    try:
+        with ServeClient("127.0.0.1", handle["port"], timeout_s=30.0, seed=SEED) as client:
+            t1 = time.perf_counter()
+            replies = [client.request(x[i], rid=f"sock-{i}") for i in range(256)]
+            sock_s = time.perf_counter() - t1
+            if not all(r.get("ok") and r["id"] == f"sock-{i}" for i, r in enumerate(replies)):
+                raise AssertionError(f"serve_tier socket: a reply failed: {[r for r in replies if not r.get('ok')][:2]}")
+            held = _hold_served(tuple(a[:256] for a in ref), np.asarray([r["h"] for r in replies], np.float32),
+                                np.array([r["pred"] for r in replies]), "serve_tier socket")
+            done = client.metrics()["metrics"]["completed"]
+            again = client.request(x[0], rid="sock-0")
+            if again["h"] != replies[0]["h"] or client.metrics()["metrics"]["completed"] != done:
+                raise AssertionError("serve_tier socket: a retried id dispatched again")
+            health = client.health()["health"]
+            if not (health["warm"] and health["replicas_live"] == 2 and health["dedup_hits"] >= 1):
+                raise AssertionError(f"serve_tier socket: health {health}")
+            swap = client.swap(tags={"hdce": "hdce_v2", "qsc": "qsc_v2"})
+            if not swap.get("ok") or swap["swap"]["work"] != zero:
+                raise AssertionError(f"serve_tier socket: swap {swap}")
+            twin2 = ServeEngine.from_workdir(cfg, wd, device="cpu", tags={"hdce": "hdce_v2", "qsc": "qsc_v2"})
+            after = [client.request(x[i], rid=f"swap-{i}") for i in range(256, 320)]
+            held2 = _hold_served(_twin_reference(torch, twin2, x[256:320]),
+                                 np.asarray([r["h"] for r in after], np.float32),
+                                 np.array([r["pred"] for r in after]), "serve_tier socket after swap")
+            log(f"serve_tier socket: 256 requests in {sock_s:.3f} s ({256 / sock_s:.1f} rps, one client), "
+                f"CPU twin {held['max_abs_err']:.3e}; retried id served once; swap epoch "
+                f"{swap['swap']['epoch']} to v2, CPU twin on v2 {held2['max_abs_err']:.3e} "
+                f"(tol {held2['tol']:.3e}) [{card}]")
+        sk = run_loadgen_socket(cfg, ("127.0.0.1", handle["port"]), rate=4000.0, n=1024, clients=8,
+                                timeout_s=30.0, x=x[:1024])
+        lat = sk["latency_ms"] or {}
+        log(f"serve_tier run_loadgen_socket 4000 rps n=1024 clients 8: rps {sk['rps']}, p50 {lat.get('p50_ms')} ms, "
+            f"p99 {lat.get('p99_ms')} ms, shed {json.dumps(sk['shed'])}, give-ups {sk['give_ups']}, reconnects "
+            f"{sk['reconnects']}, stranded {sk['stranded_futures']}, server work {sk['compile_cache_after_warmup']} [{card}]")
+        if sk["completed"] != 1024 or sk["stranded_futures"] or sk["give_ups"] or \
+                sk["compile_cache_after_warmup"] != zero:
+            raise AssertionError(f"serve_tier socket loadgen: {json.dumps({k: sk[k] for k in ('completed', 'stranded_futures', 'give_ups', 'compile_cache_after_warmup')})}")
+    finally:
+        handle["stop"]()
+        server.join(timeout=60.0)
+    if server.is_alive():
+        raise AssertionError("serve_tier: the socket server did not stop")
+
+    # one injected worker_exception: replica 1's second batch
+    plan = FaultPlan([FaultSpec("worker_exception", at=1, replica="serve-replica-1")], seed=SEED)
+    eng = ServeEngine.from_workdir(replace(cfg, serve=replace(cfg.serve, batching="bucket")), wd, device=DEVICE)
+    pool = ReplicaPool(eng, faults=plan).start()
+    outcome = {"served": 0, "failed": 0, "other": 0}
+    try:
+        for lo in range(0, 512, 16):  # 16 at a time, each answered before the next: no queue overflow
+            for f in [pool.submit(x[i], rid=i) for i in range(lo, lo + 16)]:
+                try:
+                    r = f.result(timeout=60.0)
+                    outcome["served" if isinstance(r, Prediction) else "other"] += 1
+                except FaultInjected:
+                    outcome["failed"] += 1
+        deadline = time.monotonic() + 30.0
+        while pool.health()["restarts"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        later = [f.result(timeout=60.0) for f in [pool.submit(x[i], rid=10_000 + i) for i in range(64)]]
+        health = pool.health()
+    finally:
+        pool.stop()
+    merged = pool.merged_metrics()
+    log(f"serve_tier fault: worker_exception at serve-replica-1's batch #1: {json.dumps(outcome)} of 512, "
+        f"restarts {health['restarts']}, faults {json.dumps(merged.faults)}, then 64 more served "
+        f"{sum(isinstance(r, Prediction) for r in later)}; fired {json.dumps(plan.fired)} [{card}]")
+    if not (1 <= outcome["failed"] <= cfg.serve.max_batch and outcome["other"] == 0
+            and outcome["served"] + outcome["failed"] == 512):
+        raise AssertionError(f"serve_tier fault: {outcome}")
+    if health["restarts"] != 1 or merged.faults != {"worker_exception": 1} or health["replicas_live"] != 2:
+        raise AssertionError(f"serve_tier fault: health {health}, faults {merged.faults}")
+    if not all(isinstance(r, Prediction) for r in later) or eng.request_path_work() != zero:
+        raise AssertionError("serve_tier fault: the restarted pool did not serve, or did request-path work")
+    counts = dict(K.launches)
+    log(f"serve_tier launches: {json.dumps(counts)}")
+    if counts["circuit_expvals"] == 0:
+        raise AssertionError("serve_tier: B.2 was not launched")
     return counts
 
 
@@ -1954,7 +2203,8 @@ def routing_phase(torch, mods, card: str) -> None:
     from dataclasses import replace
 
     cfg = mods["config"].ExperimentConfig()
-    cfg = replace(cfg, serve=replace(cfg.serve, buckets=(SERVE_BATCH,)))
+    # batching forced: the check below is that the routing race times nothing
+    cfg = replace(cfg, serve=replace(cfg.serve, buckets=(SERVE_BATCH,), batching="bucket"))
     gen = torch.Generator().manual_seed(SEED + 17)
     engine = ServeEngine(cfg, mods["hdce"].build_hdce(cfg, "cpu", generator=gen).state_dict(),
                          build_classifier(cfg, False, "cpu", generator=gen).state_dict(), device=DEVICE)
@@ -2078,6 +2328,9 @@ def main() -> int:
 
     shutil.rmtree(EVAL_WORK, ignore_errors=True)
     autotune.set_table_path(str(TUNE_DIR / "qsc_impl.json"))
+    from qdml_tpu_torch.serve import batching_autotune
+
+    batching_autotune.set_table_path(str(TUNE_DIR / "serve_batching.json"))
     race_launches = phase("autotune", autotune_phase, torch, K, cfg_mod, card)
     launches, engines, requests = phase("serve", serve, torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod)
     dispatch_launches = phase(
@@ -2088,6 +2341,7 @@ def main() -> int:
 
     mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "cli": cli, "dce": dce_mod,
             "scan": scan_mod}
+    tier_launches = phase("serve_tier", serve_tier_phase, torch, K, mods, card)
     train_launches, adjoint_per_step, train_data = phase("train", train, torch, K, mods, card)
     dce_launches = phase("dce", dce_phase, torch, K, mods, card, train_data)
     del train_data
@@ -2105,7 +2359,7 @@ def main() -> int:
     launches = {
         k: race_launches[k] + launches[k] + dispatch_launches[k] + micro_launches[k] + train_launches[k]
         + dce_launches[k] + eval_launches[k] + nat_launches[k] + scan_launches[k] + lowp_launches[k]
-        + scaling_launches[k]
+        + scaling_launches[k] + tier_launches[k]
         for k in launches
     }
     # No entry point reaches B.3 (the JAX package runs its kernel only from

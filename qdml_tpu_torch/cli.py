@@ -11,6 +11,8 @@
     python -m qdml_tpu_torch.cli import-torch [--out=DIR_OF_PTH_FILES] [...]
     python -m qdml_tpu_torch.cli export-torch [--out=torch_ckpts] [...]
     python -m qdml_tpu_torch.cli loss-curves  --curves=LABEL:PATH[,LABEL:PATH...] [...]
+    python -m qdml_tpu_torch.cli serve        [--serve.port=8377 --serve.replicas=N ...]
+    python -m qdml_tpu_torch.cli loadgen      [--rate=200] [--n=512] [--drift-at=K] [...]
 
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
 package, and ``--preset=NAME`` starts from one of its presets
@@ -37,7 +39,16 @@ default ``results_torch/``; ``results/`` holds the JAX package's own.
 ``.pth`` files. ``profile`` traces 12 HDCE steps after a warm-up step with
 ``torch.profiler`` into ``--out`` and writes ``summary.json`` there
 (samples/sec, step percentiles, the card's memory and the device-busy share
-of the traced window, with the card's name and power limit).
+of the traced window, with the card's name and power limit). ``serve``
+restores the newest HDCE and classifier from the workdir
+(``ServeEngine.from_workdir``), warms the engine (the impl, routing and
+batching races) and serves a replica pool behind the newline-JSON socket
+at ``serve.host:serve.port``, printing a banner with the bound port once it
+listens (``--serve.port=0`` binds a free one); ``{"op": "swap"}`` re-reads
+the workdir. ``loadgen`` drives the same engine in process with open-loop
+arrivals (``serve.arrival``, ``--rate=`` requests/s, ``--n=`` requests,
+``serve.deadline_ms``, ``--drift-at=`` with ``serve.drift_step``) and prints
+the ``serve_summary`` JSON. Both take every ``--serve.*`` field.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ from qdml_tpu_torch.utils.metrics import MetricsLogger
 
 COMMANDS = (
     "train-hdce", "train-dce", "train-sc", "train-qsc", "nat-sweep", "eval", "profile", "gen-data",
-    "import-torch", "export-torch", "loss-curves",
+    "import-torch", "export-torch", "loss-curves", "serve", "loadgen",
 )
 
 
@@ -191,6 +202,37 @@ def _export_torch(cfg: cfg_mod.ExperimentConfig, out: str, workdir: str, device)
     return export_reference_dir(out, batch_size=cfg.train.batch_size, snr_db=int(cfg.data.snr_db), **kwargs)
 
 
+def _serve(cmd: str, cfg: cfg_mod.ExperimentConfig, workdir: str, device, extra: dict, logger) -> None:
+    """``qdml_tpu/cli.py:474-512``: ``serve`` and ``loadgen`` over the engine
+    restored from ``workdir``."""
+    import json
+
+    from qdml_tpu_torch.serve.engine import ServeEngine, serve_mesh
+
+    serve_mesh(cfg, device)  # one device: validates the knobs, or raises (A.10)
+    engine = ServeEngine.from_workdir(cfg, workdir, device=device)
+    if cmd == "serve":
+        from qdml_tpu_torch.serve.server import run_server
+
+        with logger.span("serve_warmup", buckets=list(engine.buckets)):
+            engine.warmup()
+        run_server(engine.cfg, engine, logger=logger, workdir=workdir)
+        return
+    from qdml_tpu_torch.serve.loadgen import run_loadgen
+
+    drift_at = extra.get("--drift-at")
+    summary = run_loadgen(
+        engine.cfg,
+        engine,
+        rate=float(extra.get("--rate", 200.0)),
+        n=int(extra.get("--n", 512)),
+        deadline_ms=cfg.serve.deadline_ms if cfg.serve.deadline_ms > 0 else None,
+        logger=logger,
+        drift_at=None if drift_at is None else int(drift_at),
+    )
+    print(json.dumps(summary))
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
@@ -207,7 +249,7 @@ def main(argv: list[str] | None = None) -> int:
         key = arg.split("=", 1)[0]
         if key == "--device":
             device = arg.split("=", 1)[1]
-        elif key in ("--out", "--curves"):
+        elif key in ("--out", "--curves", "--rate", "--n", "--drift-at"):
             extra[key] = arg.split("=", 1)[1]
         else:
             overrides.append(arg)
@@ -249,6 +291,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     logger = MetricsLogger(os.path.join(workdir, f"{cmd}.metrics.jsonl"))
     try:
+        if cmd in ("serve", "loadgen"):
+            _serve(cmd, cfg, workdir, device, extra, logger)
+            return 0
         if cmd == "eval":
             _eval(cfg, workdir, device, logger)
             print(f"eval done in {time.time() - t0:.1f}s")

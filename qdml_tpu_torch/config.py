@@ -4,9 +4,15 @@ Field names and defaults are the JAX package's, so a JAX config and the
 port's describe the same model. Only the fields the ported paths read are
 carried: the channel geometry and dataset fields of ``DataConfig``,
 ``ModelConfig``, ``QuantumConfig`` with its training knobs, ``TrainConfig``,
-``EvalConfig``, the ``ServeConfig`` bucket and dispatch fields, and the
-geometry-derived widths of ``ExperimentConfig``. Mesh, fleet and control
-configuration are not ported yet (ROADMAP A.10, multi-rank half; A.11).
+``EvalConfig``, ``ServeConfig`` (buckets, dispatch, the micro-batcher, the
+replica pool, supervision, the breaker, the socket server and loadgen's
+traffic knobs), and the geometry-derived widths of ``ExperimentConfig``.
+Mesh, fleet and control configuration are not ported yet (ROADMAP A.10,
+multi-rank half; A.11, parts 2-3). ``model.kernel_size``,
+``model.n_conv_layers``, ``model.conv_impl`` and ``eval.indicator`` are
+accepted with the JAX package's validation and recorded, so that a JAX
+command line runs unchanged; the port's convs are 3x3, three deep, and
+``torch.nn.functional.conv2d`` whatever they say.
 ``model.dtype`` (bfloat16 activations), ``train.moments_dtype`` (bfloat16
 Adam first moments), ``data.trig_impl``, ``data.rng_impl`` and
 ``quantum.mps_chi`` are the JAX package's low-precision and scaling knobs,
@@ -30,6 +36,12 @@ class DataConfig:
     n_sub: int = 16          # OFDM subcarriers
     n_beam: int = 8          # sounded DFT beams -> pilot_num = n_beam * n_sub
     n_scenarios: int = 3     # propagation scenario families (reference: 3)
+    # Channel-family drift (data/channels.family_table): step 0 is the frozen
+    # table; > 0 perturbs delay spread, K-factor, angular spread and mobility
+    # of drift_scenario (-1 = every family) as a function of the step
+    # (qdml_tpu/config.py:41-48).
+    drift_step: int = 0
+    drift_scenario: int = -1
     n_users: int = 3         # users per scenario (reference: 3)
     data_len: int = 20000    # training samples per (scenario, user) cell
     snr_db: float = 10.0     # training SNR (reference SNRdb=10)
@@ -63,12 +75,22 @@ class ModelConfig:
     """CNN estimator family (``qdml_tpu/config.py:91-103``)."""
 
     features: int = 32       # conv channels (reference self.features=32)
+    # Recorded only, as in the JAX package, whose convs are 3x3 and three
+    # deep whatever these say (qdml_tpu/models/cnn.py).
+    kernel_size: int = 3
+    n_conv_layers: int = 3
     # Activation dtype of the HDCE and DCE trainers' convs and head:
     # "float32" | "bfloat16" (parameters stay float32; qdml_tpu/config.py:98).
     dtype: str = "float32"
+    # The JAX package's conv lowering ("auto" | "conv" | "shift_matmul",
+    # qdml_tpu/models/cnn.py:resolve_conv_impl): validated and recorded; the
+    # port has one lowering, torch's conv2d.
+    conv_impl: str = "auto"
 
     def __post_init__(self):
         activation_dtype(self.dtype)
+        if self.conv_impl not in ("auto", "conv", "shift_matmul"):
+            raise ValueError(f"conv_impl must be auto|conv|shift_matmul, got {self.conv_impl!r}")
 
 
 def activation_dtype(name: str):
@@ -144,10 +166,18 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Bucket and dispatch fields of the serving engine (``qdml_tpu/config.py:243-298``)."""
+    """The serving engine and its tier (``qdml_tpu/config.py:243-379``), with
+    the JAX package's defaults."""
 
     max_batch: int = 64        # largest (and last) bucket
-    buckets: tuple[int, ...] = ()  # () = powers of two up to max_batch
+    max_wait_ms: float = 2.0   # coalescing window before a partial batch flushes
+    max_queue: int = 256       # bounded request queue; beyond it, shed Overloaded
+    # Mesh sharding of the request path: "auto" | "off", validated as in JAX
+    # (serve.engine.serve_mesh). One visible device serves unsharded; more
+    # than one is ROADMAP A.10's and raises.
+    shard: str = "auto"
+    # Shard the trunks over the mesh's "fed" axis (needs a mesh, A.10).
+    expert_sharding: bool = False
     # Expert routing: "dense" runs every trunk and gathers, "sparse" runs each
     # row's trunk on capacity buckets. "auto" races them per bucket at warmup
     # (qdml_tpu_torch.ops.dispatch_autotune; sparse enters the race from
@@ -156,11 +186,70 @@ class ServeConfig:
     # Sparse per-expert bucket headroom: capacity = ceil(B * f / S); overflow
     # rows are served by the dense path, never dropped.
     capacity_factor: float = 1.25
-    # Pad handling per tier: "bucket" relies on row independence, "ragged"
-    # masks the pad rows inside the forward. "auto" races them in JAX; the
-    # port has no such race yet (it comes with continuous admission, ROADMAP
-    # A.11) and takes JAX's no-table fallback, bucket.
+    # Pad handling and admission per tier: "bucket" pads to the bucket and
+    # relies on row independence, the batcher coalescing to bucket edges;
+    # "ragged" masks the pad rows inside the forward and the batcher admits
+    # continuously (dispatch whenever a worker is free). "auto" races the two
+    # per tier at warmup (qdml_tpu_torch.serve.batching_autotune, table-cached).
     batching: str = "auto"
+    # ServeLoops sharing one warmup and one MicroBatcher feed (ReplicaPool).
+    replicas: int = 1
+    # Default per-request deadline in ms; 0 disables. Past it a request is
+    # shed (typed Overloaded) at admission or dequeue, never served late.
+    deadline_ms: float = 0.0
+    buckets: tuple[int, ...] = ()  # () = powers of two up to max_batch
+    # Worker threads per ServeLoop pumping batcher -> engine, each with its
+    # own ServeMetrics (merged exactly on read).
+    workers: int = 1
+    # The numerics sanitizer of the serving forward: not ported (ROADMAP
+    # A.12); True raises.
+    checkify: bool = False
+    # loadgen's arrival process: "poisson" | "bursty" (two-state MMPP, mean
+    # rate kept) | "diurnal" (sinusoidal rate by thinning); burstiness is the
+    # burst/lull ratio and sets the diurnal peak-to-trough ratio.
+    arrival: str = "poisson"
+    burstiness: float = 4.0
+    # loadgen --drift-at=K: requests from K on come from the drifted family
+    # table at this step, half of them from drift_scenario. 0 disables.
+    drift_step: int = 0
+    drift_scenario: int = 0
+    # Supervision: restart a replica whose workers died (or, with
+    # stall_timeout_s > 0, whose heartbeat is stale while work is queued)
+    # after restart_backoff_s * 2^k with jitter, up to restart_budget
+    # restarts a slot; past it the slot is quarantined.
+    supervise: bool = True
+    supervise_interval_s: float = 0.05
+    restart_backoff_s: float = 0.05
+    restart_budget: int = 3
+    stall_timeout_s: float = 0.0
+    # Circuit breaker: open at breaker_high_frac * max_queue (new submits
+    # fast-fail typed breaker_open), half-open after breaker_open_s with
+    # breaker_probes probes, closed again under breaker_low_frac * max_queue.
+    breaker: bool = False
+    breaker_high_frac: float = 0.8
+    breaker_low_frac: float = 0.3
+    breaker_open_s: float = 0.25
+    breaker_probes: int = 4
+    # Socket hardening: an idle connection is reaped after conn_timeout_s
+    # (0 disables); a line over max_line_bytes gets bad_request and closes.
+    conn_timeout_s: float = 30.0
+    max_line_bytes: int = 8_388_608
+    # A retried request id re-attaches to its first dispatch for this long;
+    # 0 disables dedup.
+    dedup_ttl_s: float = 30.0
+    # Fraction of requests carrying a phase trace (sampled on the id hash);
+    # 0 builds no trace and reads no clock for it.
+    trace_sample: float = 0.0
+    # Local socket endpoint of `serve`.
+    host: str = "127.0.0.1"
+    port: int = 8377
+
+    def __post_init__(self):
+        if self.checkify:
+            raise NotImplementedError(
+                "serve.checkify (the numerics sanitizer of the serving forward) is not "
+                "ported yet (ROADMAP A.12)"
+            )
 
 
 @dataclass(frozen=True)
@@ -172,6 +261,9 @@ class EvalConfig:
     snr_grid: tuple[float, ...] = (5.0, 7.0, 9.0, 11.0, 13.0, 15.0)
     test_len: int = 10000     # reference data_len_for_test
     batch_size: int = 200     # reference batch_size=200
+    # -1 = all scenarios mixed (reference Test.py:18); recorded only, as in
+    # the JAX package, whose sweep reads no such field.
+    indicator: int = -1
     results_dir: str = "results_torch"
 
 

@@ -168,6 +168,8 @@ class ChannelGeometry:
             n_beam=cfg.n_beam,
             n_scenarios=cfg.n_scenarios,
             label_noise_factor=cfg.label_noise_factor,
+            drift_step=cfg.drift_step,
+            drift_scenario=cfg.drift_scenario,
             rng_impl=cfg.rng_impl,
             trig_impl=cfg.trig_impl,
         )

@@ -37,7 +37,9 @@ else: one count per kernel source, and one per member-axis entry point
 replay, not when its wrapper is called: it is counted into the tally of
 :func:`counting_capture`, and :func:`count_replay` adds that tally on each
 replay (:mod:`qdml_tpu_torch.train.scan`). A launch captured outside such
-a tally raises, since its replays would go uncounted.
+a tally raises, since its replays would go uncounted. Serving workers launch
+from several threads at once, so every change to the counts (a launch, a
+replay, a reset) is made under one lock.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -104,11 +107,21 @@ UNITARY_MAX_QUBITS = 14
 
 # the tallies of the CUDA graphs being captured, innermost last
 _capture_tallies: list[dict[str, int]] = []
+# guards every read-modify-write of `launches` and of a capture tally
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in COUNTERS:
-        launches[name] = 0
+    with _count_lock:
+        for name in COUNTERS:
+            launches[name] = 0
+
+
+def _count(counts: dict[str, int], name: str, n: int = 1) -> None:
+    """``counts[name] += n`` under the counters' lock: a read-modify-write
+    from several launching threads at once must lose no count."""
+    with _count_lock:
+        counts[name] += n
 
 
 @contextlib.contextmanager
@@ -127,7 +140,7 @@ def counting_capture():
 def count_replay(tally: dict[str, int]) -> None:
     """One replay of a graph whose capture counted ``tally``."""
     for name, n in tally.items():
-        launches[name] += n
+        _count(launches, name, n)
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +266,7 @@ def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> 
         err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
-    (_capture_tallies[-1] if capturing else launches)[counter or name] += 1
+    _count(_capture_tallies[-1] if capturing else launches, counter or name)
 
 
 def _kernel_fwd_plain_bwd(launch, plain, doc: str) -> type[torch.autograd.Function]:

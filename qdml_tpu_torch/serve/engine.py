@@ -19,30 +19,35 @@ life:
   (:func:`~qdml_tpu_torch.ops.dispatch_autotune.ensure_route`, per bucket,
   table-cached): sparse enters it from S = 6, so at the reference's S = 3
   dense is chosen and nothing is timed;
-- the **batching** (``serve.batching``, default ``bucket``): bucket, where
-  pad rows are inert because every op is row-independent in eval mode, or
-  ``ragged``, where the forward first zeroes the rows at and past the valid
-  count so that garbage in them cannot reach a valid row. At ``auto`` the
-  JAX package races the two per bucket; the port has no such race yet
-  (ragged mode has no caller until continuous admission, ROADMAP A.11), so
-  ``auto`` takes what JAX's lookup falls back to without a table entry,
-  bucket.
+- the **batching** (``serve.batching``): bucket, where pad rows are inert
+  because every op is row-independent in eval mode, or ``ragged``, where
+  the forward first zeroes the rows at and past the valid count so that
+  garbage in them cannot reach a valid row. ``auto``, the default, races
+  the two per tier on the same varied rows
+  (:func:`~qdml_tpu_torch.serve.batching_autotune.ensure_batching`,
+  table-cached). When the largest tier serves ragged, the micro-batcher in
+  front admits continuously (:attr:`ServeEngine.continuous_admission`).
 
 A batch pads with zeros to the smallest bucket that fits it, oversize
 batches are served in largest-bucket chunks, and requests arrive in the JAX
 layout, NHWC ``(n, n_sub, n_beam, 2)``. After warmup the request path takes
 no measurement, writes no table and builds no kernel
 (:meth:`ServeEngine.request_path_work` counts them). :meth:`swap_params`
-replaces the weights between batches without a new warmup.
+replaces the weights between batches without a new warmup. ``infer(x,
+traced=True)`` times the compute and fetch phases of a batch with one
+stream synchronisation; untraced it reads no clock.
 
-Not ported yet: mesh sharding, expert sharding and checkify (ROADMAP
-A.10, A.12), the micro-batcher threads with continuous admission and the TCP
-server (A.11).
+The micro-batcher, replica pool and socket server in front of the engine
+are :mod:`~qdml_tpu_torch.serve.batcher` and
+:mod:`~qdml_tpu_torch.serve.server`. Not ported yet: mesh and expert
+sharding (ROADMAP A.10; :func:`serve_mesh` validates the knobs and serves
+one device) and checkify (A.12).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Mapping
 
 import numpy as np
@@ -55,6 +60,7 @@ from qdml_tpu_torch.ops.routing import select_expert, sparse_dispatch
 from qdml_tpu_torch.quantum import autotune
 from qdml_tpu_torch.quantum import kernels
 from qdml_tpu_torch.quantum.circuits import resolve_impl
+from qdml_tpu_torch.serve import batching_autotune
 from qdml_tpu_torch.serve.batcher import pick_bucket, power_of_two_buckets
 from qdml_tpu_torch.serve.types import DispatchInfo
 from qdml_tpu_torch.train.hdce import build_hdce
@@ -84,9 +90,33 @@ def _restore_family(workdir: str, prefix: str, tags: dict | None):
     return vars_["params"], meta, tag
 
 
-# What JAX's batching race falls back to without a table entry
-# (qdml_tpu/serve/batching_autotune.py:lookup); that race is not ported.
-_AUTO_BATCHING = "bucket"
+def serve_mesh(cfg: ExperimentConfig, device: str | torch.device | None = None) -> None:
+    """``serve.shard`` and ``serve.expert_sharding`` with the JAX package's
+    validation (``qdml_tpu/parallel/mesh.py:96-140``), on the devices of
+    ``device``'s type. One visible device serves unsharded, as in JAX, and
+    returns ``None``; more than one is ROADMAP A.10's and raises."""
+    if cfg.serve.shard not in ("auto", "off"):
+        raise ValueError(f"serve.shard must be 'auto' or 'off', got {cfg.serve.shard!r}")
+    if cfg.serve.shard == "off":
+        if cfg.serve.expert_sharding:
+            raise ValueError(
+                "serve.expert_sharding=true requires sharding: remove "
+                "serve.shard='off' (or drop expert_sharding)"
+            )
+        return None
+    dev = torch.device(device) if device is not None else torch.device("cuda")
+    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if visible > 1:
+        raise NotImplementedError(
+            f"serve.shard=auto with {visible} visible devices: mesh serving is not ported "
+            "yet (ROADMAP A.10); pass --serve.shard=off or make one device visible"
+        )
+    if cfg.serve.expert_sharding:
+        print(
+            "note: serve.expert_sharding requested but only one device "
+            "is visible — serving single-device, experts unsharded"
+        )
+    return None
 
 
 def _signature(sd: Mapping[str, torch.Tensor]) -> dict:
@@ -137,6 +167,13 @@ class ServeEngine:
         # per bucket: the routing race's entry, or {"forced": mode}
         self.dispatch_race: dict[str, dict] = {}
         self.batching_mode: dict[str, str] = {}
+        # per tier: the batching race's entry, or {"forced": mode}
+        self.batching_race: dict[str, dict] = {}
+        # per bucket: what the warmup forward cost (the JAX package's
+        # compiled-program cost analysis has no torch counterpart; see warmup)
+        self.bucket_cost: dict[str, dict] = {}
+        # mesh sharding per bucket: none on one device (serve_mesh)
+        self.bucket_sharding: dict[str, str] = {}
         # sparse overflow accounting (overflow rows are served dense, never dropped)
         self._dispatch_lock = threading.Lock()
         self._overflow_rows = 0
@@ -150,6 +187,45 @@ class ServeEngine:
         clf = build_classifier(self.cfg, self.quantum, self.device)
         clf.load_state_dict(clf_sd)
         return hdce, clf
+
+    @classmethod
+    def from_workdir(
+        cls,
+        cfg: ExperimentConfig,
+        workdir: str,
+        device: str | torch.device | None = None,
+        buckets: tuple[int, ...] | None = None,
+        tags: dict | None = None,
+    ) -> "ServeEngine":
+        """The newest trained HDCE and classifier under ``workdir``
+        (``qdml_tpu/serve/engine.py:272-320``): best > last > resume per
+        family, or the tags ``tags`` pins. The quantum classifier is served
+        when one was trained, its circuit config taken from its checkpoint
+        (``reconcile_quantum_cfg``); only a family never trained falls through
+        to the classical ``SCP128``. A ``qsc`` tag that exists but fails to
+        restore raises, never downgrading a quantum deployment."""
+        from qdml_tpu_torch.train.checkpoint import CheckpointNotFoundError, reconcile_quantum_cfg
+
+        hdce_sd, _, _ = _restore_family(workdir, "hdce", tags)
+        try:
+            clf_sd, clf_meta, _ = _restore_family(workdir, "qsc", tags)
+        except CheckpointNotFoundError:
+            pass
+        else:
+            cfg = reconcile_quantum_cfg(cfg, clf_meta)
+            return cls(cfg, hdce_sd, clf_sd, quantum=True, buckets=buckets, device=device)
+        try:
+            clf_sd, _, _ = _restore_family(workdir, "sc", tags)
+        except CheckpointNotFoundError:
+            raise FileNotFoundError(
+                f"no scenario-classifier checkpoint (qsc/sc) under {workdir!r} "
+                "— run `train-sc` (or train-qsc) first"
+            ) from None
+        return cls(cfg, hdce_sd, clf_sd, quantum=False, buckets=buckets, device=device)
+
+    def mesh_topology(self) -> None:
+        """The serving mesh's axes: ``None``, one device (``serve_mesh``)."""
+        return None
 
     # -- live weights (hot-swap) ---------------------------------------------
 
@@ -306,11 +382,6 @@ class ServeEngine:
 
     # -- warmup -------------------------------------------------------------------
 
-    def _batching(self) -> str:
-        """``serve.batching``, with ``auto`` taking JAX's no-table fallback."""
-        mode = self.cfg.serve.batching
-        return _AUTO_BATCHING if mode == "auto" else mode
-
     def _bucket_dispatch(self, b: int) -> str:
         """Bucket ``b``'s routing, decided at warmup
         (``qdml_tpu/serve/engine.py:585-603``): a forced ``serve.dispatch``
@@ -330,6 +401,45 @@ class ServeEngine:
         self.dispatch_race[str(b)] = entry
         return entry.get("best_infer") or "dense"
 
+    def _tier_batching(self, b: int, route: str) -> str:
+        """Tier ``b``'s batching, decided at warmup
+        (``qdml_tpu/serve/engine.py:531-584``): a forced ``serve.batching``
+        wins outright; ``auto`` races the tier's bucket forward against its
+        ragged twin (table-cached, so a second warmup reads and times
+        nothing). Both candidates take the same varied rows from
+        ``default_rng(0)``: identical rows would send every prediction to
+        one expert, and on a sparse tier time the overflow branch."""
+        mode = self.cfg.serve.batching
+        if mode != "auto":
+            self.batching_race[str(b)] = {"forced": mode}
+            return mode
+        hdce, clf = self.live_vars()
+        impl = self._impl(b)
+        x = np.random.default_rng(0).standard_normal((b, *self.cfg.image_hw, 2)).astype(np.float32)
+        xt = torch.from_numpy(x).to(self.device).permute(0, 3, 1, 2).contiguous()
+
+        def bucket(xx):
+            with torch.inference_mode():
+                if route == "sparse":
+                    return self._forward_sparse(hdce, clf, xx, b, impl)
+                return self._forward(hdce, clf, xx, impl)
+
+        def ragged(xx):
+            with torch.inference_mode():
+                if route == "sparse":
+                    return self._forward_sparse_ragged(hdce, clf, xx, b, impl)
+                return self._forward_ragged(hdce, clf, xx, b, impl)
+
+        entry = batching_autotune.ensure_batching(
+            {"bucket": (bucket, (xt,)), "ragged": (ragged, (xt,))},
+            capacity=b,
+            platform=self.device.type,
+            route=route,
+            dtype=self.cfg.model.dtype,
+        )
+        self.batching_race[str(b)] = entry
+        return entry.get("best_infer") or "bucket"
+
     @staticmethod
     def _work() -> dict[str, int]:
         return {
@@ -338,11 +448,20 @@ class ServeEngine:
             "kernel_build": sum(kernels.builds.values()),
         }
 
+    def _sync(self) -> None:
+        """Wait for this thread's stream on the engine's card (never the whole
+        device: other workers' batches keep running)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
     def warmup(self) -> dict:
         """Decide and pin each bucket's circuit impl (the race runs here, off
         the request path), routing and batching, then run each bucket's
         forward once: the kernels build or load and cuDNN picks its
-        algorithms. After this, :meth:`request_path_work` counts from zero."""
+        algorithms. After this, :meth:`request_path_work` counts from zero.
+        ``bucket_cost`` records, per bucket, the wall seconds of that first
+        forward (torch compiles no program to analyse, so the JAX package's
+        flops and bytes are not available)."""
         pre = self._work()
         q = self.cfg.quantum
         for b in self.buckets:
@@ -360,8 +479,16 @@ class ServeEngine:
                     rec["candidates"] = entry["candidates"]
                 self.quantum_impl[key] = rec
             self.dispatch_mode[key] = self._bucket_dispatch(b)
-            self.batching_mode[key] = self._batching()
+            self.batching_mode[key] = self._tier_batching(b, self.dispatch_mode[key])
+            t0 = time.perf_counter()
             self.forward_tier(np.zeros((b, *self.cfg.image_hw, 2), np.float32), b)
+            self._sync()
+            self.bucket_cost[key] = {
+                "available": False,
+                "reason": "torch compiles no program: no flops/bytes analysis",
+                "platform": self.device.type,
+                "first_forward_s": round(time.perf_counter() - t0, 6),
+            }
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._work0 = self._work()
@@ -369,12 +496,17 @@ class ServeEngine:
         out: dict[str, Any] = {
             "buckets": self.buckets,
             "work": {k: self._work0[k] - pre[k] for k in pre},
+            "cost": dict(self.bucket_cost),
             "dispatch": {
                 "mode": dict(self.dispatch_mode),
                 "capacity_factor": float(self.cfg.serve.capacity_factor),
                 "race": dict(self.dispatch_race),
             },
-            "batching": {"mode": dict(self.batching_mode)},
+            "batching": {
+                "mode": dict(self.batching_mode),
+                "continuous_admission": self.continuous_admission,
+                "race": dict(self.batching_race),
+            },
         }
         if self.quantum_impl:
             out["quantum_impl"] = dict(self.quantum_impl)
@@ -387,9 +519,22 @@ class ServeEngine:
         now = self._work()
         return {k: now[k] - self._work0.get(k, 0) for k in now}
 
+    @property
+    def continuous_admission(self) -> bool:
+        """True when the largest tier resolved to ragged at warmup: the
+        batcher in front then admits continuously."""
+        return self.batching_mode.get(str(self.buckets[-1])) == "ragged"
+
     def batching_summary(self) -> dict:
-        """The batching mode and its per-tier record."""
-        return {"mode": self._batching(), "per_tier": dict(self.batching_mode)}
+        """Per-tier batching modes (``mode`` one word when they agree, else
+        ``mixed``) and whether the batcher admits continuously."""
+        modes = set(self.batching_mode.values())
+        mode = modes.pop() if len(modes) == 1 else ("mixed" if modes else "bucket")
+        return {
+            "mode": mode,
+            "per_tier": dict(self.batching_mode),
+            "continuous_admission": self.continuous_admission,
+        }
 
     def dispatch_summary(self) -> dict:
         """Per-bucket routing modes (``mode`` one word when they agree, else
@@ -410,10 +555,16 @@ class ServeEngine:
 
     # -- request path -------------------------------------------------------------
 
-    def infer(self, x) -> tuple[np.ndarray, np.ndarray, np.ndarray, DispatchInfo]:
+    def infer(self, x, traced: bool = False) -> tuple[np.ndarray, np.ndarray, np.ndarray, DispatchInfo]:
         """Serve one batch ``x`` (n, n_sub, n_beam, 2): pad to its bucket, run
         the bucket's pinned forward, slice back. Returns ``(h (n, 2*h_dim),
-        pred (n,), conf (n,), info)``."""
+        pred (n,), conf (n,), info)``.
+
+        ``traced`` sets ``info.compute_s`` (dispatch until this thread's
+        stream has finished the batch: one stream synchronisation, never a
+        device-wide one) and ``info.fetch_s`` (the device-to-host copy of
+        the reply). Untraced, it reads no clock and adds no synchronisation:
+        the reply's ``.cpu()`` is the one wait."""
         if not self._warm:
             raise RuntimeError("ServeEngine.infer before warmup()")
         x = np.asarray(x, dtype=np.float32)
@@ -422,8 +573,9 @@ class ServeEngine:
             raise ValueError("empty batch")
         largest = self.buckets[-1]
         if n > largest:
-            parts = [self.infer(x[lo : lo + largest]) for lo in range(0, n, largest)]
+            parts = [self.infer(x[lo : lo + largest], traced=traced) for lo in range(0, n, largest)]
             infos = [p[3] for p in parts]
+            modes = {i.mode for i in infos}
             return (
                 np.concatenate([p[0] for p in parts]),
                 np.concatenate([p[1] for p in parts]),
@@ -433,20 +585,27 @@ class ServeEngine:
                     n=n,
                     rows=sum(i.rows for i in infos),
                     chunks=sum(i.chunks for i in infos),
-                    mode=infos[0].mode,
+                    mode=modes.pop() if len(modes) == 1 else "mixed",
+                    compute_s=sum(i.compute_s or 0.0 for i in infos) if traced else None,
+                    fetch_s=sum(i.fetch_s or 0.0 for i in infos) if traced else None,
                 ),
             )
         b = pick_bucket(n, self.buckets)
         xp = np.zeros((b, *x.shape[1:]), np.float32)
         xp[:n] = x
+        t_dispatch = time.perf_counter() if traced else None
         h, pred, conf, overflow = self.forward_tier(xp, n)
+        t_fetch = None
+        if traced:
+            self._sync()
+            t_fetch = time.perf_counter()
         if overflow is not None:
             with self._dispatch_lock:
                 self._overflow_rows += overflow
                 self._routed_rows += n
-        return (
-            h[:n].cpu().numpy(),
-            pred[:n].cpu().numpy(),
-            conf[:n].cpu().numpy(),
-            DispatchInfo(bucket=b, n=n, rows=b, mode=self.batching_mode[str(b)]),
-        )
+        out_h, out_pred, out_conf = h[:n].cpu().numpy(), pred[:n].cpu().numpy(), conf[:n].cpu().numpy()
+        info = DispatchInfo(bucket=b, n=n, rows=b, mode=self.batching_mode[str(b)])
+        if traced:
+            info.compute_s = t_fetch - t_dispatch
+            info.fetch_s = time.perf_counter() - t_fetch
+        return out_h, out_pred, out_conf, info

@@ -2,8 +2,9 @@
 
 NMSE is the reference's whole-batch ratio ``sum((x_hat - x)**2) / sum(x**2)``,
 reported in dB as ``10 * log10(nmse)``. The logger writes one JSON object per
-line; the JAX package's telemetry hooks (manifests, spans, sinks) are a later
-slice of the port (ROADMAP A.12).
+line and is a telemetry sink (``active``, ``write_raw``, ``emit``): spans
+and the serving tier's records go into the same stream as the metrics. The
+JAX package's run manifests are ROADMAP A.12.
 """
 
 from __future__ import annotations
@@ -40,15 +41,42 @@ class MetricsLogger:
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
             self._fh = open(path, "a")
 
+    @property
+    def active(self) -> bool:
+        """Whether records reach a file (a sink that writes nowhere is inert)."""
+        return self._fh is not None
+
+    @property
+    def telemetry(self) -> "MetricsLogger":
+        """The sink behind this logger: the logger itself (the JAX package's
+        ``MetricsLogger.telemetry``)."""
+        return self
+
+    def span(self, name: str, **tags):
+        """A :func:`~qdml_tpu_torch.telemetry.spans.span` into this stream."""
+        from qdml_tpu_torch.telemetry.spans import span
+
+        return span(name, sink=self, **tags)
+
+    def write_raw(self, rec: dict) -> None:
+        """Append one record exactly as given."""
+        if self._fh is not None:
+            self._fh.write(json.dumps(rec) + "\n")
+            self._fh.flush()
+
+    def emit(self, kind: str, **payload: Any) -> dict:
+        """Append one typed record ``{"kind", "ts", **payload}``."""
+        rec = {"kind": kind, "ts": round(time.time(), 3), **payload}
+        self.write_raw(rec)
+        return rec
+
     def log(self, step: int | None = None, **values: Any) -> None:
         rec: dict[str, Any] = {"ts": round(time.time(), 3)}
         if step is not None:
             rec["step"] = step
         for k, v in values.items():
             rec[k] = float(v) if hasattr(v, "item") else v
-        if self._fh is not None:
-            self._fh.write(json.dumps(rec) + "\n")
-            self._fh.flush()
+        self.write_raw(rec)
         if self.echo:
             shown = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in rec.items() if k != "ts"}
             print(" ".join(f"{k}={v}" for k, v in shown.items()), flush=True)

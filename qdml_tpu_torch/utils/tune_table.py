@@ -1,9 +1,9 @@
 """Shared persistence for the measured-dispatch tables (``qdml_tpu/utils/tune_table.py``).
 
-The circuit-impl race (:mod:`qdml_tpu_torch.quantum.autotune`) and the
-routing race (:mod:`qdml_tpu_torch.ops.dispatch_autotune`) keep their
-tables in a :class:`TableStore` each, as the JAX package's three races do
-(the batching race is not ported yet, ROADMAP A.11):
+The circuit-impl race (:mod:`qdml_tpu_torch.quantum.autotune`), the
+routing race (:mod:`qdml_tpu_torch.ops.dispatch_autotune`) and the batching
+race (:mod:`qdml_tpu_torch.serve.batching_autotune`) keep their tables in a
+:class:`TableStore` each, as the JAX package's three races do:
 
 - loads never raise: any pathology degrades to ``{}`` entries with a status
   in ``ok|missing|corrupt|alien|unreadable``, so tuning can speed a hot path

@@ -23,6 +23,7 @@ from qdml_tpu_torch import bench  # noqa: E402
 from qdml_tpu_torch import config as tconfig  # noqa: E402
 from qdml_tpu_torch.ops import dispatch_autotune  # noqa: E402
 from qdml_tpu_torch.quantum import autotune  # noqa: E402
+from qdml_tpu_torch.serve import batching_autotune  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -31,12 +32,13 @@ ROOT = Path(__file__).resolve().parents[1]
 def _isolated(tmp_path, monkeypatch):
     monkeypatch.setenv(autotune.ENV_TABLE, str(tmp_path / "qsc.json"))
     monkeypatch.setenv(dispatch_autotune.ENV_TABLE, str(tmp_path / "routing.json"))
-    autotune.invalidate_cache()
-    dispatch_autotune.invalidate_cache()
+    monkeypatch.setenv(batching_autotune.ENV_TABLE, str(tmp_path / "batching.json"))
+    for mod in (autotune, dispatch_autotune, batching_autotune):
+        mod.invalidate_cache()
     monkeypatch.setattr(bench, "CELL_BATCH", 8)
     yield
-    autotune.invalidate_cache()
-    dispatch_autotune.invalidate_cache()
+    for mod in (autotune, dispatch_autotune, batching_autotune):
+        mod.invalidate_cache()
 
 
 def _root_bench():

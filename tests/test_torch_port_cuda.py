@@ -1,7 +1,8 @@
 """The five CUDA kernels (and the circuit kernels' member axis) against their
 plain versions, on the card; the K-step graphs against the per-step path
 (float32, bfloat16 activations, bfloat16 Adam moments); the mps impl
-against the circuit kernel and its decline of the graph.
+against the circuit kernel and its decline of the graph; the serving tier's
+batching race and a pool of 2 replicas of 2 workers on B.2.
 
 These tests need a CUDA GPU and nvcc; without a card they skip (the check is
 made inside the fixture, never at import). Run them on the card with
@@ -673,3 +674,82 @@ def test_graph_is_the_per_step_path_bit_for_bit_with_deterministic_algorithms(de
                          timeout=600, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr[-3000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {"hdce": [True, True], "qsc": [True, True]}
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card
+# ---------------------------------------------------------------------------
+
+
+def _tier_engine_parts(**serve):
+    """A small engine's config and seeded weights (features 8, n_ant 16,
+    buckets 1, 4, 8), its classifier a QSC at n=6, L=3 on B.2."""
+    import dataclasses
+
+    from qdml_tpu_torch import config as tconfig
+    from qdml_tpu_torch.models.qsc import build_classifier
+    from qdml_tpu_torch.train.hdce import build_hdce
+
+    cfg = tconfig.ExperimentConfig(
+        data=tconfig.DataConfig(n_ant=16),
+        model=tconfig.ModelConfig(features=8),
+        quantum=tconfig.QuantumConfig(n_qubits=6, n_layers=3, impl="pallas_circuit"),
+        serve=tconfig.ServeConfig(buckets=(1, 4, 8), max_batch=8, max_queue=64),
+    )
+    cfg = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, **serve))
+    gen = torch.Generator().manual_seed(0)
+    return cfg, build_hdce(cfg, "cpu", generator=gen).state_dict(), build_classifier(cfg, True, "cpu", generator=gen).state_dict()
+
+
+def test_batching_race_on_the_card(dev, tmp_path, monkeypatch):
+    """``serve.batching=auto`` races bucket against ragged per tier on the
+    card (both candidates through B.2) into its table; a second engine's
+    warmup reads it and measures nothing."""
+    from qdml_tpu_torch.serve import batching_autotune
+    from qdml_tpu_torch.serve.engine import ServeEngine
+
+    monkeypatch.setenv(batching_autotune.ENV_TABLE, str(tmp_path / "batching.json"))
+    batching_autotune.invalidate_cache()
+    cfg, hdce, clf = _tier_engine_parts()
+    tk.reset_launch_counts()
+    warm = ServeEngine(cfg, hdce, clf, quantum=True, device=dev).warmup()
+    for b in (1, 4, 8):
+        entry = warm["batching"]["race"][str(b)]
+        assert entry["key"] == f"cuda/cap{b}/dense/float32"
+        assert all(c["infer_ms"] > 0 for c in entry["candidates"].values())
+    assert tk.launches["circuit_expvals"] > 0
+    again = ServeEngine(cfg, hdce, clf, quantum=True, device=dev).warmup()
+    assert again["work"] == {"measure": 0, "table_write": 0, "kernel_build": 0}
+    batching_autotune.invalidate_cache()
+
+
+def test_two_worker_pool_on_the_card(dev, tmp_path, monkeypatch):
+    """Two replicas of two workers launching B.2 from four threads: every
+    answer within ``1e-4 * max|h| + 1e-5`` of the CPU engine on the rows
+    routed alike, one B.2 launch at least per served batch, counted exactly."""
+    from qdml_tpu_torch.serve import batching_autotune
+    from qdml_tpu_torch.serve.engine import ServeEngine
+    from qdml_tpu_torch.serve.server import ReplicaPool
+
+    monkeypatch.setenv(batching_autotune.ENV_TABLE, str(tmp_path / "batching.json"))
+    batching_autotune.invalidate_cache()
+    cfg, hdce, clf = _tier_engine_parts(workers=2, replicas=2)
+    eng = ServeEngine(cfg, hdce, clf, quantum=True, device=dev)
+    eng.warmup()
+    cpu = ServeEngine(cfg, hdce, clf, quantum=True, device="cpu")
+    x = np.random.default_rng(1).standard_normal((64, 16, 8, 2)).astype(np.float32)
+    pool = ReplicaPool(eng).start()
+    tk.reset_launch_counts()
+    try:
+        results = [f.result(timeout=60.0) for f in [pool.submit(x[i], rid=i) for i in range(len(x))]]
+    finally:
+        pool.stop()
+    merged = pool.merged_metrics()
+    assert merged.completed == len(x) and tk.launches["circuit_expvals"] >= merged.batches
+    h = np.stack([r.h for r in results])
+    h_ref, pred_ref, _ = cpu.offline_forward(x)
+    same = np.array([r.scenario for r in results]) == pred_ref
+    assert same.sum() >= len(x) - 1
+    np.testing.assert_allclose(h[same], h_ref[same], rtol=0, atol=1e-4 * np.abs(h_ref).max() + 1e-5)
+    assert eng.request_path_work() == {"measure": 0, "table_write": 0, "kernel_build": 0}
+    batching_autotune.invalidate_cache()

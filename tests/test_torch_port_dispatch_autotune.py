@@ -23,6 +23,7 @@ from qdml_tpu.ops import dispatch_autotune as jda  # noqa: E402
 from qdml_tpu_torch import config as tconfig  # noqa: E402
 from qdml_tpu_torch.models.qsc import build_classifier  # noqa: E402
 from qdml_tpu_torch.ops import dispatch_autotune as tda  # noqa: E402
+from qdml_tpu_torch.serve import batching_autotune  # noqa: E402
 from qdml_tpu_torch.serve.engine import ServeEngine  # noqa: E402
 from qdml_tpu_torch.train.hdce import build_hdce  # noqa: E402
 from qdml_tpu_torch.utils import tune_table  # noqa: E402
@@ -30,11 +31,11 @@ from qdml_tpu_torch.utils import tune_table  # noqa: E402
 
 @pytest.fixture(autouse=True)
 def _isolated_tables(tmp_path, monkeypatch):
-    for mod in (tda, jda):
-        monkeypatch.setenv(mod.ENV_TABLE, str(tmp_path / f"{mod.__name__.split('.')[0]}.json"))
+    for mod in (tda, jda, batching_autotune):
+        monkeypatch.setenv(mod.ENV_TABLE, str(tmp_path / f"{mod.__name__.replace('.', '_')}.json"))
         mod.invalidate_cache()
     yield
-    for mod in (tda, jda):
+    for mod in (tda, jda, batching_autotune):
         mod.invalidate_cache()
 
 
@@ -146,7 +147,9 @@ def _engine_cfg(n_scenarios):
         model=tconfig.ModelConfig(features=4),
         quantum=tconfig.QuantumConfig(n_classes=n_scenarios),
     )
-    return dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, buckets=(4, 16)))
+    # batching forced: these tests count the routing race's measurements
+    # alone (serve.batching=auto would race bucket against ragged too)
+    return dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, buckets=(4, 16), batching="bucket"))
 
 
 def _engine(cfg):

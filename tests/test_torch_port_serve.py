@@ -25,9 +25,19 @@ from qdml_tpu.serve.engine import ServeEngine as JServeEngine  # noqa: E402
 from qdml_tpu_torch import config as tconfig  # noqa: E402
 from qdml_tpu_torch import interop  # noqa: E402
 from qdml_tpu_torch.quantum import kernels as tk  # noqa: E402
+from qdml_tpu_torch.serve import batching_autotune  # noqa: E402
 from qdml_tpu_torch.serve.engine import ServeEngine  # noqa: E402
 
 BUCKETS = (1, 4, 8)
+
+
+@pytest.fixture(autouse=True)
+def _isolated_tables(tmp_path, monkeypatch):
+    # serve.batching=auto races at warmup: its table goes under tmp_path
+    monkeypatch.setenv(batching_autotune.ENV_TABLE, str(tmp_path / "batching.json"))
+    batching_autotune.invalidate_cache()
+    yield
+    batching_autotune.invalidate_cache()
 
 
 def _configs(n_qubits, impl):

@@ -8,7 +8,9 @@ routed to one scenario, so it overflows) within 1e-5; a forced
 with NaN and Inf in the pad rows, bit for bit on the valid rows; a hot-swapped
 engine against a fresh engine on the new weights, bit for bit; and, once
 ``warmup`` has run, no measurement, table write or kernel build in
-``infer`` (the engine's work counters), with every choice pinned per bucket.
+``infer`` (the engine's work counters), with every choice pinned per bucket;
+``serve.batching=auto`` races bucket against ragged per tier at warmup into
+its table, and a second warmup reads it and times nothing.
 """
 
 import dataclasses
@@ -23,6 +25,7 @@ from qdml_tpu_torch import config as tconfig  # noqa: E402
 from qdml_tpu_torch.models.qsc import build_classifier  # noqa: E402
 from qdml_tpu_torch.ops import dispatch_autotune  # noqa: E402
 from qdml_tpu_torch.quantum import autotune  # noqa: E402
+from qdml_tpu_torch.serve import batching_autotune  # noqa: E402
 from qdml_tpu_torch.serve.engine import ServeEngine  # noqa: E402
 from qdml_tpu_torch.train.checkpoint import save_checkpoint  # noqa: E402
 from qdml_tpu_torch.train.hdce import build_hdce  # noqa: E402
@@ -36,11 +39,12 @@ HW = (16, 8)
 def _isolated_tables(tmp_path, monkeypatch):
     monkeypatch.setenv(autotune.ENV_TABLE, str(tmp_path / "qsc.json"))
     monkeypatch.setenv(dispatch_autotune.ENV_TABLE, str(tmp_path / "routing.json"))
-    autotune.invalidate_cache()
-    dispatch_autotune.invalidate_cache()
+    monkeypatch.setenv(batching_autotune.ENV_TABLE, str(tmp_path / "batching.json"))
+    for mod in (autotune, dispatch_autotune, batching_autotune):
+        mod.invalidate_cache()
     yield
-    autotune.invalidate_cache()
-    dispatch_autotune.invalidate_cache()
+    for mod in (autotune, dispatch_autotune, batching_autotune):
+        mod.invalidate_cache()
 
 
 def _cfg(n_scenarios=3, quantum=None, **serve):
@@ -109,7 +113,10 @@ def test_ragged_engine_matches_bucket_at_every_fill_and_pad_rows_never_leak():
     bucket, _ = _engine(_cfg(batching="bucket"), w)
     ragged, warm = _engine(_cfg(batching="ragged"), w)
     assert warm["batching"]["mode"] == {"1": "ragged", "4": "ragged", "8": "ragged"}
-    assert ragged.batching_summary() == {"mode": "ragged", "per_tier": {"1": "ragged", "4": "ragged", "8": "ragged"}}
+    assert ragged.batching_summary() == {
+        "mode": "ragged", "per_tier": {"1": "ragged", "4": "ragged", "8": "ragged"}, "continuous_admission": True,
+    }
+    assert not bucket.continuous_admission
     assert bucket.batching_summary()["mode"] == "bucket"
     x = _requests(8, seed=9)
     for n in range(1, 9):
@@ -243,15 +250,20 @@ def test_no_measurement_write_or_build_after_warmup_and_choices_stay_pinned(monk
 
 
 def test_warmup_records_and_validation():
-    cfg = _cfg()
+    cfg = _cfg(batching="bucket")
     w = _weights(cfg, True, seed=8)
     eng, warm = _engine(cfg, w, quantum=True)
     # CPU, autotune="auto": nothing is tuned, the heuristic's impl is pinned
     assert warm["quantum_impl"] == {str(b): {"impl": "dense"} for b in BUCKETS}
-    # serve.dispatch / serve.batching "auto": dense routing, bucket batching, nothing raced
+    # serve.dispatch "auto": dense routing, nothing raced; bucket batching forced
     assert warm["dispatch"]["mode"] == {str(b): "dense" for b in BUCKETS}
     assert warm["batching"]["mode"] == {str(b): "bucket" for b in BUCKETS}
+    assert warm["batching"]["race"] == {str(b): {"forced": "bucket"} for b in BUCKETS}
+    assert warm["batching"]["continuous_admission"] is False
     assert warm["work"] == {"measure": 0, "table_write": 0, "kernel_build": 0}
+    assert set(warm["cost"]) == {str(b) for b in BUCKETS}
+    assert all(c["first_forward_s"] >= 0 and c["platform"] == "cpu" for c in warm["cost"].values())
+    assert eng.mesh_topology() is None and eng.bucket_sharding == {}
     for field, value in (("dispatch", "both"), ("batching", "dense")):
         bad = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, **{field: value}))
         with pytest.raises(ValueError, match=f"serve.{field}"):
@@ -262,14 +274,33 @@ def test_warmup_records_and_validation():
 
 @pytest.mark.parametrize("field,mode", [("dispatch", "dense"), ("batching", "bucket")])
 def test_auto_serve_modes_take_the_jax_fallback_without_a_race(field, mode):
-    """``serve.{dispatch,batching}=auto`` (the default, as in JAX) at S = 3
-    pins dense routing and bucket batching, and times and writes nothing:
-    the routing race's window leaves dense alone below S = 6, and the
-    batching race is not ported (ROADMAP A.11)."""
+    """``serve.dispatch=auto`` (the default, as in JAX) at S = 3 pins dense
+    routing and times and writes nothing: the routing race's window leaves
+    dense alone below S = 6. ``serve.batching=auto`` races bucket against
+    ragged per tier at warmup, as JAX's ``_tier_batching`` does, pins each
+    tier's winner, and writes the table; a second warmup reads it and times
+    and writes nothing (JAX's no-table fallback, ``mode``, now only stands
+    where the table has no entry)."""
     cfg = _cfg()
     assert getattr(cfg.serve, field) == "auto"
     eng, warm = _engine(cfg, _weights(cfg))
-    assert warm[field]["mode"] == {str(b): mode for b in BUCKETS}
-    summary = eng.dispatch_summary() if field == "dispatch" else eng.batching_summary()
-    assert summary["mode"] == mode
-    assert warm["work"] == {"measure": 0, "table_write": 0, "kernel_build": 0}
+    if field == "dispatch":
+        assert warm[field]["mode"] == {str(b): mode for b in BUCKETS}
+        assert eng.dispatch_summary()["mode"] == mode
+        return
+    table = batching_autotune.load_table()
+    for b in BUCKETS:
+        entry = warm["batching"]["race"][str(b)]
+        assert entry["key"] == f"cpu/cap{b}/dense/float32" and table[entry["key"]] == entry
+        assert set(entry["candidates"]) == {"bucket", "ragged"}
+        assert all(c["infer_ms"] > 0 for c in entry["candidates"].values())
+        assert warm["batching"]["mode"][str(b)] == entry["best_infer"]
+    assert warm["work"]["measure"] == len(BUCKETS) and warm["work"]["table_write"] == len(BUCKETS)
+    assert eng.continuous_admission == (entry["best_infer"] == "ragged")
+    assert batching_autotune.lookup(BUCKETS[-1], platform="cpu") == entry["best_infer"]
+    again, warm2 = _engine(cfg, _weights(cfg))
+    assert warm2["batching"]["mode"] == warm["batching"]["mode"]
+    assert warm2["work"] == {"measure": 0, "table_write": 0, "kernel_build": 0}
+    assert again.batching_summary()["mode"] in (mode, "ragged", "mixed")
+
+
