@@ -57,14 +57,20 @@ Phases, each of which exits non-zero on failure:
    waste, fill and B.2 launches logged, and it fails on a stranded future,
    request-path work, a served ``h`` off the CPU twin's ``offline_forward``
    by more than 1e-4 max|h| + 1e-5 (rows routed alike; routes equal where
-   the margin exceeds 1e-4) or fewer B.2 launches than served batches; then
+   the margin exceeds 1e-4) or B.2 launches in the traffic window (after
+   run_loadgen's offline reference and warmup) other than one a served
+   batch; beside it, below saturation (poisson 1000 rps, 2048 requests,
+   ragged, every request traced, under the torch profiler), the 2x2 pool
+   against one replica of one worker: latency, SLO, phases, the
+   per-replica completion split and the card's busy share; then
    ``run_server`` on port 0 in a thread with the port's ``ServeClient``
    (256 requests against the twin, a retried id that must not dispatch
    again, ``health``, ``metrics``, a ``swap`` to the ``v2`` tags whose
    answers must follow the v2 twin), ``run_loadgen_socket`` with 1024,
-   and a clean stop; last, one injected ``worker_exception`` on replica 1:
-   its batch's futures fail, the supervisor restarts the replica, every
-   other request is served;
+   and a clean stop; last, one injected ``worker_exception`` on replica 1's
+   second batch, traffic offered in waves until it has fired: its batch's
+   futures fail, the supervisor restarts the replica, every other request
+   is served, and the per-replica batch split is logged;
 7. training: at full width on data synthesized on the card (data_len 2048 per
    cell, cut from the reference's 20000 for time), five trainers each run one
    epoch (7 steps of 256 rows per cell, 2304 a step) and validate: HDCE
@@ -204,6 +210,12 @@ RACE_SHAPES = ((6, 3, 64), (6, 3, 2304), (8, 3, 64))
 TIER_REQUESTS = 4096
 TIER_ARRIVALS = (("poisson", 2000.0), ("bursty", 8000.0))
 TIER_DEADLINE_MS = 16.0
+# below saturation: both pools complete about 1720 rps at the 2000 rps point
+TIER_BELOW_RPS = 1000.0
+TIER_BELOW_REQUESTS = 2048
+# the fault phase offers waves of 16 until the fault fired (at least 512
+# requests, at most this many)
+FAULT_MAX_REQUESTS = 8192
 TIER_WORK = EVAL_WORK / "serve_tier"
 # the rotation-layer kernel's timed shape, and the unitary kernel's (the microbench's)
 ROT_N, UNI_N, WIDE_BATCH = 8, 6, 2304
@@ -912,6 +924,94 @@ def _hold_served(ref: tuple, h: np.ndarray, pred: np.ndarray, what: str) -> dict
             "routed_alike": int(same.sum()), "sure": int(sure.sum())}
 
 
+class _LaunchMark:
+    """A telemetry sink that copies the launch counters when the span
+    ``name`` closes. ``run_loadgen``'s ``serve_warmup`` closes after its
+    offline reference and its warmup forwards, so the launches after it are
+    the traffic's alone."""
+
+    active = True
+
+    def __init__(self, K, name: str):
+        self.K, self.name, self.at = K, name, None
+
+    def write_raw(self, rec: dict) -> None:
+        if rec.get("name") == self.name:
+            self.at = dict(self.K.launches)
+
+    def emit(self, kind: str, **fields) -> None:
+        """Counters and events: not this sink's business."""
+
+
+def _traffic_run(K, run):
+    """``run()`` (a ``run_loadgen`` call) with a :class:`_LaunchMark` as the
+    global span sink: ``(summary, B.2 launches in the traffic window)``."""
+    from qdml_tpu_torch.telemetry.spans import get_sink, set_sink
+
+    mark, prev = _LaunchMark(K, "serve_warmup"), get_sink()
+    set_sink(mark)
+    try:
+        sm = run()
+    finally:
+        set_sink(prev)
+    if mark.at is None:
+        raise AssertionError("serve_tier: run_loadgen closed no serve_warmup span")
+    return sm, K.launches["circuit_expvals"] - mark.at["circuit_expvals"]
+
+
+def _below_saturation(torch, cfg, wd, samples, card: str) -> None:
+    """The 2x2 pool against one replica of one worker at poisson
+    ``TIER_BELOW_RPS``, ``TIER_BELOW_REQUESTS`` requests, ragged, every
+    request traced, each run once under the torch profiler: latency, SLO,
+    sheds, per-phase p50, the per-replica completion split, and the card's
+    busy share (the union of device activities over the call's wall, which
+    also holds the offline reference's one forward and the warmup's seven).
+    Logged; it fails on a stranded future or request-path work."""
+    from dataclasses import replace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from qdml_tpu_torch.serve.engine import ServeEngine
+    from qdml_tpu_torch.serve.loadgen import run_loadgen
+    from qdml_tpu_torch.utils.profiling import device_busy_us
+
+    zero = {"measure": 0, "table_write": 0, "kernel_build": 0}
+    for reps, workers in ((2, 2), (1, 1)):
+        dcfg = replace(cfg, serve=replace(cfg.serve, batching="ragged", replicas=reps, workers=workers,
+                                          arrival="poisson", trace_sample=1.0))
+        eng = ServeEngine.from_workdir(dcfg, wd, device=DEVICE)
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sm = run_loadgen(dcfg, eng, rate=TIER_BELOW_RPS, n=TIER_BELOW_REQUESTS, deadline_ms=TIER_DEADLINE_MS,
+                             samples=samples)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        busy = device_busy_us(prof.events())
+        share = f"{busy / (window * 1e6):.4f}" if busy else "not measured (no device time in the trace)"
+        srv = sm["server_metrics"]
+        phases = {k: v.get("p50_ms") for k, v in (srv.get("phases") or {}).items()}
+        lat = sm["latency_ms"] or {}
+        log(f"serve_tier below saturation: ragged poisson {TIER_BELOW_RPS:g} rps n={TIER_BELOW_REQUESTS}, {reps} "
+            f"replica(s) x {workers} worker(s), traced, under the profiler: rps {sm['rps']}, offered {sm['offered_rps']}, "
+            f"p50 {lat.get('p50_ms')} ms, p99 {lat.get('p99_ms')} ms, SLO {json.dumps(sm['slo'])}, shed "
+            f"{json.dumps(sm['shed'])}, batches {sm['batches']}, fill {json.dumps(sm['batch_fill'])}, phase p50 ms "
+            f"{json.dumps(phases)}, replica_completed {srv.get('replica_completed')}, device busy {busy:.1f} us of a "
+            f"{window * 1e3:.3f} ms call, share {share} [{card}]")
+        if sm["stranded_futures"] or sm["failed_requests"] or sm["compile_cache_after_warmup"] != zero:
+            raise AssertionError(f"serve_tier below saturation {reps}x{workers}: stranded {sm['stranded_futures']}, "
+                                 f"failed {sm['failed_requests']}, work {sm['compile_cache_after_warmup']}")
+
+
+def _replica_batches(pool) -> dict[str, int]:
+    """Batches served by each replica name, restarted loops included."""
+    out: dict[str, int] = {}
+    for loop in pool.replicas + pool._retired + pool._quarantined:
+        out[loop.name] = out.get(loop.name, 0) + sum(m.batches for m in loop._worker_metrics)
+    return out
+
+
 def serve_tier_phase(torch, K, mods, card: str) -> dict[str, int]:
     """The serving tier at full width: ``ServeEngine.from_workdir``, warmup
     with ``serve.batching=auto`` (each tier's race logged), ``run_loadgen``
@@ -960,12 +1060,10 @@ def serve_tier_phase(torch, K, mods, card: str) -> dict[str, int]:
         eng = ServeEngine.from_workdir(mcfg, wd, device=DEVICE)
         for process, rate in TIER_ARRIVALS:
             mcfg_p = replace(mcfg, serve=replace(mcfg.serve, arrival=process))
-            before = dict(K.launches)
             results: list = []
-            sm = run_loadgen(mcfg_p, eng, rate=rate, n=TIER_REQUESTS, deadline_ms=TIER_DEADLINE_MS,
-                             samples=samples, results=results)
-            torch.cuda.synchronize()
-            b2 = K.launches["circuit_expvals"] - before["circuit_expvals"]
+            sm, b2 = _traffic_run(K, lambda: run_loadgen(
+                mcfg_p, eng, rate=rate, n=TIER_REQUESTS, deadline_ms=TIER_DEADLINE_MS, samples=samples,
+                results=results))
             served = [r for r in results if isinstance(r, Prediction)]
             ids = np.array([r.rid for r in served], dtype=np.int64)
             held = _hold_served(tuple(a[ids] for a in ref), np.stack([r.h for r in served]),
@@ -975,7 +1073,7 @@ def serve_tier_phase(torch, K, mods, card: str) -> dict[str, int]:
                 f"{TIER_DEADLINE_MS:g} ms: rps {sm['rps']}, offered {sm['offered_rps']}, goodput {sm['goodput_rps']}, "
                 f"p50 {lat.get('p50_ms')} ms, p99 {lat.get('p99_ms')} ms, SLO {json.dumps(sm['slo'])}, "
                 f"shed {json.dumps(sm['shed'])}, padding waste {sm['padding_waste']}, fill "
-                f"{json.dumps(sm['batch_fill'])}, batches {sm['batches']}, B.2 launches {b2}, "
+                f"{json.dumps(sm['batch_fill'])}, batches {sm['batches']}, B.2 launches in the traffic window {b2}, "
                 f"continuous {sm['batching']['continuous_admission']}, stranded {sm['stranded_futures']}, "
                 f"parity {sm['parity_max_abs_err']:.3e} (CPU twin {held['max_abs_err']:.3e}, tol "
                 f"{held['tol']:.3e}, routed alike {held['routed_alike']}/{held['rows']}) [{card}]")
@@ -988,11 +1086,11 @@ def serve_tier_phase(torch, K, mods, card: str) -> dict[str, int]:
                 raise AssertionError(f"serve_tier {mode} {process}: {sm['completed']} + {sm['n_shed']} answers")
             if sm["batching"]["continuous_admission"] != (mode == "ragged"):
                 raise AssertionError(f"serve_tier {mode}: {sm['batching']}")
-            if b2 < sm["batches"]:
+            if b2 != sm["batches"]:  # one launch a served batch at buckets <= 64
                 raise AssertionError(f"serve_tier {mode} {process}: B.2 launched {b2} times for {sm['batches']} batches")
 
-    # beside the 2x2 pool: one replica of one worker, ragged, poisson (how
-    # much the four threads' contention for the interpreter costs); logged
+    # beside the 2x2 pool: one replica of one worker, ragged, poisson at the
+    # same rate; logged
     one = replace(cfg, serve=replace(cfg.serve, batching="ragged", replicas=1, workers=1))
     sm = run_loadgen(one, ServeEngine.from_workdir(one, wd, device=DEVICE), rate=TIER_ARRIVALS[0][1],
                      n=TIER_REQUESTS, deadline_ms=TIER_DEADLINE_MS, samples=samples)
@@ -1002,6 +1100,7 @@ def serve_tier_phase(torch, K, mods, card: str) -> dict[str, int]:
         f"{json.dumps(sm['shed'])}, batches {sm['batches']}, stranded {sm['stranded_futures']} [{card}]")
     if sm["stranded_futures"] or sm["compile_cache_after_warmup"] != zero:
         raise AssertionError(f"serve_tier 1x1: stranded {sm['stranded_futures']}, work {sm['compile_cache_after_warmup']}")
+    _below_saturation(torch, cfg, wd, samples, card)
 
     # the socket server, the port's client, a swap to the v2 tags
     ready: Future = Future()
@@ -1052,19 +1151,24 @@ def serve_tier_phase(torch, K, mods, card: str) -> dict[str, int]:
     if server.is_alive():
         raise AssertionError("serve_tier: the socket server did not stop")
 
-    # one injected worker_exception: replica 1's second batch
+    # one injected worker_exception: replica 1's second batch. The replicas
+    # share one feed and replica 1 dequeues only when its workers win the
+    # race for it, so waves of 16 (each answered before the next: no queue
+    # overflow) go on until the fault has fired
     plan = FaultPlan([FaultSpec("worker_exception", at=1, replica="serve-replica-1")], seed=SEED)
     eng = ServeEngine.from_workdir(replace(cfg, serve=replace(cfg.serve, batching="bucket")), wd, device=DEVICE)
     pool = ReplicaPool(eng, faults=plan).start()
     outcome = {"served": 0, "failed": 0, "other": 0}
+    sent = 0
     try:
-        for lo in range(0, 512, 16):  # 16 at a time, each answered before the next: no queue overflow
-            for f in [pool.submit(x[i], rid=i) for i in range(lo, lo + 16)]:
+        while sent < FAULT_MAX_REQUESTS and (sent < 512 or not plan.fired):
+            for f in [pool.submit(x[(sent + i) % len(x)], rid=sent + i) for i in range(16)]:
                 try:
                     r = f.result(timeout=60.0)
                     outcome["served" if isinstance(r, Prediction) else "other"] += 1
                 except FaultInjected:
                     outcome["failed"] += 1
+            sent += 16
         deadline = time.monotonic() + 30.0
         while pool.health()["restarts"] < 1 and time.monotonic() < deadline:
             time.sleep(0.01)
@@ -1073,11 +1177,14 @@ def serve_tier_phase(torch, K, mods, card: str) -> dict[str, int]:
     finally:
         pool.stop()
     merged = pool.merged_metrics()
-    log(f"serve_tier fault: worker_exception at serve-replica-1's batch #1: {json.dumps(outcome)} of 512, "
+    log(f"serve_tier fault: worker_exception at serve-replica-1's batch #1: {json.dumps(outcome)} of {sent}, "
         f"restarts {health['restarts']}, faults {json.dumps(merged.faults)}, then 64 more served "
-        f"{sum(isinstance(r, Prediction) for r in later)}; fired {json.dumps(plan.fired)} [{card}]")
+        f"{sum(isinstance(r, Prediction) for r in later)}; fired {json.dumps(plan.fired)}; batches by replica "
+        f"{json.dumps(_replica_batches(pool))} [{card}]")
+    if not plan.fired:
+        raise AssertionError(f"serve_tier fault: serve-replica-1 took fewer than 2 batches of {sent} requests")
     if not (1 <= outcome["failed"] <= cfg.serve.max_batch and outcome["other"] == 0
-            and outcome["served"] + outcome["failed"] == 512):
+            and outcome["served"] + outcome["failed"] == sent):
         raise AssertionError(f"serve_tier fault: {outcome}")
     if health["restarts"] != 1 or merged.faults != {"worker_exception": 1} or health["replicas_live"] != 2:
         raise AssertionError(f"serve_tier fault: health {health}, faults {merged.faults}")

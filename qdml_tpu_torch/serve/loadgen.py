@@ -260,7 +260,6 @@ def run_loadgen(
     replicas: int | None = None,
     pool: ReplicaPool | None = None,
     drift_at: int | None = None,
-    faults=None,
     samples: dict | None = None,
     results: list | None = None,
 ) -> dict:
@@ -272,12 +271,11 @@ def run_loadgen(
     ``process`` selects the arrival process (default ``cfg.serve.arrival``);
     ``replicas`` sizes the :class:`~qdml_tpu_torch.serve.server.ReplicaPool`
     (default ``cfg.serve.replicas``, each with ``cfg.serve.workers``
-    workers), whose metrics the summary merges exactly. ``faults`` (a
-    :class:`~qdml_tpu_torch.serve.faults.FaultPlan`) arms the pool's fault
-    hooks; ``samples`` (:func:`make_request_samples`'s dict, at least ``n``
-    rows) replaces the generated requests; ``results``, a list, receives
-    every result that resolved, each with its request's index as ``rid`` (a
-    caller holding the served answers against a twin on another device).
+    workers), whose metrics the summary merges exactly. ``samples``
+    (:func:`make_request_samples`'s dict, at least ``n`` rows) replaces the
+    generated requests; ``results``, a list, receives every result that
+    resolved, each with its request's index as ``rid`` (a caller holding the
+    served answers against a twin on another device).
 
     ``drift_at`` injects channel-family drift from the traffic side
     (``serve.drift_step`` / ``serve.drift_scenario`` shape it): the summary
@@ -321,7 +319,7 @@ def run_loadgen(
     sink = None if logger is None else logger.telemetry
     if not external_pool:
         pool = ReplicaPool(
-            engine, replicas=replicas, sink=sink, log_requests=n <= 2048, faults=faults
+            engine, replicas=replicas, sink=sink, log_requests=n <= 2048
         ).start()
     rng = np.random.default_rng(seed)
     arrivals = arrival_times(
