@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (``qdml_tpu_torch``) on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA GPU and nvcc
+    python3 chip_smoke.py --only=multirank   # the build and phase 8k alone
+                                             # (on 4+ cards: NCCL, one a rank)
 
 Phases, each of which exits non-zero on failure:
 
@@ -16,8 +18,9 @@ Phases, each of which exits non-zero on failure:
    gradients of the QSC, rotation-layer and unitary kernels against autograd
    through the plain versions, the adjoint kernel against autograd through
    the plain forward, and the out-of-window qubit counts that must raise.
-   No entry point reaches the rotation-layer kernel (the JAX package reaches
-   its own only from ``tests/test_pallas.py``), so this phase is its path;
+   The rotation-layer kernel's entry point is the sharded statevector
+   (phase 8k; the JAX package reaches its own only from
+   ``tests/test_pallas.py``);
 4. autotune: the circuit-impl race (``quantum/autotune.ensure``, forced) on
    the card at n=6 L=3 buckets 64 and 4096 (the training step's 2304 rows)
    and n=8 L=3 bucket 64, into a table under ``build/chip_smoke/autotune/``;
@@ -146,12 +149,35 @@ Phases, each of which exits non-zero on failure:
 8j. bench: ``python -m qdml_tpu_torch.bench`` in-process (48 steps a row,
    ``qsc_scaling`` at n 4 and 16), its one JSON line printed; every row
    must be measured;
+8k. multirank: worlds of ranks that all compute on ``cuda:0`` and exchange
+   over gloo staged through host memory (``QDML_TORCH_DIST_BACKEND=gloo``,
+   ``--device=cuda:0``; NCCL refuses two ranks of one communicator on one
+   card), started by ``parallel/selfcheck.spawn_world`` (ranks log to files
+   under ``build/chip_smoke/multirank/``; a rank that exits non-zero or a
+   world past 300 s, killed, fails the smoke): the sharded statevector at
+   n=16, L=3, B=64 on 2 and 4 ranks against the one-rank ``tensor`` path
+   on the card (rtol 1e-3 / atol 1e-4 for <Z> and the gradients; each
+   shard on ``cuda:0``; L B.3 launches a forward on every rank; each rank's
+   forward and forward+backward ms and the share in exchanges);
+   ``train-qsc --preset=sharded_16q`` on 4 ranks (2 steps of 144 rows, cut
+   for time and the one-rank reference's memory) against one rank, B.3
+   launched L times a forward on every rank; ``dp_8q`` ``train-hdce`` and
+   ``train-qsc`` on 2 ranks through ``torch.distributed.run`` (4 steps of
+   2304 rows each, full width) against one rank, B.2's forward and adjoint
+   launched on both ranks; ``federated`` ``train-hdce`` (4 steps), ``eval``
+   (two SNR points of 400 samples) and rank 0's checkpoint restored on the
+   mesh (each scenario's rows through its own rank's trunk) on 3 ranks,
+   the losses, the per-SNR NMSE and that ``h`` against one rank's
+   (rtol 1e-4). The kernel launches of the training worlds, summed over
+   their ranks (each rank counts from 0 at each step), join the path's
+   launches: B.3's are the sharded_16q world's;
 9. times: each kernel and its plain version at its path's shapes (CUDA
    events), the member-axis forward and adjoint beside E one-member
    launches of the same work, each kernel's device time per launch (torch profiler) over batch
    sizes (the adjoint at n 8 and 12, L=3, B 64 and 2304; the forward at n 8
    and 12, L=3, B 1 and 64, and 2304 with the state; the QSC kernel at the
-   batches its launches run at; the rotation layer at n 8 and 14, B 1 and
+   batches its launches run at; the rotation layer at its main-path shape
+   (n=14, B=144) and at n 8 and 14, B 1 and
    2304, and at n 20, B 64; the unitary kernel at n 6, B 2304, n 10, B 1 and
    2304, and n 14, B 1, beside the complex64 ``torch.matmul`` alone), each
    with its bound, the card's launch floor (the device
@@ -218,7 +244,10 @@ TIER_BELOW_REQUESTS = 2048
 FAULT_MAX_REQUESTS = 8192
 TIER_WORK = EVAL_WORK / "serve_tier"
 # the rotation-layer kernel's timed shape, and the unitary kernel's (the microbench's)
-ROT_N, UNI_N, WIDE_BATCH = 8, 6, 2304
+UNI_N, WIDE_BATCH = 6, 2304
+# B.3's main-path shape: a shard's local wires in the sharded_16q world (4
+# ranks, 2^14 amplitudes a shard) over the 144 rows of a training step
+ROT_N, ROT_BATCH = 14, 144
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and fp32 non-tensor rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -2340,6 +2369,217 @@ def routing_phase(torch, mods, card: str) -> None:
             f"(max |sparse - dense| <= 1e-5) [{card}]")
 
 
+# the multirank phase: with fewer than 4 visible cards every rank of a world
+# computes on cuda:0 and exchanges over gloo, staged through host memory
+# (NCCL refuses two ranks of one communicator on one card); with 4 or more,
+# rank r runs on cuda:r and the worlds take NCCL, the port's default on the
+# card. The one-rank references run on cuda:0. Logs and results under
+# build/chip_smoke/multirank
+MR_WORK = EVAL_WORK / "multirank"
+MR_DEVICE = "cuda:0"
+MR_SHARED_ENV = {"QDML_TORCH_DIST_BACKEND": "gloo"}
+MR_TIMEOUT_S = 300
+# the sharded statevector's check: n=16, L=3, B=64 on 2 and 4 ranks (k = 1, 2)
+MR_SHARDED = (16, 3, 64)
+# dp_8q and federated at full width: data_len 1140 a cell gives 1026 train
+# rows (4 steps of 256) and 114 validation rows (one batch), cut for time
+MR_DATA_LEN, MR_STEPS = 1140, 4
+# sharded_16q: 2 steps of 16 rows a cell (144 rows x 2^16 amplitudes a step;
+# the one-rank tensor reference keeps every gate's state for its backward),
+# data_len 36 (32 train rows, 4 validation rows), cut for time and memory
+MR_SHARDED_ARGS = ("--data.data_len=36", "--train.batch_size=16")
+MR_SHARDED_STEPS, MR_SHARDED_VAL = 2, 1
+# the federated eval: two SNR points of 400 test samples, cut for time
+MR_EVAL_TEST_LEN = 400
+MR_EVAL_ARGS = (f"--eval.test_len={MR_EVAL_TEST_LEN}", "--eval.snr_grid=5,15")
+
+
+def _mr_world(
+    name: str, nproc: int, steps: list[str], shared: bool, inp: Path | None = None, launcher: bool = False
+) -> list[dict]:
+    """Run ``selfcheck`` STEPS as a world of ``nproc`` ranks, all on
+    ``cuda:0`` over gloo when ``shared``, else one card a rank over NCCL;
+    every rank's record, in rank order. A rank that exits non-zero, or a
+    world past its timeout (killed), fails the smoke."""
+    from qdml_tpu_torch.parallel.selfcheck import read_ranks, spawn_world
+
+    out, logs = MR_WORK / name / "out", MR_WORK / name / "logs"
+    argv = ["-m", "qdml_tpu_torch.parallel.selfcheck", *steps, f"--out={out}"]
+    if shared:
+        argv.append(f"--device={MR_DEVICE}")
+    if inp is not None:
+        argv.append(f"--in={inp}")
+    t0 = time.perf_counter()
+    rcs = spawn_world(nproc, argv, logs, env=MR_SHARED_ENV if shared else {}, timeout_s=MR_TIMEOUT_S,
+                      launcher=launcher)
+    if any(rcs):
+        report = {}
+        for f in sorted(logs.glob("*.log")):
+            lines = f.read_text(errors="replace").splitlines()
+            errors = [ln for ln in lines if "Error" in ln or "error" in ln or "WARN" in ln][:12]
+            report[f.name] = errors + lines[-8:]
+        raise AssertionError(f"multirank world {name}: exit codes {rcs}; log lines {json.dumps(report, indent=1)}")
+    log(f"multirank world {name}: {nproc} ranks{' via torch.distributed.run' if launcher else ''}, "
+        f"{time.perf_counter() - t0:.2f} s wall")
+    return read_ranks(out, nproc)
+
+
+def _mr_history(path: Path, keys: tuple[str, ...]) -> list[list[float]]:
+    rows = [json.loads(line) for line in open(path) if '"epoch"' in line and "train_loss" in line]
+    return [[r[k] for k in keys] for r in rows]
+
+
+def _mr_same(got, want, rtol: float, what: str, card: str) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30))) if want.size else 0.0
+    log(f"multirank {what}: max relative error {err:.3e} (rtol {rtol}) [{card}]")
+    if got.shape != want.shape or err > rtol:
+        raise AssertionError(f"multirank {what}: {got.tolist()} vs one rank {want.tolist()}")
+    return err
+
+
+def multirank_phase(torch, K, mods, card: str) -> dict[str, int]:
+    """The multi-rank paths on the card: worlds whose ranks all use
+    ``cuda:0`` over host-staged gloo, or, with 4 or more visible cards, one
+    card a rank over NCCL; each held against the one-rank run of the same
+    work on ``cuda:0``. Returns the kernel launches of the entry-point runs
+    (the training worlds), summed over their ranks."""
+    from qdml_tpu_torch.quantum.circuits import run_circuit
+
+    cli, cfg_mod = mods["cli"], mods["config"]
+    shared = torch.cuda.device_count() < 4
+    flag = f" --device={MR_DEVICE}" if shared else ""
+    how = "host-staged gloo, ranks share one card" if shared else "NCCL, one card a rank"
+    log(f"multirank: {how} ({torch.cuda.device_count()} visible cards) [{card}]")
+    shutil.rmtree(MR_WORK, ignore_errors=True)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks' own
+    main_path = {k: 0 for k in K.COUNTERS}
+
+    # 1. the sharded statevector against the one-rank tensor path, n=16 L=3 B=64
+    n, layers, batch = MR_SHARDED
+    rng = np.random.default_rng(SEED + 12)
+    a = torch.tensor(rng.uniform(-1, 1, (batch, n)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(0, 2 * np.pi, (layers, n, 2)), dtype=torch.float32)
+    a_ref, w_ref = a.to(MR_DEVICE).requires_grad_(True), w.to(MR_DEVICE).requires_grad_(True)
+    want = run_circuit(a_ref, w_ref, n, layers, impl="tensor")
+    (want**2).sum().backward()
+    want, ga, gw = (t.detach().cpu().numpy() for t in (want, a_ref.grad, w_ref.grad))
+    inp = MR_WORK / "circuit_in"
+    inp.mkdir(parents=True)
+    torch.save({"cases": [{"n": n, "layers": layers, "angles": a, "weights": w}], "reps": 5}, inp / "circuit.pt")
+    for k_ranks in (2, 4):
+        for r in _mr_world(f"sharded_k{k_ranks}", k_ranks, ["circuit"], shared, inp):
+            got = r["steps"][0]["cases"][0]
+            errs = {key: float(np.max(np.abs(np.asarray(got[key]) - ref)))
+                    for key, ref in (("ev", want), ("g_angles", ga), ("g_weights", gw))}
+            for key, ref in (("ev", want), ("g_angles", ga), ("g_weights", gw)):
+                np.testing.assert_allclose(got[key], ref, rtol=1e-3, atol=1e-4, err_msg=f"rank {r['rank']} {key}")
+            want_dev = MR_DEVICE if shared else f"cuda:{r['rank']}"
+            if got["device"] != want_dev:
+                raise AssertionError(f"sharded rank {r['rank']} ran on {got['device']}, not {want_dev}")
+            if got["rotation_layer_launches_per_forward"] != layers:
+                raise AssertionError(f"sharded rank {r['rank']}: {got['rotation_layer_launches_per_forward']} "
+                                     f"B.3 launches a forward, want {layers}")
+            log(f"multirank sharded n={n} L={layers} B={batch} ranks={k_ranks} rank {r['rank']}: shard "
+                f"({batch}, {got['shard_amplitudes']}) on {got['device']}, B.3 launches a forward "
+                f"{got['rotation_layer_launches_per_forward']}, max abs err vs one-rank tensor {errs}, "
+                f"fwd {got['fwd_ms']:.3f} ms (exchanges {got['fwd_exchange_ms']:.3f} ms, "
+                f"{got['fwd_exchange_ms'] / got['fwd_ms']:.1%}), fwd+bwd {got['fwd_bwd_ms']:.3f} ms "
+                f"(exchanges {got['fwd_bwd_exchange_ms']:.3f} ms, "
+                f"{got['fwd_bwd_exchange_ms'] / got['fwd_bwd_ms']:.1%}); {how} "
+                f"[{card}]")
+
+    def one_rank(argv: list[str]) -> None:
+        if cli.main([*argv, f"--device={MR_DEVICE}"]) != 0:
+            raise AssertionError(f"one-rank cli {argv} failed")
+
+    def add(ranks: list[dict]) -> None:
+        for r in ranks:
+            for step in r["steps"]:
+                for k, v in step["launches"].items():
+                    main_path[k] += v
+
+    # 2. train-qsc --preset=sharded_16q on 4 ranks against one rank (tensor at n=16)
+    wd = MR_WORK / "sharded_16q"
+    args = ["train-qsc", "--preset=sharded_16q", *MR_SHARDED_ARGS, "--train.n_epochs=1"]
+    ranks = _mr_world("sharded_16q", 4, [f"cli:{' '.join(args)}{flag} --train.workdir={wd / 'many'}"], shared)
+    one_rank([*args, f"--train.workdir={wd / 'one'}"])
+    keys = ("train_loss", "val_loss", "val_acc")
+    _mr_same(_mr_history(wd / "many" / "Pn_128" / "sharded_16q" / "train-qsc.metrics.jsonl", keys),
+             _mr_history(wd / "one" / "Pn_128" / "sharded_16q" / "train-qsc.metrics.jsonl", keys),
+             1e-4, "sharded_16q train-qsc 4 ranks vs 1 (train loss, val loss, val acc)", card)
+    b3 = [r["steps"][0]["launches"]["rotation_layer"] for r in ranks]
+    want_b3 = 3 * (MR_SHARDED_STEPS + MR_SHARDED_VAL)  # L forwards a training step and a validation batch
+    log(f"multirank sharded_16q: B.3 launches by rank {b3} (want {want_b3} each) [{card}]")
+    if b3 != [want_b3] * 4:
+        raise AssertionError(f"sharded_16q: B.3 launches by rank {b3}, want {want_b3} on every rank")
+    add(ranks)
+
+    # 3. dp_8q: train-hdce and train-qsc on 2 ranks (through torch.distributed.run)
+    wd = MR_WORK / "dp_8q"
+    common = ["--preset=dp_8q", f"--data.data_len={MR_DATA_LEN}", "--train.n_epochs=1",
+              f"--quantum.autotune_table={wd / 'qsc_impl.json'}"]
+    ranks = _mr_world("dp_8q", 2, [
+        f"cli:{cmd} {' '.join(common)}{flag} --train.workdir={wd / 'many'}"
+        for cmd in ("train-hdce", "train-qsc")
+    ], shared, launcher=True)
+    for cmd in ("train-hdce", "train-qsc"):
+        one_rank([cmd, *common, f"--train.workdir={wd / 'one'}"])
+    for cmd, keys in (("train-hdce", ("train_loss", "val_nmse")), ("train-qsc", ("train_loss", "val_loss", "val_acc"))):
+        _mr_same(_mr_history(wd / "many" / "Pn_128" / "dp_8q" / f"{cmd}.metrics.jsonl", keys),
+                 _mr_history(wd / "one" / "Pn_128" / "dp_8q" / f"{cmd}.metrics.jsonl", keys),
+                 1e-4, f"dp_8q {cmd} 2 ranks vs 1 ({', '.join(keys)})", card)
+    for r in ranks:
+        qsc = r["steps"][1]["launches"]
+        log(f"multirank dp_8q rank {r['rank']} train-qsc launches: {json.dumps(qsc)} [{card}]")
+        if qsc["circuit_expvals"] < MR_STEPS or qsc["circuit_adjoint"] < MR_STEPS:
+            raise AssertionError(f"dp_8q rank {r['rank']}: B.2 forward/adjoint launches {qsc}")
+    add(ranks)
+
+    # 4. federated: train-hdce on 3 ranks, then eval and the restored h on 3 ranks
+    wd = MR_WORK / "federated"
+    common = ["--preset=federated", f"--data.data_len={MR_DATA_LEN}", "--train.n_epochs=1"]
+    one_rank(["train-sc", *common, f"--train.workdir={wd / 'many'}"])  # the classifier eval restores
+    cfg = cfg_mod.from_args([*common, f"--train.workdir={wd / 'many'}"])
+    x = torch.tensor(np.random.default_rng(SEED + 13).standard_normal((3, 64, 2, *cfg.image_hw)), dtype=torch.float32)
+    hin = MR_WORK / "hdce_h_in"
+    hin.mkdir(parents=True)
+    torch.save({"cfg": cfg, "workdir": cli.workdir_of(cfg), "tag": "hdce_last", "x": x}, hin / "hdce_h.pt")
+    ranks = _mr_world("federated", 3, [
+        f"cli:train-hdce {' '.join(common)}{flag} --train.workdir={wd / 'many'}",
+        f"cli:eval {' '.join(common)} {' '.join(MR_EVAL_ARGS)}{flag} "
+        f"--train.workdir={wd / 'many'} --eval.results_dir={wd / 'results_many'}",
+        "hdce-h",
+    ], shared, hin)
+    one_rank(["train-hdce", *common, f"--train.workdir={wd / 'one'}"])
+    one_rank(["eval", *common, *MR_EVAL_ARGS, f"--train.workdir={wd / 'many'}", f"--eval.results_dir={wd / 'results_one'}"])
+    _mr_same(_mr_history(wd / "many" / "Pn_128" / "federated" / "train-hdce.metrics.jsonl", ("train_loss", "val_nmse")),
+             _mr_history(wd / "one" / "Pn_128" / "federated" / "train-hdce.metrics.jsonl", ("train_loss", "val_nmse")),
+             1e-4, "federated train-hdce 3 ranks vs 1 (train loss, val nmse)", card)
+    got = json.loads((wd / "results_many" / "quantum_classical_comparison.json").read_text())
+    ref = json.loads((wd / "results_one" / "quantum_classical_comparison.json").read_text())
+    if got["snr"] != ref["snr"] or set(got["nmse_db"]) != set(ref["nmse_db"]) or set(got["acc"]) != set(ref["acc"]):
+        raise AssertionError(f"federated eval: {got} vs one rank {ref}")
+    for clf in ref["acc"]:  # the same predictions, but for a row on a cuDNN rounding tie
+        np.testing.assert_allclose(got["acc"][clf], ref["acc"][clf], rtol=0, atol=1.01 / MR_EVAL_TEST_LEN, err_msg=clf)
+    _mr_same([got["nmse_db"][c] for c in sorted(ref["nmse_db"])], [ref["nmse_db"][c] for c in sorted(ref["nmse_db"])],
+             1e-4, "federated eval 3 ranks vs 1 (per-SNR NMSE dB of every curve)", card)
+    hdce = mods["hdce"].build_hdce(cfg, MR_DEVICE)
+    from qdml_tpu_torch.train.checkpoint import restore_params
+
+    hdce.load_state_dict(restore_params(cli.workdir_of(cfg), "hdce_last", MR_DEVICE)[0]["params"])
+    with torch.no_grad():
+        h_one = hdce(x.to(MR_DEVICE)).cpu().numpy()
+    h_many = torch.load(MR_WORK / "federated" / "out" / "h.pt").numpy()
+    h_err = float(np.max(np.abs(h_many - h_one)))
+    log(f"multirank federated: rank 0's checkpoint on one rank vs the 3-rank model, h of a fixed (3, 64) batch: "
+        f"max abs err {h_err:.3e} (max |h| {np.abs(h_one).max():.3e}) [{card}]")
+    np.testing.assert_allclose(h_many, h_one, rtol=1e-4, atol=1e-5)
+    add(ranks)
+    log(f"multirank main-path launches (training worlds, summed over ranks): {json.dumps(main_path)} [{card}]")
+    return main_path
+
+
 def bench_phase(card: str) -> None:
     """``python -m qdml_tpu_torch.bench`` in this process at 48 timed steps
     a row (3 dispatches of K=16 on the scan rows), ``qsc_scaling`` at n = 4
@@ -2359,6 +2599,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    only_multirank = sys.argv[1:] == ["--only=multirank"]
+    if sys.argv[1:] and not only_multirank:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; want none or --only=multirank", file=sys.stderr)
+        return 2
 
     from qdml_tpu_torch import cli
     from qdml_tpu_torch import config as cfg_mod
@@ -2373,11 +2617,13 @@ def main() -> int:
     from qdml_tpu_torch.utils.device import resolve_device
 
     resolve_device()  # float32 matmuls and convs (no TF32)
-    card = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(f"gpu: {card}")
+    ).stdout.strip().splitlines()
+    card = cards[0]
+    for i, c in enumerate(cards):
+        log(f"gpu{'' if i == 0 else f' {i}'}: {c}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     def log_build(secs: dict, t0: float) -> None:
@@ -2427,6 +2673,19 @@ def main() -> int:
         phase_s[name] = round(time.perf_counter() - t, 2)
         return out
 
+    from qdml_tpu_torch.train import scan as scan_mod
+
+    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "cli": cli, "dce": dce_mod,
+            "scan": scan_mod}
+    if only_multirank:
+        unitary_ready()
+        launches = phase("multirank", multirank_phase, torch, K, mods, card)
+        log(f"multirank launches: {json.dumps(launches)}; phase wall seconds: {json.dumps(phase_s)} [{card}]")
+        print(json.dumps({"ok": True, "phase": "multirank", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+
     K.reset_launch_counts()
     worst = phase("kernels", check_kernels, torch, K, circuits, unitary_ready)
     kernel_phase = dict(K.launches)
@@ -2444,10 +2703,6 @@ def main() -> int:
         "serve dispatch", serve_dispatch, torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod, engines, card
     )
     micro_launches = phase("microbench", microbench, torch, K, card)
-    from qdml_tpu_torch.train import scan as scan_mod
-
-    mods = {"config": cfg_mod, "datasets": datasets, "hdce": hdce_mod, "qsc": train_qsc, "cli": cli, "dce": dce_mod,
-            "scan": scan_mod}
     tier_launches = phase("serve_tier", serve_tier_phase, torch, K, mods, card)
     train_launches, adjoint_per_step, train_data = phase("train", train, torch, K, mods, card)
     dce_launches = phase("dce", dce_phase, torch, K, mods, card, train_data)
@@ -2462,16 +2717,17 @@ def main() -> int:
     phase("mps", mps_phase, torch, K, mods, card)
     scaling_launches = phase("scaling", scaling_phase, torch, K, card)
     phase("bench", bench_phase, card)
+    multirank_launches = phase("multirank", multirank_phase, torch, K, mods, card)
     t_times = time.perf_counter()
     launches = {
         k: race_launches[k] + launches[k] + dispatch_launches[k] + micro_launches[k] + train_launches[k]
         + dce_launches[k] + eval_launches[k] + nat_launches[k] + scan_launches[k] + lowp_launches[k]
-        + scaling_launches[k] + tier_launches[k]
+        + scaling_launches[k] + tier_launches[k] + multirank_launches[k]
         for k in launches
     }
-    # No entry point reaches B.3 (the JAX package runs its kernel only from
-    # tests/test_pallas.py:65-83), so its path is the kernel phase.
-    launches["rotation_layer"] = kernel_phase["rotation_layer"]
+    # B.3's one entry point is the sharded statevector's local wires: its
+    # launches are the sharded_16q training world's (every rank's)
+    log(f"rotation_layer launches in the kernel phase's checks (not counted): {kernel_phase['rotation_layer']}")
     log(f"launches on each kernel's path: {json.dumps(launches)}")
     for k, v in launches.items():
         if v == 0:
@@ -2508,18 +2764,18 @@ def main() -> int:
                 "bound": bound(*adjoint_work(b, 8, 3)),
             }
 
-        # the rotation layer at n=8, B=2304 and the unitary kernel at the
+        # the rotation layer at its main-path shape (n=14, B=144) and the unitary kernel at the
         # microbench's n=6, B=2304, with the complex product alone beside it
         from qdml_tpu_torch.utils.complexops import CArr
 
-        r_re = torch.tensor(rng.standard_normal((WIDE_BATCH, 1 << ROT_N)), dtype=torch.float32, device=dev)
-        r_im = torch.tensor(rng.standard_normal((WIDE_BATCH, 1 << ROT_N)), dtype=torch.float32, device=dev)
+        r_re = torch.tensor(rng.standard_normal((ROT_BATCH, 1 << ROT_N)), dtype=torch.float32, device=dev)
+        r_im = torch.tensor(rng.standard_normal((ROT_BATCH, 1 << ROT_N)), dtype=torch.float32, device=dev)
         w_l = torch.tensor(rng.uniform(-3, 3, (ROT_N, 2)), dtype=torch.float32, device=dev)
         rot_args = (CArr(r_re, r_im), w_l, ROT_N)
         rot = {
             "ms": event_ms(torch, lambda: K.apply_rotation_layer(*rot_args)),
             "plain_ms": event_ms(torch, lambda: K.rotation_layer_plain(r_re, r_im, w_l, ROT_N), reps=10, inner=5),
-            "bound": bound(*rotation_work(WIDE_BATCH, ROT_N)),
+            "bound": bound(*rotation_work(ROT_BATCH, ROT_N)),
         }
         p_re = torch.tensor(rng.standard_normal((WIDE_BATCH, 1 << UNI_N)), dtype=torch.float32, device=dev)
         p_im = torch.tensor(rng.standard_normal((WIDE_BATCH, 1 << UNI_N)), dtype=torch.float32, device=dev)
@@ -2594,7 +2850,7 @@ def main() -> int:
     def shown_us(us):
         return f"{us:.3f} us" if us is not None else "not measured (no device time in the trace)"
 
-    log(f"time rotation_layer n={ROT_N} B={WIDE_BATCH}: wrapper {rot['ms']:.5f} ms, device "
+    log(f"time rotation_layer n={ROT_N} B={ROT_BATCH}: wrapper {rot['ms']:.5f} ms, device "
         f"{shown_us(rot['device_us'])} per launch, plain {rot['plain_ms']:.5f} ms, bound "
         f"{rot['bound'][0]:.3e} ms ({rot['bound'][1]}) [{card}]")
     log(f"time unitary_expvals n={UNI_N} B={WIDE_BATCH}: wrapper {uni['ms']:.5f} ms, device "

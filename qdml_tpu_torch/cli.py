@@ -15,13 +15,23 @@
     python -m qdml_tpu_torch.cli loadgen      [--rate=200] [--n=512] [--drift-at=K] [...]
 
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
-package, and ``--preset=NAME`` starts from one of its presets
-(``single_4q``, ``nat_sweep``, ``robust_qsc``; the mesh presets raise until
-ROADMAP A.10's multi-rank half), among them the low-precision levers
-(``--model.dtype=bfloat16``, ``--train.moments_dtype=bfloat16``,
-``--data.trig_impl=split``, ``--data.rng_impl=``) and ``--quantum.mps_chi=``
-for the ``mps`` circuit impl. Runs on the card unless ``--device=cpu`` is
-given. With
+package, and ``--preset=NAME`` starts from one of its presets (``single_4q``,
+``dp_8q``, ``sharded_16q``, ``federated``, ``nat_sweep``, ``robust_qsc``),
+among them the low-precision levers (``--model.dtype=bfloat16``,
+``--train.moments_dtype=bfloat16``, ``--data.trig_impl=split``,
+``--data.rng_impl=``) and ``--quantum.mps_chi=`` for the ``mps`` circuit
+impl. Runs on the card unless ``--device=cpu`` is given.
+
+Several ranks: under ``python -m torch.distributed.run --nproc_per_node=R
+-m qdml_tpu_torch.cli <command> ...`` (or any launcher that sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) the
+process joins the world before it builds any model or data, rank r runs on
+``cuda:{LOCAL_RANK}`` unless ``--device`` names one, and ``train-hdce``,
+``train-sc``, ``train-qsc``, ``nat-sweep`` and ``eval`` lay themselves on
+the ``--mesh.*`` layout (:mod:`qdml_tpu_torch.parallel`). Rank 0 alone
+writes logs, metrics files, checkpoints and results. The other commands run
+on one rank; ``serve`` and ``loadgen`` under a world raise (mesh serving is
+ROADMAP A.14). With
 ``quantum.impl=auto`` (the default) ``train-qsc`` times the circuit impls on
 the card before its first step and logs the winners (``kind=
 "quantum_autotune"``); the table is ``results_torch/autotune/qsc_impl.json``
@@ -65,6 +75,8 @@ COMMANDS = (
     "train-hdce", "train-dce", "train-sc", "train-qsc", "nat-sweep", "eval", "profile", "gen-data",
     "import-torch", "export-torch", "loss-curves", "serve", "loadgen",
 )
+# the commands that lay themselves on a mesh under a world of several ranks
+MESH_COMMANDS = ("train-hdce", "train-sc", "train-qsc", "nat-sweep", "eval")
 
 
 def workdir_of(cfg: cfg_mod.ExperimentConfig) -> str:
@@ -73,16 +85,21 @@ def workdir_of(cfg: cfg_mod.ExperimentConfig) -> str:
 
 
 def _eval(cfg: cfg_mod.ExperimentConfig, workdir: str, device, logger: MetricsLogger) -> None:
-    """``qdml_tpu/cli.py:307-354``, dense dispatch on one device."""
+    """``qdml_tpu/cli.py:307-354``, dense dispatch; under a world of several
+    ranks on the training mesh (``:330-344``), rank 0 writing the results."""
     from qdml_tpu_torch.eval.report import (
         create_comparison_plots,
         results_markdown_table,
         save_results_json,
     )
     from qdml_tpu_torch.eval.sweep import load_sweep_models, run_snr_sweep
+    from qdml_tpu_torch.parallel.mesh import training_mesh
 
-    cfg, models = load_sweep_models(cfg, workdir, device)
-    results = run_snr_sweep(cfg, models, logger=logger, device=device)
+    mesh = training_mesh(cfg, device)
+    cfg, models = load_sweep_models(cfg, workdir, device, mesh)
+    results = run_snr_sweep(cfg, models, logger=logger, device=device, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return
     out_json = save_results_json(results, cfg.eval.results_dir)
     out_png = create_comparison_plots(results, cfg.eval.results_dir)
     table = results_markdown_table(results)
@@ -207,9 +224,10 @@ def _serve(cmd: str, cfg: cfg_mod.ExperimentConfig, workdir: str, device, extra:
     restored from ``workdir``."""
     import json
 
-    from qdml_tpu_torch.serve.engine import ServeEngine, serve_mesh
+    from qdml_tpu_torch.parallel.mesh import serve_mesh
+    from qdml_tpu_torch.serve.engine import ServeEngine
 
-    serve_mesh(cfg, device)  # one device: validates the knobs, or raises (A.10)
+    serve_mesh(cfg, device)  # one rank on one device: validates the knobs, or raises (A.14)
     engine = ServeEngine.from_workdir(cfg, workdir, device=device)
     if cmd == "serve":
         from qdml_tpu_torch.serve.server import run_server
@@ -234,6 +252,18 @@ def _serve(cmd: str, cfg: cfg_mod.ExperimentConfig, workdir: str, device, extra:
 
 
 def main(argv: list[str] | None = None) -> int:
+    from qdml_tpu_torch.parallel.mesh import leave_world
+
+    try:
+        rc = _main(argv)
+    except BaseException:
+        leave_world(sync=False)
+        raise
+    leave_world()  # after rank 0's writes, every rank leaves together
+    return rc
+
+
+def _main(argv: list[str] | None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
@@ -256,6 +286,18 @@ def main(argv: list[str] | None = None) -> int:
     cfg = cfg_mod.from_args(overrides)
     workdir = workdir_of(cfg)
     t0 = time.time()
+    # join the launcher's world before any model or data is built
+    # (qdml_tpu/cli.py:265-270); a failed rendezvous raises
+    from qdml_tpu_torch.parallel.mesh import rank_device, world_rank
+    from qdml_tpu_torch.parallel.multihost import init_distributed_from_env
+
+    if init_distributed_from_env(device):
+        device = str(rank_device(device))
+        if cmd not in MESH_COMMANDS + ("serve", "loadgen"):
+            raise NotImplementedError(
+                f"{cmd} has no mesh path; run it on one rank (mesh commands: {MESH_COMMANDS})"
+            )
+    rank0 = world_rank() == 0
     if cmd == "gen-data":
         from qdml_tpu_torch.data.datasets import save_npy_cache
 
@@ -289,14 +331,15 @@ def main(argv: list[str] | None = None) -> int:
         written = _export_torch(cfg, extra.get("--out", "torch_ckpts"), workdir, resolve_device(device))
         print("wrote:\n  " + "\n  ".join(written))
         return 0
-    logger = MetricsLogger(os.path.join(workdir, f"{cmd}.metrics.jsonl"))
+    logger = MetricsLogger(os.path.join(workdir, f"{cmd}.metrics.jsonl") if rank0 else None, echo=rank0)
     try:
         if cmd in ("serve", "loadgen"):
             _serve(cmd, cfg, workdir, device, extra, logger)
             return 0
         if cmd == "eval":
             _eval(cfg, workdir, device, logger)
-            print(f"eval done in {time.time() - t0:.1f}s")
+            if rank0:
+                print(f"eval done in {time.time() - t0:.1f}s")
             return 0
         if cmd == "train-hdce":
             from qdml_tpu_torch.train.hdce import train_hdce
@@ -320,7 +363,8 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         logger.close()
     last = {k: v[-1] for k, v in history.items() if v}
-    print(f"{cmd} done in {time.time() - t0:.1f}s: {last}; checkpoints in {workdir}")
+    if rank0:
+        print(f"{cmd} done in {time.time() - t0:.1f}s: {last}; checkpoints in {workdir}")
     return 0
 
 

@@ -6,9 +6,10 @@ carried: the channel geometry and dataset fields of ``DataConfig``,
 ``ModelConfig``, ``QuantumConfig`` with its training knobs, ``TrainConfig``,
 ``EvalConfig``, ``ServeConfig`` (buckets, dispatch, the micro-batcher, the
 replica pool, supervision, the breaker, the socket server and loadgen's
-traffic knobs), and the geometry-derived widths of ``ExperimentConfig``.
-Mesh, fleet and control configuration are not ported yet (ROADMAP A.10,
-multi-rank half; A.11, parts 2-3). ``model.kernel_size``,
+traffic knobs), ``MeshConfig`` (the ``(fed, data, model)`` layout of a
+``torch.distributed`` world, :mod:`qdml_tpu_torch.parallel`), and the
+geometry-derived widths of ``ExperimentConfig``. Fleet and control
+configuration are not ported yet (ROADMAP A.11, parts 2-3). ``model.kernel_size``,
 ``model.n_conv_layers``, ``model.conv_impl`` and ``eval.indicator`` are
 accepted with the JAX package's validation and recorded, so that a JAX
 command line runs unchanged; the port's convs are 3x3, three deep, and
@@ -173,10 +174,12 @@ class ServeConfig:
     max_wait_ms: float = 2.0   # coalescing window before a partial batch flushes
     max_queue: int = 256       # bounded request queue; beyond it, shed Overloaded
     # Mesh sharding of the request path: "auto" | "off", validated as in JAX
-    # (serve.engine.serve_mesh). One visible device serves unsharded; more
-    # than one is ROADMAP A.10's and raises.
+    # (parallel.mesh.serve_mesh). One visible device and one rank serve
+    # unsharded; a world of several ranks or several visible cards raises
+    # (mesh serving is a ROADMAP queue item of its own).
     shard: str = "auto"
-    # Shard the trunks over the mesh's "fed" axis (needs a mesh, A.10).
+    # Shard the trunks over the mesh's "fed" axis (validated; mesh serving
+    # is not ported, so one device serves every expert).
     expert_sharding: bool = False
     # Expert routing: "dense" runs every trunk and gathers, "sparse" runs each
     # row's trunk on capacity buckets. "auto" races them per bucket at warmup
@@ -253,6 +256,23 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The ``(fed, data, model)`` layout of the ranks of a world
+    (``qdml_tpu/config.py:228-240``, its fields and defaults). JAX lays
+    devices out on this mesh; the port lays out the ranks of a
+    ``torch.distributed`` world, one rank a process
+    (:mod:`qdml_tpu_torch.parallel.mesh`)."""
+
+    data_axis: int = -1      # -1: all ranks left after model and fed on the data axis
+    model_axis: int = 1      # tensor/statevector-parallel axis size
+    fed_axis: int = 1        # federated (scenario-grid) axis size
+    # axis names used throughout qdml_tpu_torch.parallel
+    data_axis_name: str = "data"
+    model_axis_name: str = "model"
+    fed_axis_name: str = "fed"
+
+
+@dataclass(frozen=True)
 class EvalConfig:
     """The SNR sweep (``qdml_tpu/config.py:530-537``, reference ``Test.py:11-21,
     66``). ``results_dir`` is the port's own: the JAX package's default,
@@ -276,6 +296,7 @@ class ExperimentConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     @property
     def image_hw(self) -> tuple[int, int]:
@@ -320,9 +341,9 @@ def _coerce(value: Any, fld: dataclasses.Field) -> Any:
     return value
 
 
-# The JAX package's presets (qdml_tpu/config.py:587-626) that need a mesh;
-# the port runs on one device until ROADMAP A.10's multi-rank half.
-UNPORTED_PRESETS = ("dp_8q", "sharded_16q", "federated")
+# The JAX package's presets the port cannot run: none since the mesh presets
+# landed (qdml_tpu_torch.parallel).
+UNPORTED_PRESETS: tuple[str, ...] = ()
 
 
 def _preset(name: str, **overrides: Any) -> ExperimentConfig:
@@ -333,15 +354,30 @@ def _preset(name: str, **overrides: Any) -> ExperimentConfig:
 
 
 def presets() -> dict[str, ExperimentConfig]:
-    """The JAX package's presets that run on one device, with its values
-    (``qdml_tpu/config.py:587-626``). ``single_4q``'s ``mesh.data_axis=1`` is
-    the port's single-device layout; the mesh presets are
-    :data:`UNPORTED_PRESETS`."""
+    """The JAX package's six presets, with its values
+    (``qdml_tpu/config.py:587-626``). The mesh presets run on a world of
+    several ranks (:mod:`qdml_tpu_torch.parallel`) and, like JAX's on one
+    device, on one rank without a mesh."""
     return {
         # Runner_P128 single-worker, 4-qubit QuantumNAT classifier
         "single_4q": _preset(
-            "single_4q", **{"quantum.n_qubits": 4, "quantum.use_quantumnat": True}
+            "single_4q",
+            **{"quantum.n_qubits": 4, "quantum.use_quantumnat": True, "mesh.data_axis": 1},
         ),
+        # 8-qubit QNN + CNN estimator, data-parallel over the mesh
+        "dp_8q": _preset("dp_8q", **{"quantum.n_qubits": 8, "mesh.data_axis": -1}),
+        # 16-qubit QNN, the statevector sharded over the model axis
+        "sharded_16q": _preset(
+            "sharded_16q",
+            **{
+                "quantum.n_qubits": 16,
+                "quantum.backend": "sharded",
+                "mesh.model_axis": 4,
+                "mesh.data_axis": 1,
+            },
+        ),
+        # federated RIS: one scenario's trunk a rank, the shared head reduced
+        "federated": _preset("federated", **{"mesh.fed_axis": 3, "mesh.data_axis": 1}),
         # noise-aware training (pruning off: at the reference's 0.1 it
         # freezes training)
         "nat_sweep": _preset("nat_sweep", **{"quantum.use_quantumnat": True}),
@@ -354,14 +390,10 @@ def presets() -> dict[str, ExperimentConfig]:
 
 
 def preset(name: str) -> ExperimentConfig:
-    """The preset ``name``; the mesh presets raise ``NotImplementedError``."""
-    if name in UNPORTED_PRESETS:
-        raise NotImplementedError(
-            f"preset {name!r} needs a device mesh, not ported yet (ROADMAP A.10, multi-rank half)"
-        )
+    """The preset ``name``; an unknown name raises ``KeyError``."""
     table = presets()
     if name not in table:
-        raise KeyError(f"unknown preset {name!r}; want one of {sorted(table) + list(UNPORTED_PRESETS)}")
+        raise KeyError(f"unknown preset {name!r}; want one of {sorted(table)}")
     return table[name]
 
 

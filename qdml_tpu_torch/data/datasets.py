@@ -206,9 +206,13 @@ class GridData:
         }
         return cls(cfg, rows, cached=True)
 
-    def batch(self, idx: torch.Tensor, snr_db: float | torch.Tensor) -> dict[str, torch.Tensor]:
-        """The network batch of the (S, U, B) sample indices ``idx`` at
-        ``snr_db`` (the fields of ``make_network_batch``): a Python number,
+    def batch(
+        self, idx: torch.Tensor, snr_db: float | torch.Tensor, scen_start: int = 0
+    ) -> dict[str, torch.Tensor]:
+        """The network batch of the (S, U, B) sample indices ``idx`` of
+        scenarios ``scen_start ... scen_start + S - 1`` (a rank's rectangle
+        under a mesh, :meth:`DMLGridLoader.set_process_slice`) at ``snr_db``
+        (the fields of ``make_network_batch``): a Python number,
         or a 0-d float32 tensor on the grid's device, which a captured CUDA
         graph reads at every replay (a number would be frozen into it). The
         noise scales are computed on the SNR's device in float32 either way.
@@ -216,24 +220,27 @@ class GridData:
         tensor is not read on the host, and the loaders only hand it
         ``cfg.snr_db`` (a cache refuses ``snr_jitter``)."""
         geom = self.geom
+        s_n = idx.shape[0]
+        rows = {k: v[scen_start : scen_start + s_n] for k, v in self.rows.items()}
         if self.cached:
             if not isinstance(snr_db, torch.Tensor) and snr_db != self.cfg.snr_db:
                 raise ValueError(f"the npy cache holds SNR {self.cfg.snr_db} dB, not {snr_db}")
-            yp = _gather(self.rows["yp"], idx)
-            h_label = _gather(self.rows["h_label"], idx)
-            h_perf = _gather(self.rows["h_perf"], idx)
+            yp = _gather(rows["yp"], idx)
+            h_label = _gather(rows["h_label"], idx)
+            h_perf = _gather(rows["h_perf"], idx)
         else:
-            h_perf = _gather(self.rows["h_perf"], idx)
+            h_perf = _gather(rows["h_perf"], idx)
             yp_scale = torch.sqrt(noise_var(geom, snr_db) / 2.0)
             h_scale = torch.sqrt(label_noise_var(geom, snr_db) / 2.0)
             if not isinstance(snr_db, torch.Tensor):
                 # float32 scales, as Python numbers: no host-to-device copy
                 yp_scale, h_scale = float(yp_scale), float(h_scale)
-            yp = _gather(self.rows["pilots"], idx) + yp_scale * _gather(self.rows["pilot_noise"], idx)
-            h_label = h_perf + h_scale * _gather(self.rows["label_noise"], idx)
+            yp = _gather(rows["pilots"], idx) + yp_scale * _gather(rows["pilot_noise"], idx)
+            h_label = h_perf + h_scale * _gather(rows["label_noise"], idx)
         s_n, u_n, b = idx.shape
         img = yp.reshape(s_n, u_n, b, 2, geom.n_beam, geom.n_sub).permute(0, 1, 2, 5, 4, 3)
-        indicator = torch.arange(s_n, device=self.device)[:, None, None].expand(s_n, u_n, b)
+        scen = torch.arange(scen_start, scen_start + s_n, device=self.device)
+        indicator = scen[:, None, None].expand(s_n, u_n, b)
         return {
             "yp": unpack_h(yp),
             "h_ls": unpack_h(h_label),
@@ -258,6 +265,31 @@ class DMLGridLoader:
         self.index_base, self.n = _resolve_split(self.cfg, split)
         self.batch_size = min(batch_size, self.n)
         self.steps_per_epoch = self.n // self.batch_size
+        self._pslice: tuple[int, int] | None = None
+        self._sslice: tuple[int, int] = (0, self.cfg.n_scenarios)
+
+    def set_process_slice(
+        self, start: int, length: int, scen_start: int = 0, scen_count: int | None = None
+    ) -> None:
+        """Yield only ``[start, start + length)`` of each batch window and,
+        under a federated layout, only scenarios ``[scen_start, scen_start +
+        scen_count)``: a rank's rectangle of every global batch
+        (``qdml_tpu/data/datasets.py:129-159``, its checks and messages).
+        The rows are those the one-rank loader yields in that rectangle."""
+        if not (0 <= start and start + length <= self.batch_size):
+            raise ValueError(
+                f"process slice [{start}, {start + length}) outside batch "
+                f"window of {self.batch_size}"
+            )
+        s = self.cfg.n_scenarios
+        scen_count = s if scen_count is None else scen_count
+        if not (0 <= scen_start and scen_start + scen_count <= s):
+            raise ValueError(
+                f"scenario slice [{scen_start}, {scen_start + scen_count}) "
+                f"outside the {s}-scenario grid"
+            )
+        self._pslice = (start, length)
+        self._sslice = (scen_start, scen_count)
 
     def _step_snr(self, epoch: int, step: int) -> float:
         """Per-step training SNR: fixed ``cfg.snr_db`` or, with
@@ -277,7 +309,12 @@ class DMLGridLoader:
         """This step's (S, U, bs) index window: one source for both
         iterators below, as ``qdml_tpu/data/datasets.py:181-192``."""
         bs = self.batch_size
-        return perms[:, :, step * bs : (step + 1) * bs]
+        window = perms[:, :, step * bs : (step + 1) * bs]
+        if self._pslice is not None:
+            p0, plen = self._pslice
+            s0, scount = self._sslice
+            window = window[s0 : s0 + scount, :, p0 : p0 + plen]
+        return window
 
     def epoch(self, epoch: int, shuffle: bool = True) -> Iterator[dict[str, torch.Tensor]]:
         """The epoch's batches, one a step. The SNRs reach the device as a
@@ -291,9 +328,9 @@ class DMLGridLoader:
             [self._snr_for(epoch, step, shuffle) for step in range(self.steps_per_epoch)],
             dtype=torch.float32, device=dev,
         )
-        bs = self.batch_size
         for step in range(self.steps_per_epoch):
-            yield self.data.batch(idx[:, :, step * bs : (step + 1) * bs], snrs[step])
+            window = self._step_window(idx, step)
+            yield self.data.batch(window, snrs[step], self._sslice[0])
 
     def epoch_chunks(
         self, epoch: int, k: int, shuffle: bool = True

@@ -36,7 +36,15 @@ against dense at each S; the routing race that picks between them is
 :data:`QUBIT_SCALING_GRID`, :func:`scaling_batch`, :func:`scaling_chi` and
 :func:`impl_agreement`, a point's winning circuit impl held against an
 independent formulation; its timed points are the bench's ``qsc_scaling``.
-Not ported yet: the ``mesh`` (A.10, multi-rank half).
+
+Under a mesh (``qdml_tpu/eval/sweep.py:59-161``) every rank draws each test
+batch and keeps its rows over ``data``; with ``fed`` equal to the scenario
+count each rank holds one scenario's trunk
+(:func:`~qdml_tpu_torch.parallel.federated.shard_hdce_vars`) and computes
+that trunk's hypotheses on its rows, and routing each row to its predicted
+scenario is the one collective over ``fed``. The point's sums are reduced
+over ``data`` before they are read, so every rank holds the curves; rank 0
+writes them.
 """
 
 from __future__ import annotations
@@ -77,14 +85,16 @@ class SweepModels:
 
 
 def load_sweep_models(
-    cfg: ExperimentConfig, workdir: str, device: str | torch.device | None = None
+    cfg: ExperimentConfig, workdir: str, device: str | torch.device | None = None, mesh=None
 ) -> tuple[ExperimentConfig, SweepModels]:
     """The HDCE, the SC and, when one was trained, the QSC (``Test.py:81-86``)
     and the DCE (``qdml_tpu/cli.py:327-329``) restored from ``workdir`` on
     ``device`` (``qdml_tpu/cli.py:307-330``):
     each family's :func:`latest_tag`, or its ``*_best`` tag, which raises as
     missing. Returns the config reconciled with the QSC checkpoint's quantum
-    architecture, and the models."""
+    architecture, and the models; under a ``mesh`` the HDCE is this rank's
+    :class:`~qdml_tpu_torch.parallel.federated.HDCEShard` (the trunks over
+    ``fed`` when it equals the scenario count)."""
     dev = resolve_device(device)
     hdce_vars, _ = restore_params(workdir, latest_tag(workdir, "hdce") or "hdce_best", dev)
     sc_vars, _ = restore_params(workdir, latest_tag(workdir, "sc") or "sc_best", dev)
@@ -95,8 +105,13 @@ def load_sweep_models(
         cfg = reconcile_quantum_cfg(cfg, qsc_meta)
         qsc = build_classifier(cfg, True, dev)
         qsc.load_state_dict(qsc_vars["params"])
-    hdce = build_hdce(cfg, dev)
-    hdce.load_state_dict(hdce_vars["params"])
+    if mesh is not None:
+        from qdml_tpu_torch.parallel.federated import shard_hdce_vars
+
+        hdce = shard_hdce_vars(hdce_vars["params"], mesh, cfg).to(dev).eval()
+    else:
+        hdce = build_hdce(cfg, dev)
+        hdce.load_state_dict(hdce_vars["params"])
     sc = build_classifier(cfg, False, dev)
     sc.load_state_dict(sc_vars["params"])
     dce = None
@@ -124,12 +139,15 @@ def batch_metrics(
     geom: ChannelGeometry,
     dispatch: str = "dense",
     capacity_factor: float = 1.25,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """Error and power sums and correct counts of one batch, as 0-dim float32
     tensors on the batch's device (``qdml_tpu/eval/sweep.py:109-201``).
     ``batch`` holds ``yp_img (B, n_sub, n_beam, 2)`` NHWC, the complex
     ``h_ls`` and ``h_perf_c (B, h_dim)`` and ``indicator (B,)``. ``dispatch``
-    routes the HDCE rows dense or sparse (``:60-82``)."""
+    routes the HDCE rows dense or sparse (``:60-82``). Under a ``mesh``
+    whose HDCE shard holds one scenario's trunk, the rows are routed over
+    ``fed`` (dense only)."""
     h = batch["h_perf_c"]
     h_ls = batch["h_ls"]
     sigma2 = label_noise_var(geom, snr_db)
@@ -138,7 +156,20 @@ def batch_metrics(
     x = batch["yp_img"].permute(0, 3, 1, 2).contiguous()  # NCHW
     n_scen = geom.n_scenarios
 
-    if dispatch == "dense":
+    fed = mesh is not None and mesh.shape["fed"] > 1
+    if fed:
+        if dispatch != "dense":
+            raise ValueError("expert-parallel eval (mesh fed axis > 1) routes dense only")
+        from qdml_tpu_torch.parallel.collectives import all_reduce_
+
+        est_own = models.hdce(x[None])[0]  # this rank's trunk, its hypotheses on every row
+        own = models.hdce.scen0
+
+        def route(pred):
+            # each row's estimate lives on its predicted scenario's rank
+            return all_reduce_(est_own * (pred == own)[:, None], mesh.group("fed"))
+
+    elif dispatch == "dense":
         est_all = models.hdce(x.expand(n_scen, *x.shape))  # (S, B, 2 * h_dim), once for both classifiers
 
         def route(pred):
@@ -177,13 +208,15 @@ def run_snr_sweep(
     logger: MetricsLogger | None = None,
     device: str | torch.device | None = None,
     dispatch: str = "dense",
+    mesh=None,
 ) -> dict[str, Any]:
     """The full sweep; returns ``{"snr": [...], "nmse_db": {curve: [...]},
     "acc": {classifier: [...]}}`` with the JAX package's keys. Every SNR row
     is also logged (curve NMSEs in dB, accuracies, sample count, and the
     point's wall seconds up to its one fetch) when a logger is given.
     ``dispatch`` routes the HDCE rows dense or sparse (capacity factor
-    ``cfg.serve.capacity_factor``)."""
+    ``cfg.serve.capacity_factor``). Under a ``mesh`` (the module docstring)
+    each rank computes on its rows of every batch."""
     if dispatch not in ("dense", "sparse"):
         raise ValueError(f"dispatch must be dense|sparse, got {dispatch!r}")
     dev = resolve_device(device)
@@ -199,14 +232,21 @@ def run_snr_sweep(
         per_batch: dict[str, list[torch.Tensor]] = {}
         for b in range(n_batches):
             batch = sweep_batch(cfg.data, start, b * bs, bs, float(snr), dev, geom)
+            if mesh is not None:
+                batch = _rank_rows(batch, mesh)
             metrics = batch_metrics(
-                models, batch, float(snr), profile, geom, dispatch, cfg.serve.capacity_factor
+                models, batch, float(snr), profile, geom, dispatch, cfg.serve.capacity_factor, mesh
             )
             for key, value in metrics.items():
                 per_batch.setdefault(key, []).append(value)
         # one fetch per SNR point; float32 batch sums added in float64
         keys = list(per_batch)
-        host = torch.stack([torch.stack(per_batch[k]) for k in keys]).cpu().numpy()
+        stacked = torch.stack([torch.stack(per_batch[k]) for k in keys])
+        if mesh is not None:
+            from qdml_tpu_torch.parallel.collectives import all_reduce_
+
+            all_reduce_(stacked, mesh.group("data"))
+        host = stacked.cpu().numpy()
         sums = {k: float(host[i].astype(np.float64).sum()) for i, k in enumerate(keys)}
         seconds = time.perf_counter() - t0
         pow_ = max(sums["pow"], 1e-30)
@@ -223,6 +263,15 @@ def run_snr_sweep(
         if logger is not None:
             logger.log(snr_db=float(snr), n_samples=sums["count"], seconds=seconds, **row)
     return {"snr": list(cfg.eval.snr_grid), "nmse_db": curves, "acc": accs}
+
+
+def _rank_rows(batch: dict, mesh) -> dict:
+    """This rank's rows over ``data`` of a flat test batch; the whole batch
+    when ``data`` does not divide it, as the placer runs such a batch
+    replicated."""
+    from qdml_tpu_torch.parallel.dp import shard_flat_batch
+
+    return batch if batch["indicator"].shape[0] % mesh.shape["data"] else shard_flat_batch(batch, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -325,11 +374,13 @@ def impl_agreement(
     """How far ``impl``'s per-wire <Z> sits from an independent formulation
     at the same seeded angles and weights (``qdml_tpu/eval/sweep.py:
     383-436``): ``dense`` up to 12 qubits, ``mps`` against a ``tensor``
-    winner at 13-14, ``tensor`` up to 14. Past 14 the port has only ``mps``
-    on one device (``sharded_statevector``, JAX's other reference there,
-    needs a mesh), so the point reports ``{"reference": None,
+    winner at 13-14, ``tensor`` up to 14. Past 14 ``mps`` and
+    ``sharded_statevector`` check each other where the current mesh has a
+    model line of two or more ranks (every rank of it calls this at once);
+    with no second formulation the point reports ``{"reference": None,
     "max_abs_delta": None}`` rather than a self-check. Runs on the card
     unless ``device="cpu"``."""
+    from qdml_tpu_torch.quantum import autotune
     from qdml_tpu_torch.quantum.circuits import run_circuit
 
     reference: str | None = None
@@ -339,6 +390,10 @@ def impl_agreement(
         reference = "mps"
     elif impl != "tensor" and n_qubits <= 14:
         reference = "tensor"
+    elif impl == "mps" and autotune.model_axis_devices() >= 2:
+        reference = "sharded_statevector"
+    elif impl == "sharded_statevector":
+        reference = "mps"
     if reference is None:
         return {"reference": None, "max_abs_delta": None}
     dev = resolve_device(device)

@@ -53,21 +53,49 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``qdml_tpu/models/cnn.py:134-136``): normalize with the biased batch
     variance and fold it, biased, into the running variance with decay
     ``decay`` (Flax's momentum). Eval mode is torch's own. State-dict keys are
-    torch's."""
+    torch's.
+
+    ``group`` (a process group, or ``None``) is the data line of a mesh whose
+    ranks each hold some rows of one batch: in train mode the statistics are
+    then the whole batch's, as GSPMD computes them, from the sums and sums
+    of squares over the group (Flax's mean-of-squares variance), and the
+    running statistics update alike on every rank. The sums enter each
+    rank's part of a loss that is the sum over the ranks, so their gradient
+    is summed too (:func:`~qdml_tpu_torch.parallel.collectives.psum_parts`)."""
 
     def __init__(self, num_features: int, decay: float = 0.9, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=1.0 - decay)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._forward_group(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked += 1
+            self._update_running(mean, var)
         return out
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked += 1
+
+    def _forward_group(self, x: torch.Tensor) -> torch.Tensor:
+        from qdml_tpu_torch.parallel.collectives import psum_parts
+
+        count = torch.tensor([x.numel() / x.shape[1]], dtype=x.dtype, device=x.device)
+        sums = psum_parts(torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]), self.group)
+        c = x.shape[1]
+        mean, var = sums[:c] / sums[-1], sums[c : 2 * c] / sums[-1]
+        var = torch.clamp_min(var - mean * mean, 0.0)  # Flax's clamp
+        with torch.no_grad():
+            self._update_running(mean.detach(), var.detach())
+        shape = (1, c, 1, 1)
+        inv = torch.rsqrt(var + self.eps)
+        return (x - mean.view(shape)) * (inv * self.weight).view(shape) + self.bias.view(shape)
 
 
 def dense(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

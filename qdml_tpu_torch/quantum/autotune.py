@@ -32,8 +32,8 @@ Where the port differs from the JAX package:
   candidate that builds no unitary. The other windows are JAX's: ``dense``
   and ``dense_fused`` n <= 12, ``pallas`` n <= 8, ``tensor`` 9 <= n <= 14,
   ``mps`` from n = 13 (timed at ``quantum.mps_chi``, which the entry
-  records). ``sharded_statevector`` needs a device mesh (ROADMAP A.10,
-  multi-rank half) and is never eligible.
+  records). ``sharded_statevector`` from n = 10 on a model line of two or
+  more ranks (:func:`model_axis_devices`), as JAX's rule on its devices.
 - **Timing is eager on the device**: per candidate the median of reps of a
   forward (``fwd_ms``) and of one forward plus ``backward()`` of
   ``sum(out**2)`` with respect to the weights (``train_ms``, JAX's single
@@ -99,41 +99,65 @@ TENSOR_MAX_QUBITS = 14
 TENSOR_MIN_QUBITS = 9
 # mps races tensor over the 13-14 crossover and is the only candidate past 14
 MPS_MIN_QUBITS = 13
-# Impls the port has no counterpart for yet (ROADMAP A.10, multi-rank half).
-UNPORTED_IMPLS = ("sharded_statevector",)
+# the sharded statevector is timed from here, on a model line of >= 2 ranks
+SHARDED_MIN_QUBITS = 10
+# Impls the port has no counterpart for: none since the sharded statevector
+# landed (quantum/sharded.py).
+UNPORTED_IMPLS: tuple[str, ...] = ()
 
 
 class ImplIneligibleError(ValueError):
-    """A pinned circuit impl cannot run at this qubit count.
+    """A pinned circuit impl cannot run at this qubit count or topology.
 
     Raised where a configuration or checkpoint forces an impl that
-    :func:`impl_eligible` rejects for its capacity (``dense`` pinned at
-    n > 12, say), so a restore fails with the eligibility reason instead of
-    deep in the first forward."""
+    :func:`impl_eligible` rejects (``dense`` pinned at n > 12, or
+    ``sharded_statevector`` restored on one rank), so a restore fails with
+    the eligibility reason instead of deep in the first forward."""
 
 
-def impl_eligible(impl: str, n_qubits: int) -> tuple[bool, str | None]:
-    """Whether ``impl`` can run at ``n_qubits`` in the port: ``(ok, reason)``.
-    The capacity caps of ``qdml_tpu/quantum/autotune.py:122-156``; the impls
-    the port lacks are never eligible. Unknown names raise ``ValueError``."""
+def model_axis_devices() -> int:
+    """The ranks on the current mesh's model line
+    (:func:`~qdml_tpu_torch.parallel.mesh.current_mesh`), or 1 without a
+    mesh: the topology the ``sharded_statevector`` rules read."""
+    from qdml_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    return 1 if mesh is None else mesh.shape["model"]
+
+
+def impl_eligible(
+    impl: str, n_qubits: int, devices_on_model: int | None = None
+) -> tuple[bool, str | None]:
+    """Whether ``impl`` can run at ``n_qubits`` on a model line of
+    ``devices_on_model`` ranks (default :func:`model_axis_devices`) in the
+    port: ``(ok, reason)``. The capacity caps and the topology rule of
+    ``qdml_tpu/quantum/autotune.py:122-156``. Unknown names raise
+    ``ValueError``."""
     from qdml_tpu_torch.quantum.circuits import canonical_impl
 
     impl = canonical_impl(impl)
-    if impl in UNPORTED_IMPLS:
-        return False, f"circuit impl {impl!r} is not ported yet (ROADMAP A.10, multi-rank half)"
     if impl in ("dense", "dense_fused", "pallas", "pallas_circuit") and n_qubits > DENSE_MAX_QUBITS:
         return False, f"impl {impl!r} is capped at n <= {DENSE_MAX_QUBITS}; n={n_qubits}"
     if impl == "tensor" and n_qubits > TENSOR_MAX_QUBITS:
         return False, (
             f"the 2^n statevector per sample is capped at n <= {TENSOR_MAX_QUBITS}; "
-            f"n={n_qubits} needs mps"
+            f"n={n_qubits} needs mps or sharded_statevector"
         )
+    if impl == "sharded_statevector":
+        devs = model_axis_devices() if devices_on_model is None else devices_on_model
+        if devs < 2:
+            return False, (
+                "sharded_statevector partitions the amplitudes over the mesh's "
+                f"model axis and needs >= 2 devices; this topology has {devs}"
+            )
     return True, None
 
 
-def eligible_impls(n_qubits: int) -> list[str]:
+def eligible_impls(n_qubits: int, devices_on_model: int | None = None) -> list[str]:
     """Implementations worth timing at ``n_qubits``, in JAX's order (see the
-    module docstring for the windows and the ``pallas_circuit`` difference)."""
+    module docstring for the windows and the ``pallas_circuit`` difference);
+    ``sharded_statevector`` only when ``devices_on_model`` >= 2 is given, as
+    JAX's topology-blind default leaves it out."""
     impls = []
     if n_qubits <= DENSE_MAX_QUBITS:
         impls += ["dense", "dense_fused"]
@@ -145,6 +169,8 @@ def eligible_impls(n_qubits: int) -> list[str]:
         impls.append("tensor")
     if n_qubits >= MPS_MIN_QUBITS:
         impls.append("mps")
+    if devices_on_model is not None and devices_on_model >= 2 and n_qubits >= SHARDED_MIN_QUBITS:
+        impls.append("sharded_statevector")
     return impls
 
 
@@ -261,7 +287,8 @@ def measure(
 ) -> dict[str, dict[str, Any]]:
     """``fwd_ms`` and ``train_ms`` of each candidate at this exact shape on
     ``device``, the ``mps`` candidate at bond dimension ``mps_chi``. A
-    candidate that cannot run here (``ImplIneligibleError``,
+    candidate that cannot run here (:func:`impl_eligible` refuses it at this
+    n on this topology, or it raises ``ImplIneligibleError`` or
     ``NotImplementedError``) is recorded with its error and left out of the
     selection, as in JAX. Any other error, a kernel that fails to build or to
     launch among them, raises: the race must not hand ``impl=auto`` to the
@@ -280,6 +307,9 @@ def measure(
     for impl in impls:
         rec: dict[str, Any] = {}
         try:
+            ok, why = impl_eligible(impl, n_qubits)
+            if not ok:  # a pinned candidate this topology cannot run
+                raise ImplIneligibleError(why)
 
             def fwd(a, w, impl=impl):
                 with torch.no_grad():
@@ -432,14 +462,16 @@ def emit_fallback(
 
 
 def prewarm(
-    cfg, batch: int, force: bool = False, device: str | torch.device | None = None
+    cfg, batch: int, force: bool = False, device: str | torch.device | None = None, mesh=None
 ) -> dict | None:
     """Tune ``cfg.quantum``'s circuit at ``batch`` on ``device`` when the
     dispatcher is in play: ``quantum.impl`` and ``quantum.backend`` both
     ``auto`` and ``quantum.autotune`` on for this platform. A configured
     ``quantum.autotune_table`` is installed process-wide first, so the
-    per-call lookup reads the table the tuner writes. Returns the entry, or
-    ``None`` when tuning was skipped."""
+    per-call lookup reads the table the tuner writes. Under a ``mesh`` rank
+    0 alone races and writes the table, and every rank adopts its entry
+    (:func:`adopt_entry`), so the ranks dispatch one impl. Returns the
+    entry, or ``None`` when tuning was skipped."""
     q = cfg.quantum
     if q.autotune_table:
         set_table_path(q.autotune_table)
@@ -448,7 +480,21 @@ def prewarm(
     dev = resolve_device(device)
     if not autotune_enabled(q.autotune, dev.type):
         return None
-    return ensure(
-        q.n_qubits, q.n_layers, batch, path=q.autotune_table or None, force=force, device=dev,
-        mps_chi=q.mps_chi,
-    )
+    entry = None
+    if mesh is None or mesh.rank == 0:
+        entry = ensure(
+            q.n_qubits, q.n_layers, batch, path=q.autotune_table or None, force=force, device=dev,
+            mps_chi=q.mps_chi,
+        )
+    if mesh is not None:
+        from qdml_tpu_torch.parallel.collectives import broadcast_object
+
+        entry = broadcast_object(entry)
+        adopt_entry(entry, q.autotune_table or None)
+    return entry
+
+
+def adopt_entry(entry: dict, path: str | None = None) -> None:
+    """Put ``entry``, measured by another rank, into this process's view of
+    the table at ``path``, without measuring or writing."""
+    load_table(path)[entry["key"]] = entry

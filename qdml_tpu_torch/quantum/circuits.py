@@ -23,10 +23,14 @@ means the same thing here:
 - ``mps``: the bond-chi matrix-product state of :mod:`qdml_tpu_torch.quantum.
   mps` (``quantum.mps_chi``), any n >= 2, the only impl past 14 qubits.
 
+- ``sharded_statevector`` (``sharded`` its alias): the amplitudes split over
+  the model line of the current mesh's ranks
+  (:mod:`qdml_tpu_torch.quantum.sharded`), B.3 on each shard's local
+  wires; on a line of one rank it hands over to ``tensor``.
+
 ``auto`` (impl and backend both) takes the measured table of
 :mod:`qdml_tpu_torch.quantum.autotune` for the call's shape, then the static
-heuristic. ``sharded_statevector`` needs a device mesh, not ported yet
-(ROADMAP A.10, multi-rank half), and raises ``NotImplementedError``.
+heuristic.
 """
 
 from __future__ import annotations
@@ -39,7 +43,6 @@ from qdml_tpu_torch.quantum import statevector as sv
 from qdml_tpu_torch.quantum.mps import DEFAULT_CHI, mps_circuit
 # eligibility lives with the dispatcher; re-exported for the callers here
 from qdml_tpu_torch.quantum.autotune import (  # noqa: F401
-    UNPORTED_IMPLS,
     ImplIneligibleError,
     impl_eligible,
 )
@@ -232,10 +235,10 @@ def run_circuit(
         return fused_circuit_expvals(angles, weights, n_qubits, n_layers)
     if backend == "mps":
         return mps_circuit(angles, weights, n_qubits, n_layers, chi=mps_chi or DEFAULT_CHI)
-    if backend in UNPORTED_IMPLS:
-        raise NotImplementedError(
-            f"circuit impl {backend!r} is not ported yet (ROADMAP A.10, multi-rank half)"
-        )
+    if backend == "sharded_statevector":
+        from qdml_tpu_torch.quantum.sharded import run_circuit_sharded
+
+        return run_circuit_sharded(angles, weights, n_qubits, n_layers)
     if backend != "tensor":
         raise ValueError(f"unknown backend {backend!r}; want one of {VALID_BACKENDS}")
     psi = sv.zero_state(n_qubits, tuple(angles.shape[:-1]), device=angles.device)
@@ -264,9 +267,10 @@ def run_circuit_ensemble(
     ensemble axis (``qdml_tpu/train/nat_sweep.py:87-108``).
 
     The impl resolves as :func:`run_circuit` resolves it at one member's
-    shape (its flattened batch), and one that cannot run at ``n_qubits``
-    raises (``ImplIneligibleError``, or ``NotImplementedError`` for an impl
-    the port lacks). ``pallas_circuit`` makes ONE member-axis launch of the
+    shape (its flattened batch), and one that cannot run at ``n_qubits`` on
+    this topology raises ``ImplIneligibleError`` (``sharded_statevector``
+    without a model line of two ranks, as JAX's eligibility rule has it).
+    ``pallas_circuit`` makes ONE member-axis launch of the
     circuit kernel (and one of its adjoint in the backward,
     :func:`kernels.fused_circuit_expvals_ensemble`); every other impl runs
     :func:`run_circuit` once per member, E calls, and says so in one line the
@@ -282,8 +286,7 @@ def run_circuit_ensemble(
     )
     ok, why = impl_eligible(resolved, n_qubits)
     if not ok:
-        err = NotImplementedError if resolved in UNPORTED_IMPLS else ImplIneligibleError
-        raise err(why)
+        raise ImplIneligibleError(why)
     if resolved == "pallas_circuit":
         from qdml_tpu_torch.quantum.kernels import fused_circuit_expvals_ensemble
 

@@ -15,7 +15,9 @@
 - :mod:`~qdml_tpu_torch.serve.loadgen` offers open-loop traffic and reports
   tail latency, goodput, padding waste, SLO attainment and parity.
 
-The JAX package's mesh helpers are not exported: mesh serving is ROADMAP A.10.
+The JAX package's mesh helpers are not exported: mesh serving is ROADMAP
+A.14 (:func:`qdml_tpu_torch.parallel.mesh.serve_mesh` refuses a world of
+several ranks).
 """
 
 from qdml_tpu_torch.serve.batcher import (  # noqa: F401

@@ -40,8 +40,10 @@ stream synchronisation; untraced it reads no clock.
 The micro-batcher, replica pool and socket server in front of the engine
 are :mod:`~qdml_tpu_torch.serve.batcher` and
 :mod:`~qdml_tpu_torch.serve.server`. Not ported yet: mesh and expert
-sharding (ROADMAP A.10; :func:`serve_mesh` validates the knobs and serves
-one device) and checkify (A.12).
+sharding of the request path (ROADMAP A.14;
+:func:`~qdml_tpu_torch.parallel.mesh.serve_mesh`, re-exported here,
+validates the knobs, serves one rank on one device and refuses a world of
+several ranks) and checkify (A.12).
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from qdml_tpu_torch.config import ExperimentConfig
 from qdml_tpu_torch.models.qsc import build_classifier
 from qdml_tpu_torch.ops import dispatch_autotune
 from qdml_tpu_torch.ops.routing import select_expert, sparse_dispatch
+from qdml_tpu_torch.parallel.mesh import serve_mesh  # noqa: F401  (the engine's knob check)
 from qdml_tpu_torch.quantum import autotune
 from qdml_tpu_torch.quantum import kernels
 from qdml_tpu_torch.quantum.circuits import resolve_impl
@@ -88,35 +91,6 @@ def _restore_family(workdir: str, prefix: str, tags: dict | None):
         raise FileNotFoundError(f"pinned tag {tag!r} does not exist under {workdir!r}")
     vars_, meta = restore_params(workdir, tag)
     return vars_["params"], meta, tag
-
-
-def serve_mesh(cfg: ExperimentConfig, device: str | torch.device | None = None) -> None:
-    """``serve.shard`` and ``serve.expert_sharding`` with the JAX package's
-    validation (``qdml_tpu/parallel/mesh.py:96-140``), on the devices of
-    ``device``'s type. One visible device serves unsharded, as in JAX, and
-    returns ``None``; more than one is ROADMAP A.10's and raises."""
-    if cfg.serve.shard not in ("auto", "off"):
-        raise ValueError(f"serve.shard must be 'auto' or 'off', got {cfg.serve.shard!r}")
-    if cfg.serve.shard == "off":
-        if cfg.serve.expert_sharding:
-            raise ValueError(
-                "serve.expert_sharding=true requires sharding: remove "
-                "serve.shard='off' (or drop expert_sharding)"
-            )
-        return None
-    dev = torch.device(device) if device is not None else torch.device("cuda")
-    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if visible > 1:
-        raise NotImplementedError(
-            f"serve.shard=auto with {visible} visible devices: mesh serving is not ported "
-            "yet (ROADMAP A.10); pass --serve.shard=off or make one device visible"
-        )
-    if cfg.serve.expert_sharding:
-        print(
-            "note: serve.expert_sharding requested but only one device "
-            "is visible — serving single-device, experts unsharded"
-        )
-    return None
 
 
 def _signature(sd: Mapping[str, torch.Tensor]) -> dict:

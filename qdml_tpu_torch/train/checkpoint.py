@@ -107,15 +107,12 @@ def reconcile_quantum_cfg(cfg, meta: dict):
     the config's, while ``backend`` and ``impl`` are execution strategies, so
     the eval config's win. An explicit eval pin (``quantum.impl``, else the
     legacy ``quantum.backend``) that cannot run at the checkpoint's qubit count
-    raises: ``NotImplementedError`` for an impl the port lacks, as
-    ``run_circuit`` raises it, and past a capacity cap
+    on this topology (past a capacity cap, or ``sharded_statevector`` restored
+    without a model line of two or more ranks) raises
     :class:`~qdml_tpu_torch.quantum.autotune.ImplIneligibleError` (a
-    ``ValueError``), as JAX raises it. A no-op for meta without ``quantum``."""
-    from qdml_tpu_torch.quantum.autotune import (
-        UNPORTED_IMPLS,
-        ImplIneligibleError,
-        impl_eligible,
-    )
+    ``ValueError``) with JAX's message. A no-op for meta without
+    ``quantum``."""
+    from qdml_tpu_torch.quantum.autotune import ImplIneligibleError, impl_eligible
     from qdml_tpu_torch.quantum.circuits import canonical_impl, resolve_backend
 
     stored = dict((meta or {}).get("quantum") or {})
@@ -133,13 +130,15 @@ def reconcile_quantum_cfg(cfg, meta: dict):
         pinned = canonical_impl(pinned)
         ok, why = impl_eligible(pinned, n_q)
         if not ok:
-            err = NotImplementedError if pinned in UNPORTED_IMPLS else ImplIneligibleError
-            raise err(f"checkpoint (n_qubits={n_q}) pins circuit impl {pinned!r}, which cannot run here: {why}")
+            raise ImplIneligibleError(
+                f"checkpoint (n_qubits={n_q}) pins circuit impl {pinned!r}, "
+                f"which cannot run on this topology: {why}"
+            )
     elif trained_impl not in (None, "", "auto"):
         ok, why = impl_eligible(trained_impl, n_q)
         if not ok:
             print(f"note: checkpoint was trained with circuit impl {trained_impl!r}, "
-                  f"ineligible here ({why}); the dispatcher re-resolves")
+                  f"ineligible on this topology ({why}); the dispatcher re-resolves for this host")
     if trained_backend is not None:
         trained_res = resolve_backend(trained_backend, n_q)
         eval_res = resolve_backend(q.backend, n_q)
@@ -170,11 +169,19 @@ def try_resume(
     """Restore ``model`` and ``opt`` from ``workdir/tag`` in place when the tag
     exists. Returns ``(start_epoch, meta)``: the epoch after the checkpointed
     one (0 with nothing to resume) and the trainer's saved meta (the running
-    best, so a resumed run does not clobber a better ``*_best``)."""
-    if workdir is None or not has_checkpoint(workdir, tag):
+    best, so a resumed run does not clobber a better ``*_best``). Under a
+    world of several ranks rank 0's view is authoritative
+    (``qdml_tpu/train/checkpoint.py:308-319``): whether the tag is present,
+    and its meta, are broadcast from rank 0, and a rank that cannot read the
+    file rank 0 sees raises rather than start over alone."""
+    from qdml_tpu_torch.parallel.collectives import broadcast_object
+
+    present = broadcast_object(workdir is not None and has_checkpoint(workdir, tag))
+    if not present:
         return 0, {}
     dev = next(model.parameters()).device
     payload, meta = restore_checkpoint(workdir, tag, map_location=dev)
+    meta = broadcast_object(meta)
     model.load_state_dict(payload["params"])
     opt.load_state_dict(payload["opt"])
     return int(meta.get("epoch", -1)) + 1, meta

@@ -16,8 +16,24 @@ validates, and writes ``hdce_best`` / ``hdce_resume`` / ``hdce_last``. With
 (:func:`make_hdce_scan_steps`, one CUDA-graph replay on the card); 0 runs
 them one at a time. With ``model.dtype=bfloat16`` the trainer's model, its
 validation included, runs bfloat16 activations on float32 parameters
-(``models/cnn.py``), as JAX's does. The JAX package's mesh, flight recorder
-and cost records are not ported (ROADMAP A.10, A.12).
+(``models/cnn.py``), as JAX's does.
+
+Under a world of several ranks (``qdml_tpu/train/hdce.py:247-275``) the
+trainer lays the model on the mesh (:mod:`qdml_tpu_torch.parallel`): each
+rank keeps its share (:func:`~qdml_tpu_torch.parallel.federated.
+shard_hdce_state`: trunk f under ``fed``, head columns under ``model``)
+and computes on its rectangle of every batch, BatchNorm takes its
+statistics over the data line, and :func:`hdce_mesh_train_step` takes the
+global step. Its loss on each rank is that rank's PART of the global loss:
+each cell's error over this rank's rows divided by the cell's power over
+the whole batch (one all-reduce over ``data``), summed over the rank's
+cells and divided by the grid's S*U. The parts sum to the one-rank loss, so
+the gradients are summed: the trunks' over ``data``, the head's over
+``data`` and ``fed`` (the federated aggregation). Every rank logs the
+all-reduced loss, and rank 0 writes the checkpoints in the one-rank layout
+(gathered by :func:`~qdml_tpu_torch.parallel.federated.gather_hdce_state`).
+The JAX package's flight recorder and cost records are not ported (ROADMAP
+A.12).
 """
 
 from __future__ import annotations
@@ -30,7 +46,9 @@ from torch import nn
 from qdml_tpu_torch.config import ExperimentConfig, activation_dtype
 from qdml_tpu_torch.data.datasets import DMLGridLoader, GridData
 from qdml_tpu_torch.models.cnn import FCP128, StackedConvP128, flax_init_, seeded_init_
-from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
+from qdml_tpu_torch.parallel.mesh import training_mesh
+from qdml_tpu_torch.parallel.multihost import make_grid_placer
+from qdml_tpu_torch.train.checkpoint import save_checkpoint, try_resume
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
 from qdml_tpu_torch.train.scan import ScanSteps, make_scan_steps, run_epoch, run_steps, scan_eligible
 from qdml_tpu_torch.utils.device import resolve_device
@@ -156,6 +174,32 @@ def _step_fn(model: HDCE, opt: Optimizer):
     return lambda batch, _noise: hdce_train_step(model, opt, batch)
 
 
+def hdce_mesh_train_step(model, opt: Optimizer, batch: dict, mesh, n_scenarios: int) -> dict[str, torch.Tensor]:
+    """One step of the global fused grid step on this rank of ``mesh``
+    (the module docstring): this rank's part of the loss, its backward, the
+    update (the optimizer's ``grad_sync`` sums the gradients first).
+    Returns the global losses, the same on every rank."""
+    from qdml_tpu_torch.parallel.collectives import all_reduce_
+    from qdml_tpu_torch.parallel.dp import reduce_over_
+
+    model.train()
+    s, u, b = batch["yp_img"].shape[:3]
+    pred = model(grid_images(batch)).reshape(s, u, b, -1)
+    label, perf = batch["h_label"], batch["h_perf"]
+    with torch.no_grad():
+        pows = torch.stack([torch.sum(label**2, dim=(-1, -2)), torch.sum(perf**2, dim=(-1, -2))])
+        all_reduce_(pows, mesh.group("data"))
+        part_perf = (torch.sum((pred - perf) ** 2, dim=(-1, -2)) / pows[1]).sum()
+    cells = n_scenarios * u
+    part = (torch.sum((pred - label) ** 2, dim=(-1, -2)) / pows[0]).sum() / cells
+    opt.zero_grad()
+    part.backward()
+    opt.step()
+    losses = torch.stack([part.detach(), part_perf / cells])
+    reduce_over_([losses], mesh, ("data", "fed"))
+    return {"loss": losses[0], "loss_perf": losses[1]}
+
+
 @torch.no_grad()
 def hdce_eval_step(model: HDCE, batch: dict) -> dict[str, torch.Tensor]:
     """Error and power sums of one validation batch in eval mode, so the
@@ -196,6 +240,7 @@ def train_hdce(
     ``train_loss``, ``val_nmse`` and ``val_nmse_perf``."""
     logger = logger or MetricsLogger(echo=False)
     dev = run_device(data, device)
+    mesh = training_mesh(cfg, dev)
     if data is None:
         data = GridData.synthesize(cfg.data, dev)
     train_loader = DMLGridLoader(data, cfg.train.batch_size, "train")
@@ -207,8 +252,18 @@ def train_hdce(
         start_epoch, rmeta = try_resume(workdir, "hdce_resume", model, opt)
         best = float(rmeta.get("best", best))  # don't clobber a better *_best
 
+    step_fn = _step_fn(model, opt)
+    if mesh is not None:
+        model, opt = lay_out_on_mesh(cfg, model, opt, mesh, train_loader.steps_per_epoch)
+        fed = mesh.shape["fed"] > 1
+        make_grid_placer(train_loader, mesh, fed=fed)
+        make_grid_placer(val_loader, mesh, fed=fed)
+
+        def step_fn(batch, _noise):
+            return hdce_mesh_train_step(model, opt, batch, mesh, cfg.data.n_scenarios)
+
     scan_run = None
-    if scan_eligible(cfg, logger, dev):
+    if scan_eligible(cfg, logger, dev, mesh=mesh):
         scan_run = make_hdce_scan_steps(model, opt, data, cfg.train.scan_steps)
 
     history: dict[str, list] = {"train_loss": [], "val_nmse": [], "val_nmse_perf": []}
@@ -216,7 +271,7 @@ def train_hdce(
         if scan_run is not None:
             tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq)
         else:
-            tot, n = run_steps(_step_fn(model, opt), opt, train_loader, epoch, logger, cfg.train.print_freq)
+            tot, n = run_steps(step_fn, opt, train_loader, epoch, logger, cfg.train.print_freq)
         train_loss = float(tot) / n if n else 0.0
 
         sums: dict[str, torch.Tensor | float] = {"err": 0.0, "pow": 0.0, "err_perf": 0.0, "pow_perf": 0.0}
@@ -224,6 +279,12 @@ def train_hdce(
             out = hdce_eval_step(model, batch)
             for k in sums:
                 sums[k] = sums[k] + out[k]
+        if mesh is not None:
+            from qdml_tpu_torch.parallel.dp import reduce_over_
+
+            stacked = torch.stack([torch.as_tensor(sums[k], device=dev) for k in sums])
+            reduce_over_([stacked], mesh, ("data", "fed"))
+            sums = dict(zip(sums, stacked))
         val_nmse = float(sums["err"]) / max(float(sums["pow"]), 1e-30)
         val_perf = float(sums["err_perf"]) / max(float(sums["pow_perf"]), 1e-30)
         history["train_loss"].append(train_loss)
@@ -239,16 +300,54 @@ def train_hdce(
 
         if workdir is not None:
             meta = {"epoch": epoch, "val_nmse": val_nmse, "name": cfg.name}
+            params, opt_state = _whole_state(model, opt, mesh)
+            writer = mesh is None or mesh.rank == 0
             if val_nmse < best:
                 best = val_nmse
-                save_checkpoint(workdir, "hdce_best", {"params": model.state_dict()}, meta)
-            save_train_state(workdir, "hdce_resume", model, opt, {**meta, "best": best})
+                if writer:
+                    save_checkpoint(workdir, "hdce_best", {"params": params}, meta)
+            if writer:
+                save_checkpoint(workdir, "hdce_resume", {"params": params, "opt": opt_state}, {**meta, "best": best})
     if workdir is not None:
-        save_checkpoint(
-            workdir,
-            "hdce_last",
-            {"params": model.state_dict()},
-            {"epoch": cfg.train.n_epochs - 1, "name": cfg.name},
-        )
+        params, _ = _whole_state(model, opt, mesh)
+        if mesh is None or mesh.rank == 0:
+            save_checkpoint(
+                workdir, "hdce_last", {"params": params}, {"epoch": cfg.train.n_epochs - 1, "name": cfg.name}
+            )
     model.eval()
     return model, history
+
+
+def lay_out_on_mesh(cfg: ExperimentConfig, model: HDCE, opt: Optimizer, mesh, steps_per_epoch: int):
+    """The HDCE and its optimizer laid out on ``mesh``: rank 0's state on
+    every rank, this rank's shard of it (with its share of the optimizer
+    state), BatchNorm over the data line, and the gradient sums of the
+    global step as the optimizer's ``grad_sync``."""
+    from qdml_tpu_torch.parallel.dp import attach_batchnorm_group, replicate, sync_grads
+    from qdml_tpu_torch.parallel.federated import shard_hdce_state
+
+    replicate(model, mesh, opt)
+    shard, opt_state = shard_hdce_state(
+        model, mesh, cfg.data.n_scenarios, tensor_parallel=mesh.shape["model"] > 1,
+        opt_state=opt.state_dict(),
+    )
+    local_opt = get_optimizer(cfg.train, shard.parameters(), steps_per_epoch)
+    local_opt.load_state_dict(opt_state)
+    attach_batchnorm_group(shard, mesh.group("data"))
+    local_opt.grad_sync = sync_grads([
+        (list(shard.trunks.parameters()), mesh.group("data"), "sum"),
+        (list(shard.head.parameters()), mesh.group("data"), "sum"),
+        (list(shard.head.parameters()), mesh.group("fed"), "sum"),
+    ])
+    return shard, local_opt
+
+
+def _whole_state(model, opt: Optimizer, mesh) -> tuple[dict, dict]:
+    """The model's and the optimizer's state dicts in the one-rank layout:
+    as they are without a mesh, gathered from the ranks under one (a
+    collective, every rank calls it)."""
+    if mesh is None:
+        return model.state_dict(), opt.state_dict()
+    from qdml_tpu_torch.parallel.federated import gather_hdce_state
+
+    return gather_hdce_state(model, opt.state_dict())

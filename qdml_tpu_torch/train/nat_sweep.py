@@ -31,8 +31,12 @@ and a run on the card draws what a run on the CPU draws. Tags:
 ``nat_sweep_last``, with the JAX package's meta keys. With
 ``train.scan_steps=K >= 1`` (default 1) the ensemble steps run K a dispatch
 (:func:`make_sweep_scan_steps`; each chunk reads its slice of the epoch's
-noise from a static device copy), 0 one at a time. The JAX package's mesh,
-flight recorder and cost records are not ported (ROADMAP A.10, A.12).
+noise from a static device copy), 0 one at a time. Under a world of
+several ranks (``qdml_tpu/train/nat_sweep.py:300-328``) the stacked
+ensemble is replicated, each rank computes on its rows, the gradients are
+averaged over ``data``, the logged losses and validation means are
+averaged over it too, and rank 0 writes the checkpoints. The JAX package's
+flight recorder and cost records are not ported (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ from qdml_tpu_torch.config import ExperimentConfig
 from qdml_tpu_torch.data.datasets import DMLGridLoader, GridData
 from qdml_tpu_torch.models.qsc import QSCP128
 from qdml_tpu_torch.ops.quantumnat import perturb_members
+from qdml_tpu_torch.parallel.collectives import broadcast_object
+from qdml_tpu_torch.parallel.mesh import training_mesh
 from qdml_tpu_torch.quantum import autotune
 from qdml_tpu_torch.quantum.circuits import run_circuit_ensemble
 from qdml_tpu_torch.train import qsc as train_qsc
@@ -198,8 +204,12 @@ def make_sweep_scan_steps(
     return make_scan_steps(_step_fn(model, params, opt, sigmas), data, opt, k, noise_shape=shape)
 
 
-def _step_fn(model: QSCP128, params: dict[str, torch.Tensor], opt: Optimizer, sigmas: torch.Tensor):
-    return lambda batch, noise: sweep_train_step(model, params, opt, sigmas, batch, noise)
+def _step_fn(model: QSCP128, params: dict[str, torch.Tensor], opt: Optimizer, sigmas: torch.Tensor, mesh=None):
+    def step(batch, noise):
+        out = sweep_train_step(model, params, opt, sigmas, batch, noise)
+        return {"loss": train_qsc.data_mean(out["loss"], mesh)}
+
+    return step
 
 
 @torch.no_grad()
@@ -244,6 +254,7 @@ def train_nat_sweep(
     n_members = len(levels)
     logger = logger or MetricsLogger(echo=False)
     dev = run_device(data, device)
+    mesh = training_mesh(cfg, dev)
     if data is None:
         data = GridData.synthesize(cfg.data, dev)
     train_loader = DMLGridLoader(data, cfg.train.batch_size, "train")
@@ -252,9 +263,7 @@ def train_nat_sweep(
     model, params, opt, sigmas = init_sweep(cfg, levels, spe, dev, init_states)
     # the circuit impl race at one member's batch, the flattened grid, before
     # the first step; a no-op when an impl is pinned or tuning is off
-    entry = autotune.prewarm(
-        cfg, batch=cfg.data.n_scenarios * cfg.data.n_users * cfg.train.batch_size, device=dev
-    )
+    entry = autotune.prewarm(cfg, batch=train_qsc.circuit_batch(cfg, mesh), device=dev, mesh=mesh)
     if entry is not None:
         logger.log(
             kind="quantum_autotune",
@@ -277,7 +286,8 @@ def train_nat_sweep(
                 params[k].copy_(v)
 
     start_epoch, best_acc = 0, -1.0
-    if cfg.train.resume and workdir is not None and has_checkpoint(workdir, "nat_sweep_resume"):
+    # rank 0's view of what is on disk decides for every rank
+    if broadcast_object(cfg.train.resume and workdir is not None and has_checkpoint(workdir, "nat_sweep_resume")):
         payload, rmeta = restore_checkpoint(workdir, "nat_sweep_resume", map_location=dev)
         stored = rmeta.get("noise_levels")
         if stored is not None and list(stored) != levels:
@@ -297,7 +307,7 @@ def train_nat_sweep(
     # the first epoch the selection considers: a resumed run without its
     # member-best tag never scored the epochs before it
     member_best_from_epoch = start_epoch
-    if start_epoch > 0 and has_checkpoint(workdir, "nat_sweep_member_best"):
+    if broadcast_object(start_epoch > 0 and has_checkpoint(workdir, "nat_sweep_member_best")):
         mb, mb_meta = restore_checkpoint(workdir, "nat_sweep_member_best", map_location=dev)
         mb_levels = mb_meta.get("noise_levels")
         if mb_levels is not None and list(mb_levels) != levels:
@@ -309,10 +319,13 @@ def train_nat_sweep(
         member_best_epoch = np.asarray(mb_meta.get("member_best_epoch", member_best_epoch), int)
         member_best_from_epoch = int(mb_meta.get("member_best_from_epoch", -1))
 
+    if mesh is not None:
+        train_qsc.replicate_for_data(params.values(), opt, mesh, train_loader, val_loader)
     scan_run = None
-    if scan_eligible(cfg, logger, dev, train_qsc.step_circuit_impl(cfg, dev)):
+    if scan_eligible(cfg, logger, dev, train_qsc.step_circuit_impl(cfg, dev, mesh), mesh=mesh):
         scan_run = make_sweep_scan_steps(model, params, opt, sigmas, data, cfg.train.scan_steps)
 
+    writes = workdir is not None and (mesh is None or mesh.rank == 0)
     history: dict[str, list] = {"train_loss": [], "val_loss": [], "val_acc": []}
     for epoch in range(start_epoch, cfg.train.n_epochs):
         # the epoch's noise, one copy to the device
@@ -320,7 +333,7 @@ def train_nat_sweep(
         if scan_run is not None:
             tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq, noise)
         else:
-            step = _step_fn(model, params, opt, sigmas)
+            step = _step_fn(model, params, opt, sigmas, mesh)
             tot, n = run_steps(step, opt, train_loader, epoch, logger, cfg.train.print_freq, noise)
         train_loss = tot.cpu().numpy().astype(np.float64) / n if n else np.zeros(n_members)
 
@@ -331,6 +344,8 @@ def train_nat_sweep(
             vloss = losses if vloss is None else vloss + losses
             vacc = accs if vacc is None else vacc + accs
             vn += 1
+        if mesh is not None and vn:
+            vloss, vacc = train_qsc.data_mean(vloss, mesh), train_qsc.data_mean(vacc, mesh)
         vloss = vloss.cpu().numpy().astype(np.float64) / vn if vn else np.zeros(n_members)
         vacc = vacc.cpu().numpy().astype(np.float64) / vn if vn else np.zeros(n_members)
         history["train_loss"].append(train_loss)
@@ -351,7 +366,7 @@ def train_nat_sweep(
                     member_best[k] = torch.where(mask, v.detach(), member_best[k])
             member_best_acc = np.where(improved, vacc, member_best_acc)
             member_best_epoch = np.where(improved, epoch, member_best_epoch)
-            if workdir is not None:
+            if writes:
                 save_checkpoint(workdir, "nat_sweep_member_best", {"params": member_best}, {
                     "member_best_acc": [float(a) for a in member_best_acc],
                     "member_best_epoch": [int(e) for e in member_best_epoch],
@@ -361,7 +376,7 @@ def train_nat_sweep(
                     "quantum": quantum_meta,
                 })
 
-        if workdir is not None:
+        if writes:
             top = int(np.argmax(vacc))
             if float(vacc[top]) > best_acc:
                 best_acc = float(vacc[top])
@@ -379,7 +394,7 @@ def train_nat_sweep(
                 {"epoch": epoch, "best_acc": best_acc, "noise_levels": levels, "name": cfg.name,
                  "quantum": quantum_meta},
             )
-    if workdir is not None:
+    if writes:
         save_checkpoint(
             workdir, "nat_sweep_last", {"params": {k: v.detach() for k, v in params.items()}},
             {"noise_levels": levels, "name": cfg.name, "quantum": quantum_meta},

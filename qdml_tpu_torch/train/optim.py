@@ -150,6 +150,10 @@ class Optimizer:
         self.members = members
         self.count = 0
         self.prune_ratio: torch.Tensor | None = None
+        # Under a mesh: reduces the gradients over the ranks before pruning
+        # and the update (parallel.dp.sync_grads), as GSPMD's gradient is
+        # the global one by the time optax sees it
+        self.grad_sync: Callable[[], None] | None = None
         self.lr = torch.tensor(float(schedule(0)), dtype=torch.float32, device=self.params[0].device)
         # a capturable optimizer (Adam, AdamW on the card) reads the tensor
         # itself; the others take a float from the host at every update
@@ -199,6 +203,8 @@ class Optimizer:
         self._pinned = False
 
     def step(self) -> None:
+        if self.grad_sync is not None:
+            self.grad_sync()
         if self.prune is not None:
             self.prune_ratio = gradient_prune_(
                 [p.grad for p in self.params], *self.prune, members=self.members

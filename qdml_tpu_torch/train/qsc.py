@@ -15,6 +15,17 @@ With ``train.scan_steps=K >= 1`` (default 1) the steps run K a dispatch
 (:func:`make_sc_scan_steps`; on the card one CUDA-graph replay, the
 QuantumNAT generator registered with the graph so it draws what the
 per-step path draws), 0 one at a time.
+
+Under a world of several ranks (``qdml_tpu/train/qsc.py:221-242``) the
+state is replicated from rank 0, each rank computes on its rows of every
+batch (B over ``data``), the gradients are averaged over ``data`` before
+the update, and the logged losses and validation sums are reduced over
+``data``. Every rank draws the same QuantumNAT noise (the circuit weights'
+noise is not per row). Under ``quantum.backend=sharded`` (the
+``sharded_16q`` preset) the circuit runs on the model line
+(:mod:`qdml_tpu_torch.quantum.sharded`). Rank 0 alone races the circuit
+impls, at a rank's batch, and every rank dispatches its winner; rank 0
+writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from qdml_tpu_torch.data.datasets import DMLGridLoader, GridData
 from qdml_tpu_torch.models.cnn import SCP128, flax_init_
 from qdml_tpu_torch.models.losses import nll_loss
 from qdml_tpu_torch.models.qsc import QSCP128
+from qdml_tpu_torch.parallel.mesh import training_mesh
 from qdml_tpu_torch.quantum import autotune
 from qdml_tpu_torch.quantum.circuits import resolve_backend, resolve_impl
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
@@ -140,8 +152,12 @@ def make_sc_scan_steps(
     return make_scan_steps(_step_fn(model, opt, generator), data, opt, k, generators=gens)
 
 
-def _step_fn(model: nn.Module, opt: Optimizer, generator: torch.Generator | None):
-    return lambda batch, _noise: classifier_train_step(model, opt, batch, generator=generator)
+def _step_fn(model: nn.Module, opt: Optimizer, generator: torch.Generator | None, mesh=None):
+    def step(batch, _noise):
+        out = classifier_train_step(model, opt, batch, generator=generator)
+        return {"loss": data_mean(out["loss"], mesh)}
+
+    return step
 
 
 @torch.no_grad()
@@ -157,13 +173,48 @@ def classifier_eval_step(model: nn.Module, batch: dict) -> dict[str, torch.Tenso
     }
 
 
-def step_circuit_impl(cfg: ExperimentConfig, device: torch.device) -> str:
+def circuit_batch(cfg: ExperimentConfig, mesh=None) -> int:
+    """The circuit's batch in a classifier step: the flattened grid, or a
+    rank's rows of it under a ``mesh`` whose data axis divides the batch."""
+    bs = cfg.train.batch_size
+    if mesh is not None and bs % mesh.shape["data"] == 0:
+        bs //= mesh.shape["data"]
+    return cfg.data.n_scenarios * cfg.data.n_users * bs
+
+
+def step_circuit_impl(cfg: ExperimentConfig, device: torch.device, mesh=None) -> str:
     """The circuit impl a training step of the quantum classifier runs on
-    ``device``: its train-mode resolution at the flattened grid batch (after
+    ``device``: its train-mode resolution at the step's circuit batch
+    (:func:`circuit_batch`; after
     :func:`~qdml_tpu_torch.quantum.autotune.prewarm`, the race's winner)."""
     q = cfg.quantum
-    batch = cfg.data.n_scenarios * cfg.data.n_users * cfg.train.batch_size
-    return resolve_impl(q.impl, q.backend, q.n_qubits, q.n_layers, batch, mode="train", platform=device.type)
+    return resolve_impl(
+        q.impl, q.backend, q.n_qubits, q.n_layers, circuit_batch(cfg, mesh), mode="train", platform=device.type
+    )
+
+
+def replicate_for_data(state, opt: Optimizer, mesh, *loaders) -> None:
+    """A replicated model under ``mesh`` (``qdml_tpu/train/qsc.py:221-231``):
+    rank 0's ``state`` (a module, or its parameter tensors) and optimizer
+    state on every rank, the gradients averaged over ``data`` before each
+    update, and the loaders switched to this rank's rows."""
+    from qdml_tpu_torch.parallel.dp import replicate, sync_grads
+    from qdml_tpu_torch.parallel.multihost import make_grid_placer
+
+    replicate(state, mesh, opt)
+    opt.grad_sync = sync_grads([(opt.params, mesh.group("data"), "mean")])
+    for loader in loaders:
+        make_grid_placer(loader, mesh)
+
+
+def data_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``t`` over the data line (a loss of equal parts); ``t``
+    itself without a mesh."""
+    if mesh is None:
+        return t
+    from qdml_tpu_torch.parallel.collectives import all_reduce_
+
+    return all_reduce_(t.detach().clone(), mesh.group("data")) / mesh.shape["data"]
 
 
 def noise_generator(cfg: ExperimentConfig, start_epoch: int, device: torch.device) -> torch.Generator:
@@ -189,6 +240,7 @@ def train_classifier(
     history of per-epoch ``train_loss``, ``val_loss`` and ``val_acc``."""
     logger = logger or MetricsLogger(echo=False)
     dev = run_device(data, device)
+    mesh = training_mesh(cfg, dev)
     if data is None:
         data = GridData.synthesize(cfg.data, dev)
     train_loader = DMLGridLoader(data, cfg.train.batch_size, "train")
@@ -197,10 +249,9 @@ def train_classifier(
     tag = "qsc" if quantum else "sc"
     if quantum:
         # the step flattens the grid into one batch, so the circuit's batch is
-        # the whole grid; a no-op when an impl is pinned or tuning is off
-        entry = autotune.prewarm(
-            cfg, batch=cfg.data.n_scenarios * cfg.data.n_users * cfg.train.batch_size, device=dev
-        )
+        # the whole grid (a rank's rows of it under a mesh); a no-op when an
+        # impl is pinned or tuning is off
+        entry = autotune.prewarm(cfg, batch=circuit_batch(cfg, mesh), device=dev, mesh=mesh)
         if entry is not None:
             logger.log(
                 kind="quantum_autotune",
@@ -215,8 +266,10 @@ def train_classifier(
         start_epoch, rmeta = try_resume(workdir, f"{tag}_resume", model, opt)
         best_acc = float(rmeta.get("best", best_acc))
     gen = noise_generator(cfg, start_epoch, dev)
+    if mesh is not None:
+        replicate_for_data(model, opt, mesh, train_loader, val_loader)
     scan_run = None
-    if scan_eligible(cfg, logger, dev, step_circuit_impl(cfg, dev) if quantum else None):
+    if scan_eligible(cfg, logger, dev, step_circuit_impl(cfg, dev, mesh) if quantum else None, mesh=mesh):
         scan_run = make_sc_scan_steps(model, opt, data, cfg.train.scan_steps, gen)
 
     history: dict[str, list] = {"train_loss": [], "val_loss": [], "val_acc": []}
@@ -225,7 +278,7 @@ def train_classifier(
         if scan_run is not None:
             tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq)
         else:
-            tot, n = run_steps(_step_fn(model, opt, gen), opt, train_loader, epoch, logger, cfg.train.print_freq)
+            tot, n = run_steps(_step_fn(model, opt, gen, mesh), opt, train_loader, epoch, logger, cfg.train.print_freq)
         train_loss = float(tot) / n if n else 0.0
 
         model.eval()
@@ -234,6 +287,12 @@ def train_classifier(
             out = classifier_eval_step(model, batch)
             for k in sums:
                 sums[k] = sums[k] + out[k]
+        if mesh is not None:
+            from qdml_tpu_torch.parallel.dp import reduce_over_
+
+            stacked = torch.stack([torch.as_tensor(sums[k], dtype=torch.float32, device=dev) for k in sums])
+            reduce_over_([stacked], mesh, ("data",))
+            sums = dict(zip(sums, stacked))
         count = max(float(sums["count"]), 1.0)
         val_loss = float(sums["nll_sum"]) / count
         val_acc = float(sums["correct"]) / count
@@ -242,7 +301,7 @@ def train_classifier(
         history["val_acc"].append(val_acc)
         logger.log(epoch=epoch, train_loss=train_loss, val_loss=val_loss, val_acc=val_acc)
 
-        if workdir is not None:
+        if workdir is not None and (mesh is None or mesh.rank == 0):
             meta: dict = {"epoch": epoch, "val_acc": val_acc, "name": cfg.name}
             if quantum:
                 q = cfg.quantum
@@ -261,7 +320,7 @@ def train_classifier(
                 best_acc = val_acc
                 save_checkpoint(workdir, f"{tag}_best", {"params": model.state_dict()}, meta)
             save_train_state(workdir, f"{tag}_resume", model, opt, {**meta, "best": best_acc})
-    if workdir is not None:
+    if workdir is not None and (mesh is None or mesh.rank == 0):
         save_checkpoint(
             workdir,
             f"{tag}_last",

@@ -61,19 +61,22 @@ MAX_GRAPHS = 2
 activity = {"captures": 0, "replays": 0}
 
 
-def scan_eligible(cfg, logger, device: torch.device | None = None, circuit_impl: str | None = None) -> bool:
+def scan_eligible(
+    cfg, logger, device: torch.device | None = None, circuit_impl: str | None = None, mesh=None
+) -> bool:
     """Whether the K-step path runs this training (``qdml_tpu/train/scan.py:
     109-161``): yes for ``train.scan_steps >= 1``, K = 1 included; 0 selects
-    the per-step path. On the card an optimizer that reads its rate as a host
-    float (SGD) declines too: a graph would replay the capture step's rate.
-    So does a step whose circuit resolves to ``mps`` (``circuit_impl``, the
-    resolved impl of a quantum trainer's step): each of its SVDs checks
-    cuSOLVER's status on the host, which no CUDA graph can capture.
-    Every decision is logged as ``kind="scan_dispatch"`` with ``eligible``,
-    ``scan_steps`` and ``reason``; a decline of a K >= 1 also logs a warning.
-    JAX's other declines, a multi-process or non-dividing mesh and
-    ``train.checkify``, wait for the port's mesh (ROADMAP A.10) and sanitizer
-    (A.12)."""
+    the per-step path. Under a ``mesh`` it declines with JAX's reason for a
+    multi-process run: in the port every mesh is several processes, each
+    with its own rows, and no collective is captured into a graph. On the
+    card an optimizer that reads its rate as a host float (SGD) declines
+    too: a graph would replay the capture step's rate. So does a step whose
+    circuit resolves to ``mps`` (``circuit_impl``, the resolved impl of a
+    quantum trainer's step): each of its SVDs checks cuSOLVER's status on
+    the host, which no CUDA graph can capture. Every decision is logged as
+    ``kind="scan_dispatch"`` with ``eligible``, ``scan_steps`` and
+    ``reason``; a decline of a K >= 1 also logs a warning. JAX's
+    ``train.checkify`` decline waits for the port's sanitizer (A.12)."""
     k = cfg.train.scan_steps
 
     def decide(eligible: bool, reason: str, warn: str | None = None) -> bool:
@@ -84,6 +87,13 @@ def scan_eligible(cfg, logger, device: torch.device | None = None, circuit_impl:
 
     if k < 1:
         return decide(False, "disabled: scan_steps=0 selects the per-step path")
+    if mesh is not None:
+        return decide(
+            False,
+            "loader shape: multi-process per-host slice generation owns the data",
+            warn=f"scan_steps={k} ignored: multi-process "
+            "or non-dividing batch uses the per-step placer data path",
+        )
     if device is not None and device.type == "cuda" and cfg.train.optimizer == "sgd":
         return decide(
             False,

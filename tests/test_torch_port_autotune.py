@@ -2,9 +2,10 @@
 
 ``qdml_tpu_torch.quantum.autotune`` and ``qdml_tpu.quantum.autotune`` hold
 the same inputs to the same answers: buckets and keys exactly, eligibility
-exactly but for the two stated differences (the port adds ``pallas_circuit``
-at 2 <= n <= 6, where its CUDA kernel runs for real, and leaves out the
-unported ``sharded_statevector``), and one table file written
+exactly but for the stated difference (the port adds ``pallas_circuit``
+at 2 <= n <= 6, where its CUDA kernel runs for real; ``sharded_statevector``
+follows JAX's topology rule on the model line of the port's ranks), and one
+table file written
 once gives the same ``lookup_reason`` and ``resolve_impl`` in both packages
 for every shape and mode, pathologies included. Then the port's own
 behaviour: the tuner round-trips a manifest-headed table and re-reads it
@@ -62,11 +63,13 @@ def test_batch_bucket_and_table_key_match_jax():
 
 @pytest.mark.parametrize("n", range(2, 21))
 def test_eligible_impls_match_jax_but_for_the_stated_differences(n):
-    want = [i for i in jat.eligible_impls(n, "cpu") if i not in tat.UNPORTED_IMPLS]
-    if 2 <= n <= 6:  # the port's circuit kernel runs below JAX's 128-lane floor
-        want.insert(want.index("pallas") + 1, "pallas_circuit")
-    assert tat.eligible_impls(n) == want
-    assert not set(tat.eligible_impls(n)) & set(tat.UNPORTED_IMPLS)
+    for devices in (None, 1, 2, 4):
+        want = list(jat.eligible_impls(n, "cpu", devices))
+        if 2 <= n <= 6:  # the port's circuit kernel runs below JAX's 128-lane floor
+            want.insert(want.index("pallas") + 1, "pallas_circuit")
+        assert tat.eligible_impls(n, devices) == want
+    assert ("sharded_statevector" in tat.eligible_impls(n, 2)) == (n >= tat.SHARDED_MIN_QUBITS)
+    assert tat.UNPORTED_IMPLS == ()
 
 
 def test_impl_eligible_matches_jax_on_ported_impls():
@@ -74,8 +77,11 @@ def test_impl_eligible_matches_jax_on_ported_impls():
         for n in (2, 6, 8, 12, 13, 14, 15, 20):
             assert tat.impl_eligible(impl, n)[0] == jat.impl_eligible(impl, n)[0], (impl, n)
     for impl in ("sharded", "sharded_statevector"):
-        ok, why = tat.impl_eligible(impl, 6)
-        assert not ok and "A.10" in why
+        for devices in (1, 2, 4):  # JAX's topology rule, its reason word for word
+            assert tat.impl_eligible(impl, 6, devices) == jat.impl_eligible(impl, 6, devices)
+        ok, why = tat.impl_eligible(impl, 6)  # no mesh: a model line of one
+        assert not ok and why == jat.impl_eligible(impl, 6, 1)[1]
+    assert tat.model_axis_devices() == 1
     assert tcirc.impl_eligible is tat.impl_eligible  # circuits re-exports it
     with pytest.raises(ValueError):
         tat.impl_eligible("nope", 6)
@@ -173,9 +179,10 @@ def test_ensure_round_trips_a_manifest_headed_table(tmp_path):
 
 
 def test_a_failing_candidate_is_recorded_and_left_out(tmp_path):
+    # sharded_statevector without a model line of two ranks: refused by eligibility
     entry = tat.ensure(3, 1, 4, path=str(tmp_path / "t.json"), impls=["dense", "sharded_statevector"],
                        budget_s=0.01, device="cpu")
-    assert "NotImplementedError" in entry["candidates"]["sharded_statevector"]["error"]
+    assert "ImplIneligibleError" in entry["candidates"]["sharded_statevector"]["error"]
     assert entry["best_train"] == entry["best_fwd"] == "dense"
 
 
@@ -301,7 +308,7 @@ def test_lookup_after_the_first_read_touches_no_file(tmp_path, monkeypatch):
         assert tat.lookup_reason(6, 3, batch, platform="cpu") == ("pallas", None)
 
 
-def test_reconcile_raises_impl_ineligible():
+def test_reconcile_raises_impl_ineligible(monkeypatch):
     from qdml_tpu.train.checkpoint import reconcile_quantum_cfg as jreconcile
     from qdml_tpu_torch.train.checkpoint import reconcile_quantum_cfg
 
@@ -315,9 +322,15 @@ def test_reconcile_raises_impl_ineligible():
         jcfg = jconfig.ExperimentConfig(quantum=jconfig.QuantumConfig(impl=impl))
         with pytest.raises(jat.ImplIneligibleError):
             jreconcile(jcfg, meta)
+    # a sharded_statevector pin restored on one rank: JAX's typed error, word for word
+    monkeypatch.setattr(jat, "model_axis_devices", lambda: 1)  # JAX on one device
     cfg = tconfig.ExperimentConfig(quantum=tconfig.QuantumConfig(impl="sharded_statevector"))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        reconcile_quantum_cfg(cfg, {"quantum": {"n_qubits": 6}})
+    jcfg = jconfig.ExperimentConfig(quantum=jconfig.QuantumConfig(impl="sharded_statevector"))
+    with pytest.raises(tat.ImplIneligibleError) as terr:
+        reconcile_quantum_cfg(cfg, {"quantum": {"n_qubits": 16}})
+    with pytest.raises(jat.ImplIneligibleError) as jerr:
+        jreconcile(jcfg, {"quantum": {"n_qubits": 16}})
+    assert str(terr.value) == str(jerr.value)
     # a checkpoint trained on mps (its chi dropped, as JAX drops it) reconciles
     mps = tconfig.ExperimentConfig(quantum=tconfig.QuantumConfig(impl="mps", mps_chi=4))
     got = reconcile_quantum_cfg(mps, {"quantum": {"n_qubits": 16, "impl": "mps", "mps_chi": 16}})
@@ -336,7 +349,7 @@ def _common_fields(t, j, prefix=""):
             yield f"{prefix}{f.name}", tv, jv
 
 
-@pytest.mark.parametrize("name", ["single_4q", "nat_sweep", "robust_qsc"])
+@pytest.mark.parametrize("name", ["single_4q", "dp_8q", "sharded_16q", "federated", "nat_sweep", "robust_qsc"])
 def test_runnable_presets_match_jax(name):
     t = tconfig.preset(name)
     j = jconfig.presets()[name]
@@ -350,10 +363,10 @@ def test_runnable_presets_match_jax(name):
 
 
 def test_mesh_presets_raise_and_unknown_presets_are_refused():
-    assert set(tconfig.UNPORTED_PRESETS) | set(tconfig.presets()) == set(jconfig.presets())
-    for name in tconfig.UNPORTED_PRESETS:
-        with pytest.raises(NotImplementedError, match="A.10"):
-            tconfig.from_args([f"--preset={name}"])
+    assert tconfig.UNPORTED_PRESETS == () and set(tconfig.presets()) == set(jconfig.presets())
+    for name in ("dp_8q", "sharded_16q", "federated"):  # the mesh presets, field for field
+        assert tconfig.from_args([f"--preset={name}"]).mesh == tconfig.MeshConfig(
+            **dataclasses.asdict(jconfig.presets()[name].mesh))
     with pytest.raises(KeyError, match="unknown preset"):
         tconfig.preset("nope")
 

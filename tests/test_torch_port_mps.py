@@ -174,9 +174,13 @@ def test_eligibility_matches_jax_single_device(n):
     assert ("mps" in want) == (n >= 13)
     for impl in ("dense", "pallas", "pallas_circuit", "tensor", "mps"):
         assert tat.impl_eligible(impl, n)[0] == jat.impl_eligible(impl, n, 1)[0], (impl, n)
-    ok, why = tat.impl_eligible("sharded_statevector", n)
-    assert not ok and "A.10" in why
-    assert tat.UNPORTED_IMPLS == ("sharded_statevector",)
+    ok, why = tat.impl_eligible("sharded_statevector", n)  # no mesh: one rank, JAX on one device
+    assert (ok, why) == jat.impl_eligible("sharded_statevector", n, 1)
+    # on a model line of 4 ranks JAX's rule adds the sharded candidate from n = 10
+    sharded = ["sharded_statevector"] if n >= tat.SHARDED_MIN_QUBITS else []
+    assert tat.eligible_impls(n, 4) == want + sharded
+    assert ("sharded_statevector" in jat.eligible_impls(n, "gpu", 4)) == bool(sharded)
+    assert tat.UNPORTED_IMPLS == ()
 
 
 def test_auto_resolves_mps_at_16_qubits_and_the_race_records_chi(tmp_path):

@@ -219,7 +219,7 @@ def test_run_circuit_ensemble_dispatch_and_eligibility(capsys):
     wide = torch.zeros((2, 3, 13)), torch.zeros((2, 1, 13, 2))
     with pytest.raises(tcirc.ImplIneligibleError):
         tcirc.run_circuit_ensemble(*wide, 13, 1, impl="pallas_circuit")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(tcirc.ImplIneligibleError, match="needs >= 2 devices"):  # one rank
         tcirc.run_circuit_ensemble(a, w, 4, 2, impl="sharded_statevector")
     with pytest.raises(ValueError):
         tcirc.run_circuit_ensemble(a, w[:1], 4, 2, impl="dense")

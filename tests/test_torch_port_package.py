@@ -28,6 +28,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "qdml_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "qdml_tpu")
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the mesh slice's modules, which the whole-package import must bring in
+MESH_MODULES = tuple(f"qdml_tpu_torch.{m}" for m in (
+    "parallel", "parallel.mesh", "parallel.collectives", "parallel.multihost", "parallel.dp",
+    "parallel.federated", "parallel.selfcheck", "quantum.sharded",
+))
 
 
 def test_import_everything_leaves_jax_out():
@@ -37,13 +42,14 @@ def test_import_everything_leaves_jax_out():
         "    importlib.import_module(m.name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        f"assert set({MESH_MODULES!r}) <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('qdml_tpu_torch')]))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 63  # every module of the eleven slices was imported
+    assert int(out.stdout.strip()) >= 71  # every module of the twelve slices was imported
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -78,6 +84,11 @@ def test_every_module_has_a_jax_counterpart_or_is_the_kernels():
             continue
         if rel == Path("bench.py"):  # the JAX package's bench is the repo root's
             assert (ROOT / "bench.py").exists()
+            continue
+        if rel == Path("parallel/collectives.py"):  # XLA inserts JAX's collectives
+            continue
+        if rel == Path("parallel/selfcheck.py"):  # the rank programs, JAX's a test worker
+            assert (ROOT / "tests/multihost_worker.py").exists()
             continue
         assert (ROOT / "qdml_tpu" / rel).exists(), rel
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
@@ -196,7 +207,7 @@ def test_config_defaults_match_the_jax_config():
 
     t, j = tconfig.ExperimentConfig(), jconfig.ExperimentConfig()
     assert (t.image_hw, t.h_out_dim) == (j.image_hw, j.h_out_dim)
-    for sect in ("data", "model", "quantum", "train", "serve"):
+    for sect in ("data", "model", "quantum", "train", "serve", "mesh"):
         for field, value in vars(getattr(t, sect)).items():
             assert getattr(getattr(j, sect), field) == value, (sect, field)
 
@@ -206,6 +217,7 @@ def test_submodules_import():
     for name in mods:
         importlib.import_module(name)
     assert "qdml_tpu_torch.quantum.kernels" in mods and "qdml_tpu_torch.serve.engine" in mods
+    assert set(MESH_MODULES) <= set(mods)
     for name in ("data.channels", "data.datasets", "train.optim", "train.qsc", "train.checkpoint",
                  "ops.quantumnat", "ops.grad_prune", "models.losses", "utils.metrics", "cli",
                  "data.baselines", "eval.sweep", "eval.report", "eval.loss_curves",

@@ -141,9 +141,9 @@ def test_dispatch_names_and_heuristic_match():
     assert tcirc.resolve_impl("auto", "tensor", 6, 3, 64) == "tensor"
     with pytest.raises(ValueError):
         tcirc.canonical_impl("nope")
-    for impl in ("sharded", "sharded_statevector"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcirc.run_circuit(torch.zeros(2, 4), torch.zeros(1, 4, 2), 4, 1, impl=impl)
+    for impl in ("sharded", "sharded_statevector"):  # one rank: the tensor path
+        a, w = torch.rand(2, 4), torch.rand(1, 4, 2)
+        torch.testing.assert_close(tcirc.run_circuit(a, w, 4, 1, impl=impl), tcirc.run_circuit(a, w, 4, 1, impl="tensor"))
 
 
 @pytest.mark.parametrize("n", [4, 6])
