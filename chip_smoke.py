@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (``qdml_tpu_torch``) on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA GPU and nvcc
-    python3 chip_smoke.py --only=multirank   # the build and phase 8k alone
-                                             # (on 4+ cards: NCCL, one a rank)
+    python3 chip_smoke.py --only=multirank   # the build, phase 8k alone and, on 4+
+                                             # cards (NCCL, one a rank), phase 6c
+                                             # over the real cards
 
 Phases, each of which exits non-zero on failure:
 
@@ -74,6 +75,47 @@ Phases, each of which exits non-zero on failure:
    second batch, traffic offered in waves until it has fired: its batch's
    futures fail, the supervisor restarts the replica, every other request
    is served, and the per-replica batch split is logged;
+6c. mesh_serve: the engine over a ``(fed, data, model)`` mesh at full width
+   (QSC n=6 L=3 ``auto``, buckets 1, 8, 64, seeded weights): in the default
+   run over logical positions on ``cuda:0`` (``make_local_mesh``, each
+   position its own copy of the weights; JAX's tests use virtual devices
+   alike), under ``--only=multirank`` with 4+ cards over the real cards
+   (``serve_mesh``). Layouts: data=4 (bucket), and fed=3 with expert
+   sharding, data=2 on one card / data=1 on the real cards, dense bucket and
+   forced sparse ragged. Requests of 1, 5, 64 and 100 rows against the CPU
+   twin without a mesh (1e-4 max|h| + 1e-5 on rows routed alike, as phase
+   6b), the counters zeroed just before: B.2 launched once a row slice (D a
+   data-sharded batch, 1 a replicated one), every bucket's impl
+   ``pallas_circuit``; NaN/Inf pad tails at fills 3 and 37 of the sparse
+   ragged 64-row tier leave the valid rows bit for bit and every row finite;
+   then a 2x2 pool on the data=4 engine under ``run_loadgen``, ragged,
+   poisson 1000 rps, 2048 requests (cut for time), with one ``swap_params``
+   mid-traffic: every row held against the old or the new weights' CPU twin
+   (both must appear), B.2 launches in the traffic window equal to the row
+   slices of the served batches, no request-path work, p50/p99 and the
+   device busy share under the profiler beside the one-device 2x2 engine
+   at the same rate;
+6d. control: the control loop at full width on the data=4 mesh of logical
+   positions, ``scripts/control_dryrun.py``'s control settings (drift of
+   scenario 0 at step 4; ft_steps 300, ft_batch 32, probe_n 96, min gain
+   0.3 dB, tol 0.5 dB, watch 2 ticks, no autoscaling): HDCE and QSC (n=6
+   L=3 ``auto``) trained on the card (data_len 512 a cell, 4 epochs of
+   batch 32: cut from 20000 and the dryrun's 6/10 epochs, for time) into a
+   workdir under ``build/chip_smoke/control/``; a 2x2 pool on the mesh
+   engine under ``run_loadgen`` (poisson 500 rps, 1536 requests, cut for
+   time, drift from the middle) while a dry-run ``FleetController`` on
+   ``PoolPoller`` watches (no drift event on scenarios 1-2 before the drift
+   may fire); the loadgen's drift-scenario windows replayed into
+   ``observe_parity`` (scenario 0 must be detected); one ``tick()``:
+   fine-tune (its validation NMSE must improve; head and trunks 1-2 of
+   ``hdce_last`` bit-equal to ``hdce_best``), canary (must pass), the
+   explicit-tag swap (tags ``hdce_last``/``qsc_best``, no work); all-drifted
+   traffic after it held against the CPU twin of ``hdce_last`` (B.2 once a
+   row slice), its parity into the watch until ``deploy_confirmed`` or a
+   rollback; last ``python -m qdml_tpu_torch.cli serve`` and ``cli control
+   --ticks=3 --control.dry_run=true`` as processes: JAX's header line,
+   exit 0. Fine-tune wall and steps/s, canary seconds, swap ms and p50
+   before and after are logged;
 7. training: at full width on data synthesized on the card (data_len 2048 per
    cell, cut from the reference's 20000 for time), five trainers each run one
    epoch (7 steps of 256 rows per cell, 2304 a step) and validate: HDCE
@@ -199,6 +241,7 @@ writes only under ``build/``.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -953,31 +996,45 @@ def _hold_served(ref: tuple, h: np.ndarray, pred: np.ndarray, what: str) -> dict
             "routed_alike": int(same.sum()), "sure": int(sure.sum())}
 
 
-class _LaunchMark:
-    """A telemetry sink that copies the launch counters when the span
-    ``name`` closes. ``run_loadgen``'s ``serve_warmup`` closes after its
-    offline reference and its warmup forwards, so the launches after it are
-    the traffic's alone."""
+class _ServeTally:
+    """A telemetry sink: the launch counters when the span ``mark`` closes,
+    the bucket of every served batch (``serve_batch`` records), and every
+    counters record with its wall time (drift and control events)."""
 
     active = True
 
-    def __init__(self, K, name: str):
-        self.K, self.name, self.at = K, name, None
+    def __init__(self, K, mark: str | None = None):
+        self.K, self.mark, self.at = K, mark, None
+        self.buckets: list[int] = []
+        self.records: list[tuple[float, str, dict]] = []
+        self.spans: dict[str, float] = {}
+        self._lock = threading.Lock()
 
     def write_raw(self, rec: dict) -> None:
-        if rec.get("name") == self.name:
+        if rec.get("name") == self.mark:
             self.at = dict(self.K.launches)
+        if rec.get("kind") == "span":
+            with self._lock:
+                self.spans[rec["name"]] = rec["dur_s"]
+                self.spans[rec["name"] + ".ts"] = rec["ts"]
 
     def emit(self, kind: str, **fields) -> None:
-        """Counters and events: not this sink's business."""
+        with self._lock:
+            if kind == "span" and fields.get("name") == "serve_batch":
+                self.buckets.append(int(fields["bucket"]))
+            elif kind == "counters":
+                self.records.append((time.time(), fields.get("name"), fields))
 
 
 def _traffic_run(K, run):
-    """``run()`` (a ``run_loadgen`` call) with a :class:`_LaunchMark` as the
-    global span sink: ``(summary, B.2 launches in the traffic window)``."""
+    """``run()`` (a ``run_loadgen`` call) with a :class:`_ServeTally` as the
+    global span sink: ``(summary, B.2 launches in the traffic window)``.
+    ``run_loadgen``'s ``serve_warmup`` span closes after its offline
+    reference and its warmup forwards, so the launches after it are the
+    traffic's alone."""
     from qdml_tpu_torch.telemetry.spans import get_sink, set_sink
 
-    mark, prev = _LaunchMark(K, "serve_warmup"), get_sink()
+    mark, prev = _ServeTally(K, "serve_warmup"), get_sink()
     set_sink(mark)
     try:
         sm = run()
@@ -2580,6 +2637,458 @@ def multirank_phase(torch, K, mods, card: str) -> dict[str, int]:
     return main_path
 
 
+# mesh serving: buckets (1, 8, 64); the data=4 layout and the expert-sharded
+# fed=3 layout (data=2 over logical positions on one card, data=1 over real
+# cards); loadgen through 2 replicas x 2 workers at poisson 1000 rps, 2048
+# requests (cut for time), with one hot-swap mid-traffic
+MESH_BUCKETS = "1,8,64"
+MESH_RPS, MESH_REQUESTS = 1000.0, 2048
+# the control loop (scripts/control_dryrun.py's settings): drift of scenario
+# 0 at step 4; HDCE and QSC trained 4 epochs on data_len 512 a cell, batch 32
+# (cut from 20000 and the dryrun's 6/10 epochs, for time); loadgen 1536
+# requests at 500 rps, drift from the middle (cut for time)
+CTL_WORK = EVAL_WORK / "control"
+CTL_DRIFT_SCENARIO, CTL_DRIFT_STEP = 0, 4
+CTL_ARGS = (
+    "--name=control", "--quantum.n_qubits=6", "--quantum.n_layers=3", "--data.data_len=512",
+    "--train.batch_size=32", "--train.n_epochs=4", f"--serve.buckets={MESH_BUCKETS}", "--serve.max_batch=64",
+    "--serve.batching=bucket", "--serve.max_wait_ms=2", f"--serve.drift_step={CTL_DRIFT_STEP}",
+    f"--serve.drift_scenario={CTL_DRIFT_SCENARIO}", "--serve.replicas=2", "--serve.workers=2",
+    "--control.ft_steps=300", "--control.ft_batch=32", "--control.probe_n=96", "--control.min_gain_db=0.3",
+    "--control.tol_db=0.5", "--control.watch_ticks=2", "--control.autoscale=false",
+)
+CTL_RPS, CTL_REQUESTS = 500.0, 1536
+
+
+def _hold_either(refs: list[tuple], h: np.ndarray, pred: np.ndarray, what: str) -> list[int]:
+    """Each served row against one of several CPU twins (a hot-swap: the old
+    weights' and the new): held as :func:`_hold_served` holds a row, against
+    the twin it matches; the rows each twin explains."""
+    tols = [1e-4 * float(np.abs(r[0]).max()) + 1e-5 for r in refs]
+    counts = [0] * len(refs)
+    for i in range(len(h)):
+        for k, (h_ref, pred_ref, logp) in enumerate(refs):
+            if pred[i] == pred_ref[i] and float(np.abs(h[i] - h_ref[i]).max()) <= tols[k]:
+                counts[k] += 1
+                break
+        else:
+            unsure = all(float(np.diff(np.sort(r[2][i])[-2:])[0]) <= 1e-4 for r in refs)
+            if not unsure:
+                raise AssertionError(f"{what}: row {i} matches no CPU twin")
+    if not np.isfinite(h).all():
+        raise AssertionError(f"{what}: non-finite h")
+    return counts
+
+
+def _profiled_loadgen(torch, run) -> tuple[dict, float, float]:
+    """``run()`` (a ``run_loadgen`` call) under the torch profiler:
+    ``(summary, busy us, window s)``, busy the union of the device
+    activities of every card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qdml_tpu_torch.utils.profiling import device_busy_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sm = run()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    return sm, device_busy_us(prof.events()), window
+
+
+def mesh_serve_phase(torch, K, mods, card: str, real: bool) -> dict[str, int]:
+    """Mesh serving at full width (QSC n=6 L=3 ``auto``, buckets 1, 8, 64):
+    the engine over ``make_local_mesh`` positions on ``cuda:0`` (one card) or
+    ``serve_mesh`` over the real cards (``real``), data=4, then fed=3 with
+    expert sharding dense and forced sparse + ragged; every answer against
+    the CPU twin without a mesh, B.2 launched once a row slice, a NaN/Inf
+    pad tail inert; then a 2x2 pool under ``run_loadgen`` at poisson 1000
+    rps with one hot-swap mid-traffic, beside the one-device engine at the
+    same rate. Returns the traffic windows' launches."""
+    from dataclasses import replace
+
+    from qdml_tpu_torch.models.qsc import build_classifier
+    from qdml_tpu_torch.parallel.mesh import make_local_mesh, serve_mesh
+    from qdml_tpu_torch.serve.batcher import pick_bucket
+    from qdml_tpu_torch.serve.engine import ServeEngine
+    from qdml_tpu_torch.serve.loadgen import make_request_samples, run_loadgen
+    from qdml_tpu_torch.serve.server import ReplicaPool
+    from qdml_tpu_torch.serve.types import Prediction
+    from qdml_tpu_torch.telemetry.spans import get_sink, set_sink
+
+    zero = {"measure": 0, "table_write": 0, "kernel_build": 0}
+    base = mods["config"].from_args(["--quantum.n_qubits=6", "--quantum.n_layers=3", f"--serve.buckets={MESH_BUCKETS}",
+                                     "--serve.max_batch=64"])
+    weights = []
+    for seed in (SEED + 41, SEED + 42):
+        gen = torch.Generator().manual_seed(seed)
+        weights.append((mods["hdce"].build_hdce(base, "cpu", generator=gen).state_dict(),
+                        build_classifier(base, True, "cpu", generator=gen).state_dict()))
+    twins = [ServeEngine(base, *w, quantum=True, device="cpu") for w in weights]
+    how = "the real cards (serve_mesh)" if real else "logical positions on cuda:0 (make_local_mesh)"
+
+    def layout(fed: int, data: int, **serve):
+        cfg = replace(base, mesh=replace(base.mesh, fed_axis=fed, data_axis=data, model_axis=1),
+                      serve=replace(base.serve, **serve))
+        mesh = serve_mesh(cfg, DEVICE) if real else make_local_mesh(cfg.mesh, [torch.device("cuda", 0)] * (fed * data))
+        if mesh is None or mesh.shape != {"fed": fed, "data": data, "model": 1}:
+            raise AssertionError(f"mesh_serve: no {fed}x{data}x1 mesh ({mesh})")
+        return cfg, mesh
+
+    fed_data = 1 if real else 2
+    rng = np.random.default_rng(SEED + 43)
+    requests = {n: rng.standard_normal((n, *base.image_hw, 2)).astype(np.float32) for n in REQUEST_SIZES}
+    refs = {n: _twin_reference(torch, twins[0], x) for n, x in requests.items()}
+    launches = {k: 0 for k in K.COUNTERS}
+    for name, (fed, data), knobs in (
+        ("data4", (1, 4), {"batching": "bucket"}),
+        (f"fed3_data{fed_data}_dense_bucket", (3, fed_data), {"expert_sharding": True, "batching": "bucket"}),
+        (f"fed3_data{fed_data}_sparse_ragged", (3, fed_data),
+         {"expert_sharding": True, "dispatch": "sparse", "batching": "ragged"}),
+    ):
+        cfg, mesh = layout(fed, data, **knobs)
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, *weights[0], quantum=True, mesh=mesh)
+        warm = eng.warmup()
+        impls = {b: (r["impl"], r["slice_batch"]) for b, r in eng.quantum_impl.items()}
+        log(f"mesh_serve {name} over {how}: devices {[str(d) for d in mesh.devices.flat]}, warmup "
+            f"{time.perf_counter() - t0:.2f} s, sharding {json.dumps(warm['sharding'])}, mesh {json.dumps(warm['mesh'])}, "
+            f"dispatch {json.dumps(warm['dispatch']['mode'])}, batching {json.dumps(warm['batching']['mode'])}, "
+            f"impl (raced at the bucket, slice rows) {json.dumps(impls)} [{card}]")
+        if {i for i, _ in impls.values()} != {"pallas_circuit"}:
+            raise AssertionError(f"mesh_serve {name}: a bucket does not run B.2: {impls}")
+        if name.endswith("sparse_ragged"):
+            # NaN/Inf in the pad tail of the 64-row tier: valid rows unchanged and finite
+            x = requests[64]
+            for n in (3, 37):
+                xz = np.zeros((64, *base.image_hw, 2), np.float32)
+                xz[:n] = x[:n]
+                clean = eng.forward_tier(xz, n)[0][:n].cpu()
+                xp = np.full_like(xz, np.nan)
+                xp[n + 1 :: 3] = np.inf
+                xp[:n] = x[:n]
+                h, _, conf, _ = eng.forward_tier(xp, n)
+                if not (torch.isfinite(h).all() and torch.isfinite(conf).all() and torch.equal(h[:n].cpu(), clean)):
+                    raise AssertionError(f"mesh_serve {name}: the NaN/Inf pad tail reached a row (n={n})")
+            log(f"mesh_serve {name}: NaN/Inf pad tails at fills 3 and 37 of 64 left the valid rows bit for bit "
+                f"and every row finite [{card}]")
+        work0 = eng.request_path_work()
+        K.reset_launch_counts()
+        slices, errs = 0, {}
+        for n, x in requests.items():
+            h, pred, conf, info = eng.infer(x)
+            errs[n] = _hold_served(refs[n], h, pred, f"mesh_serve {name} n={n}")["max_abs_err"]
+            slices += sum(eng._slices(pick_bucket(min(64, n - lo), eng.buckets)) for lo in range(0, n, 64))
+        torch.cuda.synchronize()
+        b2 = K.launches["circuit_expvals"]
+        for k in launches:
+            launches[k] += K.launches[k]
+        log(f"mesh_serve {name}: requests {list(requests)} against the CPU twin max|h - h_cpu| "
+            f"{json.dumps({n: f'{e:.3e}' for n, e in errs.items()})}; B.2 launches {b2} for {slices} row slices "
+            f"[{card}]")
+        if b2 != slices:
+            raise AssertionError(f"mesh_serve {name}: B.2 launched {b2} times for {slices} row slices")
+        if eng.request_path_work() != work0 or work0 != zero:
+            raise AssertionError(f"mesh_serve {name}: request-path work {eng.request_path_work()}")
+
+    # a 2x2 pool on the data=4 engine under poisson traffic, one hot-swap
+    # mid-traffic, beside the one-device engine at the same rate
+    cfg, mesh = layout(1, 4, batching="ragged", replicas=2, workers=2)
+    eng = ServeEngine(cfg, *weights[0], quantum=True, mesh=mesh)
+    eng.warmup()
+    samples = make_request_samples(cfg, MESH_REQUESTS)
+    x = samples["x"]
+    refs2 = [_twin_reference(torch, t, x) for t in twins]
+    tally = _ServeTally(K, "loadgen_offline_reference")
+    pool = ReplicaPool(eng, sink=tally, log_requests=False).start()
+    swap: dict = {}
+
+    def swapper():
+        while tally.at is None:
+            time.sleep(0.005)
+        time.sleep(MESH_REQUESTS / MESH_RPS / 4)  # a quarter into the traffic
+        t = time.perf_counter()
+        swap.update(eng.swap_params(*weights[1]))
+        swap["ms"] = (time.perf_counter() - t) * 1e3
+
+    results: list = []
+    prev = get_sink()
+    K.reset_launch_counts()
+    set_sink(tally)
+    th = threading.Thread(target=swapper, daemon=True)
+    th.start()
+    try:
+        sm, busy, window = _profiled_loadgen(torch, lambda: run_loadgen(
+            cfg, eng, rate=MESH_RPS, n=MESH_REQUESTS, deadline_ms=TIER_DEADLINE_MS, samples=samples, pool=pool,
+            results=results))
+        th.join(timeout=60.0)
+    finally:
+        set_sink(prev)
+        pool.stop()
+    b2 = K.launches["circuit_expvals"] - tally.at["circuit_expvals"]
+    slices = sum(eng._slices(b) for b in tally.buckets)
+    for k in launches:
+        launches[k] += K.launches[k] - tally.at[k]
+    served = [r for r in results if isinstance(r, Prediction)]
+    ids = np.array([r.rid for r in served], dtype=np.int64)
+    explained = _hold_either([tuple(a[ids] for a in r) for r in refs2], np.stack([r.h for r in served]),
+                             np.array([r.scenario for r in served]), "mesh_serve 2x2 loadgen across the swap")
+    lat = sm["latency_ms"] or {}
+    log(f"mesh_serve loadgen data=4 over {how}, 2 replicas x 2 workers, ragged, poisson {MESH_RPS:g} rps "
+        f"n={MESH_REQUESTS} deadline {TIER_DEADLINE_MS:g} ms, under the profiler: rps {sm['rps']}, offered "
+        f"{sm['offered_rps']}, p50 {lat.get('p50_ms')} ms, p99 {lat.get('p99_ms')} ms, SLO {json.dumps(sm['slo'])}, "
+        f"shed {json.dumps(sm['shed'])}, batches {len(tally.buckets)}, B.2 launches in the traffic window {b2} for "
+        f"{slices} row slices, hot-swap mid-traffic epoch {swap.get('epoch')} in {swap.get('ms', float('nan')):.2f} ms "
+        f"work {json.dumps(swap.get('work'))}; rows explained by the old / new weights' CPU twin {explained}; "
+        f"request-path work {json.dumps(sm['compile_cache_after_warmup'])}; device busy {busy:.1f} us of a "
+        f"{window * 1e3:.3f} ms call, share {busy / (window * 1e6):.4f} [{card}]")
+    if sm["stranded_futures"] or sm["failed_requests"] or sm["completed"] + sm["n_shed"] != MESH_REQUESTS:
+        raise AssertionError(f"mesh_serve loadgen: stranded {sm['stranded_futures']}, failed {sm['failed_requests']}")
+    if sm["compile_cache_after_warmup"] != zero or swap.get("work") != zero or eng.swap_epoch != 1:
+        raise AssertionError(f"mesh_serve loadgen: request-path work {sm['compile_cache_after_warmup']}, swap {swap}")
+    if b2 != slices:
+        raise AssertionError(f"mesh_serve loadgen: B.2 launched {b2} times for {slices} row slices")
+    if min(explained) == 0:
+        raise AssertionError(f"mesh_serve loadgen: the swap did not land mid-traffic ({explained})")
+    one = replace(base, serve=replace(base.serve, batching="ragged", replicas=2, workers=2))
+    eng1 = ServeEngine(one, *weights[0], quantum=True, device=DEVICE)
+    sm1, busy1, window1 = _profiled_loadgen(torch, lambda: run_loadgen(
+        one, eng1, rate=MESH_RPS, n=MESH_REQUESTS, deadline_ms=TIER_DEADLINE_MS, samples=samples))
+    lat1 = sm1["latency_ms"] or {}
+    log(f"mesh_serve loadgen beside it, the one-device engine on {DEVICE}, 2 replicas x 2 workers, ragged, poisson "
+        f"{MESH_RPS:g} rps n={MESH_REQUESTS}, under the profiler: rps {sm1['rps']}, p50 {lat1.get('p50_ms')} ms, "
+        f"p99 {lat1.get('p99_ms')} ms, SLO {json.dumps(sm1['slo'])}, batches {sm1['batches']}, parity "
+        f"{sm1['parity_max_abs_err']:.3e}, device busy share {busy1 / (window1 * 1e6):.4f} [{card}]")
+    if sm1["stranded_futures"] or sm1["compile_cache_after_warmup"] != zero:
+        raise AssertionError(f"mesh_serve one-device loadgen: {sm1['stranded_futures']}, {sm1['compile_cache_after_warmup']}")
+    log(f"mesh_serve launches (traffic windows): {json.dumps(launches)} [{card}]")
+    return launches
+
+
+def control_phase(torch, K, mods, card: str) -> dict[str, int]:
+    """The control loop at full width on the mesh of the mesh_serve phase
+    (data=4 logical positions on ``cuda:0``), ``scripts/control_dryrun.py``'s
+    settings: HDCE and QSC (n=6 L=3 ``auto``) trained on the card, a 2x2
+    pool on the mesh engine under ``run_loadgen`` with drift from the middle
+    while a dry-run ``FleetController`` on ``PoolPoller`` watches, the
+    loadgen's drift-scenario windows replayed into ``observe_parity``, then
+    one tick: fine-tune -> canary -> explicit-tag swap -> watch -> confirm
+    or rollback; last, ``cli serve`` and ``cli control --ticks=3
+    --control.dry_run=true`` as processes. Returns the traffic windows'
+    launches."""
+    from dataclasses import replace
+
+    from qdml_tpu_torch.control.loop import FleetController, PoolPoller
+    from qdml_tpu_torch.parallel.mesh import make_local_mesh
+    from qdml_tpu_torch.serve.engine import ServeEngine
+    from qdml_tpu_torch.serve.loadgen import arrival_times, make_request_samples, run_loadgen
+    from qdml_tpu_torch.serve.server import ReplicaPool
+    from qdml_tpu_torch.serve.types import Prediction
+    from qdml_tpu_torch.telemetry.spans import get_sink, set_sink
+    from qdml_tpu_torch.train.checkpoint import restore_params
+
+    zero = {"measure": 0, "table_write": 0, "kernel_build": 0}
+    shutil.rmtree(CTL_WORK, ignore_errors=True)
+    cfg = mods["config"].from_args([*CTL_ARGS, f"--train.workdir={CTL_WORK / 'ws'}", "--mesh.data_axis=4"])
+    wd = mods["cli"].workdir_of(cfg)
+    t0 = time.perf_counter()
+    mods["hdce"].train_hdce(cfg, device=DEVICE, workdir=wd)
+    t_h = time.perf_counter() - t0
+    mods["qsc"].train_classifier(cfg, quantum=True, device=DEVICE, workdir=wd)
+    log(f"control: trained HDCE {t_h:.2f} s and QSC (n=6 L=3 auto) {time.perf_counter() - t0 - t_h:.2f} s on the card "
+        f"(data_len {cfg.data.data_len}, {cfg.train.n_epochs} epochs, batch {cfg.train.batch_size}) [{card}]")
+    mesh = make_local_mesh(cfg.mesh, [torch.device("cuda", 0)] * 4)
+
+    class TimedPoller(PoolPoller):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.swap_ms: list[float] = []
+
+        def swap(self, tags):
+            t = time.perf_counter()
+            rec = super().swap(tags)
+            self.swap_ms.append((time.perf_counter() - t) * 1e3)
+            return rec
+
+    engine = ServeEngine.from_workdir(cfg, wd, mesh=mesh)
+    engine.warmup()
+    tally = _ServeTally(K, "loadgen_offline_reference")
+    pool = ReplicaPool(engine, sink=tally, log_requests=False).start()
+    poller = TimedPoller(pool, engine, wd)
+    ctrl = FleetController(cfg, wd, poller, engine=engine, sink=tally, drift_step_hint=CTL_DRIFT_STEP)
+    ctrl.dry_run = True  # detection only while traffic runs, as the dryrun
+    samples = make_request_samples(cfg, CTL_REQUESTS, drift_at=CTL_REQUESTS // 2, drift_step=CTL_DRIFT_STEP,
+                                   drift_scenario=CTL_DRIFT_SCENARIO)
+    launches = {k: 0 for k in K.COUNTERS}
+    prev = get_sink()
+    set_sink(tally)
+    K.reset_launch_counts()
+    thread, stop = ctrl.run_in_thread(interval_s=0.25)
+    try:
+        sm_b = run_loadgen(cfg, engine, rate=CTL_RPS, n=CTL_REQUESTS, deadline_ms=2000.0, samples=samples,
+                           pool=pool, drift_at=CTL_REQUESTS // 2)
+    finally:
+        stop.set()
+        thread.join(timeout=10.0)
+        set_sink(prev)
+    b2 = K.launches["circuit_expvals"] - tally.at["circuit_expvals"]
+    slices = sum(engine._slices(b) for b in tally.buckets)
+    for k in launches:
+        launches[k] += K.launches[k] - tally.at[k]
+    if b2 != slices:
+        raise AssertionError(f"control: B.2 launched {b2} times for {slices} row slices")
+    # the drift's wall time: the traffic span's start plus the schedule's arrival at drift_at
+    t_drift = tally.spans["loadgen_traffic.ts"] + arrival_times(
+        CTL_REQUESTS, CTL_RPS, np.random.default_rng(0), process=cfg.serve.arrival,
+        burstiness=cfg.serve.burstiness)[CTL_REQUESTS // 2]
+    live_events = [(t, r) for t, name, r in tally.records if name == "drift_event"]
+    early = [r for t, r in live_events if t < t_drift and r["scenario"] != CTL_DRIFT_SCENARIO]
+    win = sm_b["windows"]
+    parity = [ctrl.observe_parity(CTL_DRIFT_SCENARIO, c["nmse_db_drift_scenario"])
+              for c in win["chunks"] if c.get("nmse_db_drift_scenario") is not None]
+    parity = [e for e in parity if e]
+    lat_b = sm_b["latency_ms"] or {}
+    log(f"control traffic: 2x2 pool on the data=4 mesh, poisson {CTL_RPS:g} rps n={CTL_REQUESTS}, drift of scenario "
+        f"{CTL_DRIFT_SCENARIO} at step {CTL_DRIFT_STEP} from request {CTL_REQUESTS // 2}: rps {sm_b['rps']}, p50 "
+        f"{lat_b.get('p50_ms')} ms, NMSE of the drifting family pre {win['pre_drift']['nmse_db_drift_scenario']} dB, "
+        f"post {win['post_drift']['nmse_db_drift_scenario']} dB; live detector events {[r for _, r in live_events]}, "
+        f"before the drift on scenarios 1-2: {early}; parity replay events {parity}; active {ctrl.monitor.active()}; "
+        f"B.2 launches {b2} for {slices} row slices [{card}]")
+    if early:
+        raise AssertionError(f"control: drift events on undrifted scenarios before the drift: {early}")
+    if not any(s == CTL_DRIFT_SCENARIO for s, _ in ctrl.monitor.active()):
+        raise AssertionError("control: the drift of scenario 0 was never detected")
+    if sm_b["stranded_futures"] or sm_b["failed_requests"] or sm_b["compile_cache_after_warmup"] != zero:
+        raise AssertionError(f"control traffic: {sm_b['stranded_futures']}, {sm_b['compile_cache_after_warmup']}")
+
+    # adapt: fine-tune -> canary -> explicit-tag swap
+    ctrl.dry_run = ctrl.deployer.dry_run = False
+    base_sd = restore_params(wd, "hdce_best")[0]["params"]
+    t = time.perf_counter()
+    set_sink(tally)  # the fine-tune's and the canary's spans
+    try:
+        out = ctrl.tick()
+    finally:
+        set_sink(prev)
+    tick_s = time.perf_counter() - t
+    adapted = [e for e in out["events"] if e.get("action") == "adapted"]
+    if not adapted:
+        raise AssertionError(f"control: adaptation did not complete: {out['events']}")
+    rec = adapted[0]
+    ft, canary, dep = rec["finetune"], rec["canary"], rec["deploy"]
+    new_sd = restore_params(wd, "hdce_last")[0]["params"]
+    frozen = [k for k in base_sd if not k.startswith(f"trunks.{CTL_DRIFT_SCENARIO}.")]
+    same = all(torch.equal(base_sd[k].view(torch.int32) if base_sd[k].dtype == torch.float32 else base_sd[k],
+                           new_sd[k].view(torch.int32) if new_sd[k].dtype == torch.float32 else new_sd[k])
+               for k in frozen)
+    ft_s = tally.spans.get("control_finetune")
+    log(f"control adapt: fine-tune {json.dumps(ft)} in {ft_s:.3f} s ({ft['steps'] / ft_s:.1f} steps/s); canary "
+        f"passed {canary['passed']} gain {canary['gain_db']} dB (min {canary['min_gain_db']}), worst base regress "
+        f"{canary['worst_base_regress_db']} dB in {tally.spans.get('control_canary', float('nan')):.3f} s; swap tags "
+        f"{json.dumps(dep['swap']['tags'])} work {json.dumps(dep['swap']['work'])} in {poller.swap_ms[-1]:.2f} ms; "
+        f"head and trunks 1-2 of hdce_last bit-equal to hdce_best: {same} ({len(frozen)} tensors); tick {tick_s:.2f} s "
+        f"[{card}]")
+    if not ft["val_nmse_db_after"] < ft["val_nmse_db_before"]:
+        raise AssertionError(f"control: the fine-tune did not improve its validation NMSE: {ft}")
+    if not same:
+        raise AssertionError("control: hdce_last's head or an undrifted trunk differs from the base")
+    if canary["passed"] is not True or dep["swap"]["work"] != zero:
+        raise AssertionError(f"control: canary {canary['passed']}, swap work {dep['swap']['work']}")
+    if dep["swap"]["tags"] != {"hdce": "hdce_last", "qsc": "qsc_best"}:
+        raise AssertionError(f"control: swap tags {dep['swap']['tags']}")
+
+    # after the swap: all-drifted traffic on the same pool, served against the
+    # CPU twin of hdce_last, its parity fed to the watch
+    after = make_request_samples(cfg, CTL_REQUESTS // 2, drift_at=0, drift_step=CTL_DRIFT_STEP,
+                                 drift_scenario=CTL_DRIFT_SCENARIO)
+    results: list = []
+    prev = get_sink()
+    set_sink(tally)
+    tally.at = None
+    K.reset_launch_counts()
+    nb = len(tally.buckets)
+    try:
+        sm_c = run_loadgen(cfg, engine, rate=CTL_RPS, n=CTL_REQUESTS // 2, deadline_ms=2000.0, samples=after,
+                           pool=pool, drift_at=0, results=results)
+    finally:
+        set_sink(prev)
+        pool.stop()
+    b2 = K.launches["circuit_expvals"] - tally.at["circuit_expvals"]
+    slices = sum(engine._slices(b) for b in tally.buckets[nb:])
+    for k in launches:
+        launches[k] += K.launches[k] - tally.at[k]
+    served = [r for r in results if isinstance(r, Prediction)]
+    ids = np.array([r.rid for r in served], dtype=np.int64)
+    twin = ServeEngine.from_workdir(cfg, wd, device="cpu", tags={"hdce": "hdce_last"})
+    held = _hold_served(tuple(a[ids] for a in _twin_reference(torch, twin, after["x"])),
+                        np.stack([r.h for r in served]), np.array([r.scenario for r in served]),
+                        "control after the swap")
+    post_db = sm_c["windows"]["post_drift"]["nmse_db_drift_scenario"]
+    verdict = None
+    for _ in range(cfg.control.watch_ticks + 1):
+        ctrl.observe_parity(CTL_DRIFT_SCENARIO, post_db)
+        for e in ctrl.tick()["events"]:
+            if e.get("action") in ("deploy_confirmed", "rollback"):
+                verdict = e
+    lat_c = sm_c["latency_ms"] or {}
+    log(f"control after the swap: all-drifted traffic n={CTL_REQUESTS // 2}: p50 {lat_c.get('p50_ms')} ms (before "
+        f"{lat_b.get('p50_ms')} ms), NMSE of the drifting family {post_db} dB (canary's candidate "
+        f"{canary['drifted_probes']['cand_db']} dB), against the CPU twin of hdce_last {held['max_abs_err']:.3e} "
+        f"(tol {held['tol']:.3e}, routed alike {held['routed_alike']}/{held['rows']}); B.2 launches {b2} for {slices} "
+        f"row slices; watch verdict {json.dumps(verdict)} [{card}]")
+    if b2 != slices or sm_c["compile_cache_after_warmup"] != zero or sm_c["stranded_futures"]:
+        raise AssertionError(f"control after the swap: B.2 {b2} for {slices} slices, work "
+                             f"{sm_c['compile_cache_after_warmup']}")
+    if verdict is None:
+        raise AssertionError("control: the watch window closed with neither deploy_confirmed nor a rollback")
+
+    # remote: `cli serve` and `cli control --ticks=3 --control.dry_run=true` as processes
+    flags = [*CTL_ARGS, f"--train.workdir={CTL_WORK / 'ws'}"]
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "QDML_TORCH_SERVE_BATCHING_TABLE": str(TUNE_DIR / "serve_batching.json")}
+    t = time.perf_counter()
+    server = subprocess.Popen([sys.executable, "-m", "qdml_tpu_torch.cli", "serve", *flags, "--serve.port=0",
+                               f"--quantum.autotune_table={TUNE_DIR / 'qsc_impl.json'}"], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        banner: dict = {}
+
+        def read_banner():
+            for line in server.stdout:
+                if line.startswith('{"serving"'):
+                    banner.update(json.loads(line))
+                    return
+
+        reader = threading.Thread(target=read_banner, daemon=True)
+        reader.start()
+        reader.join(timeout=300.0)
+        if not banner:
+            raise AssertionError(f"control: `cli serve` printed no banner: {server.stderr.read() if server.poll() is not None else 'still starting'}")
+        port = int(banner["serving"].rsplit(":", 1)[1])
+        t_up = time.perf_counter() - t
+        ctl = subprocess.run([sys.executable, "-m", "qdml_tpu_torch.cli", "control", "--ticks=3",
+                              "--control.dry_run=true", *flags, f"--serve.port={port}"],
+                             cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    finally:
+        server.send_signal(2)
+        try:
+            server.wait(timeout=60.0)
+        finally:
+            if server.poll() is None:
+                server.kill()
+    lines = ctl.stdout.strip().splitlines()
+    header = json.loads(lines[0]) if lines and lines[0].startswith("{") else None
+    log(f"control remote: `cli serve` up in {t_up:.2f} s on port {port} (mesh {banner.get('mesh')}); `cli control "
+        f"--ticks=3 --control.dry_run=true` exit {ctl.returncode}, header {json.dumps(header)}, {len(lines)} lines "
+        f"[{card}]")
+    want = {"control", "workdir", "dry_run", "interval_s", "autoscale", "drift_step_hint"}
+    if ctl.returncode != 0 or header is None or set(header) != want or header["dry_run"] is not True:
+        raise AssertionError(f"control remote: exit {ctl.returncode}, stdout {ctl.stdout[-2000:]}, stderr {ctl.stderr[-2000:]}")
+    log(f"control launches (traffic windows): {json.dumps(launches)} [{card}]")
+    return launches
+
+
 def bench_phase(card: str) -> None:
     """``python -m qdml_tpu_torch.bench`` in this process at 48 timed steps
     a row (3 dispatches of K=16 on the scan rows), ``qsc_scaling`` at n = 4
@@ -2680,7 +3189,15 @@ def main() -> int:
     if only_multirank:
         unitary_ready()
         launches = phase("multirank", multirank_phase, torch, K, mods, card)
-        log(f"multirank launches: {json.dumps(launches)}; phase wall seconds: {json.dumps(phase_s)} [{card}]")
+        log(f"multirank launches: {json.dumps(launches)} [{card}]")
+        if torch.cuda.device_count() >= 4:  # mesh serving over the real cards
+            from qdml_tpu_torch.quantum import autotune
+            from qdml_tpu_torch.serve import batching_autotune
+
+            autotune.set_table_path(str(TUNE_DIR / "qsc_impl.json"))
+            batching_autotune.set_table_path(str(TUNE_DIR / "serve_batching.json"))
+            launches = phase("mesh_serve", mesh_serve_phase, torch, K, mods, card, True)
+        log(f"phase wall seconds: {json.dumps(phase_s)} [{card}]")
         print(json.dumps({"ok": True, "phase": "multirank", "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}), flush=True)
@@ -2704,6 +3221,8 @@ def main() -> int:
     )
     micro_launches = phase("microbench", microbench, torch, K, card)
     tier_launches = phase("serve_tier", serve_tier_phase, torch, K, mods, card)
+    mesh_launches = phase("mesh_serve", mesh_serve_phase, torch, K, mods, card, False)
+    control_launches = phase("control", control_phase, torch, K, mods, card)
     train_launches, adjoint_per_step, train_data = phase("train", train, torch, K, mods, card)
     dce_launches = phase("dce", dce_phase, torch, K, mods, card, train_data)
     del train_data
@@ -2722,7 +3241,7 @@ def main() -> int:
     launches = {
         k: race_launches[k] + launches[k] + dispatch_launches[k] + micro_launches[k] + train_launches[k]
         + dce_launches[k] + eval_launches[k] + nat_launches[k] + scan_launches[k] + lowp_launches[k]
-        + scaling_launches[k] + tier_launches[k] + multirank_launches[k]
+        + scaling_launches[k] + tier_launches[k] + multirank_launches[k] + mesh_launches[k] + control_launches[k]
         for k in launches
     }
     # B.3's one entry point is the sharded statevector's local wires: its

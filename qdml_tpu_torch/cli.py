@@ -13,6 +13,7 @@
     python -m qdml_tpu_torch.cli loss-curves  --curves=LABEL:PATH[,LABEL:PATH...] [...]
     python -m qdml_tpu_torch.cli serve        [--serve.port=8377 --serve.replicas=N ...]
     python -m qdml_tpu_torch.cli loadgen      [--rate=200] [--n=512] [--drift-at=K] [...]
+    python -m qdml_tpu_torch.cli control      [--ticks=N] [--control.dry_run=true ...]
 
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
 package, and ``--preset=NAME`` starts from one of its presets (``single_4q``,
@@ -30,8 +31,9 @@ process joins the world before it builds any model or data, rank r runs on
 ``train-sc``, ``train-qsc``, ``nat-sweep`` and ``eval`` lay themselves on
 the ``--mesh.*`` layout (:mod:`qdml_tpu_torch.parallel`). Rank 0 alone
 writes logs, metrics files, checkpoints and results. The other commands run
-on one rank; ``serve`` and ``loadgen`` under a world raise (mesh serving is
-ROADMAP A.14). With
+on one rank; ``serve`` and ``loadgen`` under a world raise: one process
+serves over the cards it sees (``serve.shard=auto``, the serving mesh of
+:func:`~qdml_tpu_torch.parallel.mesh.serve_mesh`). With
 ``quantum.impl=auto`` (the default) ``train-qsc`` times the circuit impls on
 the card before its first step and logs the winners (``kind=
 "quantum_autotune"``); the table is ``results_torch/autotune/qsc_impl.json``
@@ -58,7 +60,15 @@ listens (``--serve.port=0`` binds a free one); ``{"op": "swap"}`` re-reads
 the workdir. ``loadgen`` drives the same engine in process with open-loop
 arrivals (``serve.arrival``, ``--rate=`` requests/s, ``--n=`` requests,
 ``serve.deadline_ms``, ``--drift-at=`` with ``serve.drift_step``) and prints
-the ``serve_summary`` JSON. Both take every ``--serve.*`` field.
+the ``serve_summary`` JSON. Both take every ``--serve.*`` field and, with
+several visible cards and ``serve.shard=auto`` (the default), serve over all
+of them (``--mesh.*`` lays them out; ``serve.expert_sharding``). ``control``
+attaches to a running ``serve`` at ``serve.host:serve.port`` over the
+``metrics``/``swap``/``scale`` verbs and supervises it (drift detection,
+fine-tune of the drifted trunk, canary, hot-swap, watch, autoscaling; every
+``--control.*`` field), printing its header line first; fine-tune and
+canary run in its own process on the shared workdir. ``--ticks=N`` stops it
+after N polls.
 """
 
 from __future__ import annotations
@@ -73,7 +83,7 @@ from qdml_tpu_torch.utils.metrics import MetricsLogger
 
 COMMANDS = (
     "train-hdce", "train-dce", "train-sc", "train-qsc", "nat-sweep", "eval", "profile", "gen-data",
-    "import-torch", "export-torch", "loss-curves", "serve", "loadgen",
+    "import-torch", "export-torch", "loss-curves", "serve", "loadgen", "control",
 )
 # the commands that lay themselves on a mesh under a world of several ranks
 MESH_COMMANDS = ("train-hdce", "train-sc", "train-qsc", "nat-sweep", "eval")
@@ -227,8 +237,8 @@ def _serve(cmd: str, cfg: cfg_mod.ExperimentConfig, workdir: str, device, extra:
     from qdml_tpu_torch.parallel.mesh import serve_mesh
     from qdml_tpu_torch.serve.engine import ServeEngine
 
-    serve_mesh(cfg, device)  # one rank on one device: validates the knobs, or raises (A.14)
-    engine = ServeEngine.from_workdir(cfg, workdir, device=device)
+    mesh = serve_mesh(cfg, device)  # the cards this process sees, or None for one device
+    engine = ServeEngine.from_workdir(cfg, workdir, device=None if mesh is not None else device, mesh=mesh)
     if cmd == "serve":
         from qdml_tpu_torch.serve.server import run_server
 
@@ -279,7 +289,7 @@ def _main(argv: list[str] | None) -> int:
         key = arg.split("=", 1)[0]
         if key == "--device":
             device = arg.split("=", 1)[1]
-        elif key in ("--out", "--curves", "--rate", "--n", "--drift-at"):
+        elif key in ("--out", "--curves", "--rate", "--n", "--drift-at", "--ticks"):
             extra[key] = arg.split("=", 1)[1]
         else:
             overrides.append(arg)
@@ -336,6 +346,15 @@ def _main(argv: list[str] | None) -> int:
         if cmd in ("serve", "loadgen"):
             _serve(cmd, cfg, workdir, device, extra, logger)
             return 0
+        if cmd == "control":
+            from qdml_tpu_torch.control.loop import control_main
+
+            ticks = extra.get("--ticks")
+            # attaches to the RUNNING serve at serve.host:port over the
+            # metrics/swap/scale verbs; fine-tune and canary run in this
+            # process against the shared workdir (qdml_tpu/cli.py:512-522)
+            return control_main(cfg, logger=logger, workdir=workdir, ticks=None if ticks is None else int(ticks),
+                                device=device)
         if cmd == "eval":
             _eval(cfg, workdir, device, logger)
             if rank0:

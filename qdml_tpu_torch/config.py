@@ -7,9 +7,12 @@ carried: the channel geometry and dataset fields of ``DataConfig``,
 ``EvalConfig``, ``ServeConfig`` (buckets, dispatch, the micro-batcher, the
 replica pool, supervision, the breaker, the socket server and loadgen's
 traffic knobs), ``MeshConfig`` (the ``(fed, data, model)`` layout of a
-``torch.distributed`` world, :mod:`qdml_tpu_torch.parallel`), and the
-geometry-derived widths of ``ExperimentConfig``. Fleet and control
-configuration are not ported yet (ROADMAP A.11, parts 2-3). ``model.kernel_size``,
+``torch.distributed`` world's ranks, or of the cards one serving process
+sees, :mod:`qdml_tpu_torch.parallel`), ``ControlConfig`` (the control loop,
+:mod:`qdml_tpu_torch.control`; its fleet-autoscaler fields are read by
+nothing until the fleet is ported, ROADMAP A.11 part 3), and the
+geometry-derived widths of ``ExperimentConfig``. Fleet configuration is
+not ported yet (ROADMAP A.11, part 3). ``model.kernel_size``,
 ``model.n_conv_layers``, ``model.conv_impl`` and ``eval.indicator`` are
 accepted with the JAX package's validation and recorded, so that a JAX
 command line runs unchanged; the port's convs are 3x3, three deep, and
@@ -174,12 +177,13 @@ class ServeConfig:
     max_wait_ms: float = 2.0   # coalescing window before a partial batch flushes
     max_queue: int = 256       # bounded request queue; beyond it, shed Overloaded
     # Mesh sharding of the request path: "auto" | "off", validated as in JAX
-    # (parallel.mesh.serve_mesh). One visible device and one rank serve
-    # unsharded; a world of several ranks or several visible cards raises
-    # (mesh serving is a ROADMAP queue item of its own).
+    # (parallel.mesh.serve_mesh). "auto" lays one serving process over the
+    # cards it sees: with several visible cards each bucket the data axis
+    # divides is split into row slices over "data"; one visible card serves
+    # unsharded. A world of several ranks raises (one process serves).
     shard: str = "auto"
-    # Shard the trunks over the mesh's "fed" axis (validated; mesh serving
-    # is not ported, so one device serves every expert).
+    # Shard the trunks over the mesh's "fed" axis: trunk s and a copy of the
+    # head live on the fed=s positions (needs mesh.fed_axis == n_scenarios).
     expert_sharding: bool = False
     # Expert routing: "dense" runs every trunk and gathers, "sparse" runs each
     # row's trunk on capacity buckets. "auto" races them per bucket at warmup
@@ -260,7 +264,8 @@ class MeshConfig:
     """The ``(fed, data, model)`` layout of the ranks of a world
     (``qdml_tpu/config.py:228-240``, its fields and defaults). JAX lays
     devices out on this mesh; the port lays out the ranks of a
-    ``torch.distributed`` world, one rank a process
+    ``torch.distributed`` world, one rank a process, for training and eval,
+    and the cards one serving process sees for serving
     (:mod:`qdml_tpu_torch.parallel.mesh`)."""
 
     data_axis: int = -1      # -1: all ranks left after model and fed on the data axis
@@ -270,6 +275,84 @@ class MeshConfig:
     data_axis_name: str = "data"
     model_axis_name: str = "model"
     fed_axis_name: str = "fed"
+
+
+@dataclass(frozen=True)
+class ControlConfig:
+    """Fleet control plane (:mod:`qdml_tpu_torch.control`,
+    ``qdml_tpu/config.py:454-526``): the closed serve -> detect -> adapt ->
+    deploy loop. One supervised controller (``control`` /
+    :class:`~qdml_tpu_torch.control.loop.FleetController`) polls the live
+    ``{"op": "metrics"}`` stats, runs streaming drift detectors per
+    scenario, fine-tunes ONLY the drifted trunk, canary-gates the candidate,
+    hot-swaps it through the existing ``{"op": "swap"}`` path, watches for
+    post-swap regression (automatic rollback), and autoscales the replica
+    count against queue depth."""
+
+    # -- controller loop ----------------------------------------------------
+    interval_s: float = 1.0   # tick period between metric polls
+    # Dry-run mode: the controller observes, detects and REPORTS every
+    # decision (control_event records with "dry_run": true) but takes no
+    # action — no fine-tune, no swap, no scaling.
+    dry_run: bool = False
+    # -- drift detectors (control/drift.py) ---------------------------------
+    # Page–Hinkley/CUSUM drift magnitude slack and trip threshold, in the
+    # units of the watched signal (classifier confidence and overflow rate
+    # are fractions in [0, 1]; nmse_parity is in dB — scaled by ~10x
+    # internally, see DriftMonitor). Debounce requires this many CONSECUTIVE
+    # tripping windows before a drift_event fires (one noisy window must
+    # never trigger a fine-tune).
+    ph_delta: float = 0.01
+    ph_threshold: float = 0.15
+    debounce: int = 2
+    # Windows with fewer than this many predictions for a scenario are not
+    # fed to its detectors (a 2-sample confidence mean is noise, not signal).
+    min_window: int = 8
+    # -- continual fine-tuning (control/finetune.py) ------------------------
+    ft_steps: int = 200       # fine-tune steps over the drifted family
+    ft_lr: float = 1e-3
+    ft_batch: int = 32
+    # -- canary gate + rollback (control/deploy.py) -------------------------
+    probe_n: int = 96         # held-out probe samples per scenario
+    # Candidate must beat the live params by at least this much on the
+    # drifted scenario's probes...
+    min_gain_db: float = 0.3
+    # ...while regressing NO un-drifted scenario by more than this.
+    tol_db: float = 0.5
+    # Post-swap watch window: ticks the deployer watches served stats after
+    # a deploy; a parity/confidence regression beyond rollback_db inside the
+    # window rolls the previous checkpoint back automatically.
+    watch_ticks: int = 3
+    rollback_db: float = 1.0
+    # -- autoscaler (control/autoscale.py) ----------------------------------
+    autoscale: bool = True
+    min_replicas: int = 1
+    max_replicas: int = 4
+    # Queue-depth hysteresis band (in requests at dequeue): sustained depth
+    # above `queue_high` for `scale_debounce` consecutive ticks scales up,
+    # below `queue_low` scales down; `cooldown_ticks` must pass between
+    # actions so the scaler never flaps on its own transient.
+    queue_high: float = 16.0
+    queue_low: float = 2.0
+    scale_debounce: int = 2
+    cooldown_ticks: int = 3
+    # -- fleet autoscaler (control/fleet_scale.py in the JAX package) --------
+    # The backend-COUNT axis, mirroring the replica autoscaler's hysteresis
+    # discipline one tier up: sustained fleet-total queue depth above
+    # fleet_queue_high for fleet_debounce consecutive ticks admits one warmed
+    # backend (<= max_backends); below fleet_queue_low with healthy SLO
+    # retires one (>= min_backends); fleet_cooldown_ticks between actions
+    # (spawn-and-warm is seconds-to-minutes — the cooldown must outlast it).
+    # A planner target (plan --emit-target JSON) overrides the watermark
+    # policy when loaded. Requires a lifecycle-armed poller (fleet.elastic).
+    # Parsed and recorded only: the fleet autoscaler is ROADMAP A.11 part 3.
+    fleet_autoscale: bool = False
+    min_backends: int = 1
+    max_backends: int = 4
+    fleet_queue_high: float = 32.0
+    fleet_queue_low: float = 2.0
+    fleet_debounce: int = 2
+    fleet_cooldown_ticks: int = 5
 
 
 @dataclass(frozen=True)
@@ -297,6 +380,7 @@ class ExperimentConfig:
     eval: EvalConfig = field(default_factory=EvalConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    control: ControlConfig = field(default_factory=ControlConfig)
 
     @property
     def image_hw(self) -> tuple[int, int]:

@@ -6,7 +6,9 @@ apart from those that exist only in JAX's placement model:
 :mod:`~qdml_tpu_torch.parallel.multihost` says why) and ``place_tree``
 (a rank holds its share as module parameters, laid out by
 :func:`shard_hdce_state`). The collectives XLA inserts for JAX are written
-out in :mod:`~qdml_tpu_torch.parallel.collectives`.
+out in :mod:`~qdml_tpu_torch.parallel.collectives`. The serving engine's
+mesh is the cards one process sees (:class:`LocalMesh`,
+:func:`make_local_mesh`, :func:`serve_mesh`), not a world of ranks.
 """
 
 from qdml_tpu_torch.parallel.dp import (  # noqa: F401
@@ -19,8 +21,11 @@ from qdml_tpu_torch.parallel.federated import (  # noqa: F401
     shard_hdce_state,
 )
 from qdml_tpu_torch.parallel.mesh import (  # noqa: F401
+    LocalMesh,
     init_distributed,
+    make_local_mesh,
     make_mesh,
+    serve_mesh,
     single_device_mesh,
 )
 from qdml_tpu_torch.parallel.multihost import (  # noqa: F401

@@ -30,6 +30,13 @@ ranks rank r runs on ``cuda:{LOCAL_RANK}`` unless the caller names a device.
 
 A world of one rank is the single-device path, unchanged:
 :func:`training_mesh` returns ``None`` there, as JAX's does on one device.
+
+Serving is one process over the cards it sees, as JAX's engine is one
+process over its devices: :func:`serve_mesh` lays those cards out as a
+:class:`LocalMesh` (:func:`make_local_mesh`, the same ``(fed, data, model)``
+rules over a list of devices in place of ranks), and the serving engine
+places its weights and row slices on its positions
+(:mod:`qdml_tpu_torch.serve.engine`).
 """
 
 from __future__ import annotations
@@ -267,16 +274,72 @@ def current_mesh() -> Mesh | None:
     return _CURRENT
 
 
-def serve_mesh(cfg, device: str | torch.device | None = None) -> None:
-    """``serve.shard`` and ``serve.expert_sharding`` with the JAX package's
-    validation (``qdml_tpu/parallel/mesh.py:96-140``). One rank on one
-    visible device serves unsharded, as JAX does on one device, and returns
-    ``None``. Mesh serving is not ported (ROADMAP A.14): a world of several
-    ranks, or several visible cards, raises."""
+@dataclass
+class LocalMesh:
+    """A ``(fed, data, model)`` layout of the devices one process sees: the
+    serving engine's mesh. ``shape`` maps each axis to its size (JAX's
+    ``mesh.shape``); ``devices`` is the ``(F, D, M)`` array of
+    ``torch.device``, row-major as JAX's ``np.array(devices).reshape(fed,
+    data, model)`` (``qdml_tpu/parallel/mesh.py:61``). A device may stand at
+    several positions (logical positions on one card, as JAX's virtual CPU
+    devices), but only an explicit :func:`make_local_mesh` call lays one out
+    so; :func:`serve_mesh` never repeats a card."""
+
+    shape: dict[str, int]
+    devices: np.ndarray
+
+    axis_names = AXES
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def device(self, fed: int = 0, data: int = 0, model: int = 0) -> torch.device:
+        """The device at position ``(fed, data, model)``."""
+        return self.devices[fed, data, model]
+
+    def distinct_devices(self) -> list[torch.device]:
+        """Each device of the mesh once, in position order."""
+        out: list[torch.device] = []
+        for d in self.devices.flat:
+            if d not in out:
+                out.append(d)
+        return out
+
+
+def make_local_mesh(cfg: MeshConfig | None, devices) -> LocalMesh:
+    """The ``(fed, data, model)`` mesh over ``devices`` (JAX's ``make_mesh``
+    rules and message: ``data_axis=-1`` takes every device left after the
+    model and fed axes; a layout needing more devices than given raises)."""
+    cfg = cfg or MeshConfig()
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    model = max(cfg.model_axis, 1)
+    fed = max(cfg.fed_axis, 1)
+    data = max(n // (model * fed), 1) if cfg.data_axis == -1 else max(cfg.data_axis, 1)
+    need = fed * data * model
+    if need > n:
+        raise ValueError(f"mesh {fed}x{data}x{model} needs {need} devices, have {n}")
+    grid = np.empty(need, dtype=object)
+    grid[:] = devices[:need]
+    return LocalMesh({"fed": fed, "data": data, "model": model}, grid.reshape(fed, data, model))
+
+
+def serve_mesh(cfg, device: str | torch.device | None = None) -> LocalMesh | None:
+    """Mesh for the serving engine, or ``None`` for the single-device layout
+    (``qdml_tpu/parallel/mesh.py:96-140``, its checks and messages).
+    ``serve.shard="auto"`` (default) lays the mesh over every visible card
+    (``cuda:0 .. cuda:N-1``) when more than one is visible; ``"off"`` pins
+    the single-device layout. ``device`` names the platform: the CPU, or a
+    card with an index, is one device. Expert sharding
+    (``serve.expert_sharding``) needs the fed axis to equal the scenario
+    count. One process serves over the cards it sees: under a world of
+    several ranks this raises."""
     if cfg.serve.shard not in ("auto", "off"):
         raise ValueError(f"serve.shard must be 'auto' or 'off', got {cfg.serve.shard!r}")
     if cfg.serve.shard == "off":
         if cfg.serve.expert_sharding:
+            # contradictory on its face: never silently un-shard the experts
             raise ValueError(
                 "serve.expert_sharding=true requires sharding: remove "
                 "serve.shard='off' (or drop expert_sharding)"
@@ -284,22 +347,41 @@ def serve_mesh(cfg, device: str | torch.device | None = None) -> None:
         return None
     if world_size() > 1:
         raise NotImplementedError(
-            f"serving under a world of {world_size()} ranks: mesh serving is not ported yet "
-            "(ROADMAP A.14); serve from one rank"
+            f"serving under a world of {world_size()} ranks: one process serves over the "
+            "cards it sees (serve.shard=auto lays them out as the serving mesh), as the JAX "
+            "package's engine serves from one process over its devices; start serve or "
+            "loadgen without a launcher"
+        )
+    names = (cfg.mesh.fed_axis_name, cfg.mesh.data_axis_name, cfg.mesh.model_axis_name)
+    if names != AXES:
+        raise ValueError(
+            f"mesh axis names are fixed to ('fed', 'data', 'model'); got {names} — "
+            "the sharding specs in qdml_tpu.parallel use the names literally"
         )
     dev = torch.device(device) if device is not None else torch.device("cuda")
-    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if visible > 1:
-        raise NotImplementedError(
-            f"serve.shard=auto with {visible} visible devices: mesh serving is not ported "
-            "yet (ROADMAP A.14); pass --serve.shard=off or make one device visible"
+    visible = torch.cuda.device_count() if dev.type == "cuda" and dev.index is None else 1
+    if visible <= 1:
+        if cfg.serve.expert_sharding:
+            # portable configs run on laptops too: degrade loudly, not
+            # silently (the single visible device serves every expert)
+            print(
+                "note: serve.expert_sharding requested but only one device "
+                "is visible — serving single-device, experts unsharded"
+            )
+        return None
+    mesh = make_local_mesh(cfg.mesh, [torch.device("cuda", i) for i in range(visible)])
+    fed = mesh.shape["fed"]
+    if fed > 1 and fed != cfg.data.n_scenarios:
+        raise ValueError(
+            f"mesh fed axis ({fed}) must equal data.n_scenarios "
+            f"({cfg.data.n_scenarios}) to shard the scenario grid"
         )
-    if cfg.serve.expert_sharding:
-        print(
-            "note: serve.expert_sharding requested but only one device "
-            "is visible — serving single-device, experts unsharded"
+    if cfg.serve.expert_sharding and fed != cfg.data.n_scenarios:
+        raise ValueError(
+            f"serve.expert_sharding needs mesh.fed_axis == data.n_scenarios "
+            f"({cfg.data.n_scenarios}); the mesh has fed={fed}"
         )
-    return None
+    return mesh
 
 
 def single_device_mesh(device: str | torch.device | None = None) -> Mesh:

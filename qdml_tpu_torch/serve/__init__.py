@@ -15,9 +15,13 @@
 - :mod:`~qdml_tpu_torch.serve.loadgen` offers open-loop traffic and reports
   tail latency, goodput, padding waste, SLO attainment and parity.
 
-The JAX package's mesh helpers are not exported: mesh serving is ROADMAP
-A.14 (:func:`qdml_tpu_torch.parallel.mesh.serve_mesh` refuses a world of
-several ranks).
+With several visible cards (:func:`qdml_tpu_torch.parallel.mesh.serve_mesh`)
+the engine serves over a ``(fed, data, model)`` mesh of them: each bucket
+the data axis divides in row slices over ``data``, the weights copied to
+each data position (or, with ``serve.expert_sharding``, trunk s on the
+``fed=s`` positions), and :meth:`ServeEngine.swap_params` places new
+weights at every position before the flip. The exports are the JAX
+package's ``qdml_tpu/serve/__init__.py``'s.
 """
 
 from qdml_tpu_torch.serve.batcher import (  # noqa: F401

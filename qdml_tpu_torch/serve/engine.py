@@ -37,20 +37,39 @@ replaces the weights between batches without a new warmup. ``infer(x,
 traced=True)`` times the compute and fetch phases of a batch with one
 stream synchronisation; untraced it reads no clock.
 
+Mesh (``mesh=``, :func:`~qdml_tpu_torch.parallel.mesh.serve_mesh`, re-exported
+here; ``qdml_tpu/serve/engine.py:223-257, 459-471, 711-723``): one process
+serves over the ``(fed, data, model)`` positions of a
+:class:`~qdml_tpu_torch.parallel.mesh.LocalMesh`. Without
+``serve.expert_sharding`` the classifier and the HDCE are copied to each
+data position ``(0, d, 0)``; a bucket the data axis divides is split into
+D row slices, one a position (``bucket_sharding`` ``"data"``), any other
+bucket runs on ``(0, 0, 0)`` alone (``"replicated"``). With
+``serve.expert_sharding`` (``fed == S``) trunk s and a copy of the head
+live on ``(s, d, 0)``: dense dispatch sends slice d to every ``(s, d, 0)``
+and gathers ``(S, B_d, D)`` onto ``(0, d, 0)`` for ``select_expert``;
+sparse dispatch sends each ``(s, d, 0)`` only its capacity bucket of rows
+(each slice buckets its own rows, so the overflow count can differ from
+JAX's program, whose buckets span the whole batch; the values cannot).
+Ragged tiers mask each slice with its own valid count before anything
+else. The slices' results are gathered onto ``(0, 0, 0)`` (cross-device
+copies ordered on the current streams of both cards) and fetched with one
+synchronisation a batch. :meth:`swap_params` places new weights at every
+position and synchronises every card off the request path before the flip.
+The circuit impl race keys on the whole bucket's batch, as JAX's does,
+although each position runs a slice of it; ``quantum_impl`` records the
+slice's rows beside the winner.
+
 The micro-batcher, replica pool and socket server in front of the engine
 are :mod:`~qdml_tpu_torch.serve.batcher` and
-:mod:`~qdml_tpu_torch.serve.server`. Not ported yet: mesh and expert
-sharding of the request path (ROADMAP A.14;
-:func:`~qdml_tpu_torch.parallel.mesh.serve_mesh`, re-exported here,
-validates the knobs, serves one rank on one device and refuses a world of
-several ranks) and checkify (A.12).
+:mod:`~qdml_tpu_torch.serve.server`. Not ported yet: checkify (A.12).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Mapping
+from typing import Any, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -59,14 +78,14 @@ from qdml_tpu_torch.config import ExperimentConfig
 from qdml_tpu_torch.models.qsc import build_classifier
 from qdml_tpu_torch.ops import dispatch_autotune
 from qdml_tpu_torch.ops.routing import select_expert, sparse_dispatch
-from qdml_tpu_torch.parallel.mesh import serve_mesh  # noqa: F401  (the engine's knob check)
+from qdml_tpu_torch.parallel.mesh import LocalMesh, serve_mesh  # noqa: F401  (serve_mesh: re-exported)
 from qdml_tpu_torch.quantum import autotune
 from qdml_tpu_torch.quantum import kernels
 from qdml_tpu_torch.quantum.circuits import resolve_impl
 from qdml_tpu_torch.serve import batching_autotune
 from qdml_tpu_torch.serve.batcher import pick_bucket, power_of_two_buckets
 from qdml_tpu_torch.serve.types import DispatchInfo
-from qdml_tpu_torch.train.hdce import build_hdce
+from qdml_tpu_torch.train.hdce import HDCE, build_hdce
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.tune_table import activity
 
@@ -97,6 +116,46 @@ def _signature(sd: Mapping[str, torch.Tensor]) -> dict:
     return {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
 
 
+def trunk_state(hdce_sd: Mapping[str, torch.Tensor], s: int) -> dict[str, torch.Tensor]:
+    """Trunk ``s`` of an HDCE state dict with the shared head, as the state
+    dict of a 1-scenario :class:`~qdml_tpu_torch.train.hdce.HDCE` (trunk
+    ``s``'s entries renamed ``trunks.0.*``). The tensors are the given ones,
+    not copies."""
+    pre = f"trunks.{s}."
+    out = {"trunks.0." + k[len(pre):]: v for k, v in hdce_sd.items() if k.startswith(pre)}
+    out.update({k: v for k, v in hdce_sd.items() if k.startswith("head.")})
+    return out
+
+
+class _ExpertLine:
+    """The experts of one data position ``d`` under expert sharding: trunk s
+    with a copy of the head on ``(s, d, 0)``, for every s. Called as the
+    HDCE is, ``(S, B, 2, H, W) -> (S, B, out)``: row block s goes to its
+    expert's device and the outputs come back to ``home``, ``(0, d, 0)``."""
+
+    def __init__(self, home: torch.device, experts: list[tuple[torch.device, HDCE]]):
+        self.home = home
+        self.experts = experts
+
+    def __call__(self, xs: torch.Tensor) -> torch.Tensor:
+        return torch.cat(
+            [m(xs[s : s + 1].to(dev)).to(self.home) for s, (dev, m) in enumerate(self.experts)]
+        )
+
+
+class _Live(NamedTuple):
+    """What one batch reads, replaced whole by a swap. ``hdce`` and ``clf``
+    are the full pair on the engine's device (under a mesh, position (0, 0,
+    0)): the single-device forward, :meth:`ServeEngine.offline_forward` and
+    the swap's signature check read them. ``slices`` is ``None`` without a
+    mesh; under one, a ``(classifier, experts)`` pair a data position, the
+    experts being that position's HDCE or its :class:`_ExpertLine`."""
+
+    hdce: torch.nn.Module
+    clf: torch.nn.Module
+    slices: tuple | None = None
+
+
 class ServeEngine:
     """HDCE plus scenario classifier behind per-bucket padded batches.
 
@@ -115,12 +174,24 @@ class ServeEngine:
         quantum: bool = False,
         buckets: tuple[int, ...] | None = None,
         device: str | torch.device | None = None,
+        mesh: LocalMesh | None = None,
     ):
         for field, modes in (("dispatch", ("dense", "sparse")), ("batching", ("bucket", "ragged"))):
             mode = getattr(cfg.serve, field)
             if mode != "auto" and mode not in modes:
                 raise ValueError(f"serve.{field} must be auto|{'|'.join(modes)}, got {mode!r}")
+        if mesh is not None:
+            home = mesh.device(0, 0, 0)
+            if device is not None and torch.device(device) != home:
+                raise ValueError(f"device {device} is not the mesh's position (0, 0, 0), {home}")
+            if cfg.serve.expert_sharding and mesh.shape["fed"] != cfg.data.n_scenarios:
+                raise ValueError(
+                    f"serve.expert_sharding needs mesh.fed_axis == data.n_scenarios "
+                    f"({cfg.data.n_scenarios}); the mesh has fed={mesh.shape['fed']}"
+                )
+            device = home
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.quantum = quantum
         self.buckets = tuple(
@@ -146,7 +217,8 @@ class ServeEngine:
         # per bucket: what the warmup forward cost (the JAX package's
         # compiled-program cost analysis has no torch counterpart; see warmup)
         self.bucket_cost: dict[str, dict] = {}
-        # mesh sharding per bucket: none on one device (serve_mesh)
+        # per bucket under a mesh: "data" (row slices over the data axis) or
+        # "replicated" (position (0, 0, 0) alone); empty without a mesh
         self.bucket_sharding: dict[str, str] = {}
         # sparse overflow accounting (overflow rows are served dense, never dropped)
         self._dispatch_lock = threading.Lock()
@@ -155,12 +227,38 @@ class ServeEngine:
         self._work0: dict[str, int] = {}
         self._warm = False
 
-    def _build(self, hdce_sd, clf_sd) -> tuple[torch.nn.Module, torch.nn.Module]:
-        hdce = build_hdce(self.cfg, self.device)
-        hdce.load_state_dict(hdce_sd)
-        clf = build_classifier(self.cfg, self.quantum, self.device)
-        clf.load_state_dict(clf_sd)
-        return hdce, clf
+    def _module(self, kind: str, sd, device: torch.device) -> torch.nn.Module:
+        if kind == "hdce":
+            m = build_hdce(self.cfg, device)
+        elif kind == "expert":
+            m = HDCE(1, self.cfg.model.features, self.cfg.h_out_dim, self.cfg.image_hw).to(device).eval()
+        else:
+            m = build_classifier(self.cfg, self.quantum, device)
+        m.load_state_dict(sd)
+        return m
+
+    def _build(self, hdce_sd, clf_sd) -> _Live:
+        """The weights at every position the engine computes on. The fed and
+        model positions of a mesh without expert sharding hold nothing and
+        compute nothing: JAX replicates over them (``P()``), which computes
+        the same rows again on every one of them."""
+        hdce = self._module("hdce", hdce_sd, self.device)
+        clf = self._module("clf", clf_sd, self.device)
+        if self.mesh is None:
+            return _Live(hdce, clf)
+        slices = []
+        for d in range(self.mesh.shape["data"]):
+            home = self.mesh.device(0, d, 0)
+            clf_d = clf if d == 0 else self._module("clf", clf_sd, home)
+            if self.cfg.serve.expert_sharding:
+                devs = [self.mesh.device(s, d, 0) for s in range(self.cfg.data.n_scenarios)]
+                experts: Any = _ExpertLine(
+                    home, [(dev, self._module("expert", trunk_state(hdce_sd, s), dev)) for s, dev in enumerate(devs)]
+                )
+            else:
+                experts = hdce if d == 0 else self._module("hdce", hdce_sd, home)
+            slices.append((clf_d, experts))
+        return _Live(hdce, clf, tuple(slices))
 
     @classmethod
     def from_workdir(
@@ -170,6 +268,7 @@ class ServeEngine:
         device: str | torch.device | None = None,
         buckets: tuple[int, ...] | None = None,
         tags: dict | None = None,
+        mesh: LocalMesh | None = None,
     ) -> "ServeEngine":
         """The newest trained HDCE and classifier under ``workdir``
         (``qdml_tpu/serve/engine.py:272-320``): best > last > resume per
@@ -187,7 +286,7 @@ class ServeEngine:
             pass
         else:
             cfg = reconcile_quantum_cfg(cfg, clf_meta)
-            return cls(cfg, hdce_sd, clf_sd, quantum=True, buckets=buckets, device=device)
+            return cls(cfg, hdce_sd, clf_sd, quantum=True, buckets=buckets, device=device, mesh=mesh)
         try:
             clf_sd, _, _ = _restore_family(workdir, "sc", tags)
         except CheckpointNotFoundError:
@@ -195,16 +294,28 @@ class ServeEngine:
                 f"no scenario-classifier checkpoint (qsc/sc) under {workdir!r} "
                 "— run `train-sc` (or train-qsc) first"
             ) from None
-        return cls(cfg, hdce_sd, clf_sd, quantum=False, buckets=buckets, device=device)
+        return cls(cfg, hdce_sd, clf_sd, quantum=False, buckets=buckets, device=device, mesh=mesh)
 
-    def mesh_topology(self) -> None:
-        """The serving mesh's axes: ``None``, one device (``serve_mesh``)."""
-        return None
+    def mesh_topology(self) -> dict | None:
+        """The serving mesh's facts for the summaries
+        (``qdml_tpu/serve/engine.py:259-267``), ``None`` without a mesh."""
+        if self.mesh is None:
+            return None
+        return {
+            "devices": int(np.prod(list(self.mesh.shape.values()))),
+            "axes": {k: int(v) for k, v in self.mesh.shape.items()},
+            "expert_sharding": bool(self.cfg.serve.expert_sharding),
+        }
 
     # -- live weights (hot-swap) ---------------------------------------------
 
     def live_vars(self) -> tuple[torch.nn.Module, torch.nn.Module]:
-        """One atomic read of the live ``(hdce, clf)`` modules."""
+        """One atomic read of the live ``(hdce, clf)`` modules (under a mesh,
+        the pair on position (0, 0, 0))."""
+        with self._swap_lock:
+            return self._live[:2]
+
+    def _live_all(self) -> _Live:
         with self._swap_lock:
             return self._live
 
@@ -227,10 +338,11 @@ class ServeEngine:
 
         The state dicts must match the serving ones key for key in shape and
         dtype (a mismatch raises ``ValueError`` and the old weights keep
-        serving). New modules are built and their copies to the device
-        finished off the request path, then the live pair flips under the
-        lock: a batch already running keeps the modules it read, every later
-        batch sees the new ones. Returns ``{"epoch", "work"}``, ``work``
+        serving). New modules are built at every position and their copies
+        to the devices finished off the request path (every card
+        synchronised), then the live weights flip under the lock: a batch
+        already running keeps the modules it read, every later batch sees
+        the new ones. Returns ``{"epoch", "work"}``, ``work``
         being the measurements, table writes and kernel builds over the swap
         (all zero)."""
         if not self._warm:
@@ -246,8 +358,7 @@ class ServeEngine:
                     )
             pre = self._work()
             new_live = self._build(hdce_sd, clf_sd)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync_all()
             post = self._work()
             with self._swap_lock:
                 self._swap_epoch += 1
@@ -323,31 +434,67 @@ class ServeEngine:
         rec = self.quantum_impl.get(str(b))
         return rec["impl"] if rec else None
 
-    def forward_tier(self, xp, n: int):
-        """Bucket ``len(xp)``'s pinned forward on a padded batch ``xp`` (b,
-        n_sub, n_beam, 2) whose first ``n`` rows are valid. Returns device
-        tensors ``(h, pred, conf)`` over all b rows and the sparse overflow
-        count (``None`` on a dense tier)."""
-        b = int(xp.shape[0])
-        key = str(b)
-        if key not in self.dispatch_mode:
-            raise ValueError(f"bucket {b} was not warmed (buckets {self.buckets})")
-        xt = torch.as_tensor(xp, dtype=torch.float32).to(self.device).permute(0, 3, 1, 2).contiguous()
-        hdce, clf = self.live_vars()
-        impl = self._impl(b)
-        ragged = self.batching_mode[key] == "ragged"
+    def _slices(self, b: int) -> int:
+        """Row slices of bucket ``b`` under the mesh: D when the data axis
+        divides it (``"data"``), else 1, position (0, 0, 0) alone
+        (``"replicated"``; JAX's ``_x_sharding``)."""
+        d = self.mesh.shape["data"]
+        return d if b % d == 0 else 1
+
+    def _run(self, hdce, clf, xt: torch.Tensor, n: int, route: str, ragged: bool, impl: str | None):
+        """One pinned forward on an NCHW batch ``xt`` whose first ``n`` rows
+        are valid: ``(h, pred, conf, overflow or None)``."""
         with torch.inference_mode():
-            if self.dispatch_mode[key] == "sparse":
+            if route == "sparse":
                 fwd = self._forward_sparse_ragged if ragged else self._forward_sparse
                 return fwd(hdce, clf, xt, n, impl)
             if ragged:
                 return (*self._forward_ragged(hdce, clf, xt, n, impl), None)
             return (*self._forward(hdce, clf, xt, impl), None)
 
+    def _run_mesh(self, live: _Live, x: torch.Tensor, n: int, route: str, ragged: bool, impl: str | None):
+        """The mesh form of :meth:`_run` on an NHWC host batch ``x``: each row
+        slice goes to its data position and runs there (the ragged mask and
+        the sparse capacity with the slice's own valid count), the results
+        are gathered onto (0, 0, 0)."""
+        b = int(x.shape[0])
+        k = self._slices(b)
+        bd = b // k
+        parts, overflow = [], None
+        for d in range(k):
+            clf_d, experts_d = live.slices[d]
+            xd = x[d * bd : (d + 1) * bd].to(self.mesh.device(0, d, 0)).permute(0, 3, 1, 2).contiguous()
+            h, pred, conf, ovf = self._run(experts_d, clf_d, xd, min(max(n - d * bd, 0), bd), route, ragged, impl)
+            if ovf is not None:
+                overflow = (overflow or 0) + ovf
+            parts.append((h, pred, conf))
+        if k == 1:
+            return (*parts[0], overflow)
+        h, pred, conf = (torch.cat([p[i].to(self.device) for p in parts]) for i in range(3))
+        return h, pred, conf, overflow
+
+    def forward_tier(self, xp, n: int):
+        """Bucket ``len(xp)``'s pinned forward on a padded batch ``xp`` (b,
+        n_sub, n_beam, 2) whose first ``n`` rows are valid. Returns device
+        tensors ``(h, pred, conf)`` over all b rows (under a mesh, on
+        position (0, 0, 0)) and the sparse overflow count (``None`` on a
+        dense tier)."""
+        b = int(xp.shape[0])
+        key = str(b)
+        if key not in self.dispatch_mode:
+            raise ValueError(f"bucket {b} was not warmed (buckets {self.buckets})")
+        live = self._live_all()
+        route, ragged, impl = self.dispatch_mode[key], self.batching_mode[key] == "ragged", self._impl(b)
+        x = torch.as_tensor(xp, dtype=torch.float32)
+        if live.slices is not None:
+            return self._run_mesh(live, x, n, route, ragged, impl)
+        xt = x.to(self.device).permute(0, 3, 1, 2).contiguous()
+        return self._run(live.hdce, live.clf, xt, n, route, ragged, impl)
+
     def offline_forward(self, x) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The parity reference: the dense forward at the natural (unpadded)
-        batch, its circuit impl resolved for that batch. Returns ``(h, pred,
-        conf)``."""
+        batch, its circuit impl resolved for that batch, on the full pair
+        (under a mesh, position (0, 0, 0)'s). Returns ``(h, pred, conf)``."""
         hdce, clf = self.live_vars()
         xt = torch.as_tensor(np.asarray(x, np.float32)).to(self.device).permute(0, 3, 1, 2).contiguous()
         with torch.inference_mode():
@@ -365,9 +512,9 @@ class ServeEngine:
         if mode != "auto":
             self.dispatch_race[str(b)] = {"forced": mode}
             return mode
-        hdce, _ = self.live_vars()
+        live = self._live_all()  # the trunks position (0, 0, 0) runs
         entry = dispatch_autotune.ensure_route(
-            hdce,
+            live.hdce if live.slices is None else live.slices[0][1],
             torch.zeros((b, 2, *self.cfg.image_hw), device=self.device),
             self.cfg.data.n_scenarios,
             capacity_factor=self.cfg.serve.capacity_factor,
@@ -382,30 +529,35 @@ class ServeEngine:
         ragged twin (table-cached, so a second warmup reads and times
         nothing). Both candidates take the same varied rows from
         ``default_rng(0)``: identical rows would send every prediction to
-        one expert, and on a sparse tier time the overflow branch."""
+        one expert, and on a sparse tier time the overflow branch. Under a
+        mesh the candidates are the mesh forwards, each ended by a
+        synchronisation of every card."""
         mode = self.cfg.serve.batching
         if mode != "auto":
             self.batching_race[str(b)] = {"forced": mode}
             return mode
-        hdce, clf = self.live_vars()
+        live = self._live_all()
         impl = self._impl(b)
         x = np.random.default_rng(0).standard_normal((b, *self.cfg.image_hw, 2)).astype(np.float32)
-        xt = torch.from_numpy(x).to(self.device).permute(0, 3, 1, 2).contiguous()
+        if live.slices is not None:
 
-        def bucket(xx):
-            with torch.inference_mode():
-                if route == "sparse":
-                    return self._forward_sparse(hdce, clf, xx, b, impl)
-                return self._forward(hdce, clf, xx, impl)
+            def candidate(ragged: bool):
+                def run(xx):
+                    out = self._run_mesh(live, xx, b, route, ragged, impl)
+                    self._sync_all()
+                    return out
 
-        def ragged(xx):
-            with torch.inference_mode():
-                if route == "sparse":
-                    return self._forward_sparse_ragged(hdce, clf, xx, b, impl)
-                return self._forward_ragged(hdce, clf, xx, b, impl)
+                return run, (torch.from_numpy(x),)
 
+            candidates = {"bucket": candidate(False), "ragged": candidate(True)}
+        else:
+            xt = torch.from_numpy(x).to(self.device).permute(0, 3, 1, 2).contiguous()
+            candidates = {
+                m: (lambda xx, rag=(m == "ragged"): self._run(live.hdce, live.clf, xx, b, route, rag, impl), (xt,))
+                for m in ("bucket", "ragged")
+            }
         entry = batching_autotune.ensure_batching(
-            {"bucket": (bucket, (xt,)), "ragged": (ragged, (xt,))},
+            candidates,
             capacity=b,
             platform=self.device.type,
             route=route,
@@ -424,9 +576,18 @@ class ServeEngine:
 
     def _sync(self) -> None:
         """Wait for this thread's stream on the engine's card (never the whole
-        device: other workers' batches keep running)."""
+        device: other workers' batches keep running). Under a mesh the
+        results were gathered onto that card, whose stream waits for the
+        copies."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+
+    def _sync_all(self) -> None:
+        """Synchronise every card the engine places weights on."""
+        devices = [self.device] if self.mesh is None else self.mesh.distinct_devices()
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def warmup(self) -> dict:
         """Decide and pin each bucket's circuit impl (the race runs here, off
@@ -435,11 +596,15 @@ class ServeEngine:
         algorithms. After this, :meth:`request_path_work` counts from zero.
         ``bucket_cost`` records, per bucket, the wall seconds of that first
         forward (torch compiles no program to analyse, so the JAX package's
-        flops and bytes are not available)."""
+        flops and bytes are not available). Under a mesh the record also
+        carries ``mesh`` (:meth:`mesh_topology`) and ``sharding``
+        (``bucket_sharding``), as JAX's does."""
         pre = self._work()
         q = self.cfg.quantum
         for b in self.buckets:
             key = str(b)
+            if self.mesh is not None:
+                self.bucket_sharding[key] = "data" if b % self.mesh.shape["data"] == 0 else "replicated"
             if self.quantum:
                 entry = autotune.prewarm(self.cfg, batch=b, device=self.device)
                 rec: dict[str, Any] = {
@@ -451,20 +616,22 @@ class ServeEngine:
                 if entry is not None:
                     rec["autotuned"] = True
                     rec["candidates"] = entry["candidates"]
+                if self.mesh is not None:
+                    # the race keyed on the bucket (JAX's); each position runs this many rows
+                    rec["slice_batch"] = b // self._slices(b)
                 self.quantum_impl[key] = rec
             self.dispatch_mode[key] = self._bucket_dispatch(b)
             self.batching_mode[key] = self._tier_batching(b, self.dispatch_mode[key])
             t0 = time.perf_counter()
             self.forward_tier(np.zeros((b, *self.cfg.image_hw, 2), np.float32), b)
-            self._sync()
+            self._sync_all()
             self.bucket_cost[key] = {
                 "available": False,
                 "reason": "torch compiles no program: no flops/bytes analysis",
                 "platform": self.device.type,
                 "first_forward_s": round(time.perf_counter() - t0, 6),
             }
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync_all()
         self._work0 = self._work()
         self._warm = True
         out: dict[str, Any] = {
@@ -482,6 +649,9 @@ class ServeEngine:
                 "race": dict(self.batching_race),
             },
         }
+        if self.mesh is not None:
+            out["mesh"] = self.mesh_topology()
+            out["sharding"] = dict(self.bucket_sharding)
         if self.quantum_impl:
             out["quantum_impl"] = dict(self.quantum_impl)
         return out
