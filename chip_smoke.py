@@ -116,6 +116,51 @@ Phases, each of which exits non-zero on failure:
    --ticks=3 --control.dry_run=true`` as processes: JAX's header line,
    exit 0. Fine-tune wall and steps/s, canary seconds, swap ms and p50
    before and after are logged;
+6e. fleet: the fleet tier (``qdml_tpu_torch.fleet``) at full width,
+   ``scripts/fleet_router_dryrun.py`` and ``fleet_elastic_dryrun.py`` with
+   their traffic (windows of 240 requests, bursty at 300 rps, deadline 500
+   ms, through ``run_loadgen_socket`` with 8 clients): a fresh workdir under
+   ``build/chip_smoke/fleet/`` holding copies of the ``hdce_best`` /
+   ``qsc_best`` phase 6d trained on the card; two backends spawned by
+   ``spawn_backend`` as ``cli serve`` processes on the card (QSC n=6 L=3
+   forced to ``pallas_circuit``, so a B.2 that fails to build or launch
+   kills the backend at warmup; buckets 1/8/64, a 2x2 pool each; the
+   kernels loaded from phase 2's build; with 2+ visible cards a card
+   each), each holding a context on the card (nvidia-smi: its pid, or,
+   where nvidia-smi shows another pid namespace, one more context a live
+   backend), each passing ``verify_warm``; the port's ``FleetRouter`` and
+   ``route_async`` on port 0 in a thread. Windows: baseline (every answer
+   within 1e-4 max|h| + 1e-5 of the CPU twin's ``offline_forward`` on rows
+   routed alike, both backends serving), ``{"op": "swap"}`` fanned out
+   under traffic (both to swap epoch 1), router-side garbage (typed
+   replies), SIGKILL of backend 1 (ejected, failovers, the survivor
+   serving, its context freed; respawned on its port, re-admitted), SIGSTOP
+   for 5 s (the context kept, ejected, re-admitted after SIGCONT); in every
+   window zero stranded futures and no give-up before the deadline; a
+   same-id retry answered by the router's dedup with no dispatch on any
+   backend, healthy, across the kill and after a retirement. Elastic: a
+   ``FleetAutoscaler`` pinned to a hand-written target in ``emit_target``'s
+   shape (``backends_needed`` 3, then 2) drives ``BackendLifecycle.scale_to``:
+   a third backend spawned, verified warm and admitted while windows run
+   (ring keys move only to it), then drained and terminated, each
+   ``fleet_scale_event`` carrying the target's sha; a standby killed
+   between spawn and verification is quarantined. Then ``FleetController``
+   over ``FleetPoller``: drift from a replayed parity feed (as the dryrun),
+   single-trunk fine-tune on the card, canary, the tagged swap fanned to
+   both backends (no work), answers after it against the CPU twin of
+   ``hdce_last``, the watch confirming; zero request-path work on every
+   surviving backend by its own ``metrics`` verb; ``cli route
+   --fleet.elastic=true`` as a process (banner), ``cli fleet-scale
+   --backends=3`` against it exit 0 (its backends spawned without
+   ``serve.buckets``, which ``fleet.spawn_overrides`` cannot carry: the
+   default buckets), ``cli fleet-scale`` against the in-process router
+   without a lifecycle: typed ``fleet_scale_unavailable``, exit 3; every
+   process stopped and every backend's context gone. Cut for time: one
+   window a fault class and one recovery window (the dryrun's best of 3
+   trials), no second adapt episode with a backend ejected; JAX's report
+   round-trip per fault class waits for ``report`` (ROADMAP A.12). The B.2
+   launches happen in the backend processes: the smoke's counters do not
+   count them;
 7. training: at full width on data synthesized on the card (data_len 2048 per
    cell, cut from the reference's 20000 for time), five trainers each run one
    epoch (7 steps of 256 rows per cell, 2304 a step) and validate: HDCE
@@ -3089,6 +3134,542 @@ def control_phase(torch, K, mods, card: str) -> dict[str, int]:
     return launches
 
 
+# the fleet (scripts/fleet_router_dryrun.py and fleet_elastic_dryrun.py):
+# their traffic a window (240 requests, bursty at 300 rps, deadline 500 ms,
+# seeds from 0) through the router's front door; backends of the control
+# phase's models (QSC n=6 L=3 forced to pallas_circuit, buckets 1/8/64, a
+# 2x2 pool each) restored from one fresh workdir under build/chip_smoke/fleet/
+FLEET_WORK = EVAL_WORK / "fleet"
+FLEET_N, FLEET_RPS, FLEET_DEADLINE_MS = 240, 300.0, 500.0
+FLEET_ARGS = (
+    "--name=fleet", "--quantum.impl=pallas_circuit", f"--serve.buckets={MESH_BUCKETS}", "--serve.max_batch=64",
+    "--serve.batching=bucket", "--serve.max_wait_ms=2", "--serve.replicas=2", "--serve.workers=2",
+    "--serve.dedup_ttl_s=300", "--serve.conn_timeout_s=5", "--serve.arrival=bursty",
+    f"--serve.drift_step={CTL_DRIFT_STEP}", f"--serve.drift_scenario={CTL_DRIFT_SCENARIO}",
+    "--control.ft_steps=300", "--control.ft_batch=32", "--control.probe_n=96", "--control.min_gain_db=0.3",
+    "--control.tol_db=0.5", "--control.watch_ticks=2", "--control.autoscale=false",
+    "--control.fleet_cooldown_ticks=0",
+)
+# the backends' device flags: none, so every backend runs on the card
+FLEET_DEVICE_ARGS: tuple[str, ...] = ()
+
+
+def _compute_apps() -> list[tuple[int, int]]:
+    """``(pid, used MiB)`` of every process holding a context on the cards
+    (``nvidia-smi --query-compute-apps``)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return [tuple(int(v) for v in line.split(",")) for line in out.strip().splitlines() if line.strip()]
+
+
+def _hold_contexts(procs, base: int, what: str) -> str:
+    """Each live backend holds a context on the card: its pid among
+    nvidia-smi's compute apps, or, where nvidia-smi reports pids of another
+    namespace (a container may show every process as pid 1), one more context per
+    live backend than ``base`` (the count before any backend started). A
+    context appears and goes with some delay: polled for up to 15 s."""
+    deadline = time.monotonic() + 15.0
+    while True:
+        apps = _compute_apps()
+        pids = sorted({p for p, _ in apps})
+        live = [b.proc.pid for b in procs if b.alive()]
+        if live and all(p in pids for p in live):
+            return f"pids {live} listed by nvidia-smi ({len(apps)} contexts)"
+        if len(apps) == base + len(live):
+            return (f"{len(apps)} contexts = {base} + {len(live)} live backends (nvidia-smi lists pids {pids}, not "
+                    f"the backends' {live}: another pid namespace), {sum(m for _, m in apps)} MiB")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: {len(apps)} contexts on the card (nvidia-smi pids {pids}), want {base} + "
+                                 f"{len(live)} live backends")
+        time.sleep(0.25)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def fleet_phase(torch, K, mods, card: str) -> None:
+    """The fleet tier at full width (``scripts/fleet_router_dryrun.py`` and
+    ``fleet_elastic_dryrun.py``, with their traffic): backends of the control
+    phase's models spawned as ``cli serve`` processes on the card, the port's
+    router in front, kill / stall / garbage / swap under traffic, the
+    controller over the router, elastic admission and retirement, and the
+    ``route`` and ``fleet-scale`` commands as processes. The B.2 launches
+    are the backends' own, in their processes: the smoke's counters do not
+    see them."""
+    import asyncio
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from qdml_tpu_torch.control.fleet_scale import FleetAutoscaler, load_planner_target
+    from qdml_tpu_torch.control.loop import FleetController
+    from qdml_tpu_torch.fleet import BackendLifecycle, FleetPoller, FleetRouter, route_async, spawn_backend, verify_warm
+    from qdml_tpu_torch.serve.client import ServeClient
+    from qdml_tpu_torch.serve.engine import ServeEngine
+    from qdml_tpu_torch.serve.loadgen import make_request_samples, run_loadgen_socket
+    from qdml_tpu_torch.telemetry.spans import get_sink, set_sink
+
+    t_phase = time.perf_counter()
+    zero = {"measure": 0, "table_write": 0, "kernel_build": 0}
+    platform = "cpu" if "--device=cpu" in FLEET_DEVICE_ARGS else "cuda"
+    shutil.rmtree(FLEET_WORK, ignore_errors=True)
+    flags = [*FLEET_ARGS, *FLEET_DEVICE_ARGS, f"--train.workdir={FLEET_WORK / 'ws'}",
+             f"--quantum.autotune_table={TUNE_DIR / 'qsc_impl.json'}"]
+    cfg = mods["config"].from_args([a for a in flags if not a.startswith("--device=")])
+    wd = mods["cli"].workdir_of(cfg)
+    src = mods["cli"].workdir_of(mods["config"].from_args([*CTL_ARGS, f"--train.workdir={CTL_WORK / 'ws'}"]))
+    os.makedirs(wd)
+    for tag in ("hdce_best", "qsc_best"):  # the control phase's card-trained models
+        for path in Path(src).glob(f"{tag}.*"):
+            shutil.copy2(path, Path(wd) / path.name)
+    env = {"QDML_TORCH_SERVE_BATCHING_TABLE": str(TUNE_DIR / "serve_batching.json")}
+    n_cards = torch.cuda.device_count() if platform == "cuda" else 0
+
+    def card_env(i: int) -> dict:
+        return {**env, "CUDA_VISIBLE_DEVICES": str(i % n_cards)} if n_cards >= 2 else env
+
+    procs: list = []  # every backend this phase started, for the teardown
+
+    def addr(b) -> str:
+        return f"{b.host}:{b.port}"
+
+    def recorded(i: int):
+        """``spawn_backend`` for a lifecycle: on card ``i`` of several, and
+        the process kept for the teardown."""
+        def spawn_fn(*a, **kw):
+            p = spawn_backend(*a, env=card_env(i), **kw)
+            procs.append(p)
+            return p
+        return spawn_fn
+
+    def spawn(i: int, port: int = 0):
+        b = spawn_backend(flags, port=port, env=card_env(i), log_path=str(FLEET_WORK / f"backend{i}.log"),
+                          timeout_s=300.0)
+        procs.append(b)
+        if b.banner["compile_cache_after_warmup"] != zero or any(
+                c["platform"] != platform for c in b.banner["cost"].values()):
+            raise AssertionError(f"fleet: backend {i} banner {b.banner}")
+        return b
+
+    base = len(_compute_apps())
+    ports = [_free_port(), _free_port()]  # fixed: a respawned backend takes its old address
+    aloop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=aloop.run_forever, daemon=True)
+    router = route_proc = None
+    tally = _ServeTally(K)
+    prev_sink = get_sink()
+    try:
+        t = time.perf_counter()
+        with ThreadPoolExecutor(2) as ex:
+            futs = [ex.submit(spawn, i, ports[i]) for i in range(2)]
+            backends = [f.result() for f in futs]
+        spawn_s = time.perf_counter() - t
+        ctx = _hold_contexts(backends, base, "fleet spawn")
+        facts = [verify_warm(b.host, b.port, timeout_s=30.0) for b in backends]
+        log(f"fleet: 2 backends (`cli serve`, 2x2 pool, pallas_circuit at buckets {MESH_BUCKETS}) up in {spawn_s:.2f} s "
+            f"together; on the card: {ctx}; verify_warm {[f['warm'] for f in facts]}, work "
+            f"{[f['compile_cache_after_warmup'] for f in facts]}; first forward s "
+            f"{[{k: c['first_forward_s'] for k, c in b.banner['cost'].items()} for b in backends]} [{card}]")
+
+        router = FleetRouter([b.addr for b in backends], balance="hash", timeout_s=2.0, retries=0, eject_failures=2,
+                             eject_s=0.5, readmit_probes=1, poll_interval_s=0.2, failover=2, dedup_ttl_s=300.0,
+                             seed=0).start()
+        loop_thread.start()
+        ready: Future = Future()
+        asyncio.run_coroutine_threadsafe(
+            route_async(router, "127.0.0.1", 0, ready, conn_timeout_s=5.0, max_line_bytes=1 << 20), aloop)
+        front = ("127.0.0.1", ready.result(timeout=30.0))
+        samples = make_request_samples(cfg, FLEET_N)
+        x = samples["x"]
+        twin = ServeEngine.from_workdir(cfg, wd, device="cpu")
+        ref = _twin_reference(torch, twin, x)
+        seq = [0]
+
+        def direct(b, verb: str = "metrics") -> dict | None:
+            """One backend's own view (not through the router); None when it is down."""
+            try:
+                with ServeClient(b.host, b.port, timeout_s=5.0, retries=0) as c:
+                    return (c.metrics() if verb == "metrics" else c.health()).get(verb)
+            except (ConnectionError, OSError):
+                return None
+
+        def completed() -> list:
+            return [None if (m := direct(b)) is None else int(m["completed"]) for b in backends]
+
+        def window(tag: str, during=None, hold=True) -> dict:
+            side_err: list = []
+            side = None
+            if during is not None:
+                def run_side():
+                    try:
+                        during()
+                    except Exception as e:  # reported as the window's failure below
+                        side_err.append(f"{type(e).__name__}: {e}")
+
+                side = threading.Thread(target=run_side, daemon=True)
+                side.start()
+            r0, c0 = router.router_summary(), completed()
+            seq[0] += 1
+            replies: list = []
+            sm = run_loadgen_socket(cfg, front, rate=FLEET_RPS, n=FLEET_N, seed=1000 * seq[0],
+                                    deadline_ms=FLEET_DEADLINE_MS, clients=8, x=x, results=replies)
+            if side is not None:
+                side.join(timeout=120.0)
+                if side.is_alive() or side_err:
+                    raise AssertionError(f"fleet {tag}: the injection failed: {side_err or 'still running'}")
+            r1, c1 = router.router_summary(), completed()
+            ok = [i for i, r in enumerate(replies) if r is not None and r.get("ok")]
+            held = None
+            if hold and ok:
+                held = _hold_served(tuple(a[ok] for a in ref), np.asarray([replies[i]["h"] for i in ok], np.float32),
+                                    np.array([replies[i]["pred"] for i in ok]), f"fleet {tag}")
+            typed = dict(sm["shed"])
+            lat = sm["latency_ms"] or {}
+            d = {k: r1[k] - r0[k] for k in ("failovers", "ejections", "readmissions", "dedup_hits", "no_backend")}
+            split = [None if a is None or b is None else a - b for a, b in zip(c1, c0)]
+            err = "-" if held is None else f"{held['max_abs_err']:.3e} (tol {held['tol']:.3e})"
+            log(f"fleet window {tag}: rps {sm['rps']} (offered {sm['offered_rps']}), p50 {lat.get('p50_ms')} ms, p99 "
+                f"{lat.get('p99_ms')} ms, SLO {json.dumps(sm['slo'])}, completed {sm['completed']}/{FLEET_N}, typed "
+                f"replies {json.dumps(typed)}, give-ups {sm['give_ups']} (deadline {sm['deadline_give_ups']}), "
+                f"stranded {sm['stranded_futures']}; router {json.dumps(d)}; completions by backend {split}; "
+                f"CPU twin {err} [{card}]")
+            if sm["stranded_futures"]:
+                raise AssertionError(f"fleet {tag}: {sm['stranded_futures']} stranded futures")
+            if sm["give_ups"] != sm["deadline_give_ups"]:
+                raise AssertionError(f"fleet {tag}: {sm['give_ups'] - sm['deadline_give_ups']} give-ups before the "
+                                     "deadline")
+            faults = [k for k in typed if k.startswith(("server_error", "bad_request", "router_error"))]
+            if faults:
+                raise AssertionError(f"fleet {tag}: failed replies {faults}")
+            return {"sm": sm, "delta": d, "split": split}
+
+        # healthy fleet: both backends serve, every answer against the CPU twin
+        base_w = window("baseline")
+        if not all(v for v in base_w["split"]):
+            raise AssertionError(f"fleet baseline: a backend served nothing: {base_w['split']}")
+        # the same traffic straight to backend 0: what the router's hop costs
+        sm = run_loadgen_socket(cfg, backends[0].addr, rate=FLEET_RPS, n=FLEET_N, seed=999,
+                                deadline_ms=FLEET_DEADLINE_MS, clients=8, x=x)
+        lat, lat_r = sm["latency_ms"] or {}, base_w["sm"]["latency_ms"] or {}
+        log(f"fleet direct to backend 0, same traffic: rps {sm['rps']}, p50 {lat.get('p50_ms')} ms, p99 "
+            f"{lat.get('p99_ms')} ms, SLO {json.dumps(sm['slo'])}, stranded {sm['stranded_futures']}; through the "
+            f"router p50 {lat_r.get('p50_ms')} ms, p99 {lat_r.get('p99_ms')} ms [{card}]")
+        if sm["stranded_futures"] or sm["completed"] != FLEET_N:
+            raise AssertionError(f"fleet direct: {sm['completed']} of {FLEET_N}, stranded {sm['stranded_futures']}")
+
+        # {"op": "swap"} fanned out under traffic: every backend to swap epoch 1
+        swap_box: dict = {}
+
+        def inject_swap():
+            time.sleep((FLEET_N // 3) / FLEET_RPS)
+            with ServeClient(*front, timeout_s=120.0) as c:
+                t0 = time.perf_counter()
+                swap_box["reply"] = c.swap()
+                swap_box["ms"] = (time.perf_counter() - t0) * 1e3
+
+        window("fanout_swap", during=inject_swap)
+        rep = swap_box["reply"]
+        epochs = [(direct(b, "health") or {}).get("swap_epoch") for b in backends]
+        log(f"fleet swap fan-out under traffic: {swap_box['ms']:.2f} ms, ok {rep.get('ok')}, fanned to "
+            f"{rep.get('swap', {}).get('fanned_to')}, epochs {epochs}, work "
+            f"{[v.get('swap', {}).get('work') for v in rep.get('swap', {}).get('backends', {}).values()]} [{card}]")
+        if not rep.get("ok") or rep["swap"]["fanned_to"] != 2 or epochs != [1, 1]:
+            raise AssertionError(f"fleet swap: {rep}, epochs {epochs}")
+
+        # router-side socket garbage under traffic: typed replies, the router keeps serving
+        def inject_garbage():
+            import socket
+
+            time.sleep((FLEET_N // 4) / FLEET_RPS)
+            with socket.create_connection(front, timeout=10.0) as sk:
+                sk.sendall(b"NOT JSON {{{\n")
+                if json.loads(sk.makefile("rb").readline()) != {"ok": False, "reason": "bad_json"}:
+                    raise AssertionError("garbage: no typed bad_json")
+            with socket.create_connection(front, timeout=10.0) as sk:
+                sk.sendall(b'{"id": "frag", "x": [[')  # a partial line, then the peer vanishes
+            with socket.create_connection(front, timeout=10.0) as sk:
+                sk.sendall(b'{"id": 1, "x": "' + b"a" * (1 << 21) + b'"}\n')
+                got = json.loads(sk.makefile("rb").readline())
+                if got.get("ok") is not False or "max_line_bytes" not in got.get("reason", ""):
+                    raise AssertionError(f"garbage: oversized line answered {got}")
+
+        window("router_garbage", during=inject_garbage)
+
+        def rid_for(b) -> str:
+            """A request id whose ring primary is backend ``b``."""
+            return next(f"pin-{k}" for k in range(100_000) if router._candidates(f"pin-{k}")[0].addr == addr(b))
+
+        def dedup_pin(rid: str, rep1: dict, what: str) -> None:
+            """A retry of an answered id: the same reply, one router dedup hit,
+            no dispatch on any live backend."""
+            c0, hits = completed(), router.dedup.hits
+            with ServeClient(*front, timeout_s=10.0, retries=1, seed=SEED) as c:
+                rep2 = c.request(x[0], rid=rid)
+            c1 = completed()
+            same = [a == b for a, b in zip(c0, c1) if a is not None and b is not None]
+            log(f"fleet dedup {what}: retry of {rid} identical {rep2.get('h') == rep1.get('h')}, dedup hits "
+                f"{hits} -> {router.dedup.hits}, backend completions {c0} -> {c1} [{card}]")
+            if not (rep1.get("ok") and rep2.get("ok") and rep2["h"] == rep1["h"] and rep2["pred"] == rep1["pred"]
+                    and router.dedup.hits == hits + 1 and same and all(same)):
+                raise AssertionError(f"fleet dedup {what}: dispatched again or answered differently")
+
+        with ServeClient(*front, timeout_s=10.0, retries=1, seed=SEED) as c:
+            quiet = c.request(x[0], rid="pin-quiet")
+        dedup_pin("pin-quiet", quiet, "(healthy fleet)")
+
+        # SIGKILL of backend 1 mid-traffic, with a dedup pin spanning the kill
+        kill_rid = rid_for(backends[1])
+        with ServeClient(*front, timeout_s=10.0, retries=1, seed=SEED) as c:
+            kill_rep = c.request(x[0], rid=kill_rid)
+        smi_box: dict = {}
+
+        def inject_kill():
+            time.sleep((FLEET_N // 3) / FLEET_RPS)
+            backends[1].kill()
+            time.sleep(0.5)
+            smi_box["after_kill"] = _hold_contexts(backends, base, "fleet kill")
+
+        w = window("backend_kill", during=inject_kill)
+        if not (w["delta"]["ejections"] >= 1 and w["delta"]["failovers"] >= 1 and w["sm"]["completed"] > 0
+                and w["split"][0]):
+            raise AssertionError(f"fleet kill: no ejection/failover or the survivor did not serve: {w['delta']}")
+        dedup_pin(kill_rid, kill_rep, "across the kill (its backend dead and ejected)")
+        t = time.perf_counter()
+        backends[1] = spawn(1, ports[1])
+        respawn_s = time.perf_counter() - t
+        deadline = time.monotonic() + 30.0
+        while len(router.live_backends()) < 2 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        log(f"fleet kill: the killed backend's context freed ({smi_box['after_kill']}); respawned on :{ports[1]} in "
+            f"{respawn_s:.2f} s, live {len(router.live_backends())}; {_hold_contexts(backends, base, 'respawn')} "
+            f"[{card}]")
+        w = window("backend_kill_recovery")
+        if len(router.live_backends()) != 2 or router.router_summary()["readmissions"] < 1:
+            raise AssertionError("fleet kill: the respawned backend was not re-admitted")
+
+        # SIGSTOP of backend 1 for 5 s mid-traffic, then SIGCONT
+        def inject_stall():
+            time.sleep((FLEET_N // 3) / FLEET_RPS)
+            backends[1].stall()
+            try:
+                time.sleep(0.5)
+                smi_box["stalled"] = _hold_contexts(backends, base, "fleet stall")
+                time.sleep(4.5)
+            finally:
+                backends[1].resume()
+
+        r_before = router.router_summary()
+        w = window("backend_stall", during=inject_stall)
+        deadline = time.monotonic() + 30.0
+        while len(router.live_backends()) < 2 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        r_after = router.router_summary()
+        log(f"fleet stall: contexts while stopped: {smi_box['stalled']}; ejections "
+            f"{r_after['ejections'] - r_before['ejections']}, readmissions "
+            f"{r_after['readmissions'] - r_before['readmissions']}, live {len(router.live_backends())} [{card}]")
+        if not (r_after["ejections"] > r_before["ejections"] and r_after["readmissions"] > r_before["readmissions"]
+                and w["sm"]["completed"] > 0 and len(router.live_backends()) == 2):
+            raise AssertionError("fleet stall: the stalled backend was not ejected and re-admitted")
+        window("backend_stall_recovery")
+
+        # elastic: a FleetAutoscaler pinned to a hand-written target in emit_target's shape
+        basis = {"trace": "hand-written", "target_rps": FLEET_RPS, "p99_target_ms": FLEET_DEADLINE_MS,
+                 "workers_per_backend": 4, "sweep": [{"backends": 2, "meets_target": False},
+                                                     {"backends": 3, "meets_target": True}]}
+        sha = hashlib.sha256(json.dumps(basis, sort_keys=True).encode()).hexdigest()
+        target_path = FLEET_WORK / "target.json"
+        target_path.write_text(json.dumps({"fleet_target": {
+            "backends_needed": 3, **{k: basis[k] for k in ("target_rps", "p99_target_ms", "workers_per_backend",
+                                                            "trace")}, "assumptions_sha": sha}}))
+        lifecycle = BackendLifecycle(router, spawn_overrides=flags, spawn_timeout_s=300.0, verify_timeout_s=30.0,
+                                     drain_wait_s=30.0, log_dir=str(FLEET_WORK), spawn_fn=recorded(2))
+        scaler = FleetAutoscaler.from_config(cfg.control, lifecycle.scale_to)  # 1..4 backends, no cooldown
+        scaler.set_planner_target(load_planner_target(str(target_path)))
+        ids = [f"ring-{i}" for i in range(2000)]
+        before = {k: router._candidates(k)[0].addr for k in ids}
+        events: list = []
+        up = threading.Thread(target=lambda: events.append(scaler.observe(0.0, lifecycle.fleet_size())))
+        up.start()
+        n_w = 0
+        while up.is_alive():  # traffic through the front door while the third backend spawns and warms
+            window(f"scale_up_{n_w}")
+            n_w += 1
+        up.join()
+        ev = events[0]
+        act = (ev or {}).get("result", {}).get("actions", [{}])[0]
+        if not (ev and ev["direction"] == "up" and ev["backends"] == 3 and ev["result"]["ok"]
+                and act.get("stage") == "admitted" and act["verified"]["compile_cache_after_warmup"] == zero):
+            raise AssertionError(f"fleet scale_to(3): {ev}")
+        new = next(b for b in router.backends if b.addr == act["addr"])
+        after_ring = {k: router._candidates(k)[0].addr for k in ids}
+        moved = [k for k in ids if after_ring[k] != before[k]]
+        log(f"fleet scale_to(3) by the autoscaler (planner sha {ev['planner_sha'][:12]}): admitted {new.host_id} at "
+            f"{act['addr']} {act['elapsed_s']} s from spawn, warm verified, work "
+            f"{act['verified']['compile_cache_after_warmup']}; {n_w} windows of traffic meanwhile; ring keys moved "
+            f"{len(moved)}/{len(ids)}, all to the new host {all(after_ring[k] == new.addr for k in moved)}; "
+            f"{_hold_contexts(procs, base, 'scale up')} [{card}]")
+        if not moved or not all(after_ring[k] == new.addr for k in moved) or scaler.observe(0.0, 3) is not None:
+            raise AssertionError("fleet scale_to(3): keys moved between surviving hosts, or the policy did not converge")
+        rid3 = next(f"new-{k}" for k in range(100_000) if router._candidates(f"new-{k}")[0].addr == new.addr)
+        with ServeClient(*front, timeout_s=10.0, retries=1, seed=SEED) as c:
+            rep3 = c.request(x[1], rid=rid3)
+        scaler.set_planner_target({**load_planner_target(str(target_path)), "backends_needed": 2})
+        ev2 = scaler.observe(0.0, lifecycle.fleet_size(), slo_attainment=1.0)
+        down = (ev2 or {}).get("result", {}).get("actions", [{}])[0]
+        retired = [p for p in procs if f"{p.host}:{p.port}" == new.addr]
+        log(f"fleet scale_to(2): {json.dumps({k: down.get(k) for k in ('stage', 'addr', 'drained', 'terminated', 'inflight_at_removal')})}, "
+            f"process alive {[p.alive() for p in retired]}; events' planner sha {[e['planner_sha'] == sha for e in (ev, ev2)]} "
+            f"[{card}]")
+        if not (ev2 and ev2["direction"] == "down" and down.get("stage") == "retired" and down.get("drained")
+                and down.get("terminated") and not any(p.alive() for p in retired)
+                and all(e["planner_sha"] == sha for e in (ev, ev2)) and len(router.backends) == 2):
+            raise AssertionError(f"fleet scale_to(2): {ev2}")
+        dedup_pin(rid3, rep3, "after its backend retired")
+
+        # a standby killed between spawn and verification: quarantined, never admitted
+        def kill_then_verify(host, port, timeout_s=10.0):
+            procs[-1].kill()
+            return verify_warm(host, port, timeout_s=timeout_s)
+
+        standby = BackendLifecycle(router, spawn_overrides=flags, spawn_timeout_s=300.0, log_dir=str(FLEET_WORK),
+                                   spawn_fn=recorded(3), verify_fn=kill_then_verify)
+        q = standby.scale_up()
+        log(f"fleet quarantine: {json.dumps({k: q.get(k) for k in ('ok', 'stage', 'reason')})}, router members "
+            f"{len(router.backends)}, standby alive {procs[-1].alive()} [{card}]")
+        if q["ok"] or q["stage"] != "quarantined" or len(router.backends) != 2 or procs[-1].alive():
+            raise AssertionError(f"fleet quarantine: {q}")
+
+        # `cli route --fleet.elastic=true` as a process, started now: it comes up while the controller runs
+        root = Path(__file__).resolve().parent
+        route_flags = [a for a in flags if not a.startswith("--serve.buckets=")]  # spawn_overrides splits on commas
+        route_env = {**os.environ, **card_env(2)}
+        t_route = time.perf_counter()
+        route_proc = subprocess.Popen(
+            [sys.executable, "-m", "qdml_tpu_torch.cli", "route",
+             f"--fleet.backends={','.join(addr(b) for b in backends)}", "--fleet.port=0", "--fleet.elastic=true",
+             f"--fleet.spawn_overrides={','.join(route_flags)}", "--fleet.spawn_timeout_s=300", *route_flags],
+            cwd=root, env=route_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        banner: dict = {}
+
+        def read_banner():
+            for line in route_proc.stdout:
+                if line.startswith('{"routing"'):
+                    banner.update(json.loads(line))
+                    break
+            for _ in route_proc.stdout:  # keep the pipe drained
+                pass
+
+        threading.Thread(target=read_banner, daemon=True).start()
+
+        # the controller over the router: drift -> fine-tune -> canary -> tagged fan-out swap -> watch
+        poller = FleetPoller(router)
+        ctrl = FleetController(cfg, wd, poller, sink=tally, drift_step_hint=CTL_DRIFT_STEP, device=DEVICE)
+        with ServeClient(*front, timeout_s=30.0) as c:
+            for i in range(24):
+                c.request(x[i], rid=f"ctl-{i}")
+        ctrl.tick()
+        epochs0 = [(direct(b, "health") or {}).get("swap_epoch") for b in backends]
+        for v in [-12.0] * 8 + [-5.5] * 10:
+            ctrl.observe_parity(CTL_DRIFT_SCENARIO, v)
+        adapted = None
+        set_sink(tally)
+        try:
+            t = time.perf_counter()
+            for _ in range(4):
+                adapted = next((e for e in ctrl.tick()["events"] if e.get("action") == "adapted"), None)
+                if adapted:
+                    break
+            adapt_s = time.perf_counter() - t
+        finally:
+            set_sink(prev_sink)
+        if not adapted:
+            raise AssertionError("fleet controller: no adaptation over the router")
+        ft, canary, dep = adapted["finetune"], adapted["canary"], adapted["deploy"]
+        fan = dep["swap"]
+        epochs1 = [(direct(b, "health") or {}).get("swap_epoch") for b in backends]
+        ft_s = tally.spans.get("control_finetune")
+        with ServeClient(*front, timeout_s=30.0) as c:
+            after = [c.request(x[i], rid=f"ctl-after-{i}") for i in range(64)]
+        twin_last = ServeEngine.from_workdir(cfg, wd, device="cpu", tags={"hdce": "hdce_last"})
+        held = _hold_served(_twin_reference(torch, twin_last, x[:64]), np.asarray([r["h"] for r in after], np.float32),
+                            np.array([r["pred"] for r in after]), "fleet after the controller's swap")
+        confirmed = None
+        for _ in range(cfg.control.watch_ticks + 1):
+            ctrl.observe_parity(CTL_DRIFT_SCENARIO, canary["drifted_probes"]["cand_db"])
+            confirmed = next((e for e in ctrl.tick()["events"] if e.get("action") == "deploy_confirmed"), confirmed)
+        log(f"fleet controller over the router: adapted in {adapt_s:.2f} s, fine-tune {ft['steps']} steps in "
+            f"{ft_s:.3f} s ({ft['steps'] / ft_s:.1f} steps/s) val NMSE {ft['val_nmse_db_before']} -> "
+            f"{ft['val_nmse_db_after']} dB; canary passed {canary['passed']} gain {canary['gain_db']} dB; swap fanned to "
+            f"{fan['fanned_to']} ok {fan['ok_count']}, tags {[v['swap']['tags'] for v in fan['backends'].values()]}, "
+            f"epochs {epochs0} -> {epochs1}; answers after it against the CPU twin of hdce_last "
+            f"{held['max_abs_err']:.3e} (tol {held['tol']:.3e}); watch {json.dumps(confirmed)} [{card}]")
+        if not (fan["ok"] and fan["fanned_to"] == 2 and all(v["swap"]["work"] == zero for v in fan["backends"].values())
+                and all(b > a for a, b in zip(epochs0, epochs1)) and confirmed is not None):
+            raise AssertionError(f"fleet controller: swap {fan}, epochs {epochs0} -> {epochs1}, watch {confirmed}")
+
+        work = [(direct(b) or {}).get("compile_cache_after_warmup") for b in backends]
+        log(f"fleet: request-path work on every surviving backend (its own metrics verb): {work} [{card}]")
+        if work != [zero, zero]:
+            raise AssertionError(f"fleet: request-path work after warmup: {work}")
+
+        # `cli route`'s banner, `cli fleet-scale` against it and against the in-process router
+        while not banner and route_proc.poll() is None and time.perf_counter() - t_route < 120.0:
+            time.sleep(0.05)
+        if not banner:
+            raise AssertionError(f"fleet: `cli route` printed no banner (exit {route_proc.poll()})")
+        route_up = time.perf_counter() - t_route
+        cmd = [sys.executable, "-m", "qdml_tpu_torch.cli", "fleet-scale"]
+        t = time.perf_counter()
+        grow = subprocess.run([*cmd, f"--addr={banner['routing']}", "--backends=3", "--timeout-s=600"], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        grow_s = time.perf_counter() - t
+        plain = subprocess.run([*cmd, f"--addr={front[0]}:{front[1]}", "--backends=3"], cwd=root, capture_output=True,
+                               text=True, timeout=120)
+        grown = json.loads(grow.stdout) if grow.stdout.startswith("{") else {}
+        refused = json.loads(plain.stdout) if plain.stdout.startswith("{") else {}
+        contexts = _hold_contexts(backends, base + 1, "route's spawned backend")  # its backend: one context more
+        route_proc.send_signal(2)
+        route_rc = route_proc.wait(timeout=120.0)
+        log(f"fleet `cli route --fleet.elastic=true`: banner {json.dumps({k: banner[k] for k in ('routing', 'elastic', 'backends_live')})} "
+            f"{route_up:.2f} s after its start; `fleet-scale --backends=3` exit {grow.returncode} in {grow_s:.2f} s "
+            f"({(grown.get('fleet') or {}).get('backends')} backends, {contexts}); against the router without a "
+            f"lifecycle exit {plain.returncode}, {refused.get('reason')}; route stopped with exit {route_rc}, "
+            f"{_hold_contexts(backends, base, 'route stopped')} [{card}]")
+        if not (banner.get("elastic") is True and banner.get("backends_live") == 2 and grow.returncode == 0
+                and grown.get("ok") and grown["fleet"]["backends"] == 3 and plain.returncode == 3
+                and str(refused.get("reason")).startswith("fleet_scale_unavailable") and route_rc == 0):
+            raise AssertionError(f"fleet commands: grow {grow.returncode} {grow.stdout[-1500:]} {grow.stderr[-1500:]}; "
+                                 f"plain {plain.returncode} {plain.stdout[-500:]}; route exit {route_rc}")
+        route_proc = None
+    finally:
+        if route_proc is not None and route_proc.poll() is None:
+            route_proc.kill()
+            route_proc.wait(timeout=60.0)
+        if router is not None:
+            router.stop()
+        if loop_thread.is_alive():
+            async def cancel_all():
+                live = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+                for task in live:
+                    task.cancel()
+                await asyncio.gather(*live, return_exceptions=True)
+
+            asyncio.run_coroutine_threadsafe(cancel_all(), aloop).result(timeout=60.0)
+            aloop.call_soon_threadsafe(aloop.stop)
+            loop_thread.join(timeout=60.0)
+        aloop.close()
+        for p in procs:
+            if p.alive():
+                p.terminate()
+    stopped = _hold_contexts([], base, "fleet teardown")
+    log(f"fleet: router stopped, every backend process ended ({stopped}); phase wall "
+        f"{time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
 def bench_phase(card: str) -> None:
     """``python -m qdml_tpu_torch.bench`` in this process at 48 timed steps
     a row (3 dispatches of K=16 on the scan rows), ``qsc_scaling`` at n = 4
@@ -3223,6 +3804,7 @@ def main() -> int:
     tier_launches = phase("serve_tier", serve_tier_phase, torch, K, mods, card)
     mesh_launches = phase("mesh_serve", mesh_serve_phase, torch, K, mods, card, False)
     control_launches = phase("control", control_phase, torch, K, mods, card)
+    phase("fleet", fleet_phase, torch, K, mods, card)
     train_launches, adjoint_per_step, train_data = phase("train", train, torch, K, mods, card)
     dce_launches = phase("dce", dce_phase, torch, K, mods, card, train_data)
     del train_data

@@ -14,6 +14,8 @@
     python -m qdml_tpu_torch.cli serve        [--serve.port=8377 --serve.replicas=N ...]
     python -m qdml_tpu_torch.cli loadgen      [--rate=200] [--n=512] [--drift-at=K] [...]
     python -m qdml_tpu_torch.cli control      [--ticks=N] [--control.dry_run=true ...]
+    python -m qdml_tpu_torch.cli route        [--fleet.backends=H:P,H:P --fleet.port=8378 ...]
+    python -m qdml_tpu_torch.cli fleet-scale  --addr=HOST:PORT [--backends=N] [--timeout-s=S]
 
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
 package, and ``--preset=NAME`` starts from one of its presets (``single_4q``,
@@ -68,7 +70,16 @@ attaches to a running ``serve`` at ``serve.host:serve.port`` over the
 fine-tune of the drifted trunk, canary, hot-swap, watch, autoscaling; every
 ``--control.*`` field), printing its header line first; fine-tune and
 canary run in its own process on the shared workdir. ``--ticks=N`` stops it
-after N polls.
+after N polls. ``route`` fronts running ``serve`` processes
+(``fleet.backends``) with the fleet router on ``fleet.host:fleet.port``,
+printing its banner once it listens; it needs no device and no checkpoint,
+the backends own the models. ``--fleet.elastic=true`` arms the
+``{"op": "fleet"}`` scaling form: backends spawned with
+``fleet.spawn_overrides`` (on the card unless ``--device=cpu`` is among
+them). ``fleet-scale`` is host-side, dispatched before config parsing: one
+``{"op": "fleet"}`` exchange with a running ``route``, the status form
+without ``--backends``; exit 0, 3 when the fleet did not converge or the
+router refused (the typed reason printed), 2 on usage errors.
 """
 
 from __future__ import annotations
@@ -83,8 +94,8 @@ from qdml_tpu_torch.utils.metrics import MetricsLogger
 
 COMMANDS = (
     "train-hdce", "train-dce", "train-sc", "train-qsc", "nat-sweep", "eval", "profile", "gen-data",
-    "import-torch", "export-torch", "loss-curves", "serve", "loadgen", "control",
-)
+    "import-torch", "export-torch", "loss-curves", "serve", "loadgen", "control", "route",
+)  # "fleet-scale" dispatches before config parsing (host-side)
 # the commands that lay themselves on a mesh under a world of several ranks
 MESH_COMMANDS = ("train-hdce", "train-sc", "train-qsc", "nat-sweep", "eval")
 
@@ -261,6 +272,39 @@ def _serve(cmd: str, cfg: cfg_mod.ExperimentConfig, workdir: str, device, extra:
     print(json.dumps(summary))
 
 
+def fleet_scale_main(argv: list[str]) -> int:
+    """``fleet-scale --addr=HOST:PORT [--backends=N] [--timeout-s=S]``
+    (``qdml_tpu/cli.py:170-210``): the ``{"op": "fleet"}`` verb from the
+    shell. Without ``--backends`` it prints the membership status; with it,
+    it asks the router's lifecycle manager to converge the serving backend
+    count (spawns and drains take minutes: ``--timeout-s`` defaults to 900).
+    Exit 0 on success, 3 when the fleet did not converge or the router
+    refused (reply printed), 2 on usage errors."""
+    import json
+
+    from qdml_tpu_torch.serve.client import ServeClient, ServeClientError
+
+    def arg(name, default):
+        return next((a.split("=", 1)[1] for a in argv if a.startswith(f"--{name}=")), default)
+
+    addr = arg("addr", None)
+    if not addr or ":" not in addr:
+        print("fleet-scale needs --addr=HOST:PORT (a running route)")
+        return 2
+    host, port = addr.rsplit(":", 1)
+    backends = arg("backends", None)
+    client = ServeClient(host, int(port), timeout_s=float(arg("timeout-s", "900")), retries=0)
+    try:
+        rep = client.fleet(backends=None if backends is None else int(backends))
+    except (ServeClientError, ConnectionError, OSError) as e:
+        print(json.dumps({"ok": False, "reason": f"{type(e).__name__}: {e}"}))
+        return 3
+    finally:
+        client.close_connection()
+    print(json.dumps(rep, indent=2))
+    return 0 if rep.get("ok") else 3
+
+
 def main(argv: list[str] | None = None) -> int:
     from qdml_tpu_torch.parallel.mesh import leave_world
 
@@ -279,6 +323,8 @@ def _main(argv: list[str] | None) -> int:
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
+    if cmd == "fleet-scale":
+        return fleet_scale_main(rest)
     if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}; want one of {COMMANDS}")
         return 2
@@ -345,6 +391,11 @@ def _main(argv: list[str] | None) -> int:
     try:
         if cmd in ("serve", "loadgen"):
             _serve(cmd, cfg, workdir, device, extra, logger)
+            return 0
+        if cmd == "route":
+            from qdml_tpu_torch.fleet.frontend import run_router
+
+            run_router(cfg, logger=logger)
             return 0
         if cmd == "control":
             from qdml_tpu_torch.control.loop import control_main

@@ -10,9 +10,9 @@ traffic knobs), ``MeshConfig`` (the ``(fed, data, model)`` layout of a
 ``torch.distributed`` world's ranks, or of the cards one serving process
 sees, :mod:`qdml_tpu_torch.parallel`), ``ControlConfig`` (the control loop,
 :mod:`qdml_tpu_torch.control`; its fleet-autoscaler fields are read by
-nothing until the fleet is ported, ROADMAP A.11 part 3), and the
-geometry-derived widths of ``ExperimentConfig``. Fleet configuration is
-not ported yet (ROADMAP A.11, part 3). ``model.kernel_size``,
+``control.fleet_scale.FleetAutoscaler.from_config``), ``FleetConfig`` (the
+router tier, :mod:`qdml_tpu_torch.fleet`), and the geometry-derived widths
+of ``ExperimentConfig``. ``model.kernel_size``,
 ``model.n_conv_layers``, ``model.conv_impl`` and ``eval.indicator`` are
 accepted with the JAX package's validation and recorded, so that a JAX
 command line runs unchanged; the port's convs are 3x3, three deep, and
@@ -278,6 +278,67 @@ class MeshConfig:
 
 
 @dataclass(frozen=True)
+class FleetConfig:
+    """The fleet router tier (:mod:`qdml_tpu_torch.fleet`,
+    ``qdml_tpu/config.py:383-450``): a front-door process (``route``) that
+    speaks the newline-JSON serve protocol on its own socket and fans
+    requests out over N backend ``serve`` processes ("hosts") through the
+    :class:`~qdml_tpu_torch.serve.client.ServeClient` retry/dedup/deadline
+    contract. Per-backend health tracking ejects failing hosts with the
+    breaker's state machine and re-admits them through half-open probes
+    driven by the health poll; ``swap``/``scale``/``metrics``/``health``
+    fan out or aggregate. Fields and defaults are the JAX package's; the
+    router validates ``balance`` as JAX's does."""
+
+    # Comma-separated backend endpoints ("127.0.0.1:8377,127.0.0.1:8380").
+    # Empty = the single local serve endpoint at serve.host:serve.port.
+    backends: str = ""
+    # "hash": each request id onto a consistent-hash ring over the live
+    # backends (retries of one id land on one host, where the server-side
+    # dedup window holds); "least_queue": the live backend with the
+    # shallowest queue as of the last health poll.
+    balance: str = "hash"
+    # Ejection: eject_failures CONSECUTIVE transport failures open the
+    # backend; after eject_s it goes half-open, and readmit_probes
+    # successful probes close it again (one half-open failure re-opens).
+    eject_failures: int = 3
+    eject_s: float = 1.0
+    readmit_probes: int = 2
+    # Health-poll cadence: least_queue freshness, ejection of silently dead
+    # hosts, half-open re-admission probing.
+    poll_interval_s: float = 0.5
+    # How many ALTERNATE backends a request may try after its primary fails.
+    failover: int = 2
+    # Per-forward ServeClient discipline: socket timeout and same-backend
+    # retries before the router fails over to the next host.
+    timeout_s: float = 10.0
+    retries: int = 1
+    # Router-side idempotent-id dedup window, fleet-wide (0 disables).
+    dedup_ttl_s: float = 30.0
+    # Front-door endpoint of `route` (connection hardening reuses
+    # serve.conn_timeout_s / serve.max_line_bytes).
+    host: str = "127.0.0.1"
+    port: int = 8378
+    # -- elastic membership (fleet/lifecycle.py) ------------------------------
+    # Attach a BackendLifecycle to `route`, arming {"op": "fleet",
+    # "backends": N} (spawn-and-warm admission, drain-then-retire); off, the
+    # scaling form answers with the typed fleet_scale_unavailable reason.
+    elastic: bool = False
+    # Comma-separated dotted-config flags every SPAWNED backend gets
+    # ("--train.workdir=/ckpts,--serve.workers=2"); a backend spawned without
+    # "--device=cpu" among them runs on the card.
+    spawn_overrides: str = ""
+    # Spawn-and-warm deadline (banner after warmup), else quarantined.
+    spawn_timeout_s: float = 600.0
+    # Retirement drain: how long a draining host may take to finish its
+    # in-flight forwards before removal proceeds.
+    drain_wait_s: float = 30.0
+    # After removal, how long the retiring process stays alive for a
+    # direct-connected client's server-side dedup window before SIGINT.
+    dedup_grace_s: float = 0.0
+
+
+@dataclass(frozen=True)
 class ControlConfig:
     """Fleet control plane (:mod:`qdml_tpu_torch.control`,
     ``qdml_tpu/config.py:454-526``): the closed serve -> detect -> adapt ->
@@ -345,7 +406,7 @@ class ControlConfig:
     # (spawn-and-warm is seconds-to-minutes — the cooldown must outlast it).
     # A planner target (plan --emit-target JSON) overrides the watermark
     # policy when loaded. Requires a lifecycle-armed poller (fleet.elastic).
-    # Parsed and recorded only: the fleet autoscaler is ROADMAP A.11 part 3.
+    # Read by control.fleet_scale.FleetAutoscaler.from_config.
     fleet_autoscale: bool = False
     min_backends: int = 1
     max_backends: int = 4
@@ -380,6 +441,7 @@ class ExperimentConfig:
     eval: EvalConfig = field(default_factory=EvalConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
     control: ControlConfig = field(default_factory=ControlConfig)
 
     @property

@@ -8,12 +8,13 @@
   hot-swap and the watch window with automatic rollback;
 - :mod:`~qdml_tpu_torch.control.autoscale`: a queue-depth replica
   autoscaler with hysteresis over ``ReplicaPool.scale_to``;
+- :mod:`~qdml_tpu_torch.control.fleet_scale`: the fleet autoscaler, the
+  backend-count axis over ``BackendLifecycle.scale_to``;
 - :mod:`~qdml_tpu_torch.control.loop`: :class:`FleetController`, the
-  supervised loop (``control``), in process or over the serve socket.
+  supervised loop (``control``), in process, over the serve socket or over
+  a fleet router (:class:`~qdml_tpu_torch.fleet.poller.FleetPoller`).
 
-Knobs: :class:`qdml_tpu_torch.config.ControlConfig`. The fleet autoscaler
-(``qdml_tpu/control/fleet_scale.py``) comes with the fleet (ROADMAP A.11,
-part 3).
+Knobs: :class:`qdml_tpu_torch.config.ControlConfig`.
 """
 
 from qdml_tpu_torch.control.autoscale import Autoscaler  # noqa: F401

@@ -17,8 +17,10 @@ Two attachments share that logic: in process (:class:`PoolPoller`, holding
 the :class:`~qdml_tpu_torch.serve.server.ReplicaPool` and its engine) and
 remote (:class:`SocketPoller`, ``control``: the ``metrics``/``swap``/
 ``scale`` verbs of a running ``serve``, sharing only the workdir; fine-tune
-and canary run in the controller's process). The fleet attachment (a
-router's front door) is ROADMAP A.11 part 3.
+and canary run in the controller's process). Over a fleet the same loop
+runs on a :class:`~qdml_tpu_torch.fleet.poller.FleetPoller` (the router's
+aggregated verbs), or on a :class:`SocketPoller` pointed at the router's
+front door.
 
 The drifted family is synthesized (``family_table``'s drift trajectories),
 so ``drift_step_hint`` (default ``serve.drift_step``) tells fine-tune and
@@ -80,8 +82,8 @@ class PoolPoller:
 
 class SocketPoller:
     """Remote attachment over the serve socket's JSON verbs, one short-lived
-    connection a call. JAX's ``fleet`` verb (a router's backend count) comes
-    with the fleet (ROADMAP A.11, part 3)."""
+    connection a call; against a router's front door it is the remote fleet
+    poller (``fleet`` included)."""
 
     def __init__(self, host: str, port: int, timeout_s: float = 30.0):
         self.host = host
@@ -119,6 +121,17 @@ class SocketPoller:
 
     def scale(self, n: int) -> dict:
         return self._verb({"op": "scale", "replicas": n})["scale"]
+
+    def fleet(self, backends: int | None = None) -> dict:
+        """Backend-count axis (router endpoints): membership status, or,
+        with ``backends``, converge the serving member count through the
+        router's lifecycle manager. A plain serve host answers the status
+        form with ``bad_request`` and a lifecycle-less router answers the
+        scaling form with ``fleet_scale_unavailable``; both surface here as
+        the typed RuntimeError ``_verb`` raises on ok=false."""
+        if backends is None:
+            return self._verb({"op": "fleet"})["fleet"]
+        return self._verb({"op": "fleet", "backends": int(backends)})["fleet"]
 
 
 class FleetController:

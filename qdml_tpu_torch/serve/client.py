@@ -275,10 +275,28 @@ class ServeClient:
         return self.call(msg, timeout_s=timeout_s, idempotent=False)
 
     def scale(self, replicas: int, timeout_s: float | None = None) -> dict:
-        """Replica axis: resize the pools INSIDE the existing host(s)
-       ."""
+        """Replica axis: resize the pools INSIDE the existing host(s)."""
         return self.call(
             {"op": "scale", "replicas": int(replicas)},
+            timeout_s=timeout_s,
+            idempotent=False,
+        )
+
+    def fleet(
+        self, backends: int | None = None, timeout_s: float | None = None
+    ) -> dict:
+        """Backend-count axis, router endpoints only: the argument-free form
+        reads membership/lifecycle status (always answers, ``fleet.elastic``
+        says whether scaling is armed); ``backends=N`` asks the router's
+        lifecycle manager to converge the serving member count (typed
+        ``fleet_scale_unavailable`` when no manager is attached,
+        ``fleet_scale_failed`` on non-convergence — see ``fleet.actions``).
+        The scaling form is NOT retried: a spawn that timed out may still
+        be warming — re-inspect with the status form instead."""
+        if backends is None:
+            return self.call({"op": "fleet"}, timeout_s=timeout_s)
+        return self.call(
+            {"op": "fleet", "backends": int(backends)},
             timeout_s=timeout_s,
             idempotent=False,
         )

@@ -513,6 +513,7 @@ def run_loadgen_socket(
     timeout_s: float = 30.0,
     retries: int = 3,
     x: np.ndarray | None = None,
+    results: list | None = None,
 ) -> dict:
     """Open-loop traffic over the socket protocol against a running server
     (``qdml_tpu/serve/loadgen.py:546-750``).
@@ -526,8 +527,10 @@ def run_loadgen_socket(
     wire to wire; sheds come from typed replies; ``server_metrics`` from an
     end-of-run ``{"op": "metrics"}`` poll, which carries the server's
     request-path work, faults, restarts and breaker. ``x`` overrides the
-    request samples. Pointed at a fleet router (not in this package), the
-    summary keeps its per-backend rows."""
+    request samples; ``results``, when given, is extended with each
+    request's reply (None for a give-up), in request order. Pointed at a
+    fleet router (:mod:`qdml_tpu_torch.fleet`), the summary keeps its
+    per-backend rows and the router's own ledger."""
     process = process or cfg.serve.arrival
     if process not in ARRIVAL_PROCESSES:
         raise ValueError(
@@ -637,6 +640,8 @@ def run_loadgen_socket(
         pass  # end-of-run observability poll is best-effort
     for c in pool:
         c.close_connection()
+    if results is not None:
+        results.extend(replies)
 
     metrics.completed = sum(1 for r in replies if r is not None and r.get("ok"))
     metrics.shed = dict(shed_counts)

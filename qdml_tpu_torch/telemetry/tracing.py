@@ -13,7 +13,7 @@ enqueue, dequeue, the engine's compute and fetch, future resolution.
 Phases, in pipeline order: ``batch_wait`` (enqueue to the batch's newest
 member's enqueue), ``queue_wait`` (from there to dequeue), ``compute``
 (dispatch until the card's work is done), ``fetch`` (the device-to-host
-copy of the reply), ``wire`` (a router's exchange; not in this package).
+copy of the reply), ``wire`` (a router's exchange, :mod:`qdml_tpu_torch.fleet`).
 """
 
 from __future__ import annotations

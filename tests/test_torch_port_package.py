@@ -33,6 +33,11 @@ MESH_MODULES = tuple(f"qdml_tpu_torch.{m}" for m in (
     "parallel", "parallel.mesh", "parallel.collectives", "parallel.multihost", "parallel.dp",
     "parallel.federated", "parallel.selfcheck", "quantum.sharded",
 ))
+# the fleet slice's modules: host code, which imports no JAX either
+FLEET_MODULES = tuple(f"qdml_tpu_torch.{m}" for m in (
+    "fleet", "fleet.router", "fleet.spawn", "fleet.lifecycle", "fleet.poller", "fleet.frontend",
+    "control.fleet_scale",
+))
 
 
 def test_import_everything_leaves_jax_out():
@@ -43,13 +48,14 @@ def test_import_everything_leaves_jax_out():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         f"assert set({MESH_MODULES!r}) <= set(sys.modules)\n"
+        f"assert set({FLEET_MODULES!r}) <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('qdml_tpu_torch')]))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 71  # every module of the twelve slices was imported
+    assert int(out.stdout.strip()) >= 85  # every module of the fourteen slices was imported
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -207,7 +213,7 @@ def test_config_defaults_match_the_jax_config():
 
     t, j = tconfig.ExperimentConfig(), jconfig.ExperimentConfig()
     assert (t.image_hw, t.h_out_dim) == (j.image_hw, j.h_out_dim)
-    for sect in ("data", "model", "quantum", "train", "serve", "mesh"):
+    for sect in ("data", "model", "quantum", "train", "serve", "mesh", "fleet", "control"):
         for field, value in vars(getattr(t, sect)).items():
             assert getattr(getattr(j, sect), field) == value, (sect, field)
 
@@ -218,6 +224,7 @@ def test_submodules_import():
         importlib.import_module(name)
     assert "qdml_tpu_torch.quantum.kernels" in mods and "qdml_tpu_torch.serve.engine" in mods
     assert set(MESH_MODULES) <= set(mods)
+    assert set(FLEET_MODULES) <= set(mods)
     for name in ("data.channels", "data.datasets", "train.optim", "train.qsc", "train.checkpoint",
                  "ops.quantumnat", "ops.grad_prune", "models.losses", "utils.metrics", "cli",
                  "data.baselines", "eval.sweep", "eval.report", "eval.loss_curves",
