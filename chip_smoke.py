@@ -157,8 +157,11 @@ Phases, each of which exits non-zero on failure:
    without a lifecycle: typed ``fleet_scale_unavailable``, exit 3; every
    process stopped and every backend's context gone. Cut for time: one
    window a fault class and one recovery window (the dryrun's best of 3
-   trials), no second adapt episode with a backend ejected; JAX's report
-   round-trip per fault class waits for ``report`` (ROADMAP A.12). The B.2
+   trials), no second adapt episode with a backend ejected, and of the
+   dryrun's report round trips the kill class's alone: the recovery
+   window's manifest-headed stream against the baseline window's through
+   ``report`` (threshold 50%, the dryrun's), its exit code and ``via router
+   over`` line printed (exit 2 fails; 0 and 3 are logged). The B.2
    launches happen in the backend processes: the smoke's counters do not
    count them;
 7. training: at full width on data synthesized on the card (data_len 2048 per
@@ -171,7 +174,11 @@ Phases, each of which exits non-zero on failure:
    counters are zeroed just before and read just after each; the first 2
    steps of the first four are run again on a CPU twin from the same weights
    and batches (the same QuantumNAT noise) and held against it. The HDCE, SC
-   and n=6 ``pallas`` QSC write their checkpoints under ``build/chip_smoke/``;
+   and n=6 ``pallas`` QSC write their checkpoints under ``build/chip_smoke/``.
+   The K-step path logs a chunk's losses only on the flight recorder's
+   cadence, so this phase, 7b, 8e and 8g, which hold every step's logged
+   loss, run at ``train.probe_every=1``; every other phase keeps the
+   trainers' default of 100;
 8. eval: ``python -m qdml_tpu_torch.cli eval`` over those checkpoints (the
    SNR sweep 5..15 dB, batch 200, test_len 2000 per point, cut from the
    reference's 10000 for time), results under ``build/chip_smoke/``, counters
@@ -201,7 +208,8 @@ Phases, each of which exits non-zero on failure:
    shape the shipped config validates at) whose
    counters must show one forward
    launch per step and validation batch, one adjoint launch per step and no
-   one-member launch;
+   one-member launch, and, at the default ``probe_every`` (100) on the
+   K-step path, the first chunk's losses alone fetched and logged;
 8d. trajectories: the trajectory simulator at p=0 against the clean
    ``tensor`` circuit, the one-wire anchor <Z> -> (1 - 4p/3) <Z> within its
    Monte-Carlo band, and the peak memory (and, in phase 9, the device time)
@@ -258,6 +266,46 @@ Phases, each of which exits non-zero on failure:
    (rtol 1e-4). The kernel launches of the training worlds, summed over
    their ranks (each rank counts from 0 at each step), join the path's
    launches: B.3's are the sharded_16q world's;
+8l. telemetry: the device half of ``qdml_tpu_torch.telemetry`` at full
+   width on phase 7's training grid (``build/chip_smoke/telemetry/``).
+   Probes: HDCE, QSC n=6 L=3 ``pallas_circuit`` and the ``nat_sweep``
+   ensemble (E=4, per-member vectors) one epoch each at ``scan_steps`` 0 and
+   4 with ``probe_every=1`` from the same init: every ``numerics`` value of
+   K=4 equal to the per-step path's (rtol 1e-5; the ensemble's after step 1
+   at 1e-3, its K-step path not being its per-step path bit for bit, as
+   phase 8e shows; the quantum runs' update norm's square within n lr^2,
+   as below); their first 2 steps'
+   probes against a CPU twin (rtol 1e-4; the QSC update norm's square
+   within n lr^2, the RZ weights of the last layer having a rounding-noise
+   gradient); QSC at K=4 and ``probe_every=0``: ``host_transfers`` 0, the
+   same graphs and B.2 launches as with probes. Cost: each run's ``cost``
+   record (H100 row, ridge 20) printed, and the HDCE step's flops against 3
+   x the bench's forward model (within 5%, else the ops that differ are
+   printed). Step ms at the bench's 2304 rows: HDCE K=16 graph with probes
+   and at ``probe_every=0``; the HDCE and QSC ``pallas_circuit`` per-step
+   paths with the probe (a cadence step), without it (every other step, and
+   ``probe_every=0``), and under the sanitizer without it (its fetch a step);
+   the achieved roofline of those steps; the card's memory snapshot.
+   Watchdog: QSC under QuantumNAT ``noise_level=inf`` raises
+   ``DivergenceError``, its bundle's ``last_good`` restores finite on the
+   card; ``cli train-qsc`` with those flags (300 samples a cell: one step)
+   prints ``DIVERGED:`` and exits 4. Sanitizer: HDCE and QSC 2 steps checked
+   and unchecked equal bit for bit (under deterministic cuDNN and
+   scatter-add, whose default kernels sum with atomics); ``scan_dispatch``
+   declines; Inf pilots
+   trip naming an aten op, the ``inf`` noise naming ``circuit_expvals``, a
+   label of 7 as an out-of-bounds index, and a clean step runs after it.
+   ``serve.checkify``: a full-width engine (QSC n=6 L=3 ``pallas_circuit``,
+   buckets 1/8/64; its warmup's ``cost`` records counted into an active
+   sink, the unchecked engine's, without one, not counted) equal to the
+   unchecked one and within 1e-4 max|h| + 1e-5
+   of the CPU twin, B.2 launched, no request-path work; a poisoned batch
+   raises, the next serves; the ragged tier with NaN/Inf pads at fills 3
+   and 37 passes; a 2x2 pool fails only the poisoned future. World: ``dp_8q
+   train-qsc`` on 2 ranks (as phase 8k; 600 samples a cell: 2 steps, cut for
+   time), rank 0's numerics against one rank's (rtol 1e-5). Report: the
+   phase's QSC stream and phase 8j's bench line each against themselves
+   exit 0, the bench line against a copy with doubled throughput exits 3;
 9. times: each kernel and its plain version at its path's shapes (CUDA
    events), the member-axis forward and adjoint beside E one-member
    launches of the same work, each kernel's device time per launch (torch profiler) over batch
@@ -285,6 +333,8 @@ writes only under ``build/``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -1469,6 +1519,18 @@ class Recorder:
         self.records.append({"step": step, **values, "t": time.perf_counter()})
 
 
+def every_step_logged(cfg):
+    """``cfg`` at ``train.probe_every=1``. The K-step path fetches and logs a
+    chunk's losses only on the flight recorder's cadence (the run's first
+    step and every ``probe_every``-th), so the phases that hold every step's
+    logged loss (7, its DCE, 8e and lowp) set it; the others keep the
+    trainers' default of 100, and the nat_sweep phase checks that a K-step
+    run at that default logs its first chunk alone."""
+    from dataclasses import replace
+
+    return replace(cfg, train=replace(cfg.train, probe_every=1))
+
+
 def trainer_configs(cfg_mod):
     """The four trainers at full width: (config, quantum) with quantum None
     for the HDCE."""
@@ -1604,6 +1666,7 @@ def train(torch, K, mods, card: str):
     launches = {k: 0 for k in K.launches}
     per_step_adjoint = None
     for name, (cfg, quantum) in trainer_configs(mods["config"]).items():
+        cfg = every_step_logged(cfg)  # the check below reads every step's loss
         if name not in NO_TWIN:
             cpu_twin(torch, mods, name, cfg, quantum, batches, spe)
 
@@ -1688,7 +1751,7 @@ def dce_phase(torch, K, mods, card: str, train_data) -> dict[str, int]:
     writing ``dce_best`` where ``cli eval`` finds it. The DCE runs no circuit
     kernel: its launches must all be 0."""
     data, batches, spe = train_data
-    cfg = trainer_configs(mods["config"])["hdce"][0]
+    cfg = every_step_logged(trainer_configs(mods["config"])["hdce"][0])  # every step's loss is read
     cpu_twin(torch, mods, "dce", cfg, "dce", batches, spe)
     workdir = mods["cli"].workdir_of(mods["config"].from_args([f"--train.workdir={EVAL_WORK / 'ws'}"]))
     rec = Recorder()
@@ -1879,6 +1942,13 @@ def nat_sweep_phase(torch, K, mods, card: str) -> tuple[dict[str, int], dict]:
         raise AssertionError(f"nat_sweep launches {counts}: want {want} and no one-member launch")
     if not all(np.isfinite(np.stack(v)).all() for v in hist.values()):
         raise AssertionError(f"nat_sweep: non-finite history {hist}")
+    # the trainers' default cadence (probe_every 100) on the K-step path:
+    # only the run's first chunk is fetched and logged
+    logged = [r for r in rec.records if "loss" in r]
+    log(f"nat_sweep at probe_every={cfg.train.probe_every}, scan_steps={cfg.train.scan_steps}: "
+        f"{len(logged)} of {epochs * spe} steps' losses fetched and logged [{card}]")
+    if cfg.train.probe_every != 100 or cfg.train.scan_steps < 1 or len(logged) != 1:
+        raise AssertionError(f"nat_sweep: the default cadence logged {[r['step'] for r in logged]}")
     counts = {k: counts[k] + prewarm_launches[k] for k in counts}
     return counts, {"worst": worst, "shapes": shapes, "members": members, "n": n, "layers": layers, "rows": rows}
 
@@ -2092,7 +2162,7 @@ def scan_phase(torch, K, mods, card: str) -> dict[str, int]:
 
     from qdml_tpu_torch.train import nat_sweep as ns
 
-    base = trainer_configs(mods["config"])["hdce"][0]
+    base = every_step_logged(trainer_configs(mods["config"])["hdce"][0])  # every K's step losses are compared
     base = replace(base, data=replace(base.data, data_len=SCAN_DATA_LEN))
     data = mods["datasets"].GridData.synthesize(base.data, DEVICE)
     spe = mods["datasets"].DMLGridLoader(data, TRAIN_BATCH, "train").steps_per_epoch
@@ -2224,7 +2294,7 @@ def lowp_phase(torch, K, mods, card: str) -> dict[str, int]:
     if delta > 1e-4:
         raise AssertionError(f"lowp: trig_impl split differs from direct by {delta:.3e}")
 
-    base = trainer_configs(mods["config"])["hdce"][0]
+    base = every_step_logged(trainer_configs(mods["config"])["hdce"][0])  # every K's step losses are compared
     base = replace(base, data=replace(base.data, data_len=SCAN_DATA_LEN), model=replace(base.model, dtype="bfloat16"))
     bf16m = replace(base, train=replace(base.train, moments_dtype="bfloat16"))
     data = mods["datasets"].GridData.synthesize(base.data, DEVICE)
@@ -2850,9 +2920,11 @@ def mesh_serve_phase(torch, K, mods, card: str, real: bool) -> dict[str, int]:
     swap: dict = {}
 
     def swapper():
-        while tally.at is None:
+        # from the first served batch on: on a slow host the traffic's queue
+        # sheds its tail, so a swap timed by the clock could land after the
+        # last served row
+        while tally.at is None or not tally.buckets:
             time.sleep(0.005)
-        time.sleep(MESH_REQUESTS / MESH_RPS / 4)  # a quarter into the traffic
         t = time.perf_counter()
         swap.update(eng.swap_params(*weights[1]))
         swap["ms"] = (time.perf_counter() - t) * 1e3
@@ -3211,11 +3283,16 @@ def fleet_phase(torch, K, mods, card: str) -> None:
     from qdml_tpu_torch.serve.client import ServeClient
     from qdml_tpu_torch.serve.engine import ServeEngine
     from qdml_tpu_torch.serve.loadgen import make_request_samples, run_loadgen_socket
+    from qdml_tpu_torch.telemetry import run_manifest
+    from qdml_tpu_torch.telemetry.cost import detect_platform
+    from qdml_tpu_torch.telemetry.report import report_main
+    from qdml_tpu_torch.utils.metrics import MetricsLogger
     from qdml_tpu_torch.telemetry.spans import get_sink, set_sink
 
     t_phase = time.perf_counter()
     zero = {"measure": 0, "table_write": 0, "kernel_build": 0}
     platform = "cpu" if "--device=cpu" in FLEET_DEVICE_ARGS else "cuda"
+    cost_platform = detect_platform(platform)  # the label of each warmup bucket's cost record
     shutil.rmtree(FLEET_WORK, ignore_errors=True)
     flags = [*FLEET_ARGS, *FLEET_DEVICE_ARGS, f"--train.workdir={FLEET_WORK / 'ws'}",
              f"--quantum.autotune_table={TUNE_DIR / 'qsc_impl.json'}"]
@@ -3251,7 +3328,7 @@ def fleet_phase(torch, K, mods, card: str) -> None:
                           timeout_s=300.0)
         procs.append(b)
         if b.banner["compile_cache_after_warmup"] != zero or any(
-                c["platform"] != platform for c in b.banner["cost"].values()):
+                c["platform"] != cost_platform for c in b.banner["cost"].values()):
             raise AssertionError(f"fleet: backend {i} banner {b.banner}")
         return b
 
@@ -3300,7 +3377,7 @@ def fleet_phase(torch, K, mods, card: str) -> None:
         def completed() -> list:
             return [None if (m := direct(b)) is None else int(m["completed"]) for b in backends]
 
-        def window(tag: str, during=None, hold=True) -> dict:
+        def window(tag: str, during=None, hold=True, jsonl: Path | None = None) -> dict:
             side_err: list = []
             side = None
             if during is not None:
@@ -3315,8 +3392,15 @@ def fleet_phase(torch, K, mods, card: str) -> None:
             r0, c0 = router.router_summary(), completed()
             seq[0] += 1
             replies: list = []
-            sm = run_loadgen_socket(cfg, front, rate=FLEET_RPS, n=FLEET_N, seed=1000 * seq[0],
-                                    deadline_ms=FLEET_DEADLINE_MS, clients=8, x=x, results=replies)
+            # the window's manifest-headed stream, for the report round trip
+            wlog = None if jsonl is None else MetricsLogger(str(jsonl), echo=False, manifest=run_manifest(cfg))
+            try:
+                sm = run_loadgen_socket(cfg, front, rate=FLEET_RPS, n=FLEET_N, seed=1000 * seq[0],
+                                        deadline_ms=FLEET_DEADLINE_MS, clients=8, x=x, results=replies,
+                                        logger=wlog)
+            finally:
+                if wlog is not None:
+                    wlog.close()
             if side is not None:
                 side.join(timeout=120.0)
                 if side.is_alive() or side_err:
@@ -3348,7 +3432,7 @@ def fleet_phase(torch, K, mods, card: str) -> None:
             return {"sm": sm, "delta": d, "split": split}
 
         # healthy fleet: both backends serve, every answer against the CPU twin
-        base_w = window("baseline")
+        base_w = window("baseline", jsonl=FLEET_WORK / "baseline.jsonl")
         if not all(v for v in base_w["split"]):
             raise AssertionError(f"fleet baseline: a backend served nothing: {base_w['split']}")
         # the same traffic straight to backend 0: what the router's hop costs
@@ -3447,9 +3531,19 @@ def fleet_phase(torch, K, mods, card: str) -> None:
         log(f"fleet kill: the killed backend's context freed ({smi_box['after_kill']}); respawned on :{ports[1]} in "
             f"{respawn_s:.2f} s, live {len(router.live_backends())}; {_hold_contexts(backends, base, 'respawn')} "
             f"[{card}]")
-        w = window("backend_kill_recovery")
+        w = window("backend_kill_recovery", jsonl=FLEET_WORK / "backend_kill_recovery.jsonl")
         if len(router.live_backends()) != 2 or router.router_summary()["readmissions"] < 1:
             raise AssertionError("fleet kill: the respawned backend was not re-admitted")
+        # the kill class's report round trip (scripts/fleet_router_dryrun.py:417-423):
+        # the recovery window against the baseline window, the dryrun's 50% threshold
+        report_md = FLEET_WORK / "report_backend_kill.md"
+        with contextlib.redirect_stdout(io.StringIO()):  # the markdown goes to report_md
+            rc = report_main([f"--current={FLEET_WORK / 'backend_kill_recovery.jsonl'}",
+                              f"--baseline={FLEET_WORK / 'baseline.jsonl'}", "--threshold=50", f"--out={report_md}"])
+        fleet_line = next((ln.strip() for ln in report_md.read_text().splitlines() if "via router over" in ln), None)
+        log(f"fleet report backend_kill (recovery vs baseline): exit {rc}; {fleet_line} [{card}]")
+        if rc not in (0, 3):
+            raise AssertionError(f"fleet report: exit {rc} (usage), fleet line {fleet_line!r}")
 
         # SIGSTOP of backend 1 for 5 s mid-traffic, then SIGCONT
         def inject_stall():
@@ -3670,6 +3764,523 @@ def fleet_phase(torch, K, mods, card: str) -> None:
         f"{time.perf_counter() - t_phase:.2f} s [{card}]")
 
 
+
+# the telemetry phase: the training grid of phase 7; its files under build/
+TELE_WORK = EVAL_WORK / "telemetry"
+# the CLI's forced-NaN run: 300 samples a cell give one training step of 256
+# rows a cell (cut for time: the trip comes at step 1)
+TELE_CLI_DATA_LEN = 300
+# the world: dp_8q train-qsc, data_len 600 a cell gives 540 train rows (2
+# steps of 256) and 60 validation rows, cut for time
+TELE_WORLD_DATA_LEN = 600
+# timed dispatches of each step variant (the K=16 graph: 3 replays)
+TELE_TIMED_STEPS = 16
+
+
+def _jsonl(path) -> list[dict]:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def _flat_numerics(records: list[dict], key: str) -> list:
+    """A key of every ``numerics`` record, step by step: a K-step record's
+    (K,) or (K, E) values flattened in step order."""
+    out = []
+    for r in records:
+        if r.get("kind") == "numerics":
+            v = r[key]
+            if isinstance(v, dict):  # branch_grad_norm
+                out.append(v)
+            else:
+                out.extend(np.ravel(v).tolist())
+    return out
+
+
+def _probes_close(got: dict, want: dict, rtol: float, what: str, lr: float | None = None, n: int = 0) -> float:
+    """Two fetched probes key for key within ``rtol``; with ``lr`` the update
+    norm's square within ``n`` lr^2 per member (the last layer's RZ weights:
+    their gradient is rounding noise, which Adam turns into up to lr a step
+    either way). Returns the worst relative difference held to ``rtol``."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: probe keys {sorted(got)} vs {sorted(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        if isinstance(w, dict):
+            worst = max(worst, _probes_close(got[k], w, rtol, f"{what}.{k}"))
+            continue
+        g, w = np.asarray(got[k], np.float64), np.asarray(w, np.float64)
+        if lr is not None and k in ("update_norm", "update_ratio"):
+            gu, wu = np.asarray(got["update_norm"], np.float64), np.asarray(want["update_norm"], np.float64)
+            if np.any(np.abs(gu**2 - wu**2) > n * lr**2 * 1.1):
+                raise AssertionError(f"{what}: update norm {gu} vs {wu} beyond {n} lr^2")
+            continue
+        err = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+        if not np.allclose(g, w, rtol=rtol, atol=0.0):
+            raise AssertionError(f"{what}.{k}: {g.tolist()} vs {w.tolist()} (rtol {rtol})")
+        worst = max(worst, err)
+    return worst
+
+
+def telemetry_phase(torch, K, mods, card: str) -> dict[str, int]:
+    """Phase 8l: the device half of telemetry at full width (see the module
+    docstring). Returns the kernel launches of its trainer and serving runs."""
+    from dataclasses import replace
+
+    from qdml_tpu_torch import bench
+    from qdml_tpu_torch.models.qsc import build_classifier
+    from qdml_tpu_torch.serve.engine import ServeEngine
+    from qdml_tpu_torch.serve.server import ReplicaPool
+    from qdml_tpu_torch.serve.types import Prediction
+    from qdml_tpu_torch.telemetry import DivergenceError, device_memory_snapshot, run_manifest, set_sink
+    from qdml_tpu_torch.telemetry.cost import achieved_roofline, analyze
+    from qdml_tpu_torch.telemetry.numerics import fetch
+    from qdml_tpu_torch.telemetry.report import report_main
+    from qdml_tpu_torch.telemetry.sanitizer import checkify_step, error_message
+    from qdml_tpu_torch.train import nat_sweep as ns
+    from qdml_tpu_torch.train import scan
+    from qdml_tpu_torch.train.checkpoint import restore_checkpoint
+    from qdml_tpu_torch.utils.metrics import MetricsLogger
+
+    hdce_mod, qsc_mod, ds = mods["hdce"], mods["qsc"], mods["datasets"]
+    shutil.rmtree(TELE_WORK, ignore_errors=True)
+    TELE_WORK.mkdir(parents=True)
+    base = trainer_configs(mods["config"])["hdce"][0]
+    base = replace(base, eval=replace(base.eval, results_dir=str(TELE_WORK / "results")))
+    t0 = time.perf_counter()
+    data = ds.GridData.synthesize(base.data, DEVICE)
+    loader = ds.DMLGridLoader(data, TRAIN_BATCH, "train")
+    spe = loader.steps_per_epoch
+    batches = [{k: b[k] for k in ("yp_img", "h_label", "h_perf", "indicator")}
+               for _, b in zip(range(TWIN_STEPS), loader.epoch(0))]
+    log(f"telemetry data: the training grid ({base.data.data_len} a cell, {spe} steps of "
+        f"{9 * TRAIN_BATCH} rows) in {time.perf_counter() - t0:.2f} s")
+    q6 = replace(base.quantum, n_qubits=6, n_layers=3, impl="pallas_circuit")
+    qcfg = replace(base, quantum=q6)
+    sweep_q = replace(mods["config"].preset("nat_sweep").quantum, n_qubits=6, n_layers=3, impl="pallas_circuit")
+    scfg = replace(base, quantum=sweep_q)
+    levels = [float(s) for s in sweep_q.noise_sweep]
+    launches = {k: 0 for k in K.COUNTERS}
+
+    def epoch(tag: str, fn, cfg, k: int, probe_every: int = 1) -> dict:
+        """One epoch of ``fn(cfg, logger)`` at ``scan_steps`` k into a
+        manifest-headed JSONL, also the process-global sink; the launch
+        counters zeroed just before and read just after."""
+        cfg = replace(cfg, train=replace(cfg.train, scan_steps=k, probe_every=probe_every))
+        path = TELE_WORK / f"{tag}.jsonl"
+        logger = MetricsLogger(str(path), echo=False, manifest=run_manifest(cfg, argv=[tag]))
+        set_sink(logger)
+        before = dict(scan.activity)
+        K.reset_launch_counts()
+        # the process's high-water mark restarts here, so the run's first
+        # dispatch raises it and its cost record carries its own peak (the
+        # counting never resets the mark)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        try:
+            fn(cfg, logger)
+            torch.cuda.synchronize()
+        finally:
+            set_sink(None)
+            logger.close()
+        counts = dict(K.launches)
+        for c in launches:
+            launches[c] += counts[c]
+        return {"recs": _jsonl(path), "launches": counts, "path": path, "wall": time.perf_counter() - t,
+                "captures": scan.activity["captures"] - before["captures"]}
+
+    # -- probes: K=4 against the per-step path, the first steps against a CPU twin
+    trainers = {
+        "hdce": (base, lambda c, lg: hdce_mod.train_hdce(c, data=data, logger=lg), 1),
+        "qsc": (qcfg, lambda c, lg: qsc_mod.train_classifier(c, True, data=data, logger=lg), 1),
+        "nat_sweep": (scfg, lambda c, lg: ns.train_nat_sweep(c, data=data, logger=lg), len(levels)),
+    }
+    runs = {}
+    for name, (cfg, fn, members) in trainers.items():
+        r0, r4 = epoch(f"{name}_k0", fn, cfg, 0), epoch(f"{name}_k4", fn, cfg, 4)
+        worst = 0.0
+        for key in ("grad_norm", "param_norm", "update_norm", "update_ratio", "nonfinite", "branch_grad_norm"):
+            a, b = _flat_numerics(r0["recs"], key), _flat_numerics(r4["recs"], key)
+            if name != "hdce" and key in ("update_norm", "update_ratio"):
+                # the circuit's last-layer RZ weights: a rounding-noise gradient
+                # that Adam turns into up to lr a step on either path
+                if key == "update_norm":
+                    lr, n = cfg.train.lr, cfg.quantum.n_qubits
+                    gap = np.abs(np.square(b) - np.square(a))
+                    if len(b) != len(a) or np.any(gap > n * lr**2 * 1.1):
+                        raise AssertionError(f"telemetry {name}: K=4 update norm {b} vs {a} beyond {n} lr^2")
+                continue
+            if key == "branch_grad_norm":
+                a = {br: np.concatenate([np.ravel(x[br]) for x in a]) for br in a[0]}
+                b = {br: np.concatenate([np.ravel(x[br]) for x in b]) for br in b[0]}
+                if members == 1:
+                    worst = max(worst, _probes_close(b, a, 1e-5, f"telemetry {name} K=4 branches"))
+                else:
+                    first = {br: v[:members] for br, v in a.items()}
+                    _probes_close({br: v[:members] for br, v in b.items()}, first, 1e-5, f"telemetry {name} step 1")
+                    _probes_close(b, a, 1e-3, f"telemetry {name} K=4 branches")
+                continue
+            # the ensemble's K-step path is not its per-step path bit for bit
+            # on the card (phase 8e: losses at 1e-5, parameters at the Adam
+            # bound), and a gradient norm follows the parameters: step 1 (the
+            # same parameters on both paths) at 1e-5, later steps at 1e-3
+            later = 1e-5 if members == 1 else 1e-3
+            if len(a) != spe * members or len(b) != len(a) or not (
+                    np.allclose(b[:members], a[:members], rtol=1e-5, atol=0.0)
+                    and np.allclose(b[members:], a[members:], rtol=later, atol=0.0)):
+                raise AssertionError(f"telemetry {name}: K=4 {key} {b} vs per-step {a} (rtol 1e-5, later {later})")
+            worst = max(worst, float(np.max(np.abs(np.subtract(b, a)) / np.maximum(np.abs(a), 1e-30))))
+        costs = {r["name"]: r for rec in (r0, r4) for r in rec["recs"] if r.get("kind") == "cost"}
+        log(f"telemetry {name}: {len(_flat_numerics(r0['recs'], 'grad_norm'))} probe values a path, K=4 vs "
+            f"per-step max rel diff {worst:.3e} (rtol 1e-5); branches {sorted(_flat_numerics(r0['recs'], 'branch_grad_norm')[0])}; "
+            f"graphs {r4['captures']}; cost records {sorted(costs)}; epoch wall per-step {r0['wall']:.2f} s, "
+            f"K=4 {r4['wall']:.2f} s [{card}]")
+        runs[name] = (r0, r4, costs)
+
+    def twin(name: str, make, lr=None, n=0) -> None:
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            step = make(dev)
+            got[dev] = [fetch(step({k: v.to(dev) for k, v in b.items()}, j)["probe"]) for j, b in enumerate(batches)]
+        worst = max(_probes_close(g, c, 1e-4, f"telemetry {name} twin step {j}", lr, n)
+                    for j, (g, c) in enumerate(zip(got[DEVICE], got["cpu"])))
+        log(f"telemetry {name}: first {TWIN_STEPS} steps' probes, card vs CPU twin: max rel diff {worst:.3e} "
+            f"(rtol 1e-4{'; update norm within n lr^2' if lr else ''}); step 1 {json.dumps(got[DEVICE][0], default=lambda v: np.asarray(v).tolist())} [{card}]")
+
+    def hdce_maker(dev):
+        model, opt = hdce_mod.make_trainer(base, dev, spe)
+        return lambda b, j: hdce_mod.hdce_train_step(model, opt, b, probes=True)
+
+    def qsc_maker(dev):
+        model, opt = qsc_mod.make_trainer(qcfg, True, dev, spe)
+        model.train()
+        return lambda b, j: qsc_mod.classifier_train_step(model, opt, b, probes=True)
+
+    def sweep_maker(dev):
+        model, params, opt, sigmas = ns.init_sweep(scfg, levels, spe, torch.device(dev))
+        noise = ns.epoch_noise(scfg, 0, TWIN_STEPS, len(levels))
+        return lambda b, j: ns.sweep_train_step(model, params, opt, sigmas, b, noise[j].to(dev), probes=True)
+
+    twin("hdce", hdce_maker)
+    twin("qsc", qsc_maker, qcfg.train.lr, q6.n_qubits)
+    twin("nat_sweep", sweep_maker, scfg.train.lr, sweep_q.n_qubits)
+
+    # probe_every=0 at K=4: no host transfer before the epoch's sum; probes on
+    # and off capture the same graphs and launch the same B.2 work
+    p0 = epoch("qsc_k4_p0", trainers["qsc"][1], qcfg, 4, probe_every=0)
+    p1 = runs["qsc"][1]
+    counters = [r for r in p0["recs"] if r.get("kind") == "counters"]
+    b2 = ("circuit_expvals", "circuit_adjoint")
+    log(f"telemetry qsc K=4 probe_every=0: host_transfers {[c['host_transfers'] for c in counters]}, steady "
+        f"dispatches {[c['step']['n'] if c['step'] else 0 for c in counters]}, numerics records "
+        f"{len(_flat_numerics(p0['recs'], 'grad_norm'))}; graphs {p0['captures']} vs {p1['captures']} with probes; "
+        f"B.2 launches {[p0['launches'][k] for k in b2]} vs {[p1['launches'][k] for k in b2]} [{card}]")
+    if [c["host_transfers"] for c in counters] != [0] or _flat_numerics(p0["recs"], "grad_norm"):
+        raise AssertionError(f"telemetry: probe_every=0 at K=4 made host transfers: {counters}")
+    if p0["captures"] != p1["captures"] or any(p0["launches"][k] != p1["launches"][k] for k in b2):
+        raise AssertionError("telemetry: probes changed the graphs captured or the B.2 launches")
+    if not all(p1["launches"][k] for k in b2):
+        raise AssertionError(f"telemetry: the QSC epochs did not launch B.2: {p1['launches']}")
+
+    # -- cost records of the trainer runs
+    for name, (_, _, costs) in runs.items():
+        for cname, c in costs.items():
+            if not (c["available"] and c["platform"] == "gpu-h100" and c["flops"] > 0 and c["bytes_accessed"] > 0
+                    and c["peak_temp_bytes"] and c["ridge_intensity"] == 20.0):
+                raise AssertionError(f"telemetry {name}: cost record {cname} {c}")
+            log(f"telemetry cost {cname}: flops {c['flops']:.4e}, bytes {c['bytes_accessed']:.4e}, peak temp "
+                f"{c['peak_temp_bytes']} B, intensity {c['arithmetic_intensity']}, ridge {c['ridge_intensity']} "
+                f"({c['platform']} {c['dtype']}), {c['roofline']}; hand kernels {json.dumps(c['kernels'])} [{card}]")
+    hstep = runs["hdce"][2]["hdce_train_step"]
+    rows = 9 * TRAIN_BATCH
+    model_flops = 3 * bench.hdce_fwd_flops_per_sample(base) * rows
+    off = hstep["flops"] / model_flops - 1
+    log(f"telemetry cost: HDCE step counted {hstep['flops']:.6e} flops vs 3 x hdce_fwd_flops_per_sample x {rows} "
+        f"rows = {model_flops:.6e} ({off:+.3%}); by op {json.dumps(hstep['flops_by_op'])} [{card}]")
+    if abs(off) > 0.05:
+        log(f"telemetry cost: the HDCE step's flops differ from the bench model by {off:+.2%}: the ops above "
+            "(the model counts 3 x the forward's convolutions and head product; the first convolution needs "
+            "no input gradient)")
+
+    # -- step times: probes at the default, probes off, the sanitizer on
+    gcfg = bench._grid_cfg()
+    gdata, gidx, gsnr = bench._grid(gcfg, torch.device(DEVICE))
+    gbatch = gdata.batch(torch.as_tensor(gidx, device=DEVICE), float(gsnr))
+    idx16, snr16 = np.broadcast_to(gidx, (16, *gidx.shape)).copy(), np.full(16, gsnr, np.float32)
+    dev = torch.device(DEVICE)
+    times = {}
+    for probes in (True, False):
+        model, opt = hdce_mod.make_trainer(gcfg, DEVICE, 10**6)
+        run = hdce_mod.make_hdce_scan_steps(model, opt, gdata, 16, probes=probes)
+        times[f"hdce_k16_{'probes' if probes else 'p0'}"] = bench._rate(
+            lambda: run(idx16, snr16), dev, max(1, TELE_TIMED_STEPS // 16) + 2)["ms"] / 16
+    qgcfg = replace(gcfg, quantum=replace(gcfg.quantum, impl="pallas_circuit"))
+    for fam, cfg_ in (("hdce", gcfg), ("qsc", qgcfg)):
+        for label, probes, ck in (("probes", True, False), ("p0", False, False), ("checkify", False, True)):
+            if fam == "hdce":
+                model, opt = hdce_mod.make_trainer(cfg_, DEVICE, 10**6)
+                step = hdce_mod._step_fn(model, opt, probes, ck)
+            else:
+                model, opt = qsc_mod.make_trainer(cfg_, True, DEVICE, 10**6)
+                model.train()
+                step = qsc_mod._step_fn(model, opt, None, probes=probes, checkify_errors=ck)
+
+            def call(step=step, ck=ck):
+                m = step(gbatch, None)
+                if ck and error_message(m["checkify_err"]) is not None:  # the mode's fetch a step
+                    raise AssertionError(f"telemetry: a clean {fam} step tripped the sanitizer")
+                return m
+
+            times[f"{fam}_step_{label}"] = bench._rate(call, dev, TELE_TIMED_STEPS)["ms"]
+    log(f"time telemetry step ms (2304 rows; probes = the probe computed in the step, as the K-step graph "
+        f"does every step at the default probe_every=100 and the per-step path on its cadence steps only, 1 "
+        f"in 100; p0 = no probe, the per-step path's other steps and probe_every=0; checkify = the sanitizer "
+        f"on a step without the probe, with its fetch a step): "
+        f"{json.dumps({k: round(v, 4) for k, v in times.items()})} [{card}]")
+    # the roofline of the HDCE and QSC steps at their measured per-step rates
+    for fam, cfg_ in (("hdce", gcfg), ("qsc", qgcfg)):
+        if fam == "hdce":
+            model, opt = hdce_mod.make_trainer(cfg_, DEVICE, 10**6)
+            fn = lambda: hdce_mod.hdce_train_step(model, opt, gbatch, probes=True)  # noqa: E731
+        else:
+            model, opt = qsc_mod.make_trainer(cfg_, True, DEVICE, 10**6)
+            model.train()
+            fn = lambda: qsc_mod.classifier_train_step(model, opt, gbatch, probes=True)  # noqa: E731
+        _, c = analyze(fn, device=DEVICE)
+        for label in ("probes", "p0"):
+            roof = achieved_roofline(c, 1e3 / times[f"{fam}_step_{label}"])
+            log(f"telemetry roofline {fam} step ({label}): flops {c['flops']:.4e}, bytes {c['bytes_accessed']:.4e}, "
+                f"intensity {c['arithmetic_intensity']}, {c['roofline']}; achieved "
+                f"{roof['achieved_tflops_per_s']} of {roof['ceiling_tflops_per_s']} TFLOP/s = fraction "
+                f"{roof['fraction']} ({roof['bound']}-bound) [{card}]")
+    log(f"telemetry memory: {json.dumps(device_memory_snapshot())} [{card}]")
+
+    # -- the watchdog: QuantumNAT noise_level=inf, NaN generated inside B.2
+    nat_inf = replace(q6, use_quantumnat=True, noise_level=float("inf"))
+    ncfg = replace(qcfg, quantum=nat_inf, train=replace(qcfg.train, probe_every=1, scan_steps=1))
+    try:
+        qsc_mod.train_classifier(ncfg, True, data=data, logger=Recorder())
+        raise AssertionError("telemetry: the noise_level=inf run did not diverge")
+    except DivergenceError as e:
+        err = e
+    bundle = json.loads((Path(err.dump_dir) / "bundle.json").read_text())
+    restored, meta = restore_checkpoint(err.dump_dir, bundle["last_good"]["checkpoint"], map_location=DEVICE)
+    model = build_classifier(ncfg, True, DEVICE)
+    model.load_state_dict(restored["params"])
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    log(f"telemetry watchdog: {err.reason!r} at step {bundle['step']}; bundle {sorted(bundle)}; probe history "
+        f"{len(bundle['probe_history'])}, batch_info {bundle['batch_info'] is not None}, rng {bundle['rng_key']}; "
+        f"last_good step {meta['step']} restored on the card, finite {finite} [{card}]")
+    if not (bundle["reason"] == err.reason and bundle["probe_history"] and bundle["batch_info"] and finite):
+        raise AssertionError(f"telemetry watchdog: bundle {bundle}")
+    cli_args = ["train-qsc", "--quantum.n_qubits=6", "--quantum.n_layers=3", "--quantum.impl=pallas_circuit",
+                "--quantum.use_quantumnat=true", "--quantum.noise_level=inf", f"--data.data_len={TELE_CLI_DATA_LEN}",
+                f"--train.workdir={TELE_WORK / 'cli'}", f"--eval.results_dir={TELE_WORK / 'cli_results'}"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "qdml_tpu_torch.cli", *cli_args], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=str(Path(__file__).resolve().parent))
+    line = next((ln for ln in out.stdout.splitlines() if ln.startswith("DIVERGED:")), None)
+    log(f"telemetry cli train-qsc noise_level=inf: exit {out.returncode} in {time.perf_counter() - t:.2f} s; {line} [{card}]")
+    if out.returncode != 4 or line is None:
+        raise AssertionError(f"telemetry cli: exit {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+
+    # -- the sanitizer in training: bit for bit needs deterministic kernels on
+    # the card (cuDNN's weight gradients and the NLL's scatter-add use atomics)
+    deterministic = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for fam in ("hdce", "qsc"):
+        res = []
+        for ck in (False, True):
+            if fam == "hdce":
+                model, opt = hdce_mod.make_trainer(base, DEVICE, spe)
+                step = hdce_mod._step_fn(model, opt, True, ck)
+            else:
+                model, opt = qsc_mod.make_trainer(qcfg, True, DEVICE, spe)
+                model.train()
+                step = qsc_mod._step_fn(model, opt, None, probes=True, checkify_errors=ck)
+            losses = []
+            for b in batches:
+                m = step(b, None)
+                if ck and error_message(m["checkify_err"]) is not None:
+                    raise AssertionError(f"telemetry checkify {fam}: a clean step tripped")
+                losses.append(m["loss"].item())
+            res.append((losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+        same = res[0][0] == res[1][0] and all(torch.equal(v, res[1][1][k]) for k, v in res[0][1].items())
+        log(f"telemetry checkify {fam}: {TWIN_STEPS} steps checked and unchecked, losses {res[1][0]}, "
+            f"bit for bit {'yes' if same else 'no'} [{card}]")
+        if not same:
+            raise AssertionError(f"telemetry checkify {fam}: checked {res[1][0]} vs unchecked {res[0][0]}")
+    torch.backends.cudnn.deterministic = deterministic[0]
+    torch.use_deterministic_algorithms(deterministic[1])
+    rec = Recorder()
+    ccfg = replace(qcfg, train=replace(qcfg.train, checkify=True, scan_steps=4))
+    if scan.scan_eligible(ccfg, rec, torch.device(DEVICE)) or not rec.records[0]["reason"].startswith("checkify:"):
+        raise AssertionError(f"telemetry checkify: scan_dispatch {rec.records}")
+    model, opt = hdce_mod.make_trainer(base, DEVICE, spe)
+    bad = dict(batches[0], yp_img=torch.full_like(batches[0]["yp_img"], float("inf")))
+    msgs = {"inf_pilots": error_message(hdce_mod._step_fn(model, opt, True, True)(bad, None)["checkify_err"])}
+    model, opt = qsc_mod.make_trainer(replace(qcfg, quantum=nat_inf), True, DEVICE, spe)
+    model.train()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    msgs["noise_inf"] = error_message(
+        qsc_mod._step_fn(model, opt, gen, probes=True, checkify_errors=True)(batches[0], None)["checkify_err"])
+    model, opt = qsc_mod.make_trainer(qcfg, True, DEVICE, spe)
+    model.train()
+    step = qsc_mod._step_fn(model, opt, None, probes=True, checkify_errors=True)
+    label = batches[0]["indicator"].clone()
+    label.view(-1)[0] = 7
+    msgs["label_7"] = error_message(step(dict(batches[0], indicator=label), None)["checkify_err"])
+    after = step(batches[1], None)
+    msgs["clean_after"] = error_message(after["checkify_err"])
+    torch.cuda.synchronize()
+    log(f"telemetry checkify trips: {json.dumps(msgs)}; the step after the bad label: loss {after['loss'].item():.6f}, "
+        f"the context alive; scan_dispatch {rec.records[0]['reason']!r} [{card}]")
+    if not (msgs["inf_pilots"] or "").startswith("nan generated by primitive: aten."):
+        raise AssertionError(f"telemetry checkify inf pilots: {msgs['inf_pilots']}")
+    if "circuit_expvals" not in (msgs["noise_inf"] or ""):
+        raise AssertionError(f"telemetry checkify noise inf: {msgs['noise_inf']}")
+    if not (msgs["label_7"] or "").startswith("out-of-bounds indexing") or msgs["clean_after"] is not None \
+            or not np.isfinite(after["loss"].item()):
+        raise AssertionError(f"telemetry checkify label: {msgs}")
+
+    # -- serve.checkify at full width
+    sbase = mods["config"].ExperimentConfig()
+    sq = replace(sbase.quantum, n_qubits=6, n_layers=3, impl="pallas_circuit")
+    s_plain = replace(sbase, quantum=sq, serve=replace(sbase.serve, batching="bucket"))
+    s_ck = replace(s_plain, serve=replace(s_plain.serve, checkify=True))
+    gen = torch.Generator().manual_seed(SEED + 40)
+    hdce_sd = hdce_mod.build_hdce(s_plain, device="cpu", generator=gen).state_dict()
+    clf_sd = qsc_mod.build_classifier(s_plain, True, device="cpu", generator=gen).state_dict()
+    checked = ServeEngine(s_ck, hdce_sd, clf_sd, quantum=True, buckets=BUCKETS, device=DEVICE)
+    plain = ServeEngine(s_plain, hdce_sd, clf_sd, quantum=True, buckets=BUCKETS, device=DEVICE)
+    cpu = ServeEngine(s_plain, hdce_sd, clf_sd, quantum=True, buckets=BUCKETS, device="cpu")
+    # the checked engine's warmup counts each bucket into an active sink, from
+    # a fresh high-water mark (see epoch above); the others count nothing
+    serve_log = MetricsLogger(str(TELE_WORK / "serve_warmup.jsonl"), echo=False,
+                              manifest=run_manifest(s_ck, argv=["serve_warmup"]))
+    set_sink(serve_log)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        checked.warmup()
+    finally:
+        set_sink(None)
+        serve_log.close()
+    for e in (plain, cpu):
+        e.warmup()
+    if plain.bucket_cost[str(BUCKETS[-1])]["available"]:
+        raise AssertionError(f"telemetry: a warmup without a sink counted: {plain.bucket_cost}")
+    for b, c in checked.bucket_cost.items():
+        if not (c["available"] and c["platform"] == "gpu-h100" and c["flops"] > 0 and c["peak_temp_bytes"]
+                and c["ridge_intensity"] == 20.0):
+            raise AssertionError(f"telemetry serve cost bucket {b}: {c}")
+        log(f"telemetry cost serve_bucket {b}: flops {c['flops']:.4e}, bytes {c['bytes_accessed']:.4e}, peak temp "
+            f"{c['peak_temp_bytes']} B, intensity {c['arithmetic_intensity']}, {c['roofline']} [{card}]")
+    rng = np.random.default_rng(SEED + 41)
+    reqs = {n: rng.standard_normal((n, *sbase.image_hw, 2)).astype(np.float32) for n in REQUEST_SIZES}
+    work0 = checked.request_path_work()
+    K.reset_launch_counts()
+    got = {n: checked.infer(x) for n, x in reqs.items()}
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    for c in launches:
+        launches[c] += counts[c]
+    for n, x in reqs.items():
+        h, pred, conf, _ = got[n]
+        h0, pred0, conf0, _ = plain.infer(x)
+        hc, predc, _, _ = cpu.infer(x)
+        same = pred == predc
+        tol = 1e-4 * np.abs(hc).max() + 1e-5
+        err = float(np.abs(h[same] - hc[same]).max()) if same.any() else 0.0
+        log(f"telemetry serve checkify n={n}: equal to the unchecked engine "
+            f"{np.array_equal(h, h0) and np.array_equal(pred, pred0)}, max|h - h_cpu| {err:.3e} (tol {tol:.3e}) on "
+            f"{int(same.sum())}/{n} rows routed alike [{card}]")
+        if not (np.array_equal(h, h0) and np.array_equal(pred, pred0) and np.array_equal(conf, conf0)) or err > tol:
+            raise AssertionError(f"telemetry serve checkify n={n}")
+    if checked.request_path_work() != work0 or counts["circuit_expvals"] == 0:
+        raise AssertionError(f"telemetry serve: work {checked.request_path_work()} vs {work0}, launches {counts}")
+    try:
+        checked.infer(np.full((3, *sbase.image_hw, 2), np.inf, np.float32))
+        raise AssertionError("telemetry serve: the poisoned batch served")
+    except DivergenceError as e:
+        poisoned = str(e)
+    h1 = checked.infer(reqs[5])[0]
+    if not np.array_equal(h1, got[5][0]):
+        raise AssertionError("telemetry serve: the batch after the trip differs")
+    ragged = ServeEngine(replace(s_ck, serve=replace(s_ck.serve, batching="ragged")), hdce_sd, clf_sd,
+                         quantum=True, buckets=BUCKETS, device=DEVICE)
+    ragged.warmup()
+    for fill in (3, 37):
+        xp = rng.standard_normal((64, *sbase.image_hw, 2)).astype(np.float32)
+        clean = ragged.forward_tier(xp.copy(), fill)[0][:fill].cpu()
+        xp[fill:] = np.nan
+        xp[fill + 1::2] = np.inf
+        h = ragged.forward_tier(xp, fill)[0].cpu()
+        if not (torch.equal(h[:fill], clean) and bool(torch.isfinite(h).all())):
+            raise AssertionError(f"telemetry serve ragged fill {fill}: NaN pads reached the output")
+    pool = ReplicaPool(checked, replicas=2, workers=2, log_requests=False).start()
+    x64 = reqs[64]
+    try:
+        first = [f.result(timeout=60) for f in [pool.submit(x64[i], rid=i) for i in range(32)]]
+        try:
+            pool.submit(np.full(x64.shape[1:], np.inf, np.float32), rid="poisoned").result(timeout=60)
+            typed = None
+        except DivergenceError as e:
+            typed = type(e).__name__
+        later = [f.result(timeout=60) for f in [pool.submit(x64[i], rid=100 + i) for i in range(32)]]
+    finally:
+        pool.stop()
+    served = sum(isinstance(r, Prediction) for r in first + later)
+    log(f"telemetry serve: poisoned batch {poisoned!r}, the next served; ragged NaN pads at fills 3 and 37 pass; "
+        f"2x2 pool: the poisoned future failed {typed}, {served}/64 others served [{card}]")
+    if typed != "DivergenceError" or served != 64:
+        raise AssertionError(f"telemetry serve pool: {typed}, served {served}")
+
+    # -- a world of 2 ranks on the card: the global probe
+    shared = torch.cuda.device_count() < 4
+    flag = f" --device={MR_DEVICE}" if shared else ""
+    wd = TELE_WORK / "dp"
+    args = ["train-qsc", "--preset=dp_8q", f"--data.data_len={TELE_WORLD_DATA_LEN}", "--train.n_epochs=1",
+            "--train.probe_every=1", f"--quantum.autotune_table={wd / 'qsc_impl.json'}",
+            f"--eval.results_dir={wd / 'results'}"]
+    _mr_world("telemetry_dp", 2, [f"cli:{' '.join(args)}{flag} --train.workdir={wd / 'many'}"], shared, launcher=True)
+    if mods["cli"].main([*args, f"--train.workdir={wd / 'one'}", f"--device={MR_DEVICE}"]) != 0:
+        raise AssertionError("telemetry world: the one-rank run failed")
+    many = _jsonl(wd / "many" / "Pn_128" / "dp_8q" / "train-qsc.metrics.jsonl")
+    one = _jsonl(wd / "one" / "Pn_128" / "dp_8q" / "train-qsc.metrics.jsonl")
+    keys = ("grad_norm", "param_norm", "update_norm", "update_ratio", "nonfinite")
+    probes = [{k: np.asarray(_flat_numerics(recs, k)) for k in keys} for recs in (many, one)]
+    if [len(p["grad_norm"]) for p in probes] != [2, 2]:
+        raise AssertionError(f"telemetry world: {[len(p['grad_norm']) for p in probes]} steps, want 2 each")
+    wcfg = mods["config"].from_args(args[1:])
+    worst = _probes_close(*probes, 1e-5, "telemetry world", wcfg.train.lr, wcfg.quantum.n_qubits)
+    log(f"telemetry world dp_8q train-qsc on 2 ranks: rank 0's numerics against one rank's over 2 steps, max rel "
+        f"diff {worst:.3e} (rtol 1e-5; the update norm's square within n lr^2), grad norms "
+        f"{probes[0]['grad_norm'].tolist()} vs {probes[1]['grad_norm'].tolist()} [{card}]")
+
+    # -- report over the phase's own stream and phase 8j's bench line
+    qsc_jsonl = runs["qsc"][0]["path"]
+    bench_line = EVAL_WORK / "bench.json"
+    doubled = TELE_WORK / "bench_doubled.json"
+
+    def double(node):
+        if isinstance(node, dict):
+            return {k: (2 * v if k == "samples_per_sec" and isinstance(v, (int, float)) else double(v))
+                    for k, v in node.items()}
+        return [double(v) for v in node] if isinstance(node, list) else node
+
+    doubled.write_text(json.dumps(double(json.loads(bench_line.read_text()))))
+    rcs = {}
+    for tag, cur, ref in (("train_jsonl_vs_itself", qsc_jsonl, qsc_jsonl), ("bench_vs_itself", bench_line, bench_line),
+                          ("bench_vs_doubled", bench_line, doubled)):
+        with contextlib.redirect_stdout(io.StringIO()):  # the markdown goes to the .md file
+            rcs[tag] = report_main([f"--current={cur}", f"--baseline={ref}", f"--out={TELE_WORK / (tag + '.md')}"])
+    log(f"telemetry report exit codes: {json.dumps(rcs)} (want 0, 0, 3) [{card}]")
+    if rcs != {"train_jsonl_vs_itself": 0, "bench_vs_itself": 0, "bench_vs_doubled": 3}:
+        raise AssertionError(f"telemetry report: {rcs}")
+    return launches
+
+
 def bench_phase(card: str) -> None:
     """``python -m qdml_tpu_torch.bench`` in this process at 48 timed steps
     a row (3 dispatches of K=16 on the scan rows), ``qsc_scaling`` at n = 4
@@ -3819,11 +4430,13 @@ def main() -> int:
     scaling_launches = phase("scaling", scaling_phase, torch, K, card)
     phase("bench", bench_phase, card)
     multirank_launches = phase("multirank", multirank_phase, torch, K, mods, card)
+    tele_launches = phase("telemetry", telemetry_phase, torch, K, mods, card)
     t_times = time.perf_counter()
     launches = {
         k: race_launches[k] + launches[k] + dispatch_launches[k] + micro_launches[k] + train_launches[k]
         + dce_launches[k] + eval_launches[k] + nat_launches[k] + scan_launches[k] + lowp_launches[k]
         + scaling_launches[k] + tier_launches[k] + multirank_launches[k] + mesh_launches[k] + control_launches[k]
+        + tele_launches[k]
         for k in launches
     }
     # B.3's one entry point is the sharded statevector's local wires: its

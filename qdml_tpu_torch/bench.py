@@ -7,6 +7,10 @@ Prints one JSON line. Its rows, each the counterpart of a root ``bench.py``
 measurement at that package's shapes (a 3 x 3 grid of 256-row cells, 2304
 rows a step):
 
+The training rows run the trainers' steps as the default config runs them:
+with the numerics probe computed in every step (``train.probe_every`` 100
+> 0; ``probes`` on each row), which the rows never fetch.
+
 - ``hdce_fwd_flops_per_sample``, ``qsc_fwd_flops_per_sample``: the forward
   FLOP model (``bench.py:94-124``); a train step counts 3x the forward;
 - ``hdce_train``: the fused HDCE step, one dispatch a step
@@ -41,10 +45,19 @@ rows a step):
   (one forward and ``backward()``, JAX's ``value_and_grad``) timed as the
   candidates were; and :func:`~qdml_tpu_torch.eval.sweep.impl_agreement`
   (``_bench_qsc_scaling`` and ``run_scaling_child``, ``:538-735``), at a
-  truncating chi also at the exact one (``agreement_exact_chi``). XLA's
-  cost analysis has no counterpart, so a point has no ``cost`` or
-  ``roofline``;
+  truncating chi also at the exact one (``agreement_exact_chi``); a point
+  carries no cost record;
 - ``serve_infer``: a warmed engine's ``infer`` at bucket 64 (``:897``).
+
+Every training row also carries the three fields ``report`` reads: ``cost``
+(the counted first dispatch, :func:`~qdml_tpu_torch.telemetry.cost.
+counting`), ``roofline`` (:func:`~qdml_tpu_torch.telemetry.cost.
+achieved_roofline` at the row's measured dispatch rate) and
+``host_transfers`` (none in the timed loop).
+
+The line also carries the JAX bench record's envelope (``metric``, ``value``,
+``unit``, ``platform``, ``details``: :func:`_envelope`), which ``report``
+reads.
 
 A row that fails is recorded as ``{"error": ...}`` (``bench.py:993``) and the
 run exits 1. The scan rows gather each step's batch from a grid materialised
@@ -133,6 +146,38 @@ def _rate(fn: Callable[[], Any], dev: torch.device, steps: int, warm: int = 2) -
     return {"calls_per_s": steps / wall, "ms": 1e3 * wall / steps}
 
 
+def _counted(fn: Callable[[], Any], dev: torch.device, dtype: str = "float32") -> tuple[Callable[[], Any], dict]:
+    """``fn`` whose first call (the first of :func:`_rate`'s untimed warm
+    calls, a real dispatch) is counted for a cost record
+    (:func:`~qdml_tpu_torch.telemetry.cost.counting`), and that record,
+    filled once the call has run."""
+    from qdml_tpu_torch.telemetry.cost import counting
+
+    rec: dict = {}
+    state = {"first": True}
+
+    def call():
+        if not state["first"]:
+            return fn()
+        state["first"] = False
+        with counting(dev, dtype) as got:
+            out = fn()
+        rec.update(got)
+        return out
+
+    return call, rec
+
+
+def _telemetry_fields(cost: dict, calls_per_s: float) -> dict:
+    """The three fields ``report`` reads from a training row: its ``cost``
+    record, the achieved ``roofline`` at the measured dispatch rate, and
+    ``host_transfers``, the device-to-host fetches inside the timed loop
+    (none: it fetches nothing, and ends in one device synchronisation)."""
+    from qdml_tpu_torch.telemetry.cost import achieved_roofline
+
+    return {"cost": cost, "roofline": achieved_roofline(cost, calls_per_s), "host_transfers": 0}
+
+
 def _flop_rates(samples_per_s: float, fwd_flops: float, dev: torch.device, dtype: str = "float32") -> dict:
     """Model TFLOP/s and, on the card, the MFU against the peak of the
     row's activation dtype, which the row names."""
@@ -175,10 +220,14 @@ def _hdce_per_step(dev: torch.device, steps: int, dtype: str) -> dict:
     rows = GRID[0] * GRID[1] * CELL_BATCH
     model, opt = hdce.make_trainer(cfg, dev, steps_per_epoch=100)
     batch = data.batch(torch.as_tensor(idx, device=dev), float(snr))
-    t = _rate(lambda: hdce.hdce_train_step(model, opt, batch), dev, steps)
+    probes = cfg.train.probe_every > 0
+    fn, cost = _counted(lambda: hdce.hdce_train_step(model, opt, batch, probes), dev, dtype)
+    t = _rate(fn, dev, steps)
     sps = t["calls_per_s"] * rows
     return {"samples_per_sec": round(sps, 1), "step_ms": round(t["ms"], 4), "rows": rows, "dtype": dtype,
-            **_flop_rates(sps, hdce_fwd_flops_per_sample(cfg), dev, dtype)}
+            "probes": probes,
+            **_flop_rates(sps, hdce_fwd_flops_per_sample(cfg), dev, dtype),
+            **_telemetry_fields(cost, t["calls_per_s"])}
 
 
 def _hdce_scan(dev: torch.device, steps: int, scan_k: int, dtype: str, moments: str = "float32") -> dict:
@@ -189,13 +238,16 @@ def _hdce_scan(dev: torch.device, steps: int, scan_k: int, dtype: str, moments: 
     data, idx, snr = _grid(cfg, dev)
     rows = GRID[0] * GRID[1] * CELL_BATCH
     model, opt = hdce.make_trainer(cfg, dev, steps_per_epoch=10**6)
-    run = hdce.make_hdce_scan_steps(model, opt, data, scan_k)
+    run = hdce.make_hdce_scan_steps(model, opt, data, scan_k, probes=cfg.train.probe_every > 0)
     idx_k, snr_k = np.broadcast_to(idx, (scan_k, *idx.shape)).copy(), np.full(scan_k, snr, np.float32)
-    t = _rate(lambda: run(idx_k, snr_k), dev, max(1, steps // scan_k))
+    fn, cost = _counted(lambda: run(idx_k, snr_k), dev, dtype)
+    t = _rate(fn, dev, max(1, steps // scan_k))
     sps = t["calls_per_s"] * scan_k * rows
     return {"samples_per_sec": round(sps, 1), "dispatch_ms": round(t["ms"], 4), "scan_steps": scan_k,
             "rows": rows, "graphs": len(run.graphs), "synthesis": "gather", "dtype": dtype,
-            "moments_dtype": moments, **_flop_rates(sps, hdce_fwd_flops_per_sample(cfg), dev, dtype)}
+            "moments_dtype": moments, "probes": cfg.train.probe_every > 0,
+            **_flop_rates(sps, hdce_fwd_flops_per_sample(cfg), dev, dtype),
+            **_telemetry_fields(cost, t["calls_per_s"])}
 
 
 def bench_hdce(dev: torch.device, steps: int, scan_k: int) -> dict:
@@ -230,31 +282,35 @@ def bench_qsc(dev: torch.device, steps: int, scan_k: int) -> dict:
     data, idx, snr = _grid(base, dev)
     batch = data.batch(torch.as_tensor(idx, device=dev), float(snr))
     fwd = qsc_fwd_flops_per_sample(base)
+    probes = base.train.probe_every > 0
     out: dict[str, Any] = {}
     for impl in QSC_IMPLS:
         try:
             model, opt = qsc.make_trainer(_grid_cfg(impl=impl), True, dev, steps_per_epoch=100)
             model.train()
-            t = _rate(lambda: qsc.classifier_train_step(model, opt, batch), dev, steps)
+            fn, cost = _counted(lambda: qsc.classifier_train_step(model, opt, batch, probes=probes), dev)
+            t = _rate(fn, dev, steps)
             sps = t["calls_per_s"] * rows
             out[impl] = {"samples_per_sec": round(sps, 1), "step_ms": round(t["ms"], 4),
-                         "quantum_impl": impl, **_flop_rates(sps, fwd, dev)}
+                         "quantum_impl": impl, "probes": probes, **_flop_rates(sps, fwd, dev),
+                         **_telemetry_fields(cost, t["calls_per_s"])}
         except Exception as e:  # one impl failing keeps the others' rows
             out[impl] = _error(e)
     cfg = _grid_cfg(impl="auto")
     entry = autotune.prewarm(cfg, batch=rows, device=dev)
     model, opt = qsc.make_trainer(cfg, True, dev, steps_per_epoch=10**6)
     model.train()
-    run = qsc.make_sc_scan_steps(model, opt, data, scan_k)
+    run = qsc.make_sc_scan_steps(model, opt, data, scan_k, probes=probes)
     idx_k, snr_k = np.broadcast_to(idx, (scan_k, *idx.shape)).copy(), np.full(scan_k, snr, np.float32)
-    t = _rate(lambda: run(idx_k, snr_k), dev, max(1, steps // scan_k))
+    fn, cost = _counted(lambda: run(idx_k, snr_k), dev)
+    t = _rate(fn, dev, max(1, steps // scan_k))
     sps = t["calls_per_s"] * scan_k * rows
     q = cfg.quantum
     scan = {"samples_per_sec": round(sps, 1), "dispatch_ms": round(t["ms"], 4), "scan_steps": scan_k,
-            "graphs": len(run.graphs), "synthesis": "gather",
+            "graphs": len(run.graphs), "synthesis": "gather", "probes": probes,
             "quantum_impl": resolve_impl(q.impl, q.backend, q.n_qubits, q.n_layers, rows, mode="train",
                                          platform=dev.type),
-            **_flop_rates(sps, fwd, dev)}
+            **_flop_rates(sps, fwd, dev), **_telemetry_fields(cost, t["calls_per_s"])}
     if entry is not None:
         scan["autotune"] = {k: entry[k] for k in ("key", "best_train", "best_fwd", "candidates")}
     return {"qsc_train": out, "qsc_train_scan": scan}
@@ -364,7 +420,6 @@ def bench_qsc_scaling(
             point.update(_error(e))
         points.append(point)
     return {"points": points, "n_layers": n_layers, "mps_chi": mps_chi, "budget_s": budget_s,
-            "cost": "not measured: XLA's cost analysis (flops, bytes, roofline) has no PyTorch counterpart",
             "table": autotune.table_path()}
 
 
@@ -447,7 +502,35 @@ def run(
         except Exception as e:  # a failed row is recorded, the others still run
             for name in names:
                 record[name] = _error(e)
+    record.update(_envelope(record, dev, scan_k))
     return record
+
+
+# the rows report gates (by their JAX names where JAX has the row: the
+# qsc_<impl> rows feed report's best-of-impls metric)
+_DETAIL_ROWS = ("hdce_train", "hdce_train_scan", "hdce_bf16", "hdce_bf16_scan", "hdce_bf16_scan_bf16m",
+                "qsc_train_scan", "serve_infer")
+
+
+def _envelope(record: dict, dev: torch.device, scan_k: int) -> dict:
+    """The JAX bench record's envelope (``bench.py``'s one line: ``metric``,
+    ``value``, ``unit``, ``platform``, ``details``), so that either
+    package's ``report`` reads this line: the headline is the float32 HDCE
+    K-step row, ``details`` the training and serving rows (each impl of
+    ``qsc_train`` as ``qsc_<impl>``)."""
+    from qdml_tpu_torch.telemetry.cost import detect_platform
+
+    details = {k: record[k] for k in _DETAIL_ROWS if isinstance(record.get(k), dict) and "error" not in record[k]}
+    for impl, row in (record.get("qsc_train") or {}).items():
+        if isinstance(row, dict) and "error" not in row:
+            details[f"qsc_{impl}"] = row
+    return {
+        "metric": "hdce_train_samples_per_sec",
+        "value": (record.get("hdce_train_scan") or {}).get("samples_per_sec"),
+        "unit": f"samples/sec (3x3 DML grid train step, cell batch {CELL_BATCH}, float32, {scan_k}-step graph)",
+        "platform": detect_platform(dev),
+        "details": details,
+    }
 
 
 def errors(record: dict) -> list[str]:

@@ -16,6 +16,7 @@
     python -m qdml_tpu_torch.cli control      [--ticks=N] [--control.dry_run=true ...]
     python -m qdml_tpu_torch.cli route        [--fleet.backends=H:P,H:P --fleet.port=8378 ...]
     python -m qdml_tpu_torch.cli fleet-scale  --addr=HOST:PORT [--backends=N] [--timeout-s=S]
+    python -m qdml_tpu_torch.cli report       --current=PATH[,PATH...] --baseline=PATH [--threshold=10]
 
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
 package, and ``--preset=NAME`` starts from one of its presets (``single_4q``,
@@ -80,6 +81,21 @@ them). ``fleet-scale`` is host-side, dispatched before config parsing: one
 ``{"op": "fleet"}`` exchange with a running ``route``, the status form
 without ``--backends``; exit 0, 3 when the fleet did not converge or the
 router refused (the typed reason printed), 2 on usage errors.
+
+Telemetry: every command with a metrics log opens it with the run manifest
+(:func:`~qdml_tpu_torch.telemetry.manifest.run_manifest`) and installs it
+as the process-global sink, so spans, ``counters``, ``numerics``, ``cost``
+and flight-recorder records land in the same file. The trainers compute the
+numerics probes at ``--train.probe_every`` (default 100; 0 computes none),
+arm the watchdog (``--train.watchdog``, ``--train.watchdog_grad_norm_max``)
+and, with ``--train.checkify=true``, run each step under the sanitizer;
+``--serve.checkify=true`` checks every served batch. A divergence prints
+``DIVERGED: ...`` (the flight-recorder dump under
+``<eval.results_dir>/<name>/flightrec/``) and exits 4. ``report`` is
+host-side, dispatched before config parsing and before any device is
+resolved: the regression gate over telemetry artifacts
+(:mod:`~qdml_tpu_torch.telemetry.report`), exit 0, 3 on a regression, 2
+on usage errors.
 """
 
 from __future__ import annotations
@@ -136,7 +152,9 @@ def _profile(cfg: cfg_mod.ExperimentConfig, out: str, device) -> dict:
     speed does not depend on the data). The device-busy share is the time
     the traced device activities cover (``profiling.device_busy_us``) over
     the window's host wall time; on the CPU it and
-    the card's memory are not measured (None)."""
+    the card's memory are not measured (None). The memory is
+    :func:`~qdml_tpu_torch.telemetry.counters.device_memory_snapshot`'s,
+    JAX's keys per card."""
     import dataclasses
     import json
 
@@ -144,7 +162,9 @@ def _profile(cfg: cfg_mod.ExperimentConfig, out: str, device) -> dict:
 
     from qdml_tpu_torch.data.datasets import DMLGridLoader, GridData
     from qdml_tpu_torch.train.hdce import hdce_train_step, make_trainer
-    from qdml_tpu_torch.utils.profiling import StepTimer, card, device_busy_us, force, trace
+    from qdml_tpu_torch.telemetry.counters import device_memory_snapshot
+    from qdml_tpu_torch.telemetry.spans import profiler_trace
+    from qdml_tpu_torch.utils.profiling import StepTimer, card, device_busy_us, force
 
     dev = resolve_device(device)
     bs = cfg.train.batch_size
@@ -158,7 +178,7 @@ def _profile(cfg: cfg_mod.ExperimentConfig, out: str, device) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     timer = StepTimer(warmup=2)
     n_steps = 12
-    with trace(out, dev) as prof:
+    with profiler_trace(out, dev) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             timer.tick(hdce_train_step(model, opt, batch)["loss"])
@@ -178,11 +198,7 @@ def _profile(cfg: cfg_mod.ExperimentConfig, out: str, device) -> dict:
         "window_s": window_s,
         "device_busy_us": busy_us,
         "device_busy_share": busy_us / (window_s * 1e6) if cuda else None,
-        "memory": {
-            "allocated_bytes": torch.cuda.memory_allocated(dev),
-            "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
-            "reserved_bytes": torch.cuda.memory_reserved(dev),
-        } if cuda else None,
+        "memory": device_memory_snapshot() if cuda else None,
         "trace_dir": out,
     }
     with open(os.path.join(out, "summary.json"), "w") as fh:
@@ -323,6 +339,10 @@ def _main(argv: list[str] | None) -> int:
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
+    if cmd == "report":
+        from qdml_tpu_torch.telemetry.report import report_main
+
+        return report_main(rest)
     if cmd == "fleet-scale":
         return fleet_scale_main(rest)
     if cmd not in COMMANDS:
@@ -387,7 +407,14 @@ def _main(argv: list[str] | None) -> int:
         written = _export_torch(cfg, extra.get("--out", "torch_ckpts"), workdir, resolve_device(device))
         print("wrote:\n  " + "\n  ".join(written))
         return 0
-    logger = MetricsLogger(os.path.join(workdir, f"{cmd}.metrics.jsonl") if rank0 else None, echo=rank0)
+    from qdml_tpu_torch.telemetry import DivergenceError, run_manifest, set_sink
+
+    logger = MetricsLogger(
+        os.path.join(workdir, f"{cmd}.metrics.jsonl") if rank0 else None,
+        echo=rank0,
+        manifest=run_manifest(cfg, argv=argv) if rank0 else None,
+    )
+    set_sink(logger)
     try:
         if cmd in ("serve", "loadgen"):
             _serve(cmd, cfg, workdir, device, extra, logger)
@@ -430,7 +457,13 @@ def _main(argv: list[str] | None) -> int:
             _, history = train_classifier(
                 cfg, quantum=cmd == "train-qsc", device=device, workdir=workdir, logger=logger
             )
+    except DivergenceError as e:
+        # the watchdog's typed failure: the dump's path, not a traceback
+        # (qdml_tpu/cli.py:532-536)
+        print(f"DIVERGED: {e}", flush=True)
+        return 4
     finally:
+        set_sink(None)
         logger.close()
     last = {k: v[-1] for k, v in history.items() if v}
     if rank0:

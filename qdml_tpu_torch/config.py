@@ -159,6 +159,25 @@ class TrainConfig:
     # in bfloat16, the second in float32, all arithmetic in float32;
     # train/optim.py). Only Adam takes it: adamw and sgd warn and keep f32.
     moments_dtype: str = "float32"
+    # Numerics flight recorder (qdml_tpu_torch.telemetry.numerics): the
+    # probes (grad/update norms, a fused NaN/Inf count) are computed on the
+    # device inside every step, the K-step graphs included, and fetched and
+    # logged as a `numerics` record every probe_every host-visible steps (the
+    # first step always). On the K-step path the chunk's losses are fetched
+    # on the same cadence only; 0 computes no probes and fetches nothing
+    # until the epoch's loss sum, which the watchdog then checks.
+    probe_every: int = 100
+    # Divergence watchdog: NaN/Inf losses, gradients or updates (and, when
+    # watchdog_grad_norm_max > 0, a gradient norm past it) raise a typed
+    # DivergenceError after a flight-recorder dump under
+    # <eval.results_dir>/<name>/flightrec/.
+    watchdog: bool = True
+    watchdog_grad_norm_max: float = 0.0
+    # Runtime numerics sanitizer (qdml_tpu_torch.telemetry.sanitizer): NaN
+    # generated by an op, integer division by zero and out-of-bounds indices,
+    # checked on the device op by op, one error fetch a step. A debugging
+    # mode: it forces the per-step path (scan_steps is ignored with a warning).
+    checkify: bool = False
     seed: int = 0
     workdir: str = "workspace"   # checkpoint root
     resume: bool = False
@@ -208,8 +227,9 @@ class ServeConfig:
     # Worker threads per ServeLoop pumping batcher -> engine, each with its
     # own ServeMetrics (merged exactly on read).
     workers: int = 1
-    # The numerics sanitizer of the serving forward: not ported (ROADMAP
-    # A.12); True raises.
+    # The numerics sanitizer of the serving forward (train.checkify's twin):
+    # warmup runs and races the checked forward, and a batch that trips a
+    # check raises DivergenceError from infer, into every future of the batch.
     checkify: bool = False
     # loadgen's arrival process: "poisson" | "bursty" (two-state MMPP, mean
     # rate kept) | "diurnal" (sinusoidal rate by thinning); burstiness is the
@@ -250,13 +270,6 @@ class ServeConfig:
     # Local socket endpoint of `serve`.
     host: str = "127.0.0.1"
     port: int = 8377
-
-    def __post_init__(self):
-        if self.checkify:
-            raise NotImplementedError(
-                "serve.checkify (the numerics sanitizer of the serving forward) is not "
-                "ported yet (ROADMAP A.12)"
-            )
 
 
 @dataclass(frozen=True)

@@ -44,8 +44,9 @@ Where the port differs from the JAX package:
   run here (ineligible, not ported). A kernel that fails to build or launch
   stops :func:`ensure`, and with it trainer start and serve warmup, rather
   than leave the card on a plain version under a saved table.
-- **Fallbacks print** JAX's no-sink line once per (table, key, reason): the
-  port has no telemetry sink yet (ROADMAP A.12).
+- **Fallbacks** are reported once per (table, key, reason): an
+  ``autotune_fallback`` record into the active telemetry sink, else JAX's
+  no-sink line.
 """
 
 from __future__ import annotations
@@ -448,8 +449,9 @@ def emit_fallback(
     fallback: str,
     platform: str | None = None,
 ) -> dict | None:
-    """Report a pathological fallback once per (table, key, reason) with
-    JAX's no-sink line. Returns the record, or ``None`` when this pathology
+    """Report a pathological fallback once per (table, key, reason): an
+    ``autotune_fallback`` record into the active telemetry sink, else JAX's
+    no-sink line. Returns the record, or ``None`` when this pathology
     was already reported."""
     p = table_path()
     key = table_key(platform or default_platform(), n_qubits, n_layers, batch_bucket(batch))
@@ -457,8 +459,15 @@ def emit_fallback(
     if tok in _FALLBACK_EMITTED:
         return None
     _FALLBACK_EMITTED.add(tok)
-    print(f"autotune_fallback: {reason} table={p} key={key} -> {fallback}", flush=True)
-    return {"reason": reason, "table": p, "key": key, "mode": mode, "fallback": fallback}
+    rec = {"reason": reason, "table": p, "key": key, "mode": mode, "fallback": fallback}
+    from qdml_tpu_torch.telemetry.spans import get_sink
+
+    sink = get_sink()
+    if sink is not None and getattr(sink, "active", False):
+        sink.emit("autotune_fallback", **rec)
+    else:  # no sink: still one visible line
+        print(f"autotune_fallback: {reason} table={p} key={key} -> {fallback}", flush=True)
+    return rec
 
 
 def prewarm(

@@ -40,6 +40,14 @@ replay (:mod:`qdml_tpu_torch.train.scan`). A launch captured outside such
 a tally raises, since its replays would go uncounted. Serving workers launch
 from several threads at once, so every change to the counts (a launch, a
 replay, a reset) is made under one lock.
+
+No dispatch mode sees a ``ctypes`` launch, so each launch wrapper reports
+its call (the gate-table prep and the launch, as one op under the kernel's
+name) to the telemetry modes active on the thread: the sanitizer
+(:mod:`qdml_tpu_torch.telemetry.sanitizer`) checks its outputs, forward
+and backward, and the cost counter (:mod:`qdml_tpu_torch.telemetry.cost`)
+adds the kernel's formula work. With neither active this costs one read
+of the thread's mode stack.
 """
 
 from __future__ import annotations
@@ -269,6 +277,44 @@ def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> 
     _count(_capture_tallies[-1] if capturing else launches, counter or name)
 
 
+def _observers() -> list:
+    """The sanitizers and cost counters active on this thread
+    (:mod:`qdml_tpu_torch.telemetry`): dispatch modes with a ``kernel``
+    method. The autograd engine carries the mode stack to its device
+    threads, so a backward launch sees them too. Empty when none is
+    entered."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    return [m for m in _get_current_dispatch_mode_stack() if hasattr(m, "kernel")]
+
+
+@contextlib.contextmanager
+def _observed(name: str, inputs: tuple, work):
+    """A launch wrapper's region (its gate-table prep and the launch): with
+    observers active, their dispatch modes are off inside it, and at its end
+    each sees the call as one op named ``name`` (the sanitizer checks the
+    outputs the region appends to the yielded list against ``inputs``; the
+    cost counter adds ``work()``, the formula's (bytes, flops)). Without
+    observers, nothing."""
+    obs = _observers()
+    if not obs:
+        yield []
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    outputs: list = []
+    with _disable_current_modes():
+        yield outputs
+        for m in obs:
+            m.kernel(name, inputs, [t for t in outputs if t is not None], work())
+
+
+def _work(name: str, batch: int, n: int, layers: int = 0, members: int = 1, with_state: bool = False):
+    from qdml_tpu_torch.telemetry.cost import kernel_work
+
+    return kernel_work(name, batch, n, layers, members, with_state)
+
+
 def _kernel_fwd_plain_bwd(launch, plain, doc: str) -> type[torch.autograd.Function]:
     """An autograd Function over ``(*tensors, n)`` whose forward is
     ``launch(*tensors, n)`` and whose backward is autograd through
@@ -325,7 +371,9 @@ def _qsc_launch(angles, u_re, u_im, n: int) -> torch.Tensor:
     out = torch.empty((batch, n), dtype=torch.float32, device=dev)
     if batch == 0:
         return out
-    _launch("qsc_expvals", dev, angles, u_re, u_im, out, batch, n)
+    with _observed("qsc_expvals", (angles, u_re, u_im), lambda: _work("qsc_expvals", batch, n)) as outs:
+        _launch("qsc_expvals", dev, angles, u_re, u_im, out, batch, n)
+        outs.append(out)
     return out
 
 
@@ -423,9 +471,12 @@ def _circuit_launch_members(angles, weights, n: int, layers: int, with_state: bo
         fim = torch.empty((members, batch, dim), dtype=torch.float32, device=dev)
     if batch == 0:
         return ev, fre, fim
-    cs = circuit_gate_table(weights)  # (E, layers, n, 4), one call for every member
-    _launch("circuit_expvals", dev, angles, cs, ev, fre, fim, batch, n, layers, int(with_state), members,
-            counter=_counter("circuit_expvals", ensemble))
+    work = lambda: _work("circuit_expvals", batch, n, layers, members, with_state)  # noqa: E731
+    with _observed("circuit_expvals", (angles, weights), work) as outs:
+        cs = circuit_gate_table(weights)  # (E, layers, n, 4), one call for every member
+        _launch("circuit_expvals", dev, angles, cs, ev, fre, fim, batch, n, layers, int(with_state), members,
+                counter=_counter("circuit_expvals", ensemble))
+        outs += [ev, fre, fim]
     return ev, fre, fim
 
 
@@ -524,14 +575,17 @@ def _adjoint_launch_members(fre, fim, g, angles, weights, n: int, layers: int, e
     dangles = torch.empty((members, batch, n), dtype=torch.float32, device=dev)
     if batch == 0:
         return dangles, torch.zeros((members, layers, n, 2), dtype=torch.float32, device=dev)
-    cs = circuit_gate_table(weights)
     # per-block partials, which the launch's second kernel sums in a fixed
     # order into each member's dweights: no atomics
     blocks = _load("circuit_adjoint").circuit_adjoint_blocks(batch, n)
     partials = torch.empty((members, blocks, layers, n, 2), dtype=torch.float32, device=dev)
     dweights = torch.empty((members, layers, n, 2), dtype=torch.float32, device=dev)
-    _launch("circuit_adjoint", dev, fre, fim, g, cs, angles, dangles, partials, dweights, batch, n, layers,
-            members, counter=_counter("circuit_adjoint", ensemble))
+    work = lambda: _work("circuit_adjoint", batch, n, layers, members)  # noqa: E731
+    with _observed("circuit_adjoint", (fre, fim, g, angles, weights), work) as outs:
+        cs = circuit_gate_table(weights)
+        _launch("circuit_adjoint", dev, fre, fim, g, cs, angles, dangles, partials, dweights, batch, n, layers,
+                members, counter=_counter("circuit_adjoint", ensemble))
+        outs += [dangles, dweights]
     return dangles, dweights
 
 
@@ -725,8 +779,10 @@ def _rotation_launch(re, im, weights_l, n: int) -> tuple[torch.Tensor, torch.Ten
     out_im = torch.empty((batch, dim), dtype=torch.float32, device=dev)
     if batch == 0:
         return out_re, out_im
-    cs = circuit_gate_table(weights_l[None])[0].contiguous()
-    _launch("rotation_layer", dev, re, im, cs, out_re, out_im, batch, n)
+    with _observed("rotation_layer", (re, im, weights_l), lambda: _work("rotation_layer", batch, n)) as outs:
+        cs = circuit_gate_table(weights_l[None])[0].contiguous()
+        _launch("rotation_layer", dev, re, im, cs, out_re, out_im, batch, n)
+        outs += [out_re, out_im]
     return out_re, out_im
 
 
@@ -802,7 +858,9 @@ def _unitary_launch(psi_re, psi_im, u_re, u_im, n: int) -> torch.Tensor:
     # second pass: scratch only when the columns span several blocks
     tiles = _load("unitary_expvals").unitary_expvals_tiles(batch, n)
     partial = torch.empty((tiles, batch, n), dtype=torch.float32, device=dev) if tiles > 1 else None
-    _launch("unitary_expvals", dev, psi_re, psi_im, u_re, u_im, out, partial, batch, n)
+    with _observed("unitary_expvals", (psi_re, psi_im, u_re, u_im), lambda: _work("unitary_expvals", batch, n)) as outs:
+        _launch("unitary_expvals", dev, psi_re, psi_im, u_re, u_im, out, partial, batch, n)
+        outs.append(out)
     return out
 
 

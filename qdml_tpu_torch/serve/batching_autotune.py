@@ -26,8 +26,8 @@ Where the port differs from the JAX package:
   dispatch_autotune.measure`): the median wall ms of eager calls, each
   ended by a synchronisation of the device, after a warm-up call, so the
   three races' numbers compare.
-- ``checkify`` stays in the key for the JAX package's format; the port's
-  sanitizer is not ported (ROADMAP A.12), so it is always False here.
+- ``checkify`` is part of the key (``/ck``): under ``serve.checkify`` the
+  race times the checked forwards, the programs that deploy.
 """
 
 from __future__ import annotations

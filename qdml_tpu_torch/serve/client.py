@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import random
+import select
 import socket
 import time
 import uuid
@@ -87,7 +88,22 @@ class ServeClient:
         self._sock = sock
         self._rfile = sock.makefile("rb")
 
+    def _dropped(self) -> bool:
+        """Whether the idle connection can no longer carry an exchange: before
+        a send nothing is owed to us, so a readable socket holds the server's
+        close (EOF) or the typed ``idle_timeout`` notice it writes before
+        reaping the connection (``serve.conn_timeout_s``)."""
+        try:
+            return bool(select.select([self._sock], [], [], 0)[0])
+        except (OSError, ValueError):
+            return True
+
     def _ensure_connected(self, timeout_s: float) -> None:
+        if self._sock is not None and self._dropped():
+            # a pooled connection the server reaped while it sat idle: open a
+            # new one instead of spending the exchange (and, behind a router,
+            # a failure against a healthy backend) on the dead socket
+            self.close_connection()
         if self._sock is None:
             self._connect(timeout_s)
             if self._was_connected:

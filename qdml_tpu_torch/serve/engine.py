@@ -60,13 +60,30 @@ The circuit impl race keys on the whole bucket's batch, as JAX's does,
 although each position runs a slice of it; ``quantum_impl`` records the
 slice's rows beside the winner.
 
+``serve.checkify`` (``qdml_tpu/serve/engine.py:176-178, 546-556,
+636-736, 909-925``): every forward of a tier, the warmup's and the batching
+race's included, runs under the sanitizer
+(:mod:`qdml_tpu_torch.telemetry.sanitizer`), with one error fetch a batch;
+a batch that trips raises :class:`~qdml_tpu_torch.telemetry.numerics.
+DivergenceError` (``"serve checkify tripped on bucket ..."``) from
+:meth:`ServeEngine.forward_tier` and :meth:`ServeEngine.infer`, which the
+serve loop forwards into every future of the batch; the engine keeps
+serving. The ragged tier's pad mask comes first, so NaN in pad rows does
+not trip. The batching race's table key gets ``/ck``.
+
+With a telemetry sink active, each warmup bucket's first forward is
+counted for a ``cost`` record (:func:`~qdml_tpu_torch.telemetry.cost.
+counting`; ``bucket_cost``, and a ``serve_bucket`` record into the sink), as
+the trainers count their first dispatch only into an active sink.
+
 The micro-batcher, replica pool and socket server in front of the engine
 are :mod:`~qdml_tpu_torch.serve.batcher` and
-:mod:`~qdml_tpu_torch.serve.server`. Not ported yet: checkify (A.12).
+:mod:`~qdml_tpu_torch.serve.server`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, Mapping, NamedTuple
@@ -85,6 +102,8 @@ from qdml_tpu_torch.quantum.circuits import resolve_impl
 from qdml_tpu_torch.serve import batching_autotune
 from qdml_tpu_torch.serve.batcher import pick_bucket, power_of_two_buckets
 from qdml_tpu_torch.serve.types import DispatchInfo
+from qdml_tpu_torch.telemetry import cost
+from qdml_tpu_torch.telemetry.spans import get_sink
 from qdml_tpu_torch.train.hdce import HDCE, build_hdce
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.tune_table import activity
@@ -214,9 +233,10 @@ class ServeEngine:
         self.batching_mode: dict[str, str] = {}
         # per tier: the batching race's entry, or {"forced": mode}
         self.batching_race: dict[str, dict] = {}
-        # per bucket: what the warmup forward cost (the JAX package's
-        # compiled-program cost analysis has no torch counterpart; see warmup)
+        # per bucket: the cost record of the warmup forward (see warmup)
         self.bucket_cost: dict[str, dict] = {}
+        # serve.checkify: every tier forward runs under the sanitizer
+        self._checkify = bool(cfg.serve.checkify)
         # per bucket under a mesh: "data" (row slices over the data axis) or
         # "replicated" (position (0, 0, 0) alone); empty without a mesh
         self.bucket_sharding: dict[str, str] = {}
@@ -473,12 +493,30 @@ class ServeEngine:
         h, pred, conf = (torch.cat([p[i].to(self.device) for p in parts]) for i in range(3))
         return h, pred, conf, overflow
 
+    def _checked(self, b: int, fn, *args):
+        """``fn(*args)``, under ``serve.checkify`` run by a fresh sanitizer
+        whose error is fetched (one host sync): a trip raises
+        :class:`DivergenceError`."""
+        if not self._checkify:
+            return fn(*args)
+        from qdml_tpu_torch.telemetry.numerics import DivergenceError
+        from qdml_tpu_torch.telemetry.sanitizer import Sanitizer, error_message
+
+        san = Sanitizer()
+        with san:
+            out = fn(*args)
+        msg = error_message(san)
+        if msg:
+            raise DivergenceError(f"serve checkify tripped on bucket {b}: {msg.splitlines()[0]}", None, "checkify")
+        return out
+
     def forward_tier(self, xp, n: int):
         """Bucket ``len(xp)``'s pinned forward on a padded batch ``xp`` (b,
         n_sub, n_beam, 2) whose first ``n`` rows are valid. Returns device
         tensors ``(h, pred, conf)`` over all b rows (under a mesh, on
         position (0, 0, 0)) and the sparse overflow count (``None`` on a
-        dense tier)."""
+        dense tier). Under ``serve.checkify`` a tripped check raises
+        :class:`~qdml_tpu_torch.telemetry.numerics.DivergenceError`."""
         b = int(xp.shape[0])
         key = str(b)
         if key not in self.dispatch_mode:
@@ -487,9 +525,9 @@ class ServeEngine:
         route, ragged, impl = self.dispatch_mode[key], self.batching_mode[key] == "ragged", self._impl(b)
         x = torch.as_tensor(xp, dtype=torch.float32)
         if live.slices is not None:
-            return self._run_mesh(live, x, n, route, ragged, impl)
+            return self._checked(b, self._run_mesh, live, x, n, route, ragged, impl)
         xt = x.to(self.device).permute(0, 3, 1, 2).contiguous()
-        return self._run(live.hdce, live.clf, xt, n, route, ragged, impl)
+        return self._checked(b, self._run, live.hdce, live.clf, xt, n, route, ragged, impl)
 
     def offline_forward(self, x) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The parity reference: the dense forward at the natural (unpadded)
@@ -543,7 +581,7 @@ class ServeEngine:
 
             def candidate(ragged: bool):
                 def run(xx):
-                    out = self._run_mesh(live, xx, b, route, ragged, impl)
+                    out = self._checked(b, self._run_mesh, live, xx, b, route, ragged, impl)
                     self._sync_all()
                     return out
 
@@ -553,7 +591,8 @@ class ServeEngine:
         else:
             xt = torch.from_numpy(x).to(self.device).permute(0, 3, 1, 2).contiguous()
             candidates = {
-                m: (lambda xx, rag=(m == "ragged"): self._run(live.hdce, live.clf, xx, b, route, rag, impl), (xt,))
+                m: (lambda xx, rag=(m == "ragged"): self._checked(
+                    b, self._run, live.hdce, live.clf, xx, b, route, rag, impl), (xt,))
                 for m in ("bucket", "ragged")
             }
         entry = batching_autotune.ensure_batching(
@@ -562,6 +601,7 @@ class ServeEngine:
             platform=self.device.type,
             route=route,
             dtype=self.cfg.model.dtype,
+            checkify=self._checkify,
         )
         self.batching_race[str(b)] = entry
         return entry.get("best_infer") or "bucket"
@@ -594,11 +634,14 @@ class ServeEngine:
         the request path), routing and batching, then run each bucket's
         forward once: the kernels build or load and cuDNN picks its
         algorithms. After this, :meth:`request_path_work` counts from zero.
-        ``bucket_cost`` records, per bucket, the wall seconds of that first
-        forward (torch compiles no program to analyse, so the JAX package's
-        flops and bytes are not available). Under a mesh the record also
-        carries ``mesh`` (:meth:`mesh_topology`) and ``sharding``
-        (``bucket_sharding``), as JAX's does."""
+        ``bucket_cost`` holds, per bucket, that first forward's wall seconds
+        and, with a telemetry sink active, its cost record
+        (:func:`~qdml_tpu_torch.telemetry.cost.counting`: flops, bytes, peak
+        memory, roofline class), also emitted into the sink as a
+        ``serve_bucket`` ``cost`` record; without one, ``available: false``.
+        Under a mesh the warmup's summary also carries ``mesh``
+        (:meth:`mesh_topology`) and ``sharding`` (``bucket_sharding``), as
+        JAX's does."""
         pre = self._work()
         q = self.cfg.quantum
         for b in self.buckets:
@@ -622,15 +665,20 @@ class ServeEngine:
                 self.quantum_impl[key] = rec
             self.dispatch_mode[key] = self._bucket_dispatch(b)
             self.batching_mode[key] = self._tier_batching(b, self.dispatch_mode[key])
+            # counted only into an active sink, as the trainers' cost records are
+            sink = get_sink()
+            counted = sink is not None and getattr(sink, "active", False)
             t0 = time.perf_counter()
-            self.forward_tier(np.zeros((b, *self.cfg.image_hw, 2), np.float32), b)
+            with cost.counting(self.device) if counted else contextlib.nullcontext({}) as rec:
+                self.forward_tier(np.zeros((b, *self.cfg.image_hw, 2), np.float32), b)
             self._sync_all()
-            self.bucket_cost[key] = {
-                "available": False,
-                "reason": "torch compiles no program: no flops/bytes analysis",
-                "platform": self.device.type,
-                "first_forward_s": round(time.perf_counter() - t0, 6),
-            }
+            if not counted:
+                rec.update(available=False, reason="not counted: no active telemetry sink",
+                           platform=cost.detect_platform(self.device))
+            rec["first_forward_s"] = round(time.perf_counter() - t0, 6)
+            self.bucket_cost[key] = rec
+            if counted:
+                sink.emit("cost", name="serve_bucket", bucket=b, **rec)
         self._sync_all()
         self._work0 = self._work()
         self._warm = True

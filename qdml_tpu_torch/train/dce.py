@@ -10,8 +10,10 @@ label ``h_label``, BatchNorm in train mode with decay 0.9 over the flattened
 batch), Adam with the halving schedule, and the tags ``dce_best`` (best
 validation NMSE), ``dce_resume`` (every epoch) and ``dce_last``. Dispatch is
 the other trainers': ``train.scan_steps=K >= 1`` (default 1) runs K steps a
-dispatch (:func:`make_dce_scan_steps`), 0 one at a time. Its flight recorder
-and cost records are not ported (ROADMAP A.12).
+dispatch (:func:`make_dce_scan_steps`), 0 one at a time. Telemetry as the
+HDCE trainer's (``qdml_tpu/train/dce.py:150-214``): probes (branches
+:data:`PROBE_BRANCHES`), the loop's clock, flight recorder and one cost
+record, and the sanitizer under ``train.checkify``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,16 @@ from qdml_tpu_torch.models.losses import nmse_loss
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
 from qdml_tpu_torch.train.hdce import run_device
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
-from qdml_tpu_torch.train.scan import ScanSteps, make_scan_steps, run_epoch, run_steps, scan_eligible
+from qdml_tpu_torch.telemetry.numerics import branch_params
+from qdml_tpu_torch.telemetry.sanitizer import checkify_step
+from qdml_tpu_torch.train.scan import (
+    LoopTelemetry,
+    ScanSteps,
+    make_scan_steps,
+    run_epoch,
+    run_steps,
+    scan_eligible,
+)
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.metrics import MetricsLogger, nmse_db
 
@@ -67,10 +78,15 @@ def flat_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return x, batch["h_label"].reshape(x.shape[0], -1), batch["h_perf"].reshape(x.shape[0], -1)
 
 
-def dce_train_step(model: DCEP128, opt: Optimizer, batch: dict) -> dict[str, torch.Tensor]:
+# the JAX DCE's top-level parameter branches, by the port's name prefixes
+PROBE_BRANCHES = (("cnn.", "ConvP128_0"), ("FC.", "FCP128_0"))
+
+
+def dce_train_step(model: DCEP128, opt: Optimizer, batch: dict, probes: bool = False) -> dict[str, torch.Tensor]:
     """One step in train mode: the whole-batch NMSE against ``h_label``
     (and, detached, against ``h_perf``), one backward, one update. Returns
-    the losses as device tensors (no host sync)."""
+    the losses (and with ``probes`` the numerics probe) as device tensors
+    (no host sync)."""
     model.train()
     x, label, perf = flat_batch(batch)
     pred = model(x)
@@ -79,17 +95,23 @@ def dce_train_step(model: DCEP128, opt: Optimizer, batch: dict) -> dict[str, tor
         loss_perf = nmse_loss(pred, perf)
     opt.zero_grad()
     loss.backward()
-    opt.step()
-    return {"loss": loss.detach(), "loss_perf": loss_perf}
+    probe = opt.step(branch_params(model.named_parameters(), PROBE_BRANCHES) if probes else None)
+    out = {"loss": loss.detach(), "loss_perf": loss_perf}
+    if probe is not None:
+        out["probe"] = probe
+    return out
 
 
-def make_dce_scan_steps(model: DCEP128, opt: Optimizer, data: GridData, k: int) -> ScanSteps:
+def make_dce_scan_steps(model: DCEP128, opt: Optimizer, data: GridData, k: int, probes: bool = False) -> ScanSteps:
     """K DCE steps a dispatch (``qdml_tpu/train/dce.py:95-105``)."""
-    return make_scan_steps(_step_fn(model, opt), data, opt, k)
+    return make_scan_steps(_step_fn(model, opt, probes), data, opt, k)
 
 
-def _step_fn(model: DCEP128, opt: Optimizer):
-    return lambda batch, _noise: dce_train_step(model, opt, batch)
+def _step_fn(model: DCEP128, opt: Optimizer, probes: bool = False, checkify_errors: bool = False):
+    def step(batch, _noise, probes=probes):
+        return dce_train_step(model, opt, batch, probes)
+
+    return checkify_step(step) if checkify_errors else step
 
 
 @torch.no_grad()
@@ -128,16 +150,19 @@ def train_dce(
         start_epoch, rmeta = try_resume(workdir, "dce_resume", model, opt)
         best = float(rmeta.get("best", best))
 
+    probes_on = cfg.train.probe_every > 0  # 0 computes no probes
     scan_run = None
     if scan_eligible(cfg, logger, dev):
-        scan_run = make_dce_scan_steps(model, opt, data, cfg.train.scan_steps)
+        scan_run = make_dce_scan_steps(model, opt, data, cfg.train.scan_steps, probes_on)
+    step_fn = _step_fn(model, opt, probes_on, cfg.train.checkify)
+    tele = LoopTelemetry("dce_train", cfg, dev, model.state_dict, workdir, dtype=cfg.model.dtype)
 
     history: dict[str, list] = {"train_loss": [], "val_nmse": []}
     for epoch in range(start_epoch, cfg.train.n_epochs):
         if scan_run is not None:
-            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq)
+            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq, tele=tele)
         else:
-            tot, n = run_steps(_step_fn(model, opt), opt, train_loader, epoch, logger, cfg.train.print_freq)
+            tot, n = run_steps(step_fn, opt, train_loader, epoch, logger, cfg.train.print_freq, tele=tele)
         train_loss = float(tot) / n if n else 0.0
 
         sums: dict[str, torch.Tensor | float] = {"err": 0.0, "pow": 0.0}

@@ -32,8 +32,14 @@ the gradients are summed: the trunks' over ``data``, the head's over
 ``data`` and ``fed`` (the federated aggregation). Every rank logs the
 all-reduced loss, and rank 0 writes the checkpoints in the one-rank layout
 (gathered by :func:`~qdml_tpu_torch.parallel.federated.gather_hdce_state`).
-The JAX package's flight recorder and cost records are not ported (ROADMAP
-A.12).
+
+Telemetry (``qdml_tpu/train/hdce.py:284-345``): with ``train.probe_every >
+0`` every step computes the numerics probe on the device (branches named as
+JAX's parameter tree, :data:`PROBE_BRANCHES`; under a mesh the global probe,
+each branch's sums added over the ranks holding its shards), the loop runs a
+:class:`~qdml_tpu_torch.train.scan.LoopTelemetry` (step clock, flight
+recorder, one cost record of the first dispatch), and ``train.checkify``
+runs each step under the sanitizer (and the per-step path).
 """
 
 from __future__ import annotations
@@ -50,7 +56,16 @@ from qdml_tpu_torch.parallel.mesh import training_mesh
 from qdml_tpu_torch.parallel.multihost import make_grid_placer
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, try_resume
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
-from qdml_tpu_torch.train.scan import ScanSteps, make_scan_steps, run_epoch, run_steps, scan_eligible
+from qdml_tpu_torch.telemetry.numerics import branch_params
+from qdml_tpu_torch.telemetry.sanitizer import checkify_step
+from qdml_tpu_torch.train.scan import (
+    LoopTelemetry,
+    ScanSteps,
+    make_scan_steps,
+    run_epoch,
+    run_steps,
+    scan_eligible,
+)
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.metrics import MetricsLogger, nmse_db
 
@@ -153,28 +168,46 @@ def hdce_loss(model: HDCE, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return loss, loss_perf
 
 
-def hdce_train_step(model: HDCE, opt: Optimizer, batch: dict) -> dict[str, torch.Tensor]:
+# the JAX HDCE's top-level parameter branches, by the port's name prefixes
+PROBE_BRANCHES = (("trunks.", "StackedConvP128_0"), ("head.", "FCP128_0"))
+
+
+def hdce_train_step(model: HDCE, opt: Optimizer, batch: dict, probes: bool = False) -> dict[str, torch.Tensor]:
     """One fused grid step, in train mode: losses, one backward, one update.
-    Returns the losses as device tensors (no host sync)."""
+    Returns the losses (and with ``probes`` the numerics probe) as device
+    tensors (no host sync)."""
     model.train()
     loss, loss_perf = hdce_loss(model, batch)
     opt.zero_grad()
     loss.backward()
-    opt.step()
-    return {"loss": loss.detach(), "loss_perf": loss_perf}
+    probe = opt.step(branch_params(model.named_parameters(), PROBE_BRANCHES) if probes else None)
+    out = {"loss": loss.detach(), "loss_perf": loss_perf}
+    if probe is not None:
+        out["probe"] = probe
+    return out
 
 
-def make_hdce_scan_steps(model: HDCE, opt: Optimizer, data: GridData, k: int) -> ScanSteps:
+def make_hdce_scan_steps(model: HDCE, opt: Optimizer, data: GridData, k: int, probes: bool = False) -> ScanSteps:
     """K fused HDCE steps a dispatch (``qdml_tpu/train/hdce.py:154-172``):
-    :func:`hdce_train_step` bound into :mod:`qdml_tpu_torch.train.scan`."""
-    return make_scan_steps(_step_fn(model, opt), data, opt, k)
+    :func:`hdce_train_step` bound into :mod:`qdml_tpu_torch.train.scan`
+    (with ``probes``, stacked (K,) like the losses)."""
+    return make_scan_steps(_step_fn(model, opt, probes), data, opt, k)
 
 
-def _step_fn(model: HDCE, opt: Optimizer):
-    return lambda batch, _noise: hdce_train_step(model, opt, batch)
+def _step_fn(model: HDCE, opt: Optimizer, probes: bool = False, checkify_errors: bool = False):
+    """The step the loops run, ``(batch, noise, probes=...) -> metrics``
+    (``probes`` defaults to the loop's setting; the per-step loop passes its
+    cadence); under ``checkify_errors`` run by the sanitizer
+    (``qdml_tpu/train/hdce.py:135-151``)."""
+    def step(batch, _noise, probes=probes):
+        return hdce_train_step(model, opt, batch, probes)
+
+    return checkify_step(step) if checkify_errors else step
 
 
-def hdce_mesh_train_step(model, opt: Optimizer, batch: dict, mesh, n_scenarios: int) -> dict[str, torch.Tensor]:
+def hdce_mesh_train_step(
+    model, opt: Optimizer, batch: dict, mesh, n_scenarios: int, probes: bool = False
+) -> dict[str, torch.Tensor]:
     """One step of the global fused grid step on this rank of ``mesh``
     (the module docstring): this rank's part of the loss, its backward, the
     update (the optimizer's ``grad_sync`` sums the gradients first).
@@ -194,10 +227,13 @@ def hdce_mesh_train_step(model, opt: Optimizer, batch: dict, mesh, n_scenarios: 
     part = (torch.sum((pred - label) ** 2, dim=(-1, -2)) / pows[0]).sum() / cells
     opt.zero_grad()
     part.backward()
-    opt.step()
+    probe = opt.step(branch_params(model.named_parameters(), PROBE_BRANCHES) if probes else None)
     losses = torch.stack([part.detach(), part_perf / cells])
     reduce_over_([losses], mesh, ("data", "fed"))
-    return {"loss": losses[0], "loss_perf": losses[1]}
+    out = {"loss": losses[0], "loss_perf": losses[1]}
+    if probe is not None:
+        out["probe"] = probe
+    return out
 
 
 @torch.no_grad()
@@ -252,26 +288,33 @@ def train_hdce(
         start_epoch, rmeta = try_resume(workdir, "hdce_resume", model, opt)
         best = float(rmeta.get("best", best))  # don't clobber a better *_best
 
-    step_fn = _step_fn(model, opt)
+    # probe_every=0 computes no probes; the watchdog's loss checks need none
+    probes_on = cfg.train.probe_every > 0
+    step_fn = _step_fn(model, opt, probes_on, cfg.train.checkify)
+    gather = None
     if mesh is not None:
         model, opt = lay_out_on_mesh(cfg, model, opt, mesh, train_loader.steps_per_epoch)
         fed = mesh.shape["fed"] > 1
         make_grid_placer(train_loader, mesh, fed=fed)
         make_grid_placer(val_loader, mesh, fed=fed)
 
-        def step_fn(batch, _noise):
-            return hdce_mesh_train_step(model, opt, batch, mesh, cfg.data.n_scenarios)
+        def mesh_step(batch, _noise, probes=probes_on):
+            return hdce_mesh_train_step(model, opt, batch, mesh, cfg.data.n_scenarios, probes)
+
+        step_fn = checkify_step(mesh_step) if cfg.train.checkify else mesh_step
+        gather = _snapshot_gather(model)
 
     scan_run = None
     if scan_eligible(cfg, logger, dev, mesh=mesh):
-        scan_run = make_hdce_scan_steps(model, opt, data, cfg.train.scan_steps)
+        scan_run = make_hdce_scan_steps(model, opt, data, cfg.train.scan_steps, probes_on)
+    tele = LoopTelemetry("hdce_train", cfg, dev, model.state_dict, workdir, dtype=cfg.model.dtype, gather=gather)
 
     history: dict[str, list] = {"train_loss": [], "val_nmse": [], "val_nmse_perf": []}
     for epoch in range(start_epoch, cfg.train.n_epochs):
         if scan_run is not None:
-            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq)
+            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq, tele=tele)
         else:
-            tot, n = run_steps(step_fn, opt, train_loader, epoch, logger, cfg.train.print_freq)
+            tot, n = run_steps(step_fn, opt, train_loader, epoch, logger, cfg.train.print_freq, tele=tele)
         train_loss = float(tot) / n if n else 0.0
 
         sums: dict[str, torch.Tensor | float] = {"err": 0.0, "pow": 0.0, "err_perf": 0.0, "pow_perf": 0.0}
@@ -334,12 +377,36 @@ def lay_out_on_mesh(cfg: ExperimentConfig, model: HDCE, opt: Optimizer, mesh, st
     local_opt = get_optimizer(cfg.train, shard.parameters(), steps_per_epoch)
     local_opt.load_state_dict(opt_state)
     attach_batchnorm_group(shard, mesh.group("data"))
+    # the global probe: trunks are distinct over fed, head columns over model
+    local_opt.probe_groups = {"StackedConvP128_0": mesh.group("fed"), "FCP128_0": mesh.group("model")}
     local_opt.grad_sync = sync_grads([
         (list(shard.trunks.parameters()), mesh.group("data"), "sum"),
         (list(shard.head.parameters()), mesh.group("data"), "sum"),
         (list(shard.head.parameters()), mesh.group("fed"), "sum"),
     ])
     return shard, local_opt
+
+
+class _Frozen:
+    """A shard whose ``state_dict`` is a kept snapshot, for the gather."""
+
+    def __init__(self, shard, state: dict):
+        self._shard, self._state = shard, state
+
+    def __getattr__(self, name):
+        return getattr(self._shard, name)
+
+    def state_dict(self) -> dict:
+        return self._state
+
+
+def _snapshot_gather(shard):
+    """The flight recorder's ``gather`` under a mesh: a snapshot of this
+    rank's shard state in the one-rank layout (a collective; every rank
+    calls it)."""
+    from qdml_tpu_torch.parallel.federated import gather_hdce_state
+
+    return lambda state: gather_hdce_state(_Frozen(shard, state))[0]
 
 
 def _whole_state(model, opt: Optimizer, mesh) -> tuple[dict, dict]:

@@ -35,8 +35,9 @@ noise from a static device copy), 0 one at a time. Under a world of
 several ranks (``qdml_tpu/train/nat_sweep.py:300-328``) the stacked
 ensemble is replicated, each rank computes on its rows, the gradients are
 averaged over ``data``, the logged losses and validation means are
-averaged over it too, and rank 0 writes the checkpoints. The JAX package's
-flight recorder and cost records are not ported (ROADMAP A.12).
+averaged over it too, and rank 0 writes the checkpoints. Telemetry as the
+QSC trainer's (``qdml_tpu/train/nat_sweep.py:226-387``), with the probe per
+member: (E,) vectors, and any bad member trips the watchdog.
 """
 
 from __future__ import annotations
@@ -60,7 +61,16 @@ from qdml_tpu_torch.train import qsc as train_qsc
 from qdml_tpu_torch.train.checkpoint import has_checkpoint, restore_checkpoint, save_checkpoint
 from qdml_tpu_torch.train.hdce import run_device
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
-from qdml_tpu_torch.train.scan import ScanSteps, make_scan_steps, run_epoch, run_steps, scan_eligible
+from qdml_tpu_torch.telemetry.numerics import branch_params
+from qdml_tpu_torch.telemetry.sanitizer import checkify_step
+from qdml_tpu_torch.train.scan import (
+    LoopTelemetry,
+    ScanSteps,
+    make_scan_steps,
+    run_epoch,
+    run_steps,
+    scan_eligible,
+)
 from qdml_tpu_torch.utils.metrics import MetricsLogger
 
 QWEIGHTS = "qlayer.weights"
@@ -176,18 +186,22 @@ def sweep_train_step(
     sigmas: torch.Tensor,
     batch: dict,
     noise: torch.Tensor,
+    probes: bool = False,
 ) -> dict[str, torch.Tensor]:
     """One ensemble step (``qdml_tpu/train/nat_sweep.py:87-108``): every
     member's NLL over the flattened grid at its noisy circuit weights, one
     backward of their sum, one (pruned) AdamW update. ``noise`` is the
-    step's unit draws (E, L, n, 2). Returns the members' losses (E,) on the
-    device."""
+    step's unit draws (E, L, n, 2). Returns the members' losses (E,) (and
+    with ``probes`` the per-member probe) on the device."""
     x, labels = train_qsc.grid_batch(batch)
     losses = member_nll(ensemble_log_probs(model, params, x, True, sigmas, noise), labels)
     opt.zero_grad()
     losses.sum().backward()
-    opt.step()
-    return {"loss": losses.detach()}
+    probe = opt.step(branch_params(params.items(), train_qsc.QSC_BRANCHES) if probes else None)
+    out = {"loss": losses.detach()}
+    if probe is not None:
+        out["probe"] = probe
+    return out
 
 
 def make_sweep_scan_steps(
@@ -197,19 +211,22 @@ def make_sweep_scan_steps(
     sigmas: torch.Tensor,
     data: GridData,
     k: int,
+    probes: bool = False,
 ) -> ScanSteps:
     """K ensemble steps a dispatch (``qdml_tpu/train/nat_sweep.py:139-161``):
     each call takes its chunk's unit noise (k', E, L, n, 2) on the device."""
     shape = (sigmas.shape[0], model.n_layers, model.n_qubits, 2)
-    return make_scan_steps(_step_fn(model, params, opt, sigmas), data, opt, k, noise_shape=shape)
+    return make_scan_steps(_step_fn(model, params, opt, sigmas, probes=probes), data, opt, k, noise_shape=shape)
 
 
-def _step_fn(model: QSCP128, params: dict[str, torch.Tensor], opt: Optimizer, sigmas: torch.Tensor, mesh=None):
-    def step(batch, noise):
-        out = sweep_train_step(model, params, opt, sigmas, batch, noise)
-        return {"loss": train_qsc.data_mean(out["loss"], mesh)}
+def _step_fn(model: QSCP128, params: dict[str, torch.Tensor], opt: Optimizer, sigmas: torch.Tensor, mesh=None,
+             probes: bool = False, checkify_errors: bool = False):
+    def step(batch, noise, probes=probes):
+        out = sweep_train_step(model, params, opt, sigmas, batch, noise, probes)
+        out["loss"] = train_qsc.data_mean(out["loss"], mesh)
+        return out
 
-    return step
+    return checkify_step(step) if checkify_errors else step
 
 
 @torch.no_grad()
@@ -321,21 +338,25 @@ def train_nat_sweep(
 
     if mesh is not None:
         train_qsc.replicate_for_data(params.values(), opt, mesh, train_loader, val_loader)
+    probes_on = cfg.train.probe_every > 0  # 0 computes no probes
     scan_run = None
     if scan_eligible(cfg, logger, dev, train_qsc.step_circuit_impl(cfg, dev, mesh), mesh=mesh):
-        scan_run = make_sweep_scan_steps(model, params, opt, sigmas, data, cfg.train.scan_steps)
+        scan_run = make_sweep_scan_steps(model, params, opt, sigmas, data, cfg.train.scan_steps, probes_on)
+    step = _step_fn(model, params, opt, sigmas, mesh, probes_on, cfg.train.checkify)
+    tele = LoopTelemetry("nat_sweep_train", cfg, dev, lambda: params, workdir)
 
     writes = workdir is not None and (mesh is None or mesh.rank == 0)
     history: dict[str, list] = {"train_loss": [], "val_loss": [], "val_acc": []}
     for epoch in range(start_epoch, cfg.train.n_epochs):
         # the epoch's noise, one copy to the device
         noise = epoch_noise(cfg, epoch, spe, n_members).to(dev)
+        # what replays the epoch's draws, for a dump
+        tele.rng = {"seed_sequence": [cfg.train.seed + 101, epoch], "draws": "epoch_noise"}
         if scan_run is not None:
-            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq, noise)
+            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq, noise, tele=tele)
         else:
-            step = _step_fn(model, params, opt, sigmas, mesh)
-            tot, n = run_steps(step, opt, train_loader, epoch, logger, cfg.train.print_freq, noise)
-        train_loss = tot.cpu().numpy().astype(np.float64) / n if n else np.zeros(n_members)
+            tot, n = run_steps(step, opt, train_loader, epoch, logger, cfg.train.print_freq, noise, tele=tele)
+        train_loss = tot / n if n else np.zeros(n_members)
 
         vloss = vacc = None
         vn = 0

@@ -35,7 +35,7 @@
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Mapping
 
 import torch
 
@@ -154,6 +154,9 @@ class Optimizer:
         # and the update (parallel.dp.sync_grads), as GSPMD's gradient is
         # the global one by the time optax sees it
         self.grad_sync: Callable[[], None] | None = None
+        # Under a mesh: per probe branch, the group whose ranks hold distinct
+        # shards of it, over which the probe's sums are added (the global probe)
+        self.probe_groups: Mapping | None = None
         self.lr = torch.tensor(float(schedule(0)), dtype=torch.float32, device=self.params[0].device)
         # a capturable optimizer (Adam, AdamW on the card) reads the tensor
         # itself; the others take a float from the host at every update
@@ -202,9 +205,21 @@ class Optimizer:
     def unpin_rate(self) -> None:
         self._pinned = False
 
-    def step(self) -> None:
+    def step(self, probe: Mapping[str, list[torch.Tensor]] | None = None) -> dict | None:
+        """One update. With ``probe`` (the parameters by branch, named as
+        the JAX package's parameter tree), returns the numerics probe of it
+        (:func:`~qdml_tpu_torch.telemetry.numerics.probe_tree`, device
+        tensors, no host sync): the gradients after ``grad_sync`` and before
+        pruning, the parameters before the update, and the updates the
+        optimizer applied (:meth:`updates`), as JAX probes the optax updates;
+        each branch's sums added over its :attr:`probe_groups` entry."""
         if self.grad_sync is not None:
             self.grad_sync()
+        pre = None
+        if probe is not None:
+            from qdml_tpu_torch.telemetry.numerics import branch_stats
+
+            pre = {k: branch_stats([p.grad for p in ps], ps, members=self.members) for k, ps in probe.items()}
         if self.prune is not None:
             self.prune_ratio = gradient_prune_(
                 [p.grad for p in self.params], *self.prune, members=self.members
@@ -213,6 +228,63 @@ class Optimizer:
             self._write_lr(self.schedule(self.count))
         self.opt.step()
         self.count += 1
+        if pre is None:
+            return None
+        from qdml_tpu_torch.telemetry.numerics import branch_stats, probe_from_stats
+
+        upd = self.updates()
+        stats = {
+            k: pre[k] + branch_stats(updates=[upd[p] for p in ps if p in upd], members=self.members)
+            for k, ps in probe.items()
+        }
+        return probe_from_stats(stats, True, True, True, self.probe_groups)
+
+    @torch.no_grad()
+    def updates(self) -> dict[torch.Tensor, torch.Tensor]:
+        """The deltas the last :meth:`step` applied, per parameter, computed
+        from the optimizer's state as the update formula reads it (not a
+        difference of parameters, which would cancel to a few bits): Adam's
+        ``-lr * (m / bc1) / (sqrt(v / bc2) + eps)``, AdamW's plus ``-lr * wd *
+        p_before``, SGD's ``-lr * buf`` (or ``-lr * g``). Multi-tensor
+        (``torch._foreach_*``) device ops over each param group, so a CUDA
+        graph captures them with the step in a few launches."""
+        out: dict[torch.Tensor, torch.Tensor] = {}
+        sgd = isinstance(self.opt, torch.optim.SGD)
+        adamw = isinstance(self.opt, torch.optim.AdamW)
+        for group in self.opt.param_groups:
+            lr = group["lr"]
+            params = [p for p in group["params"] if p.grad is not None and (sgd or p in self.opt.state)]
+            if not params:
+                continue
+            if sgd:
+                bufs = [self.opt.state.get(p, {}).get("momentum_buffer") for p in params]
+                upd = torch._foreach_mul([p.grad if b is None else b for p, b in zip(params, bufs)], -lr)
+                out.update(zip(params, upd))
+                continue
+            b1, b2 = group["betas"]
+            states = [self.opt.state[p] for p in params]
+            steps = [st["step"] for st in states]
+            bc1 = torch._foreach_pow(b1, steps)
+            torch._foreach_neg_(bc1)
+            torch._foreach_add_(bc1, 1.0)
+            bc2 = torch._foreach_pow(b2, steps)
+            torch._foreach_neg_(bc2)
+            torch._foreach_add_(bc2, 1.0)
+            direction = torch._foreach_div([st["exp_avg"].float() for st in states], bc1)
+            den = torch._foreach_div([st["exp_avg_sq"] for st in states], bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            torch._foreach_div_(direction, den)
+            upd = torch._foreach_mul(direction, -lr)
+            if adamw and group["weight_decay"]:
+                wd = lr * group["weight_decay"]
+                # p before the update: p_new = p_old (1 - lr wd) - lr direction
+                before = torch._foreach_sub(params, upd)  # p + lr * direction
+                torch._foreach_div_(before, 1.0 - wd)
+                torch._foreach_mul_(before, wd)
+                torch._foreach_sub_(upd, before)
+            out.update(zip(params, upd))
+        return out
 
     def state_dict(self) -> dict:
         state = self.opt.state_dict()

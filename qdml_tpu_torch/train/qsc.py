@@ -16,6 +16,12 @@ With ``train.scan_steps=K >= 1`` (default 1) the steps run K a dispatch
 QuantumNAT generator registered with the graph so it draws what the
 per-step path draws), 0 one at a time.
 
+Telemetry as the HDCE trainer's (``qdml_tpu/train/qsc.py:247-295``): the
+numerics probe in every step at ``train.probe_every > 0`` (branches named
+as JAX's tree, :data:`QSC_BRANCHES` / :data:`SC_BRANCHES`), the loop's
+clock, flight recorder (the QuantumNAT generator's seed and offset in a
+dump) and one cost record, and the sanitizer under ``train.checkify``.
+
 Under a world of several ranks (``qdml_tpu/train/qsc.py:221-242``) the
 state is replicated from rank 0, each rank computes on its rows of every
 batch (B over ``data``), the gradients are averaged over ``data`` before
@@ -48,7 +54,16 @@ from qdml_tpu_torch.quantum.circuits import resolve_backend, resolve_impl
 from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, try_resume
 from qdml_tpu_torch.train.hdce import run_device
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
-from qdml_tpu_torch.train.scan import ScanSteps, make_scan_steps, run_epoch, run_steps, scan_eligible
+from qdml_tpu_torch.telemetry.numerics import branch_params
+from qdml_tpu_torch.telemetry.sanitizer import checkify_step
+from qdml_tpu_torch.train.scan import (
+    LoopTelemetry,
+    ScanSteps,
+    make_scan_steps,
+    run_epoch,
+    run_steps,
+    scan_eligible,
+)
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.metrics import MetricsLogger
 
@@ -125,39 +140,58 @@ def classifier_loss(
     return nll_loss(log_probs, labels)
 
 
+# the JAX classifiers' top-level parameter branches, by the port's name prefixes
+QSC_BRANCHES = (("preprocess.", "QSCPreprocess_0"), ("qlayer.", "qweights"), ("classifier.", "Dense_0"))
+SC_BRANCHES = (("conv1.", "Conv_0"), ("conv2.", "Conv_1"), ("FC.", "Dense_0"))
+
+
+def probe_branches(model: nn.Module) -> tuple:
+    return QSC_BRANCHES if isinstance(model, QSCP128) else SC_BRANCHES
+
+
 def classifier_train_step(
     model: nn.Module,
     opt: Optimizer,
     batch: dict,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    probes: bool = False,
 ) -> dict[str, torch.Tensor]:
     """One classifier step: loss, backward, (prune,) update. Returns the loss
-    as a device tensor."""
+    (and with ``probes`` the numerics probe) as device tensors."""
     loss = classifier_loss(model, batch, noise, generator)
     opt.zero_grad()
     loss.backward()
-    opt.step()
-    return {"loss": loss.detach()}
+    probe = opt.step(branch_params(model.named_parameters(), probe_branches(model)) if probes else None)
+    out = {"loss": loss.detach()}
+    if probe is not None:
+        out["probe"] = probe
+    return out
 
 
 def make_sc_scan_steps(
-    model: nn.Module, opt: Optimizer, data: GridData, k: int, generator: torch.Generator | None = None
+    model: nn.Module, opt: Optimizer, data: GridData, k: int, generator: torch.Generator | None = None,
+    probes: bool = False,
 ) -> ScanSteps:
     """K classifier steps a dispatch (``qdml_tpu/train/qsc.py:116-137``),
     the QuantumNAT noise drawn from ``generator`` step by step; a generator
     on the card is registered with the graphs (``presplit_keys`` in JAX)."""
     draws = isinstance(model, QSCP128) and model.use_quantumnat and model.noise_level > 0
     gens = (generator,) if draws and generator is not None and generator.device.type == "cuda" else ()
-    return make_scan_steps(_step_fn(model, opt, generator), data, opt, k, generators=gens)
+    return make_scan_steps(_step_fn(model, opt, generator, probes=probes), data, opt, k, generators=gens)
 
 
-def _step_fn(model: nn.Module, opt: Optimizer, generator: torch.Generator | None, mesh=None):
-    def step(batch, _noise):
-        out = classifier_train_step(model, opt, batch, generator=generator)
-        return {"loss": data_mean(out["loss"], mesh)}
+def _step_fn(model: nn.Module, opt: Optimizer, generator: torch.Generator | None, mesh=None,
+             probes: bool = False, checkify_errors: bool = False):
+    """The step the loops run, ``(batch, noise, probes=...) -> metrics``
+    (``probes`` defaults to the loop's setting; the per-step loop passes its
+    cadence); under ``checkify_errors`` run by the sanitizer."""
+    def step(batch, _noise, probes=probes):
+        out = classifier_train_step(model, opt, batch, generator=generator, probes=probes)
+        out["loss"] = data_mean(out["loss"], mesh)
+        return out
 
-    return step
+    return checkify_step(step) if checkify_errors else step
 
 
 @torch.no_grad()
@@ -268,17 +302,20 @@ def train_classifier(
     gen = noise_generator(cfg, start_epoch, dev)
     if mesh is not None:
         replicate_for_data(model, opt, mesh, train_loader, val_loader)
+    probes_on = cfg.train.probe_every > 0  # 0 computes no probes
     scan_run = None
     if scan_eligible(cfg, logger, dev, step_circuit_impl(cfg, dev, mesh) if quantum else None, mesh=mesh):
-        scan_run = make_sc_scan_steps(model, opt, data, cfg.train.scan_steps, gen)
+        scan_run = make_sc_scan_steps(model, opt, data, cfg.train.scan_steps, gen, probes=probes_on)
+    step_fn = _step_fn(model, opt, gen, mesh, probes_on, cfg.train.checkify)
+    tele = LoopTelemetry(f"{tag}_train", cfg, dev, model.state_dict, workdir, rng=gen)
 
     history: dict[str, list] = {"train_loss": [], "val_loss": [], "val_acc": []}
     for epoch in range(start_epoch, cfg.train.n_epochs):
         model.train()
         if scan_run is not None:
-            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq)
+            tot, n = run_epoch(scan_run, train_loader, epoch, logger, cfg.train.print_freq, tele=tele)
         else:
-            tot, n = run_steps(_step_fn(model, opt, gen, mesh), opt, train_loader, epoch, logger, cfg.train.print_freq)
+            tot, n = run_steps(step_fn, opt, train_loader, epoch, logger, cfg.train.print_freq, tele=tele)
         train_loss = float(tot) / n if n else 0.0
 
         model.eval()

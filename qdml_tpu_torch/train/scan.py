@@ -43,6 +43,7 @@ run stops; nothing continues eagerly.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence
 
 import numpy as np
@@ -75,8 +76,10 @@ def scan_eligible(
     quantum trainer's step): each of its SVDs checks cuSOLVER's status on
     the host, which no CUDA graph can capture. Every decision is logged as
     ``kind="scan_dispatch"`` with ``eligible``, ``scan_steps`` and
-    ``reason``; a decline of a K >= 1 also logs a warning. JAX's
-    ``train.checkify`` decline waits for the port's sanitizer (A.12)."""
+    ``reason``; a decline of a K >= 1 also logs a warning. Under
+    ``train.checkify`` it declines with JAX's reason: the sanitizer's
+    contract is an error fetch a step, and no dispatch mode runs inside a
+    graph replay."""
     k = cfg.train.scan_steps
 
     def decide(eligible: bool, reason: str, warn: str | None = None) -> bool:
@@ -87,6 +90,12 @@ def scan_eligible(
 
     if k < 1:
         return decide(False, "disabled: scan_steps=0 selects the per-step path")
+    if cfg.train.checkify:
+        return decide(
+            False,
+            "checkify: per-step error fetch is the sanitizer's contract",
+            warn=f"scan_steps={k} ignored: train.checkify forces per-step dispatch",
+        )
     if mesh is not None:
         return decide(
             False,
@@ -114,8 +123,23 @@ def scan_eligible(
     )
 
 
-def _stack(outs: Sequence[dict]) -> dict[str, torch.Tensor]:
-    return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+def _stack(outs: Sequence[dict]) -> dict:
+    """The steps' outputs stacked on a leading (k,) axis, nested dicts (the
+    numerics probe's ``branch_grad_norm``) key by key."""
+    return {
+        key: _stack([o[key] for o in outs]) if isinstance(outs[0][key], dict) else torch.stack([o[key] for o in outs])
+        for key in outs[0]
+    }
+
+
+def _tensors(out: dict) -> list[torch.Tensor]:
+    return [t for v in out.values() for t in (_tensors(v) if isinstance(v, dict) else [v])]
+
+
+def _clone(out: dict) -> dict:
+    """A replay's outputs copied out of the graph's static buffers (the next
+    replay overwrites them), nested dicts key by key."""
+    return {key: _clone(v) if isinstance(v, dict) else v.clone() for key, v in out.items()}
 
 
 class ScanSteps:
@@ -192,7 +216,7 @@ class ScanSteps:
         with torch.cuda.stream(self.stream):
             out = self._eager(idx, snrs, noise)
         main.wait_stream(self.stream)
-        for v in out.values():
+        for v in _tensors(out):
             v.record_stream(main)
         self._warm = True
         return out
@@ -260,7 +284,7 @@ class ScanSteps:
             kernels.count_replay(tally)
             activity["replays"] += 1
             self.opt.count += k
-            return {key: v.clone() for key, v in out.items()}
+            return _clone(out)
         finally:
             self.opt.unpin_rate()
 
@@ -278,6 +302,55 @@ def make_scan_steps(
     return ScanSteps(step_fn, data, opt, k, noise_shape, generators)
 
 
+class LoopTelemetry:
+    """A train loop's instrumentation (``qdml_tpu/train/hdce.py:284-345``):
+    its :class:`~qdml_tpu_torch.telemetry.counters.StepClock`, its
+    :class:`~qdml_tpu_torch.telemetry.numerics.FlightRecorder` (``note_good``
+    on ``params()`` at construction), and one ``cost`` record a run, counted
+    over its first dispatch (:meth:`first_dispatch`). ``params`` returns the
+    parameters to keep as last-good (called on the recorder's cadence only),
+    ``rng`` is the step's noise generator for the dump, ``gather`` the
+    mesh's one-rank gather of a snapshot, ``dtype`` the program's activation
+    dtype (the cost record's ceiling)."""
+
+    def __init__(self, name: str, cfg, device, params: Callable[[], dict], workdir: str | None = None,
+                 rng=None, dtype: str = "float32", gather: Callable | None = None):
+        from qdml_tpu_torch.telemetry.counters import StepClock
+        from qdml_tpu_torch.telemetry.numerics import FlightRecorder
+
+        self.name = name
+        self.clock = StepClock(name)
+        self.rec = FlightRecorder(name, cfg, workdir=workdir, gather=gather)
+        self.rec.note_good(params)
+        self.params = params
+        self.rng = rng
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self._cost_done = False
+
+    def first_dispatch(self, name: str, **tags):
+        """Around a dispatch: the run's one cost record on its first, nothing after."""
+        if self._cost_done:
+            return contextlib.nullcontext()
+        self._cost_done = True
+        from qdml_tpu_torch.telemetry.cost import maybe_emit_cost
+
+        return maybe_emit_cost(name, self.device, self.dtype, **tags)
+
+    def epoch_end(self, epoch: int, tot):
+        """The epoch's loss sum fetched once (None without steps), the
+        watchdog's epoch-aggregate check on it, the epoch's counters record."""
+        host = None if tot is None else tot.detach().cpu().numpy().astype(np.float64)
+        self.rec.on_epoch_loss(epoch, host)
+        self.clock.epoch_end(epoch=epoch)
+        return host
+
+
+def _losses(t: torch.Tensor):
+    """A fetched loss: a float for a scalar, else a list."""
+    return t.item() if t.dim() == 0 else t.cpu().tolist()
+
+
 def run_epoch(
     run: ScanSteps,
     loader,
@@ -285,26 +358,50 @@ def run_epoch(
     logger,
     print_freq: int,
     noise: torch.Tensor | None = None,
-) -> tuple[torch.Tensor | None, int]:
+    tele: LoopTelemetry | None = None,
+) -> tuple:
     """One training epoch through ``run`` (``qdml_tpu/train/hdce.py:
-    267-330``): the epoch's chunks from ``loader.epoch_chunks``, and with
+    286-330``): the epoch's chunks from ``loader.epoch_chunks``, and with
     ``noise`` (steps, ...) on the device each chunk's slice of it. The loss
-    sum stays on the device (one fetch an epoch, by the caller); every
-    ``max(print_freq // K, 1)`` chunks the chunk's losses are fetched once
-    and logged: ``loss`` the chunk's last, ``losses`` all of them. Returns
-    the loss sum over the epoch's steps and their count."""
+    sum stays on the device until the epoch's one fetch. With ``tele`` a
+    chunk's losses (and probes) are fetched only when its flight recorder's
+    cadence says so (``FlightRecorder.should_fetch``): at
+    ``train.probe_every=0`` no chunk is, and the epoch makes no host
+    transfer before its sum. A fetched chunk is logged every
+    ``max(print_freq // K, 1)`` chunks: ``loss`` the chunk's last,
+    ``losses`` all of them. Without ``tele`` every such chunk is fetched.
+    Returns the loss sum (host, float64) and the step count."""
+    from qdml_tpu_torch.telemetry.spans import span
+
     k = run.k
     tot, n = None, 0
-    for idx, snrs in loader.epoch_chunks(epoch, k):
-        steps = len(snrs)
-        ms = run(idx, snrs, None if noise is None else noise[n : n + steps])
-        chunk = ms["loss"].sum(dim=0)
-        tot = chunk if tot is None else tot + chunk
-        n += steps
-        if (n // k) % max(print_freq // k, 1) == 0:
-            losses = ms["loss"].cpu().tolist()
-            logger.log(step=run.opt.count, epoch=epoch, loss=losses[-1], losses=losses)
-    return tot, n
+    with span("train_epoch", epoch=epoch):
+        for idx, snrs in loader.epoch_chunks(epoch, k):
+            steps = len(snrs)
+            cadence = ((n + steps) // k) % max(print_freq // k, 1) == 0
+            fetch = tele.rec.should_fetch() if tele is not None else cadence
+            losses = None
+            with contextlib.ExitStack() as stack:
+                st = stack.enter_context(tele.clock.step()) if tele is not None else None
+                if tele is not None:
+                    stack.enter_context(tele.first_dispatch(f"{tele.name}_scan", scan_steps=k))
+                ms = run(idx, snrs, None if noise is None else noise[n : n + steps])
+                if fetch:
+                    if st is not None:
+                        st.transfer()
+                    losses = ms["loss"].cpu().numpy()
+            chunk = ms["loss"].sum(dim=0)
+            tot = chunk if tot is None else tot + chunk
+            n += steps
+            if tele is not None:
+                tele.rec.on_step(epoch, ms, loss=losses, params=tele.params, rng=tele.rng,
+                                 batch_info={"dispatch": "scan", "idx": idx, "snrs": snrs})
+            if losses is not None and cadence:
+                rows = losses.tolist()
+                logger.log(step=run.opt.count, epoch=epoch, loss=rows[-1], losses=rows)
+    if tele is not None:
+        return tele.epoch_end(epoch, tot), n
+    return (None if tot is None else tot.cpu().numpy().astype(np.float64)), n
 
 
 def run_steps(
@@ -315,17 +412,43 @@ def run_steps(
     logger,
     print_freq: int,
     noise: torch.Tensor | None = None,
-) -> tuple[torch.Tensor | None, int]:
+    tele: LoopTelemetry | None = None,
+) -> tuple:
     """One training epoch on the per-step path (``train.scan_steps=0``): a
-    dispatch a step from ``loader.epoch``, with ``noise[n]`` for step n. The
-    loss sum stays on the device; every ``print_freq`` steps that step's loss
-    is fetched and logged. Returns the loss sum and the step count, as
-    :func:`run_epoch` does."""
+    dispatch a step from ``loader.epoch``, with ``noise[n]`` for step n.
+    With ``tele`` each step's loss is fetched for the watchdog, as JAX's
+    per-step loop fetches it (``qdml_tpu/train/hdce.py:333-345``), and
+    ``step_fn`` is called with ``probes`` set to the flight recorder's
+    cadence (``FlightRecorder.should_fetch``): the host knows it before each
+    step here, so an off-cadence step computes no probe (the K-step graph
+    captures one a step, as JAX's scan does). The loss sum stays on the
+    device. Every ``print_freq`` steps that step's loss is logged. Returns
+    the loss sum (host, float64) and the step count, as :func:`run_epoch`
+    does."""
+    from qdml_tpu_torch.telemetry.spans import span
+
     tot, n = None, 0
-    for batch in loader.epoch(epoch):
-        m = step_fn(batch, None if noise is None else noise[n])
-        tot = m["loss"] if tot is None else tot + m["loss"]
-        n += 1
-        if n % print_freq == 0:
-            logger.log(step=opt.count, epoch=epoch, loss=m["loss"].tolist())
-    return tot, n
+    with span("train_epoch", epoch=epoch):
+        for batch in loader.epoch(epoch):
+            loss = None
+            with contextlib.ExitStack() as stack:
+                st = stack.enter_context(tele.clock.step()) if tele is not None else None
+                if tele is not None:
+                    stack.enter_context(tele.first_dispatch(f"{tele.name}_step"))
+                if tele is None:
+                    m = step_fn(batch, None if noise is None else noise[n])
+                else:
+                    m = step_fn(batch, None if noise is None else noise[n], probes=tele.rec.should_fetch())
+                if st is not None:
+                    st.transfer()
+                    loss = _losses(m["loss"])
+            tot = m["loss"] if tot is None else tot + m["loss"]
+            n += 1
+            if tele is not None:
+                tele.rec.on_step(epoch, m, loss=loss, params=tele.params, rng=tele.rng,
+                                 batch_info={"dispatch": "step", "step_in_epoch": n - 1})
+            if n % print_freq == 0:
+                logger.log(step=opt.count, epoch=epoch, loss=_losses(m["loss"]) if loss is None else loss)
+    if tele is not None:
+        return tele.epoch_end(epoch, tot), n
+    return (None if tot is None else tot.cpu().numpy().astype(np.float64)), n

@@ -2,9 +2,9 @@
 
 NMSE is the reference's whole-batch ratio ``sum((x_hat - x)**2) / sum(x**2)``,
 reported in dB as ``10 * log10(nmse)``. The logger writes one JSON object per
-line and is a telemetry sink (``active``, ``write_raw``, ``emit``): spans
-and the serving tier's records go into the same stream as the metrics. The
-JAX package's run manifests are ROADMAP A.12.
+line and is a telemetry sink (``active``, ``write_raw``, ``emit``): spans,
+counters, numerics, cost and the serving tier's records go into the same
+stream as the metrics, after the run manifest it opens with when given one.
 """
 
 from __future__ import annotations
@@ -31,15 +31,23 @@ class MetricsLogger:
     """Append-only JSONL metrics stream with an optional console echo.
 
     Records keep the JAX package's bare shape: ``ts``, then ``step`` when
-    given, then the values. ``path=None`` logs to the console only."""
+    given, then the values. ``path=None`` logs to the console only, and so
+    does every rank but 0 of a ``torch.distributed`` world;
+    ``manifest`` (a :func:`~qdml_tpu_torch.telemetry.manifest.run_manifest`
+    record) is written as the file's first line, as the JAX package's
+    logger writes it."""
 
-    def __init__(self, path: str | None = None, echo: bool = True):
+    def __init__(self, path: str | None = None, echo: bool = True, manifest: dict | None = None):
         self.path = path
         self.echo = echo
         self._fh = None
-        if path is not None:
+        from qdml_tpu_torch.telemetry.core import is_primary
+
+        if path is not None and is_primary():  # under a world, rank 0 alone writes
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
             self._fh = open(path, "a")
+            if manifest is not None:  # the stream's header line
+                self.write_raw(dict(manifest))
 
     @property
     def active(self) -> bool:

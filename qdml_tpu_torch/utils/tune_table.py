@@ -15,8 +15,9 @@ race (:mod:`qdml_tpu_torch.serve.batching_autotune`) keep their tables in a
 
 The table files are the JAX package's format (``{"schema", "kind",
 "manifest", "entries"}``), so either package reads the other's entries. The
-manifest records this package's runtime (``torch``, its CUDA version and the
-device), not JAX's.
+manifest is the run manifest of :mod:`qdml_tpu_torch.telemetry.manifest`:
+its ``torch`` block records this package's runtime and devices, and its
+``jax`` is null.
 
 ``activity`` counts the measurements the race takes and the tables it
 writes, process-wide: the serving engine reads it to show that its request
@@ -27,30 +28,10 @@ from __future__ import annotations
 
 import json
 import os
-import platform
-import sys
-import time
 
 # Races measured (``autotune.measure`` adds one per call) and tables
 # written (``TableStore.save``), since the process started.
 activity = {"measure": 0, "save": 0}
-
-
-def run_manifest(argv: list[str]) -> dict:
-    """Provenance of a saved table: what wrote it, on what runtime and device."""
-    import torch
-
-    device = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
-    return {
-        "kind": "manifest",
-        "argv": list(argv),
-        "python": sys.version.split()[0],
-        "host": platform.node(),
-        "torch": torch.__version__,
-        "cuda": torch.version.cuda,
-        "device": device,
-        "ts": round(time.time(), 3),
-    }
 
 
 class TableStore:
@@ -111,10 +92,12 @@ class TableStore:
         the path."""
         p = self.path(path)
         activity["save"] += 1
+        from qdml_tpu_torch.telemetry.manifest import run_manifest
+
         payload = {
             "schema": schema,
             "kind": self.kind,
-            "manifest": run_manifest([self.argv_tag]),
+            "manifest": run_manifest(argv=[self.argv_tag]),
             "entries": entries,
         }
         try:

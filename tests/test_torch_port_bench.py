@@ -71,7 +71,11 @@ def test_bench_emits_every_row_on_the_cpu(tmp_path, capsys):
     assert rec["hdce_bf16_scan_bf16m"]["moments_dtype"] == "bfloat16" and "synthesis" in rec["hdce_bf16_scan_bf16m"]
     assert "rbg" in rec["hdce_bf16_scan_bf16m"]["left_out"]
     scaling = rec["qsc_scaling"]
-    assert [p["n_qubits"] for p in scaling["points"]] == [4, 14] and "XLA" in scaling["cost"]
+    assert [p["n_qubits"] for p in scaling["points"]] == [4, 14] and "cost" not in scaling
+    # the training rows carry the three fields report reads
+    for row in (rec["hdce_train"], rec["hdce_train_scan"], rec["qsc_train_scan"], *rec["qsc_train"].values()):
+        assert row["cost"]["available"] and row["cost"]["platform"] == "cpu" and row["cost"]["flops"] > 0
+        assert row["roofline"]["fraction"] > 0 and row["host_transfers"] == 0
     for p in scaling["points"]:
         assert p["quantum_impl"] in p["candidates_raced"] and p["samples_per_sec"] > 0 and p["train_ms"] > 0
         assert set(p["candidates"]) == set(p["candidates_raced"]) == set(autotune.eligible_impls(p["n_qubits"]))
@@ -93,6 +97,15 @@ def test_bench_emits_every_row_on_the_cpu(tmp_path, capsys):
         assert p["agreement"]["max_abs_delta"] <= 1e-5 and p["agreement"]["overflow_balanced"] == 0
         assert ("sparse" in p["candidates"]) == (p["n_scenarios"] >= 6)
     assert rec["serve_infer"]["request_path_work"] == {"measure": 0, "table_write": 0, "kernel_build": 0}
+    # the JAX record's envelope: both packages' report read the line
+    from qdml_tpu.telemetry import report as jreport
+    from qdml_tpu_torch.telemetry import report as treport
+
+    assert rec["metric"] == "hdce_train_samples_per_sec" and rec["platform"] == "cpu"
+    assert rec["value"] == rec["hdce_train_scan"]["samples_per_sec"]
+    got, want = treport.extract(str(out)), jreport.extract(str(out))
+    assert got["throughput"] == want["throughput"] and "qsc.best_of_impls" in got["throughput"]
+    assert got["roofline"] and set(got["host_transfers"].values()) == {0} and got["cost"]
 
 
 def test_a_failed_row_is_recorded_and_exits_nonzero(monkeypatch, capsys):

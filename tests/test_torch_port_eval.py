@@ -267,6 +267,8 @@ def test_eval_cli_end_to_end(tmp_path, capsys):
     assert all(m < ls for m, ls in zip(out["nmse_db"]["mmse"], out["nmse_db"]["ls"]))
     assert (res / "results_table.md").read_text().startswith("| Curve |")
     rows = [json.loads(line) for line in (ws / "Pn_128" / "default" / "eval.metrics.jsonl").read_text().splitlines()]
+    assert rows[0]["kind"] == "manifest" and rows[0]["argv"][0] == "eval"
+    rows = [r for r in rows if "kind" not in r]  # the metrics records after the manifest
     assert [r["snr_db"] for r in rows] == out["snr"] and all(r["seconds"] > 0 for r in rows)
     spec = ",".join(f"{c}:{ws / 'Pn_128' / 'default' / f'train-{c}.metrics.jsonl'}" for c in ("sc", "qsc"))
     assert cli.main(["loss-curves", f"--curves={spec}", f"--eval.results_dir={res}"]) == 0

@@ -511,6 +511,38 @@ def test_ejected_fleet_gives_up_typed(fleet):
     assert len(router.live_backends()) == 2
 
 
+def test_reaped_pooled_connections_are_replaced_not_failed(warmed):
+    """A backend reaps a connection idle past ``serve.conn_timeout_s``, so
+    the router's pooled clients to it come to hold closed sockets. Each is
+    replaced before its next send: the healthy backend sees no transport
+    failure, the router no failover, and nothing is ejected, even at
+    ``eject_failures=1``."""
+    engine, x = warmed
+    el = _EventLoop()
+    lp = ServeLoop(engine, name="reaping-loop").start()
+    router = None
+    try:
+        port = el.start(serve_async, lp, "127.0.0.1", 0, swap_fn=_SwapCounter("reaping"), conn_timeout_s=0.3,
+                        dedup_ttl_s=5.0, host_id="reaping")
+        router = FleetRouter([("127.0.0.1", port)], **{**ROUTER_OPTS, "eject_failures": 1}).start()
+        (b,) = router.backends
+        clients = [b._borrow() for _ in range(4)]
+        assert all(c.health()["ok"] for c in clients)
+        for c in clients:
+            b._restore(c)
+        time.sleep(1.0)  # every pooled connection reaped
+        reps = [router.request({"id": f"reaped-{i}", "x": x[i].tolist()}) for i in range(4)]
+        assert all(r["ok"] for r in reps), reps
+        summary = router.router_summary()
+        assert summary["failovers"] == 0 and summary["ejections"] == 0 and summary["no_backend"] == 0
+        assert sum(c.reconnects for c in clients) >= 1 and all(c.retries_used == 0 for c in clients)
+    finally:
+        if router is not None:
+            router.stop()
+        el.stop()
+        lp.stop()
+
+
 def test_front_socket_hardening(fleet):
     """Garbage gets a typed reply and the connection survives; a non-object
     line is a typed bad_request; an oversized line gets bad_request and the

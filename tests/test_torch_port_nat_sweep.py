@@ -277,6 +277,7 @@ def test_cli_nat_sweep_on_the_cpu(tmp_path, capsys):
     assert {"train_loss_sigma0", "val_acc_sigma0.1"} <= set(last)
     assert "nat-sweep done" in capsys.readouterr().out
     # K steps a dispatch is the default (K = 1); a negative K is refused
-    assert json.loads((wd / "nat-sweep.metrics.jsonl").read_text().splitlines()[0])["kind"] == "scan_dispatch"
+    head = [json.loads(line) for line in (wd / "nat-sweep.metrics.jsonl").read_text().splitlines()[:2]]
+    assert [r["kind"] for r in head] == ["manifest", "scan_dispatch"]
     with pytest.raises(ValueError, match="scan_steps"):
         cli.main(["nat-sweep", "--device=cpu", "--train.scan_steps=-1"])

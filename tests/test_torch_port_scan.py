@@ -189,13 +189,15 @@ def _train(trainer, cfg, data):
 @pytest.mark.parametrize("trainer,k", [("hdce", 1), ("hdce", 3), ("dce", 3), ("sc", 3), ("qsc", 3), ("nat_sweep", 3)])
 def test_scan_steps_equal_the_per_step_path_bitwise(trainer, k):
     """QSC with QuantumNAT on: the chunks draw the generator's stream in the
-    per-step order; print_freq 1 logs every chunk's losses."""
+    per-step order; print_freq 1 with probe_every 1 (the K-step path fetches
+    a chunk's losses on the probe cadence, as JAX's does) logs every chunk's
+    losses."""
     data_kw = ESTIMATOR if trainer in ("hdce", "dce") else CLASSIFIER
     quantum = dict(n_qubits=4, n_layers=2, use_quantumnat=True, noise_level=0.05)
-    _, cfg0 = _cfgs(data_kw, quantum, features=4, scan_steps=0, print_freq=1)
+    _, cfg0 = _cfgs(data_kw, quantum, features=4, scan_steps=0, print_freq=1, probe_every=1)
     data = GridData.synthesize(cfg0.data, "cpu")
     hist0, params0, recs0 = _train(trainer, cfg0, data)
-    _, cfgk = _cfgs(data_kw, quantum, features=4, scan_steps=k, print_freq=1)
+    _, cfgk = _cfgs(data_kw, quantum, features=4, scan_steps=k, print_freq=1, probe_every=1)
     histk, paramsk, recsk = _train(trainer, cfgk, data)
     for key in hist0:
         assert np.array_equal(np.asarray(histk[key]), np.asarray(hist0[key])), key

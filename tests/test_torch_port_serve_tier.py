@@ -491,8 +491,7 @@ def test_serve_fields_match_jax_defaults_and_validation(capsys):
     for f in dataclasses.fields(t):
         assert getattr(t, f.name) == getattr(j, f.name), f.name
     assert {f.name for f in dataclasses.fields(t)} == {f.name for f in dataclasses.fields(j)}
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tconfig.from_args(["--serve.checkify=true"])
+    assert tconfig.from_args(["--serve.checkify=true"]).serve.checkify is True
     with pytest.raises(ValueError, match="serve.shard must be"):
         serve_mesh(tconfig.from_args(["--serve.shard=maybe"]), "cpu")
     with pytest.raises(ValueError, match="requires sharding"):
