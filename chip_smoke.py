@@ -66,7 +66,16 @@ Phases, each of which exits non-zero on failure:
    batch; beside it, below saturation (poisson 1000 rps, 2048 requests,
    ragged, every request traced, under the torch profiler), the 2x2 pool
    against one replica of one worker: latency, SLO, phases, the
-   per-replica completion split and the card's busy share; then
+   per-replica completion split and the card's busy share, and each run's
+   window (its ``serve_summary``) replayed by the capacity planner (logged:
+   under the profiler the pools may shed, which the planner does not
+   model); a third traced run, the one worker at poisson 500 rps (1024
+   requests) without the profiler, is the planner's window, through ``cli
+   plan`` (its host-side dispatch in ``cli.main``): ``--validate`` exit 0 (its phases replay its own p99
+   within 2x and its rps within 15%), and ``--target-rps=2000 --p99-ms=16
+   --emit-target`` exit 0 with the target read back by
+   ``load_planner_target``, or exit 3 with the null answer the loader
+   refuses; then
    ``run_server`` on port 0 in a thread with the port's ``ServeClient``
    (256 requests against the twin, a retried id that must not dispatch
    again, ``health``, ``metrics``, a ``swap`` to the ``v2`` tags whose
@@ -138,7 +147,21 @@ Phases, each of which exits non-zero on failure:
    for 5 s (the context kept, ejected, re-admitted after SIGCONT); in every
    window zero stranded futures and no give-up before the deadline; a
    same-id retry answered by the router's dedup with no dispatch on any
-   backend, healthy, across the kill and after a retirement. Elastic: a
+   backend, healthy, across the kill and after a retirement. From the
+   baseline to the stall's recovery window the port's ``MonitorScraper``
+   (0.4 s windows, ``scripts/monitor_dryrun.py``'s alerter) runs in a
+   dry-run ``MonitorAttachment`` on the front door (``live_fleet_dryrun``'s
+   invariants): only ``health``, ``metrics`` and ``events`` sent, an idle
+   probe completes no request, a burn alert fires in the stall window and
+   none in the baseline, ``event_drops`` 0, no give-up, every backend's
+   request-path work still zero; the rendered timeline shows the alert and
+   the router's ejection and re-admission, and ``report`` over the baseline
+   window and the monitor stream exits 0 with its monitoring gates armed;
+   then ``cli events`` (exit 0, the kill window's ejection envelope among
+   its output) and ``cli monitor --attach --dry-run --interval=0.5
+   --duration=5`` (exit 0, no give-up, ``event_drops`` 0, and no context of
+   its own on the card while it runs, by nvidia-smi's count) as processes
+   against the front door. Elastic: a
    ``FleetAutoscaler`` pinned to a hand-written target in ``emit_target``'s
    shape (``backends_needed`` 3, then 2) drives ``BackendLifecycle.scale_to``:
    a third backend spawned, verified warm and admitted while windows run
@@ -289,18 +312,26 @@ Phases, each of which exits non-zero on failure:
    Watchdog: QSC under QuantumNAT ``noise_level=inf`` raises
    ``DivergenceError``, its bundle's ``last_good`` restores finite on the
    card; ``cli train-qsc`` with those flags (300 samples a cell: one step)
-   prints ``DIVERGED:`` and exits 4. Sanitizer: HDCE and QSC 2 steps checked
+   prints ``DIVERGED:`` and exits 4. The native loader: ``save_npy_cache``
+   of this grid from the card, ``NpyGridLoader`` through the C++ library
+   (built with g++ under ``build/``, required) for one epoch against
+   ``DMLGridLoader`` (rtol 1e-5, atol 1e-6, JAX's tolerance), one HDCE step
+   fed from each (losses rtol 1e-5, parameters within the Adam bound), and
+   its host ms a step beside the K=16 HDCE step's. Sanitizer (JAX's rule: an
+   op's output NaN trips whatever its inputs held): HDCE and QSC 2 steps checked
    and unchecked equal bit for bit (under deterministic cuDNN and
    scatter-add, whose default kernels sum with atomics); ``scan_dispatch``
    declines; Inf pilots
    trip naming an aten op, the ``inf`` noise naming ``circuit_expvals``, a
-   label of 7 as an out-of-bounds index, and a clean step runs after it.
+   label of 7 as an out-of-bounds index, and a clean step runs after it;
+   one NaN in an HDCE batch trips the flight recorder at the convolution.
    ``serve.checkify``: a full-width engine (QSC n=6 L=3 ``pallas_circuit``,
    buckets 1/8/64; its warmup's ``cost`` records counted into an active
    sink, the unchecked engine's, without one, not counted) equal to the
    unchecked one and within 1e-4 max|h| + 1e-5
    of the CPU twin, B.2 launched, no request-path work; a poisoned batch
-   raises, the next serves; the ragged tier with NaN/Inf pads at fills 3
+   raises, so does a request with one NaN pilot (bucket 8 named), the next
+   serves; the ragged tier with NaN/Inf pads at fills 3
    and 37 passes; a 2x2 pool fails only the poisoned future. World: ``dp_8q
    train-qsc`` on 2 ranks (as phase 8k; 600 samples a cell: 2 steps, cut for
    time), rank 0's numerics against one rank's (rtol 1e-5). Report: the
@@ -377,6 +408,11 @@ TIER_DEADLINE_MS = 16.0
 # below saturation: both pools complete about 1720 rps at the 2000 rps point
 TIER_BELOW_RPS = 1000.0
 TIER_BELOW_REQUESTS = 2048
+# the planner's window (the one-worker pool, traced, without the profiler:
+# about a third of its 1720 rps) and the capacity question put to the
+# planner over it: the tier's poisson rate at its deadline
+TIER_PLAN_WINDOW_RPS, TIER_PLAN_WINDOW_REQUESTS = 500.0, 1024
+TIER_PLAN_RPS = 2000.0
 # the fault phase offers waves of 16 until the fault fired (at least 512
 # requests, at most this many)
 FAULT_MAX_REQUESTS = 8192
@@ -1147,13 +1183,30 @@ def _below_saturation(torch, cfg, wd, samples, card: str) -> None:
     sheds, per-phase p50, the per-replica completion split, and the card's
     busy share (the union of device activities over the call's wall, which
     also holds the offline reference's one forward and the warmup's seven).
-    Logged; it fails on a stranded future or request-path work."""
+    Logged; it fails on a stranded future or request-path work.
+
+    Each run's window (its manifest-headed ``serve_summary``) is written and
+    its self-replay through the capacity planner logged: under the profiler
+    the pools may shed at this rate, and the planner, which replays every
+    offered request as completed, cannot match a window that shed. The
+    planner's window is a third traced run of the one-worker pool without
+    the profiler at ``TIER_PLAN_WINDOW_RPS``, below saturation, put through
+    ``cli plan`` (``cli.main``): ``--validate`` must exit 0 (the window's
+    phase distributions replay its own p99 and rps inside the planner's
+    bands), and ``--target-rps=2000 --p99-ms=16 --emit-target`` must answer
+    (exit 0, the target read back by ``load_planner_target``) or find the
+    target unmeetable (exit 3, and the loader refuses the null answer)."""
     from dataclasses import replace
 
     from torch.profiler import ProfilerActivity, profile
 
+    from qdml_tpu_torch import cli
+    from qdml_tpu_torch.control.fleet_scale import load_planner_target
     from qdml_tpu_torch.serve.engine import ServeEngine
     from qdml_tpu_torch.serve.loadgen import run_loadgen
+    from qdml_tpu_torch.telemetry import run_manifest
+    from qdml_tpu_torch.telemetry.capacity import validate_window
+    from qdml_tpu_torch.utils.metrics import MetricsLogger
     from qdml_tpu_torch.utils.profiling import device_busy_us
 
     zero = {"measure": 0, "table_write": 0, "kernel_build": 0}
@@ -1162,13 +1215,16 @@ def _below_saturation(torch, cfg, wd, samples, card: str) -> None:
                                           arrival="poisson", trace_sample=1.0))
         eng = ServeEngine.from_workdir(dcfg, wd, device=DEVICE)
 
+        window_path = TIER_WORK / f"below_{reps}x{workers}.jsonl"
+        wlog = MetricsLogger(str(window_path), echo=False, manifest=run_manifest(dcfg, argv=["loadgen", "below"]))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             sm = run_loadgen(dcfg, eng, rate=TIER_BELOW_RPS, n=TIER_BELOW_REQUESTS, deadline_ms=TIER_DEADLINE_MS,
-                             samples=samples)
+                             samples=samples, logger=wlog)
             torch.cuda.synchronize()
             window = time.perf_counter() - t0
+        wlog.close()
         busy = device_busy_us(prof.events())
         share = f"{busy / (window * 1e6):.4f}" if busy else "not measured (no device time in the trace)"
         srv = sm["server_metrics"]
@@ -1183,6 +1239,60 @@ def _below_saturation(torch, cfg, wd, samples, card: str) -> None:
         if sm["stranded_futures"] or sm["failed_requests"] or sm["compile_cache_after_warmup"] != zero:
             raise AssertionError(f"serve_tier below saturation {reps}x{workers}: stranded {sm['stranded_futures']}, "
                                  f"failed {sm['failed_requests']}, work {sm['compile_cache_after_warmup']}")
+
+    keys = ("mode", "measured_p99_ms", "predicted_p99_ms", "p99_ratio", "measured_rps", "predicted_rps", "rps_err",
+            "ok")
+    for tag in ("2x2", "1x1"):
+        row = validate_window(str(TIER_WORK / f"below_{tag}.jsonl"))
+        log(f"serve_tier plan: the profiled {tag} window's self-replay (logged): "
+            f"{json.dumps({k: row.get(k) for k in keys})} [{card}]")
+    # the planner's window: the one worker (the last run's engine), traced, without the profiler
+    window_path = TIER_WORK / "plan_window.jsonl"
+    wlog = MetricsLogger(str(window_path), echo=False, manifest=run_manifest(dcfg, argv=["loadgen", "plan"]))
+    try:
+        sm = run_loadgen(dcfg, eng, rate=TIER_PLAN_WINDOW_RPS, n=TIER_PLAN_WINDOW_REQUESTS,
+                         deadline_ms=TIER_DEADLINE_MS, samples=samples, logger=wlog)
+    finally:
+        wlog.close()
+    lat = sm["latency_ms"] or {}
+    log(f"serve_tier plan window: ragged poisson {TIER_PLAN_WINDOW_RPS:g} rps n={TIER_PLAN_WINDOW_REQUESTS}, 1 "
+        f"replica x 1 worker, traced: rps {sm['rps']}, offered {sm['offered_rps']}, p50 {lat.get('p50_ms')} ms, p99 "
+        f"{lat.get('p99_ms')} ms, SLO {json.dumps(sm['slo'])}, shed {json.dumps(sm['shed'])} [{card}]")
+    if sm["stranded_futures"] or sm["failed_requests"]:
+        raise AssertionError(f"serve_tier plan window: stranded {sm['stranded_futures']}, failed "
+                             f"{sm['failed_requests']}")
+    def plan(*args: str) -> tuple[int, str]:
+        """``cli plan`` through the CLI's host-side dispatch, in this process
+        (a process of its own spends seconds importing torch)."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["plan", f"--trace={window_path}", *args])
+        return rc, out.getvalue()
+
+    target = TIER_WORK / "plan_target.json"
+    t0 = time.perf_counter()
+    val_rc, val_out = plan("--validate")
+    ask_rc, ask_out = plan(f"--target-rps={TIER_PLAN_RPS:g}", f"--p99-ms={TIER_DEADLINE_MS:g}", f"--emit-target={target}")
+    secs = time.perf_counter() - t0
+    rows = json.loads(val_out)["plan_validation"]["rows"] if val_out.startswith("{") else []
+    answer = json.loads(ask_out)["plan"] if ask_out.startswith("{") else {}
+    shown = {k: rows[0].get(k) for k in keys} if rows else None
+    log(f"serve_tier plan over that window: `plan --validate` exit {val_rc}: {json.dumps(shown)}; `plan "
+        f"--target-rps={TIER_PLAN_RPS:g} --p99-ms={TIER_DEADLINE_MS:g}` exit {ask_rc}: backends_needed "
+        f"{answer.get('backends_needed')}, sweep "
+        f"{json.dumps([(r['backends'], r['utilization'], r['predicted_p99_ms']) for r in answer.get('sweep', [])])} "
+        f"(backends, utilization, predicted p99 ms); both in {secs:.2f} s [{card}]")
+    if val_rc != 0 or not rows or rows[0]["mode"] != "phases":
+        raise AssertionError(f"serve_tier plan --validate: exit {val_rc}\n{val_out[-3000:]}")
+    if ask_rc not in (0, 3) or (ask_rc == 3) != (answer.get("backends_needed") is None):
+        raise AssertionError(f"serve_tier plan: exit {ask_rc}\n{ask_out[-3000:]}")
+    try:
+        loaded = json.dumps(load_planner_target(str(target)))
+    except ValueError as e:
+        if answer.get("backends_needed") is not None:
+            raise
+        loaded = f"refused: {e}"
+    log(f"serve_tier plan target through load_planner_target: {loaded} [{card}]")
 
 
 def _replica_batches(pool) -> dict[str, int]:
@@ -3264,6 +3374,29 @@ def _free_port() -> int:
         return sk.getsockname()[1]
 
 
+class _VerbAudit:
+    """The monitor's poller with the three read verbs alone on it
+    (``scripts/live_fleet_dryrun.py``'s audit): a scraper reaching for any
+    other verb would fail into a scrape error, and ``calls`` names the verbs
+    it sent."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.calls: set = set()
+
+    def health(self):
+        self.calls.add("health")
+        return self._inner.health()
+
+    def metrics(self):
+        self.calls.add("metrics")
+        return self._inner.metrics()
+
+    def events(self, cursor=None, limit=512):
+        self.calls.add("events")
+        return self._inner.events(cursor, limit=limit)
+
+
 def fleet_phase(torch, K, mods, card: str) -> None:
     """The fleet tier at full width (``scripts/fleet_router_dryrun.py`` and
     ``fleet_elastic_dryrun.py``, with their traffic): backends of the control
@@ -3278,14 +3411,17 @@ def fleet_phase(torch, K, mods, card: str) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from qdml_tpu_torch.control.fleet_scale import FleetAutoscaler, load_planner_target
-    from qdml_tpu_torch.control.loop import FleetController
+    from qdml_tpu_torch.control.loop import FleetController, SocketPoller
     from qdml_tpu_torch.fleet import BackendLifecycle, FleetPoller, FleetRouter, route_async, spawn_backend, verify_warm
     from qdml_tpu_torch.serve.client import ServeClient
     from qdml_tpu_torch.serve.engine import ServeEngine
     from qdml_tpu_torch.serve.loadgen import make_request_samples, run_loadgen_socket
     from qdml_tpu_torch.telemetry import run_manifest
     from qdml_tpu_torch.telemetry.cost import detect_platform
+    from qdml_tpu_torch.telemetry.attach import MonitorAttachment
+    from qdml_tpu_torch.telemetry.burnrate import BurnAlerter, BurnRateRule
     from qdml_tpu_torch.telemetry.report import report_main
+    from qdml_tpu_torch.telemetry.timeseries import MonitorScraper, monitor_main
     from qdml_tpu_torch.utils.metrics import MetricsLogger
     from qdml_tpu_torch.telemetry.spans import get_sink, set_sink
 
@@ -3336,9 +3472,11 @@ def fleet_phase(torch, K, mods, card: str) -> None:
     ports = [_free_port(), _free_port()]  # fixed: a respawned backend takes its old address
     aloop = asyncio.new_event_loop()
     loop_thread = threading.Thread(target=aloop.run_forever, daemon=True)
-    router = route_proc = None
+    router = route_proc = mon_proc = None
     tally = _ServeTally(K)
     prev_sink = get_sink()
+    monitor: dict = {}  # the attached monitor while it runs: its scraper, stop event and thread
+    window_walls: dict = {}  # each window's wall-clock (time.time) start and end
     try:
         t = time.perf_counter()
         with ThreadPoolExecutor(2) as ex:
@@ -3389,7 +3527,10 @@ def fleet_phase(torch, K, mods, card: str) -> None:
 
                 side = threading.Thread(target=run_side, daemon=True)
                 side.start()
+            if monitor.get("scraper") is not None:
+                monitor["scraper"].mark(tag)  # the windows the monitor's alerts are judged by
             r0, c0 = router.router_summary(), completed()
+            t_wall = time.time()
             seq[0] += 1
             replies: list = []
             # the window's manifest-headed stream, for the report round trip
@@ -3406,6 +3547,7 @@ def fleet_phase(torch, K, mods, card: str) -> None:
                 if side.is_alive() or side_err:
                     raise AssertionError(f"fleet {tag}: the injection failed: {side_err or 'still running'}")
             r1, c1 = router.router_summary(), completed()
+            window_walls[tag] = (t_wall, time.time())
             ok = [i for i, r in enumerate(replies) if r is not None and r.get("ok")]
             held = None
             if hold and ok:
@@ -3431,10 +3573,41 @@ def fleet_phase(torch, K, mods, card: str) -> None:
                 raise AssertionError(f"fleet {tag}: failed replies {faults}")
             return {"sm": sm, "delta": d, "split": split}
 
+        # the monitor on the front door through the baseline, kill and stall
+        # windows (scripts/monitor_dryrun.py, live_fleet_dryrun.py): the three
+        # read verbs audited, a dry-run FleetAutoscaler ticked each window
+        # through a separate actuator, the dryruns' alerter (for_run at their
+        # 30 s / 0.4 s geometry and their router rule)
+        zero_work = [(direct(b) or {}).get("compile_cache_after_warmup") for b in backends]
+        mon_path = FLEET_WORK / "monitor.jsonl"
+        mlog = MetricsLogger(str(mon_path), echo=False, manifest=run_manifest(cfg, argv=["monitor", "fleet"]))
+        audit = _VerbAudit(SocketPoller(*front, timeout_s=5.0))
+        alerter = BurnAlerter.for_run(duration_s=30.0, interval_s=0.4, slo_target=0.99, threshold=8.0, debounce=2)
+        alerter.rules["router"] = BurnRateRule("router", budget=0.02, fast_s=1.2, slow_s=3.6, threshold=3.0,
+                                               debounce=2)
+        scraper = MonitorScraper(audit, sink=mlog, interval_s=0.4, alerter=alerter, tail_events=True)
+        actuator = SocketPoller(*front, timeout_s=120.0)
+        attachment = MonitorAttachment(scraper, FleetAutoscaler(
+            lambda k: actuator.fleet(backends=k), min_backends=2, max_backends=3, queue_high=10.0, queue_low=2.0,
+            debounce=2, cooldown_ticks=6, sink=mlog, dry_run=True), max_reconnects=8)
+        monitor.update(scraper=scraper, stop=threading.Event(), log=mlog)
+        monitor["thread"] = threading.Thread(target=attachment.run, args=(900.0, monitor["stop"]), daemon=True)
+        scraper.mark("baseline")
+        monitor["thread"].start()
+
         # healthy fleet: both backends serve, every answer against the CPU twin
         base_w = window("baseline", jsonl=FLEET_WORK / "baseline.jsonl")
         if not all(v for v in base_w["split"]):
             raise AssertionError(f"fleet baseline: a backend served nothing: {base_w['split']}")
+        # no traffic: the monitor's scrapes complete no request on any backend
+        scraper.mark("idle_probe")
+        seq0, idle0 = scraper.seq, completed()
+        time.sleep(1.6)
+        idle = (scraper.seq - seq0, completed())
+        log(f"fleet monitor idle probe: {idle[0]} scrapes in 1.6 s without traffic, backend completions {idle0} -> "
+            f"{idle[1]} [{card}]")
+        if idle[0] < 2 or idle[1] != idle0:
+            raise AssertionError(f"fleet monitor idle probe: {idle[0]} scrapes, completions {idle0} -> {idle[1]}")
         # the same traffic straight to backend 0: what the router's hop costs
         sm = run_loadgen_socket(cfg, backends[0].addr, rate=FLEET_RPS, n=FLEET_N, seed=999,
                                 deadline_ms=FLEET_DEADLINE_MS, clients=8, x=x)
@@ -3569,6 +3742,102 @@ def fleet_phase(torch, K, mods, card: str) -> None:
                 and w["sm"]["completed"] > 0 and len(router.live_backends()) == 2):
             raise AssertionError("fleet stall: the stalled backend was not ejected and re-admitted")
         window("backend_stall_recovery")
+        time.sleep(1.2)  # the last windows' scrapes
+        monitor["stop"].set()
+        monitor["thread"].join(timeout=60.0)
+        expect = {"fired": ["backend_stall"], "quiet": ["baseline", "idle_probe"]}
+        summary = scraper.finish(extra={"expect": expect, "handsoff": attachment.summary()})
+        mlog.close()
+        monitor.clear()
+        fired = [a for a in scraper.alerts if a.get("state") == "firing"]
+        fired_marks = sorted({a.get("mark") for a in fired})
+        work_after = [(direct(b) or {}).get("compile_cache_after_warmup") for b in backends]
+        log(f"fleet monitor (in process, 0.4 s windows, dry-run attachment): {summary['windows']} windows, alerts "
+            f"fired {json.dumps([(a['signal'], a['mark'], a['fast_burn'], a['slow_burn']) for a in fired])}, by mark "
+            f"{json.dumps(summary['alerts']['by_mark'])}; peak burn {json.dumps(summary['peak_burn'])}; verbs "
+            f"{sorted(audit.calls)}; spine {json.dumps(summary['spine'])}, event_drops {summary['event_drops']}; "
+            f"scrape errors {summary['scrape_errors']}, counter resets {summary['counter_resets']}; hands-off "
+            f"{json.dumps({k: v for k, v in summary['handsoff'].items() if k != 'scale_events'})}, decisions "
+            f"{json.dumps(summary['handsoff']['scale_events'])}; request-path work {zero_work} -> {work_after} "
+            f"[{card}]")
+        if not ("backend_stall" in fired_marks and "baseline" not in fired_marks and "idle_probe" not in fired_marks):
+            raise AssertionError(f"fleet monitor: alerts fired in {fired_marks}, want backend_stall and not the "
+                                 f"baseline; peak burn {summary['peak_burn']}")
+        if not (sorted(audit.calls) == ["events", "health", "metrics"] and summary["event_drops"] == 0
+                and attachment.give_up is None and zero_work == work_after == [zero, zero]):
+            raise AssertionError(f"fleet monitor: verbs {audit.calls}, event_drops {summary['event_drops']}, give-up "
+                                 f"{attachment.give_up}, work {zero_work} -> {work_after}")
+        timeline = FLEET_WORK / "timeline.md"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_render = monitor_main(["--render", f"--current={mon_path}", f"--out={timeline}"])
+        md = timeline.read_text()
+        corr = [ln.strip() for ln in md.splitlines() if ln.strip().startswith("- correlated events")]
+        log(f"fleet monitor timeline: render exit {rc_render}; alert rows {md.count('**ALERT')}; the stall alert's "
+            f"{corr[-1] if corr else 'no correlated events'} [{card}]")
+        if not (rc_render == 0 and "**ALERT" in md and "backend_ejected" in md and "backend_readmitted" in md):
+            raise AssertionError(f"fleet monitor timeline: render exit {rc_render}, {timeline}")
+        rep_json = FLEET_WORK / "report_monitor.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = report_main([f"--current={FLEET_WORK / 'baseline.jsonl'},{mon_path}",
+                              f"--baseline={FLEET_WORK / 'baseline.jsonl'}", "--threshold=50",
+                              f"--out={FLEET_WORK / 'report_monitor.md'}", f"--json={rep_json}"])
+        gates = {g["metric"]: g["status"] for g in json.loads(rep_json.read_text()).get("gates", [])
+                 if g.get("kind") == "monitor"}
+        log(f"fleet monitor report (baseline + monitor stream against the baseline): exit {rc}, monitoring gates "
+            f"{json.dumps(gates)} [{card}]")
+        want_gates = {"monitor.alerts[backend_stall]", "monitor.alerts[baseline]", "monitor.event_drops",
+                      "monitor.handsoff"}
+        if rc != 0 or not want_gates <= set(gates) or any(v != "ok" for v in gates.values()):
+            raise AssertionError(f"fleet monitor report: exit {rc}, gates {gates}")
+
+        # `cli monitor --attach --dry-run` and `cli events` as processes against the front door, side by side
+        root = Path(__file__).resolve().parent
+        addr_front = f"{front[0]}:{front[1]}"
+        cli_cmd = [sys.executable, "-m", "qdml_tpu_torch.cli"]
+        t = time.perf_counter()
+        mon_proc = subprocess.Popen(
+            [*cli_cmd, "monitor", f"--addr={addr_front}", "--attach", "--dry-run", "--interval=0.5", "--duration=5",
+             f"--out={FLEET_WORK / 'monitor_cli.jsonl'}"],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        ev_box: dict = {}
+
+        def run_events():
+            t_ev = time.perf_counter()
+            ev_box["proc"] = subprocess.run([*cli_cmd, "events", f"--addr={addr_front}", "--limit=4096"], cwd=root,
+                                            capture_output=True, text=True, timeout=120)
+            ev_box["s"] = time.perf_counter() - t_ev
+
+        ev_thread = threading.Thread(target=run_events, daemon=True)
+        ev_thread.start()
+        seen = []
+        while mon_proc.poll() is None and time.perf_counter() - t < 120.0:
+            apps = _compute_apps()
+            seen.append((len(apps), mon_proc.pid in {p for p, _ in apps}))
+            time.sleep(0.5)
+        out, err = mon_proc.communicate(timeout=60.0)
+        mon_rc, mon_proc = mon_proc.returncode, None
+        mon_s = time.perf_counter() - t
+        ev_thread.join(timeout=120.0)
+        ev = ev_box.get("proc")
+        if ev is None:
+            raise AssertionError("fleet cli events: no result")
+        envs = [json.loads(ln) for ln in ev.stdout.splitlines() if ln.startswith("{")]
+        k0, k1 = window_walls["backend_kill"]
+        kill_ej = [e for e in envs if e.get("kind") == "backend_ejected" and k0 <= e.get("ts", 0) <= k1]
+        log(f"fleet `cli events`: exit {ev.returncode} in {ev_box['s']:.2f} s, {len(envs)} envelopes "
+            f"({json.dumps({k: sum(e.get('kind') == k for e in envs) for k in ('backend_ejected', 'backend_readmitted', 'monitor_alert')})}); "
+            f"the kill window's ejection {json.dumps(kill_ej[0]) if kill_ej else None} [{card}]")
+        if ev.returncode != 0 or not kill_ej or any("spine_loss" in e for e in envs):
+            raise AssertionError(f"fleet cli events: exit {ev.returncode}, {ev.stderr[-1500:]}")
+        msum = json.loads(out.strip().splitlines()[-1])["monitor"] if out.strip().startswith("{") else {}
+        live = len([b for b in backends if b.alive()])
+        log(f"fleet `cli monitor --attach --dry-run`: exit {mon_rc} in {mon_s:.2f} s, {msum.get('windows')} windows, "
+            f"give_up {(msum.get('handsoff') or {}).get('give_up')}, event_drops {msum.get('event_drops')}; contexts "
+            f"on the card while it ran (and `cli events` beside it) {sorted({n for n, _ in seen})} over {len(seen)} "
+            f"readings (base {base} + {live} live backends), its pid listed {any(p for _, p in seen)} [{card}]")
+        if not (mon_rc == 0 and msum.get("handsoff", {}).get("give_up", 1) is None and msum.get("event_drops") == 0
+                and len(seen) >= 4 and all(n == base + live and not p for n, p in seen)):
+            raise AssertionError(f"fleet cli monitor: exit {mon_rc}, summary {msum}, contexts {seen}\n{err[-1500:]}")
 
         # elastic: a FleetAutoscaler pinned to a hand-written target in emit_target's shape
         basis = {"trace": "hand-written", "target_rps": FLEET_RPS, "p99_target_ms": FLEET_DEADLINE_MS,
@@ -3638,7 +3907,6 @@ def fleet_phase(torch, K, mods, card: str) -> None:
             raise AssertionError(f"fleet quarantine: {q}")
 
         # `cli route --fleet.elastic=true` as a process, started now: it comes up while the controller runs
-        root = Path(__file__).resolve().parent
         route_flags = [a for a in flags if not a.startswith("--serve.buckets=")]  # spawn_overrides splits on commas
         route_env = {**os.environ, **card_env(2)}
         t_route = time.perf_counter()
@@ -3740,9 +4008,15 @@ def fleet_phase(torch, K, mods, card: str) -> None:
                                  f"plain {plain.returncode} {plain.stdout[-500:]}; route exit {route_rc}")
         route_proc = None
     finally:
-        if route_proc is not None and route_proc.poll() is None:
-            route_proc.kill()
-            route_proc.wait(timeout=60.0)
+        if monitor:
+            monitor["stop"].set()
+            if "thread" in monitor:
+                monitor["thread"].join(timeout=60.0)
+            monitor["log"].close()
+        for proc in (route_proc, mon_proc):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60.0)
         if router is not None:
             router.stop()
         if loop_thread.is_alive():
@@ -3831,7 +4105,7 @@ def telemetry_phase(torch, K, mods, card: str) -> dict[str, int]:
     from qdml_tpu_torch.serve.engine import ServeEngine
     from qdml_tpu_torch.serve.server import ReplicaPool
     from qdml_tpu_torch.serve.types import Prediction
-    from qdml_tpu_torch.telemetry import DivergenceError, device_memory_snapshot, run_manifest, set_sink
+    from qdml_tpu_torch.telemetry import DivergenceError, FlightRecorder, device_memory_snapshot, run_manifest, set_sink
     from qdml_tpu_torch.telemetry.cost import achieved_roofline, analyze
     from qdml_tpu_torch.telemetry.numerics import fetch
     from qdml_tpu_torch.telemetry.report import report_main
@@ -4054,6 +4328,52 @@ def telemetry_phase(torch, K, mods, card: str) -> dict[str, int]:
                 f"{roof['fraction']} ({roof['bound']}-bound) [{card}]")
     log(f"telemetry memory: {json.dumps(device_memory_snapshot())} [{card}]")
 
+    # -- the native .npy loader over this grid, written by save_npy_cache from the card
+    from qdml_tpu_torch.runtime import native_io
+
+    npy_dir = TELE_WORK / "npy"
+    t = time.perf_counter()
+    ds.save_npy_cache(str(npy_dir), base.data, DEVICE)
+    save_s = time.perf_counter() - t
+    lib = native_io.library_path()
+    if not native_io.native_available() or EVAL_WORK.parent not in lib.parents:
+        raise AssertionError(f"native loader: library {lib}, available {native_io.native_available()}: "
+                             f"{native_io.build_error}")
+    npy = ds.NpyGridLoader(str(npy_dir), base.data, TRAIN_BATCH, device=DEVICE)
+    worst, n_batches = 0.0, 0
+    for a, b in zip(npy.epoch(0), loader.epoch(0)):
+        for k in ("yp_img", "h_label", "h_perf", "indicator"):
+            if a[k].shape != b[k].shape or a[k].device != b[k].device:
+                raise AssertionError(f"native loader {k}: {a[k].shape} on {a[k].device}, want {b[k].shape}")
+            torch.testing.assert_close(a[k], b[k], rtol=1e-5, atol=1e-6)
+            worst = max(worst, (a[k].double() - b[k].double()).abs().max().item())
+        n_batches += 1
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in npy.epoch(1):
+        pass
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3 / spe
+    stepped = []
+    for b in (next(iter(npy.epoch(0))), next(iter(loader.epoch(0)))):
+        model, opt = hdce_mod.make_trainer(base, DEVICE, spe)
+        m = hdce_mod.hdce_train_step(model, opt, b)
+        stepped.append((m["loss"].item(), {k: v.detach().cpu() for k, v in model.state_dict().items()
+                                           if v.is_floating_point()}))
+    pw, pout, ptot = _twin_params_close(stepped[0][1], stepped[1][1], base.train.lr, TWIN_STEPS,
+                                        "native loader HDCE step")
+    log(f"native loader: save_npy_cache of the grid from the card in {save_s:.2f} s; library {lib.relative_to(EVAL_WORK.parent.parent)} "
+        f"native {npy.is_native}; one epoch ({n_batches} batches) against DMLGridLoader's: max |diff| {worst:.3e} "
+        f"(rtol 1e-5, atol 1e-6); one HDCE step fed from each: loss {stepped[0][0]:.7f} vs {stepped[1][0]:.7f}, "
+        f"params max |diff| {pw:.3e}, {pout}/{ptot} outside 1e-5 + 1e-4|p| [{card}]")
+    log(f"time native loader: {host_ms:.3f} ms a step of {9 * TRAIN_BATCH} rows on the host (mmap, C++ gather, "
+        f"copy to the card; an epoch with nothing else to do), beside the K=16 HDCE step's "
+        f"{times['hdce_k16_probes']:.3f} ms ({times['hdce_k16_p0']:.3f} ms without the probe; graph replays, "
+        f"wall between synchronizations) [{card}]")
+    if n_batches != spe or not npy.is_native or abs(stepped[0][0] - stepped[1][0]) > 1e-5 * abs(stepped[1][0]):
+        raise AssertionError(f"native loader: {n_batches} batches, native {npy.is_native}, losses {stepped}")
+    npy.close()
+
     # -- the watchdog: QuantumNAT noise_level=inf, NaN generated inside B.2
     nat_inf = replace(q6, use_quantumnat=True, noise_level=float("inf"))
     ncfg = replace(qcfg, quantum=nat_inf, train=replace(qcfg.train, probe_every=1, scan_steps=1))
@@ -4143,6 +4463,24 @@ def telemetry_phase(torch, K, mods, card: str) -> dict[str, int]:
     if not (msgs["label_7"] or "").startswith("out-of-bounds indexing") or msgs["clean_after"] is not None \
             or not np.isfinite(after["loss"].item()):
         raise AssertionError(f"telemetry checkify label: {msgs}")
+    # one NaN in a checked HDCE step's batch: it trips where the data meets
+    # the first convolution, through the flight recorder (JAX's rule)
+    model, opt = hdce_mod.make_trainer(base, DEVICE, spe)
+    one_nan = batches[0]["yp_img"].clone()
+    one_nan[1, 2, 17, 5, 3, 0] = float("nan")
+    rec = FlightRecorder("telemetry_nan_batch", base)
+    rec.note_good(model.state_dict)
+    m = hdce_mod._step_fn(model, opt, True, True)(dict(batches[0], yp_img=one_nan), None)
+    try:
+        rec.on_step(0, m, loss=float(m["loss"]), params=model.state_dict)
+        raise AssertionError("telemetry checkify: one NaN in the batch did not trip")
+    except DivergenceError as e:
+        nan_trip = e
+    log(f"telemetry checkify one NaN in an HDCE batch: {nan_trip.reason!r}, bundle under "
+        f"{Path(nan_trip.dump_dir).relative_to(TELE_WORK)} [{card}]")
+    if not (nan_trip.reason.startswith("checkify: nan generated by primitive: aten.") and "conv" in nan_trip.reason
+            and (Path(nan_trip.dump_dir) / "bundle.json").exists()):
+        raise AssertionError(f"telemetry checkify NaN batch: {nan_trip.reason}")
 
     # -- serve.checkify at full width
     sbase = mods["config"].ExperimentConfig()
@@ -4204,6 +4542,16 @@ def telemetry_phase(torch, K, mods, card: str) -> dict[str, int]:
         raise AssertionError("telemetry serve: the poisoned batch served")
     except DivergenceError as e:
         poisoned = str(e)
+    nan_pilot = reqs[5].copy()
+    nan_pilot[2, 4, 3, 1] = np.nan  # one pilot of one request
+    try:
+        checked.infer(nan_pilot)
+        raise AssertionError("telemetry serve: the NaN-pilot request served")
+    except DivergenceError as e:
+        nan_served = str(e)
+    if not (nan_served.startswith("serve checkify tripped on bucket 8: nan generated by primitive: aten.")
+            and "conv" in nan_served):
+        raise AssertionError(f"telemetry serve NaN pilot: {nan_served}")
     h1 = checked.infer(reqs[5])[0]
     if not np.array_equal(h1, got[5][0]):
         raise AssertionError("telemetry serve: the batch after the trip differs")
@@ -4231,7 +4579,8 @@ def telemetry_phase(torch, K, mods, card: str) -> dict[str, int]:
     finally:
         pool.stop()
     served = sum(isinstance(r, Prediction) for r in first + later)
-    log(f"telemetry serve: poisoned batch {poisoned!r}, the next served; ragged NaN pads at fills 3 and 37 pass; "
+    log(f"telemetry serve: poisoned batch {poisoned!r}, a NaN-pilot request {nan_served!r}, the next served; "
+        f"ragged NaN pads at fills 3 and 37 pass; "
         f"2x2 pool: the poisoned future failed {typed}, {served}/64 others served [{card}]")
     if typed != "DivergenceError" or served != 64:
         raise AssertionError(f"telemetry serve pool: {typed}, served {served}")
@@ -4295,6 +4644,7 @@ def bench_phase(card: str) -> None:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4680,6 +5030,8 @@ def main() -> int:
     # last: its profiler session would slow the host's launches of any timing after it
     phase("profile", profile_phase, torch, mods, card)
     log(f"phase wall seconds: {json.dumps(phase_s)} [{card}]")
+    log(f"smoke wall: {time.perf_counter() - t_main:.2f} s from the start of main, the kernels' build included "
+        f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

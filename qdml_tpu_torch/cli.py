@@ -17,6 +17,11 @@
     python -m qdml_tpu_torch.cli route        [--fleet.backends=H:P,H:P --fleet.port=8378 ...]
     python -m qdml_tpu_torch.cli fleet-scale  --addr=HOST:PORT [--backends=N] [--timeout-s=S]
     python -m qdml_tpu_torch.cli report       --current=PATH[,PATH...] --baseline=PATH [--threshold=10]
+    python -m qdml_tpu_torch.cli events       --addr=HOST:PORT [--follow] [--min-severity=warning ...]
+    python -m qdml_tpu_torch.cli plan         --trace=W.jsonl[,W2.jsonl...] --validate
+    python -m qdml_tpu_torch.cli plan         --trace=W.jsonl --target-rps=X --p99-ms=Y [--emit-target=T.json]
+    python -m qdml_tpu_torch.cli monitor      --addr=HOST:PORT [--duration=30] [--attach --dry-run] [--out=M.jsonl]
+    python -m qdml_tpu_torch.cli monitor      --render --current=M.jsonl [--events=A.jsonl] [--out=timeline.md]
 
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
 package, and ``--preset=NAME`` starts from one of its presets (``single_4q``,
@@ -96,6 +101,24 @@ host-side, dispatched before config parsing and before any device is
 resolved: the regression gate over telemetry artifacts
 (:mod:`~qdml_tpu_torch.telemetry.report`), exit 0, 3 on a regression, 2
 on usage errors.
+
+The flight deck is host-side too, dispatched the same way; none of its
+commands opens a context on the card. ``events`` tails a running
+``serve`` or ``route`` endpoint's event spine as JSONL (one tail, or
+``--follow``; exit 0, 3 when the endpoint cannot be read, 2 on usage
+errors). ``plan`` replays recorded ``serve_summary`` windows
+(:mod:`~qdml_tpu_torch.telemetry.capacity`): ``--validate`` exits 0 when
+every window's self-replay lands inside the band, 3 when one does not;
+``--target-rps`` with ``--p99-ms`` sweeps backend counts and exits 0 with
+an answer, 3 when no count meets the target, and ``--emit-target`` writes
+the record :func:`~qdml_tpu_torch.control.fleet_scale.load_planner_target`
+reads. ``monitor`` scrapes a running endpoint over the ``health``,
+``metrics`` (and, with ``--attach``, ``events``) verbs into windows and
+burn-rate alerts (:mod:`~qdml_tpu_torch.telemetry.timeseries`), writes a
+manifest-headed ``monitor.jsonl`` and prints its summary; ``--attach``
+ticks a fleet autoscaler each window through the ``{"op": "fleet"}`` verb
+(``--dry-run`` decides without acting), exit 0, 3 on a reconnect give-up;
+``--render`` turns a recorded stream into the markdown timeline.
 """
 
 from __future__ import annotations
@@ -111,7 +134,7 @@ from qdml_tpu_torch.utils.metrics import MetricsLogger
 COMMANDS = (
     "train-hdce", "train-dce", "train-sc", "train-qsc", "nat-sweep", "eval", "profile", "gen-data",
     "import-torch", "export-torch", "loss-curves", "serve", "loadgen", "control", "route",
-)  # "fleet-scale" dispatches before config parsing (host-side)
+)  # "report", "fleet-scale", "events", "plan", "monitor" dispatch before config parsing (host-side)
 # the commands that lay themselves on a mesh under a world of several ranks
 MESH_COMMANDS = ("train-hdce", "train-sc", "train-qsc", "nat-sweep", "eval")
 
@@ -345,6 +368,18 @@ def _main(argv: list[str] | None) -> int:
         return report_main(rest)
     if cmd == "fleet-scale":
         return fleet_scale_main(rest)
+    if cmd == "events":
+        from qdml_tpu_torch.telemetry.events import events_main
+
+        return events_main(rest)
+    if cmd == "plan":
+        from qdml_tpu_torch.telemetry.capacity import plan_main
+
+        return plan_main(rest)
+    if cmd == "monitor":
+        from qdml_tpu_torch.telemetry.timeseries import monitor_main
+
+        return monitor_main(rest)
     if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}; want one of {COMMANDS}")
         return 2

@@ -40,23 +40,12 @@ from qdml_tpu_torch.control.autoscale import Autoscaler
 from qdml_tpu_torch.control.deploy import Deployer
 from qdml_tpu_torch.control.drift import DriftMonitor
 from qdml_tpu_torch.control.events import emit_record
+from qdml_tpu_torch.telemetry.timeseries import counter_delta
 
 # an adaptation that keeps failing its canary must not retrain forever on
 # the same drift episode: after this many failed attempts per scenario the
 # stream stays latched and a human reads the control_events
 MAX_ADAPT_ATTEMPTS = 3
-
-
-def counter_delta(prev, cur) -> tuple[float, bool]:
-    """Reset-safe cumulative-counter differencing, ``(delta, reset)``
-    (``qdml_tpu/telemetry/timeseries.py:50-65``): when ``cur < prev`` the
-    source restarted, the delta clamps to ``cur`` and ``reset`` is True.
-    ``None`` counts as 0."""
-    p = float(prev or 0)
-    c = float(cur or 0)
-    if c < p:
-        return c, True
-    return c - p, False
 
 
 class PoolPoller:

@@ -23,6 +23,11 @@ n_sub, n_beam, 2)`` (NHWC), ``h_label`` and ``h_perf`` ``(S, U, B,
 2*h_dim)``, ``indicator (S, U, B)``, the complex ``yp``, ``h_ls`` and
 ``h_perf_c``, and ``index``, the (S, U, B) sample indices of the step.
 
+:class:`NpyGridLoader` reads such a cache from its files instead, through
+the native IO runtime (:mod:`qdml_tpu_torch.runtime`): mmapped files, the
+C++ row gather and a producer thread a few steps ahead, each batch copied
+to the device as it is assembled.
+
 Test data (:func:`generate_datapair`, :func:`sweep_batch`) is drawn anew on
 the device: flat ``(N,)`` scenario and user vectors assigned as the JAX
 package assigns them, through :func:`make_network_batch`. ``jax.random``'s
@@ -484,3 +489,137 @@ def load_npy_cache(dirpath: str, cfg: DataConfig, scenario: int, user: int) -> d
     """One (scenario, user) cell of a reference-format ``.npy`` cache
     (``qdml_tpu/data/datasets.py:310-312``)."""
     return {n: np.load(p) for n, p in _npy_names(dirpath, cfg, scenario, user).items()}
+
+
+class NpyGridLoader:
+    """The DML grid loader over a reference-format ``.npy`` cache through the
+    native IO runtime (``qdml_tpu/data/datasets.py:315-420``): the files are
+    mmapped zero-copy (:class:`~qdml_tpu_torch.runtime.NativeNpyFile`), each
+    step's shuffled rows are gathered by the C++ threads
+    (:func:`~qdml_tpu_torch.runtime.gather_rows`), and a producer thread
+    keeps ``prefetch_depth`` steps assembled and on ``device`` ahead of the
+    consumer. The file-based twin of :class:`DMLGridLoader` over
+    :meth:`GridData.from_npy_cache`, which holds the whole cache on the
+    device instead.
+
+    Yields the same ``(S, U, bs, ...)`` ``yp_img``, ``h_label``, ``h_perf``
+    and ``indicator`` as :class:`DMLGridLoader` over the same cache, the
+    same indices (:func:`_epoch_perms`) in the same order, as tensors on
+    ``device`` (the card unless the caller asks for the CPU). The cache was
+    written at the fixed ``cfg.snr_db``, so ``snr_jitter`` is refused.
+    ``is_native`` says whether every file is read through the C++ library
+    (else numpy's mmap, the same values)."""
+
+    def __init__(
+        self,
+        dirpath: str,
+        cfg: DataConfig,
+        batch_size: int,
+        split: str = "train",
+        n_threads: int = 4,
+        prefetch_depth: int = 2,
+        device: str | torch.device | None = None,
+    ):
+        from qdml_tpu_torch.runtime import NativeNpyFile
+
+        if cfg.snr_jitter is not None:
+            raise ValueError(
+                "snr_jitter is impossible on a materialised npy cache (files "
+                "were generated at the fixed cfg.snr_db); use DMLGridLoader "
+                "for the jittered protocol"
+            )
+        self.cfg = cfg
+        self.geom = ChannelGeometry.from_config(cfg)
+        self.device = resolve_device(device)
+        self.n_threads = n_threads
+        self.prefetch_depth = max(prefetch_depth, 1)
+        self._files = {
+            (s, u, name): NativeNpyFile(path)
+            for s in range(cfg.n_scenarios)
+            for u in range(cfg.n_users)
+            for name, path in _npy_names(dirpath, cfg, s, u).items()
+        }
+        self.index_base, self.n = _resolve_split(cfg, split)
+        self.batch_size = min(batch_size, self.n)
+        self.steps_per_epoch = self.n // self.batch_size
+
+    @property
+    def is_native(self) -> bool:
+        return all(f.is_native for f in self._files.values())
+
+    def _assemble(self, idx_grid: np.ndarray) -> dict[str, torch.Tensor]:
+        """One (S, U, bs) step's rows from the mmaps (C++ threads), packed
+        ``[re | im]`` in float32 on the host, then copied to the device."""
+        from qdml_tpu_torch.runtime import gather_rows
+
+        s_n, u_n, bs = idx_grid.shape
+        packed = {}
+        for name in ("Yp", "Hlabel", "Hperf"):
+            dim = self._files[(0, 0, name)].array.shape[-1]
+            rows = np.empty((s_n, u_n, bs, 2 * dim), np.float32)
+            for s in range(s_n):
+                for u in range(u_n):
+                    c = gather_rows(self._files[(s, u, name)].array, idx_grid[s, u], self.n_threads)
+                    rows[s, u, :, :dim] = c.real
+                    rows[s, u, :, dim:] = c.imag
+            packed[name] = torch.from_numpy(rows).to(self.device)
+        geom = self.geom
+        scen = torch.arange(s_n, device=self.device)
+        return {
+            "yp_img": yp_to_image(unpack_h(packed["Yp"]), geom.n_sub, geom.n_beam).contiguous(),
+            "h_label": packed["Hlabel"],
+            "h_perf": packed["Hperf"],
+            "indicator": scen[:, None, None].expand(s_n, u_n, bs),
+        }
+
+    def epoch(self, epoch: int, shuffle: bool = True) -> Iterator[dict[str, torch.Tensor]]:
+        import queue
+        import threading
+
+        bs = self.batch_size
+        perms = _epoch_perms(self.cfg, self.n, self.index_base, epoch, shuffle)
+        # a depth-limited producer: the C++ gather releases the GIL, so step
+        # k+1's assembly overlaps the consumer's step k. It always ends with
+        # a sentinel: an assembly error is forwarded to the consumer, and an
+        # abandoned epoch (the consumer's early break) sets ``stop`` so the
+        # producer is never left blocked on a full queue
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch_depth)
+        stop = threading.Event()
+        done, failed = object(), object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for step in range(self.steps_per_epoch):
+                    if not put(self._assemble(perms[:, :, step * bs : (step + 1) * bs])):
+                        return
+                put((done, None))
+            except BaseException as e:  # forwarded to the consumer and raised there
+                put((failed, e))
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if isinstance(item, tuple) and item[0] in (done, failed):
+                    if item[0] is failed:
+                        raise item[1]
+                    break
+                yield item
+        finally:
+            stop.set()
+            t.join(timeout=5.0)
+
+    def close(self) -> None:
+        for f in self._files.values():
+            f.close()
+        self._files.clear()

@@ -289,13 +289,13 @@ def _observers() -> list:
 
 
 @contextlib.contextmanager
-def _observed(name: str, inputs: tuple, work):
+def _observed(name: str, work):
     """A launch wrapper's region (its gate-table prep and the launch): with
     observers active, their dispatch modes are off inside it, and at its end
     each sees the call as one op named ``name`` (the sanitizer checks the
-    outputs the region appends to the yielded list against ``inputs``; the
-    cost counter adds ``work()``, the formula's (bytes, flops)). Without
-    observers, nothing."""
+    outputs the region appends to the yielded list for NaN; the cost counter
+    adds ``work()``, the formula's (bytes, flops)). Without observers,
+    nothing."""
     obs = _observers()
     if not obs:
         yield []
@@ -306,7 +306,7 @@ def _observed(name: str, inputs: tuple, work):
     with _disable_current_modes():
         yield outputs
         for m in obs:
-            m.kernel(name, inputs, [t for t in outputs if t is not None], work())
+            m.kernel(name, [t for t in outputs if t is not None], work())
 
 
 def _work(name: str, batch: int, n: int, layers: int = 0, members: int = 1, with_state: bool = False):
@@ -371,7 +371,7 @@ def _qsc_launch(angles, u_re, u_im, n: int) -> torch.Tensor:
     out = torch.empty((batch, n), dtype=torch.float32, device=dev)
     if batch == 0:
         return out
-    with _observed("qsc_expvals", (angles, u_re, u_im), lambda: _work("qsc_expvals", batch, n)) as outs:
+    with _observed("qsc_expvals", lambda: _work("qsc_expvals", batch, n)) as outs:
         _launch("qsc_expvals", dev, angles, u_re, u_im, out, batch, n)
         outs.append(out)
     return out
@@ -472,7 +472,7 @@ def _circuit_launch_members(angles, weights, n: int, layers: int, with_state: bo
     if batch == 0:
         return ev, fre, fim
     work = lambda: _work("circuit_expvals", batch, n, layers, members, with_state)  # noqa: E731
-    with _observed("circuit_expvals", (angles, weights), work) as outs:
+    with _observed("circuit_expvals", work) as outs:
         cs = circuit_gate_table(weights)  # (E, layers, n, 4), one call for every member
         _launch("circuit_expvals", dev, angles, cs, ev, fre, fim, batch, n, layers, int(with_state), members,
                 counter=_counter("circuit_expvals", ensemble))
@@ -581,7 +581,7 @@ def _adjoint_launch_members(fre, fim, g, angles, weights, n: int, layers: int, e
     partials = torch.empty((members, blocks, layers, n, 2), dtype=torch.float32, device=dev)
     dweights = torch.empty((members, layers, n, 2), dtype=torch.float32, device=dev)
     work = lambda: _work("circuit_adjoint", batch, n, layers, members)  # noqa: E731
-    with _observed("circuit_adjoint", (fre, fim, g, angles, weights), work) as outs:
+    with _observed("circuit_adjoint", work) as outs:
         cs = circuit_gate_table(weights)
         _launch("circuit_adjoint", dev, fre, fim, g, cs, angles, dangles, partials, dweights, batch, n, layers,
                 members, counter=_counter("circuit_adjoint", ensemble))
@@ -779,7 +779,7 @@ def _rotation_launch(re, im, weights_l, n: int) -> tuple[torch.Tensor, torch.Ten
     out_im = torch.empty((batch, dim), dtype=torch.float32, device=dev)
     if batch == 0:
         return out_re, out_im
-    with _observed("rotation_layer", (re, im, weights_l), lambda: _work("rotation_layer", batch, n)) as outs:
+    with _observed("rotation_layer", lambda: _work("rotation_layer", batch, n)) as outs:
         cs = circuit_gate_table(weights_l[None])[0].contiguous()
         _launch("rotation_layer", dev, re, im, cs, out_re, out_im, batch, n)
         outs += [out_re, out_im]
@@ -858,7 +858,7 @@ def _unitary_launch(psi_re, psi_im, u_re, u_im, n: int) -> torch.Tensor:
     # second pass: scratch only when the columns span several blocks
     tiles = _load("unitary_expvals").unitary_expvals_tiles(batch, n)
     partial = torch.empty((tiles, batch, n), dtype=torch.float32, device=dev) if tiles > 1 else None
-    with _observed("unitary_expvals", (psi_re, psi_im, u_re, u_im), lambda: _work("unitary_expvals", batch, n)) as outs:
+    with _observed("unitary_expvals", lambda: _work("unitary_expvals", batch, n)) as outs:
         _launch("unitary_expvals", dev, psi_re, psi_im, u_re, u_im, out, partial, batch, n)
         outs.append(out)
     return out

@@ -19,13 +19,17 @@ and the report gate.
 - :mod:`~.cost`: FLOPs, bytes and roofline records of a counted dispatch;
 - :mod:`~.report`: the ``report`` regression gate;
 - the request phase trace (:mod:`.tracing`) and the event spine
-  (:mod:`.events`) of the serving tier.
+  (:mod:`.events`) of the serving tier;
+- the host-side flight deck: :mod:`.timeseries` and :mod:`.burnrate`
+  (``monitor``: verb-only scraping of a running serve or route address,
+  counter differencing into windows, multi-window burn-rate alerts, the
+  timeline), :mod:`.attach` (``monitor --attach``, the hands-off loop),
+  :mod:`.capacity` (``plan``, the trace-replay capacity planner) and
+  :func:`.events.events_main` (``events``). None of them touches a device.
 
 A sink is anything with ``active``, ``write_raw(record)`` and
 ``emit(kind, **payload)``: :class:`~.core.Telemetry` and
-:class:`~qdml_tpu_torch.utils.metrics.MetricsLogger` are. The JAX package's
-host-side flight deck (``monitor``, ``plan``, ``events`` as a command) is
-not here.
+:class:`~qdml_tpu_torch.utils.metrics.MetricsLogger` are.
 """
 
 from qdml_tpu_torch.telemetry import cost  # noqa: F401
@@ -55,3 +59,14 @@ from qdml_tpu_torch.telemetry.numerics import (  # noqa: F401
 )
 from qdml_tpu_torch.telemetry.spans import get_sink, profiler_trace, set_sink, span  # noqa: F401
 from qdml_tpu_torch.telemetry.tracing import PHASES, TraceContext, trace_sampled  # noqa: F401
+from qdml_tpu_torch.telemetry.timeseries import (  # noqa: F401
+    MonitorScraper,
+    SnapshotDiff,
+    counter_delta,
+)
+from qdml_tpu_torch.telemetry.burnrate import (  # noqa: F401
+    BurnAlerter,
+    BurnRateRule,
+    burn_rate,
+    render_timeline,
+)

@@ -241,7 +241,7 @@ def _counter_class():
                 self.error = f"counting {pk} failed: {type(e).__name__}: {e}"
             return out
 
-        def kernel(self, name: str, inputs, outputs, work: tuple[float, float] | None = None) -> None:
+        def kernel(self, name: str, outputs, work: tuple[float, float] | None = None) -> None:
             """A hand kernel's launch: its formula's bytes and flops."""
             if work is not None:
                 self.bytes += work[0]

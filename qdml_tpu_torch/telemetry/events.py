@@ -9,8 +9,12 @@ correlation keys hoisted from the payload (``rid``, ``swap_epoch``, ...)
 and ``data``, the payload itself. The ring is bounded; an eviction counts
 in ``dropped``, and every tail carries the cursor-relative ``lost`` count,
 so a reader can tell whether it saw everything. A cursor from another bus
-(another ``start_seq`` epoch) reads from the ring's head. The JAX
-package's ``events`` command is not ported.
+(another ``start_seq`` epoch) reads from the ring's head.
+
+``events`` (:func:`events_main`, ``qdml_tpu/telemetry/events.py:254-341``)
+tails a running ``serve`` or ``route`` endpoint's spine from the shell over
+the port's :class:`~qdml_tpu_torch.serve.client.ServeClient`; it is
+host-side (no device, no config).
 """
 
 from __future__ import annotations
@@ -224,3 +228,93 @@ def publish(kind: str, tier: str = "host", severity: str | None = None, **fields
     The one-liner every emitter choke point calls alongside its JSONL
     write — the sink is the durable record, the bus is the live tail."""
     return ensure_bus().publish(kind, tier=tier, severity=severity, **fields)
+
+
+def normalize_tail(reply: dict) -> tuple[list[dict], dict, int, int]:
+    """``(events, next_cursor, dropped, lost)`` from either tail shape:
+    a single bus (``{"start_seq", "next_seq", ...}``) or a router
+    aggregation (``{"cursor": {source: ...}, ...}``). The next cursor is
+    whatever the endpoint wants passed back verbatim."""
+    events = reply.get("events") or []
+    if "cursor" in reply:
+        cursor = reply["cursor"]
+    else:
+        cursor = {"start_seq": reply.get("start_seq"),
+                  "seq": reply.get("next_seq")}
+    return (events, cursor,
+            int(reply.get("dropped") or 0), int(reply.get("lost") or 0))
+
+
+# ---------------------------------------------------------------------------
+# CLI: events
+# ---------------------------------------------------------------------------
+
+
+def events_main(argv: list[str]) -> int:
+    """``events --addr=HOST:PORT [--follow] [--interval=1.0]
+    [--limit=512] [--min-severity=debug] [--kinds=a,b] [--tiers=x,y]``:
+    tail a running serve/route endpoint's event spine as JSONL on stdout.
+    One tail and exit by default; ``--follow`` keeps polling the cursor
+    (Ctrl-C to stop). A nonzero loss ledger prints a ``spine_loss`` line.
+    Exit 0, 3 when the endpoint cannot be read, 2 on usage errors.
+    Host-side only: no device, no config."""
+    import json as _json
+    import sys as _sys
+
+    def _arg(name: str, default):
+        return next(
+            (a.split("=", 1)[1] for a in argv if a.startswith(f"--{name}=")),
+            default,
+        )
+
+    addr = _arg("addr", None)
+    if not addr or ":" not in addr:
+        print("events needs --addr=HOST:PORT (a serve or route endpoint)")
+        return 2
+    host, port = addr.rsplit(":", 1)
+    follow = any(a == "--follow" for a in argv)
+    interval = float(_arg("interval", "1.0"))
+    limit = int(_arg("limit", str(DEFAULT_TAIL_LIMIT)))
+    min_sev = SEVERITIES.index(str(_arg("min-severity", "debug")))
+    kinds = {k for k in str(_arg("kinds", "")).split(",") if k}
+    tiers = {t for t in str(_arg("tiers", "")).split(",") if t}
+
+    from qdml_tpu_torch.serve.client import ServeClient, ServeClientError
+
+    client = ServeClient(host, int(port), timeout_s=max(5.0, interval * 4))
+    cursor = None
+    last_dropped = last_lost = 0
+    try:
+        while True:
+            try:
+                rep = client.events(cursor, limit=limit)
+            except ServeClientError as e:
+                print(_json.dumps({"spine_error": str(e)}), file=_sys.stderr)
+                return 3
+            if not rep.get("ok"):
+                print(_json.dumps({"spine_error": rep.get("reason")}),
+                      file=_sys.stderr)
+                return 3
+            events, cursor, dropped, lost = normalize_tail(
+                rep.get("events") or {}
+            )
+            if dropped > last_dropped or lost > last_lost:
+                print(_json.dumps({"spine_loss": {"dropped": dropped,
+                                                  "lost": lost}}))
+                last_dropped, last_lost = dropped, lost
+            for e in events:
+                if SEVERITIES.index(e.get("severity", "info")) < min_sev:
+                    continue
+                if kinds and e.get("kind") not in kinds:
+                    continue
+                if tiers and e.get("tier") not in tiers:
+                    continue
+                print(_json.dumps(e), flush=follow)
+            if not follow:
+                break
+            time.sleep(interval)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        client.close_connection()
+    return 0

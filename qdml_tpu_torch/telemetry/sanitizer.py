@@ -4,10 +4,12 @@ The flight recorder's probes see a step's aggregate damage; this catches
 the op where it happens, with the JAX package's error classes and message
 shapes:
 
-- **NaN generated**: an op's output holds a NaN where none of its inputs
-  did: ``"nan generated by primitive: <op>."``. An Inf input alone does not
-  trip it (``log(inf)`` is ``inf``), an Inf that meets a zero or another
-  Inf does (``inf - inf``), as in JAX;
+- **NaN generated**: an op's output holds a NaN, whatever its inputs held:
+  ``"nan generated by primitive: <op>."``. This is JAX's rule (its
+  checkify tests the output of every primitive in ``nan_primitives``): a
+  NaN that arrives in a request or a batch trips the first op that
+  computes with it. An Inf input alone does not trip it (``log(inf)`` is
+  ``inf``), an Inf that meets a zero or another Inf does (``inf - inf``);
 - **division by zero**: integer ``div`` (with a rounding mode),
   ``floor_divide``, ``remainder`` and ``fmod`` by zero;
 - **out-of-bounds index**: a gather, scatter, index, take, embedding or
@@ -23,13 +25,15 @@ kills the CUDA context; JAX's gathers clamp). The mode reaches the autograd
 engine's device threads with the rest of the thread-local dispatch state,
 so backward ops are checked too. The hand-written CUDA kernels are called
 through ``ctypes`` and no dispatch mode sees them: their wrappers hand
-their inputs and outputs to :meth:`Sanitizer.kernel` (the gate-table prep
-included), which checks them under the kernel's name
+their outputs to :meth:`Sanitizer.kernel` (the gate-table prep included),
+which checks them under the kernel's name
 (``"nan generated by primitive: circuit_expvals."``), forward and backward.
 On the CPU those wrappers run their plain versions, checked op by op.
 
 Ops that cannot make a NaN the inputs lack (views, copies, concatenation,
-selection, creation of constants) skip the NaN test; ops that allocate
+selection, creation of constants) skip the NaN test, so a NaN moves through
+them (and through a ``where`` that masks it out, as the ragged batches'
+pad rows are masked) untested; ops that allocate
 uninitialised memory (``empty``) are not read. An op whose outputs cannot
 be read for NaN (integer, boolean or sparse outputs) and that no index or
 division rule covers is listed by name in :attr:`Sanitizer.unchecked`,
@@ -234,13 +238,7 @@ class Sanitizer(TorchDispatchMode):
         self._index_rules(func, args, kwargs, op)
         if pk in _DIVISION:
             self._division(func, args, kwargs, op)
-        flat_in, _ = tree_flatten((args, kwargs))
         nan_check = pk not in _NO_NAN and not func.is_view
-        # inputs read before the op runs: an in-place op overwrites them
-        # the op's device: a float input with dims (a 0-d CPU tensor is a host scalar), else any
-        device = next((t.device for t in flat_in if _float(t) and t.dim()), None) or next(
-            (t.device for t in flat_in if _float(t)), None)
-        in_nan = self._any_nan(flat_in, device) if nan_check and device is not None else None
         out = func(*args, **kwargs)
         if not nan_check:
             return out
@@ -257,28 +255,21 @@ class Sanitizer(TorchDispatchMode):
         dev = floats[0].device
         out_nan = self._any_nan(floats, dev)
         if out_nan is not None:
-            if in_nan is not None and device == dev:
-                out_nan = out_nan & ~in_nan
             self._fold(out_nan, self._code(_NAN, op))
         return out
 
     # -- the hand kernels -------------------------------------------------------------
 
-    def kernel(self, name: str, inputs, outputs, work=None) -> None:
+    def kernel(self, name: str, outputs, work=None) -> None:
         """Check a hand kernel's call as one op named ``name``: a NaN in its
-        outputs that its inputs lack trips (called by the wrappers in
+        outputs trips, whatever its inputs held (called by the wrappers in
         :mod:`qdml_tpu_torch.quantum.kernels`, with the modes off)."""
         outs = [t for t in outputs if _float(t)]
         if not outs:
             return
-        dev = outs[0].device
-        out_nan = self._any_nan(outs, dev)
-        if out_nan is None:
-            return
-        in_nan = self._any_nan([t for t in inputs if isinstance(t, torch.Tensor)], dev)
-        if in_nan is not None:
-            out_nan = out_nan & ~in_nan
-        self._fold(out_nan, self._code(_NAN, name))
+        out_nan = self._any_nan(outs, outs[0].device)
+        if out_nan is not None:
+            self._fold(out_nan, self._code(_NAN, name))
 
     # -- the host side ------------------------------------------------------------------
 

@@ -386,7 +386,7 @@ def test_hand_kernel_work_counts_in_the_cost_record():
 
     counter = cost.cost_counter()
     with counter:
-        counter.kernel("circuit_expvals", (), [], cost.kernel_work("circuit_expvals", 64, 6, 3))
+        counter.kernel("circuit_expvals", [], cost.kernel_work("circuit_expvals", 64, 6, 3))
     assert counter.flops == cost.circuit_work(64, 6, 3)[1] and counter.kernels == {"circuit_expvals": 1}
     assert kernels._observers() == []  # none active outside a mode
 

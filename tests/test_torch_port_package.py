@@ -42,6 +42,12 @@ FLEET_MODULES = tuple(f"qdml_tpu_torch.{m}" for m in (
 TELEMETRY_MODULES = tuple(f"qdml_tpu_torch.telemetry.{m}" for m in (
     "core", "manifest", "counters", "spans", "numerics", "sanitizer", "cost", "report",
 ))
+# the host half: the flight deck (events, plan, monitor) and the native IO
+# runtime behind the .npy grid loader
+HOST_MODULES = tuple(f"qdml_tpu_torch.{m}" for m in (
+    "telemetry.events", "telemetry.capacity", "telemetry.burnrate", "telemetry.timeseries", "telemetry.attach",
+    "runtime", "runtime.native_io",
+))
 
 
 def test_import_everything_leaves_jax_out():
@@ -54,13 +60,14 @@ def test_import_everything_leaves_jax_out():
         f"assert set({MESH_MODULES!r}) <= set(sys.modules)\n"
         f"assert set({FLEET_MODULES!r}) <= set(sys.modules)\n"
         f"assert set({TELEMETRY_MODULES!r}) <= set(sys.modules)\n"
+        f"assert set({HOST_MODULES!r}) <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('qdml_tpu_torch')]))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 91  # every module of the fifteen slices was imported
+    assert int(out.stdout.strip()) >= 97  # every module of the sixteen slices was imported
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
