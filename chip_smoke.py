@@ -22,6 +22,13 @@ Phases, each of which exits non-zero on failure:
    The rotation-layer kernel's entry point is the sharded statevector
    (phase 8k; the JAX package reaches its own only from
    ``tests/test_pallas.py``);
+3b. lint: ``python -m qdml_tpu_torch.cli lint --baseline
+   --json=build/chip_smoke/lint.json`` in a process of its own, through a
+   ``-c`` wrapper that calls ``cli.main`` and then reports
+   ``torch.cuda.is_initialized()`` and whether the kernels' module was
+   loaded: it fails unless the gate exits 0 with no new finding, without a
+   CUDA context and without the kernels' module, in under 15 s (its
+   seconds logged);
 4. autotune: the circuit-impl race (``quantum/autotune.ensure``, forced) on
    the card at n=6 L=3 buckets 64 and 4096 (the training step's 2304 rows)
    and n=8 L=3 bucket 64, into a table under ``build/chip_smoke/autotune/``;
@@ -345,9 +352,10 @@ Phases, each of which exits non-zero on failure:
    batches its launches run at; the rotation layer at its main-path shape
    (n=14, B=144) and at n 8 and 14, B 1 and
    2304, and at n 20, B 64; the unitary kernel at n 6, B 2304, n 10, B 1 and
-   2304, and n 14, B 1, beside the complex64 ``torch.matmul`` alone), each
-   with its bound, the card's launch floor (the device
-   time of a one-element in-place ``add_``, a yardstick on no path), the
+   2304, and n 14, B 1, and the complex64 ``torch.matmul`` alone beside
+   it, both always as CUDA graph replays between events), each with its
+   bound, the card's launch floor (the device time of a one-element
+   in-place ``add_``, a yardstick on no path), the
    adjoint's resident blocks per SM (occupancy query), each bucket's
    ``infer`` latency and each trainer's step time with its
    forward/backward/update split (host clock), and each phase's wall time;
@@ -526,25 +534,70 @@ def host_ms(torch, fn, reps: int = 20) -> tuple[float, float]:
     return statistics.median(lat), min(lat)
 
 
-def profiled_device_us(torch, fn, kernel: str | None, calls: int = 20) -> float | None:
+# idle host time at each end of a profiler window: late in a long process the
+# trace drops the device events of whole sessions, and this halves the share
+# dropped (qdml_tpu_torch/scripts/profiler_drops.py)
+PROFILE_PAD_S = 0.005
+
+
+def profiled_device_us(
+    torch, fn, kernel: str | None, calls: int = 20, pad_s: float = PROFILE_PAD_S
+) -> float | None:
     """Device time per call of ``fn`` spent in the kernels whose name holds
     ``kernel`` (every device kernel when None), over ``calls`` calls, read
     from the torch profiler's CUDA trace; None when the trace holds no device
     time for them. A call may launch several (the unitary kernel's second
-    pass sums its column tiles)."""
+    pass sums its column tiles). The window opens ``pad_s`` seconds before
+    the first call and closes ``pad_s`` after the card has finished. Early
+    in a long process every duration can read low by one common factor
+    (down to 0.55 of a fresh process's); later readings are right or None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
     total = 0.0
     for evt in prof.events():
         if "CUDA" in str(getattr(evt, "device_type", "")) and (kernel is None or kernel in evt.name):
             total += evt.time_range.elapsed_us()
     return total / calls if total > 0 else None
+
+
+def graph_device_us(torch, K, fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time per call of ``fn`` without the host's launch time:
+    ``calls`` calls captured into one CUDA graph (the wrappers' launches go
+    to ``K.counting_capture``'s tally, not to the path's counters), replayed
+    ``replays`` times between CUDA events after a warm-up replay; the median
+    replay over ``calls``. Inside the graph the calls run back to back, so a
+    call's time includes the gap between two kernels of the graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with K.counting_capture(), torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / calls)
+    del graph
+    return statistics.median(times)
 
 
 def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
@@ -614,11 +667,12 @@ def device_sweep(torch, K, circuits, card: str, floor_us) -> None:
         for b in batches:
             psi = CArr(torch.randn(b, 1 << n, device=dev), torch.randn(b, 1 << n, device=dev))
             psi_c = torch.complex(psi.re, psi.im)
-            us = profiled_device_us(torch, lambda: K.fused_unitary_expvals(psi, u, n), "unitary_expvals_")
-            mm_us = profiled_device_us(torch, lambda: torch.matmul(psi_c, ut_c), None)
+            us = graph_device_us(torch, K, lambda: K.fused_unitary_expvals(psi, u, n))
+            mm_us = graph_device_us(torch, K, lambda: torch.matmul(psi_c, ut_c))
             bnd, by = bound(*unitary_work(b, n))
-            log(f"device sweep unitary_expvals n={n} B={b}: {us} us per launch, complex64 torch.matmul "
-                f"alone {mm_us} us, bound {1e3 * bnd:.5f} us ({by}), launch floor {floor_us} us [{card}]")
+            log(f"device sweep unitary_expvals n={n} B={b}: {us} us per launch, complex64 torch.matmul alone "
+                f"{mm_us} us (both by CUDA graph replays), bound {1e3 * bnd:.5f} us ({by}), launch floor "
+                f"{floor_us} us [{card}]")
 
 
 def check_kernels(torch, K, circuits, unitary_ready=lambda: None) -> dict[str, float]:
@@ -3522,7 +3576,7 @@ def fleet_phase(torch, K, mods, card: str) -> None:
                 def run_side():
                     try:
                         during()
-                    except Exception as e:  # reported as the window's failure below
+                    except Exception as e:  # lint: disable=broad-except(the injection side thread must report its failure into the window's result, not die silently and fake a passing window)
                         side_err.append(f"{type(e).__name__}: {e}")
 
                 side = threading.Thread(target=run_side, daemon=True)
@@ -4643,6 +4697,48 @@ def bench_phase(card: str) -> None:
     log(f"bench: one JSON line above, also in {EVAL_WORK / 'bench.json'} [{card}]")
 
 
+# the lint phase's process: the port's CLI, then what it left in the process
+LINT_WRAPPER = (
+    "import json, sys, torch\n"
+    "from qdml_tpu_torch import cli\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print(json.dumps({'rc': rc, 'cuda_initialized': torch.cuda.is_initialized(),\n"
+    "                  'kernels_loaded': 'qdml_tpu_torch.quantum.kernels' in sys.modules}))\n"
+)
+LINT_MAX_S = 15.0
+
+
+def lint_phase(card: str) -> None:
+    """``python -m qdml_tpu_torch.cli lint --baseline --json=build/chip_smoke/
+    lint.json`` through a ``-c`` wrapper that calls ``cli.main`` and then
+    reports ``torch.cuda.is_initialized()`` and whether the kernels' module
+    was loaded: the gate must pass (exit 0, no new finding) without a CUDA
+    context or a kernel, in under ``LINT_MAX_S`` seconds. A host tool must
+    not hold memory on a serving card."""
+    out = EVAL_WORK / "lint.json"
+    t = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", LINT_WRAPPER, "lint", "--baseline", f"--json={out}"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=120,
+    )
+    secs = time.perf_counter() - t
+    lines = run.stdout.strip().splitlines()
+    if run.returncode != 0 or not lines:
+        raise AssertionError(f"lint wrapper exited {run.returncode}: {run.stdout[-2000:]} {run.stderr[-2000:]}")
+    proc = json.loads(lines[-1])
+    gate = json.loads(out.read_text())
+    log(f"lint: {lines[-2] if len(lines) > 1 else ''}")
+    log(f"lint: exit {proc['rc']}, new findings {gate['new_findings']}, suppressed {gate['suppressed']}, "
+        f"baselined {gate['baselined']}, CUDA initialised {proc['cuda_initialized']}, kernels module loaded "
+        f"{proc['kernels_loaded']}, {secs:.2f} s for the process (limit {LINT_MAX_S:g} s) [{card}]")
+    if proc["rc"] != 0 or gate["new_findings"] != 0 or not gate["ok"]:
+        raise AssertionError(f"lint gate failed: exit {proc['rc']}, {gate['per_rule']}, {gate['errors']}")
+    if proc["cuda_initialized"] or proc["kernels_loaded"]:
+        raise AssertionError(f"lint touched the card: {proc}")
+    if secs > LINT_MAX_S:
+        raise AssertionError(f"lint took {secs:.2f} s, over {LINT_MAX_S:g} s")
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -4695,7 +4791,7 @@ def main() -> int:
     def build_slow():
         try:
             slow_build["secs"] = K.build((slow,))
-        except Exception as e:  # re-raised in the main thread by unitary_ready
+        except Exception as e:  # lint: disable=broad-except(the build thread hands any failure to the main thread, which re-raises it in unitary_ready)
             slow_build["error"] = e
 
     slow_thread = threading.Thread(target=build_slow)
@@ -4756,6 +4852,7 @@ def main() -> int:
     from qdml_tpu_torch.serve import batching_autotune
 
     batching_autotune.set_table_path(str(TUNE_DIR / "serve_batching.json"))
+    phase("lint", lint_phase, card)
     race_launches = phase("autotune", autotune_phase, torch, K, cfg_mod, card)
     launches, engines, requests = phase("serve", serve, torch, K, cfg_mod, engine_mod, hdce_mod, qsc_mod)
     dispatch_launches = phase(
@@ -4884,11 +4981,10 @@ def main() -> int:
                 torch, lambda: K.circuit_adjoint(*t["args"]), "circuit_adjoint_"
             )
         rot["device_us"] = profiled_device_us(torch, lambda: K.apply_rotation_layer(*rot_args), "rotation_layer_kernel")
-        uni["device_us"] = profiled_device_us(
-            torch, lambda: K.fused_unitary_expvals(uni_psi, uni_u, UNI_N), "unitary_expvals_"
-        )
-        # the yardstick: the complex product alone, one PyTorch call the port never makes
-        uni["matmul_device_us"] = profiled_device_us(torch, lambda: torch.matmul(psi_c, ut_c), None)
+        # the kernel beside its yardstick, the complex product alone (one
+        # PyTorch call the port never makes), both as CUDA graph replays
+        uni["device_us"] = graph_device_us(torch, K, lambda: K.fused_unitary_expvals(uni_psi, uni_u, UNI_N))
+        uni["matmul_device_us"] = graph_device_us(torch, K, lambda: torch.matmul(psi_c, ut_c))
         for key, kname in (("fwd", "circuit_expvals_kernel"), ("fwd_single", "circuit_expvals_kernel"),
                            ("adj", "circuit_adjoint_"), ("adj_single", "circuit_adjoint_")):
             ens_t[f"{key}_device_us"] = profiled_device_us(torch, ens_t["calls"][key], kname)
@@ -4920,7 +5016,8 @@ def main() -> int:
     log(f"time unitary_expvals n={UNI_N} B={WIDE_BATCH}: wrapper {uni['ms']:.5f} ms, device "
         f"{shown_us(uni['device_us'])} per launch, plain {uni['plain_ms']:.5f} ms, the complex product "
         f"alone (torch.matmul, complex64) {uni['matmul_ms']:.5f} ms event-timed, device "
-        f"{shown_us(uni['matmul_device_us'])}, bound {uni['bound'][0]:.3e} ms ({uni['bound'][1]}) [{card}]")
+        f"{shown_us(uni['matmul_device_us'])} (both device times by CUDA graph replays), bound "
+        f"{uni['bound'][0]:.3e} ms ({uni['bound'][1]}) [{card}]")
 
     e, eb = ens["members"], ens["rows"]
     for key, what in (("fwd", "circuit_expvals"), ("adj", "circuit_adjoint")):

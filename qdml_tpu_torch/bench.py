@@ -294,7 +294,7 @@ def bench_qsc(dev: torch.device, steps: int, scan_k: int) -> dict:
             out[impl] = {"samples_per_sec": round(sps, 1), "step_ms": round(t["ms"], 4),
                          "quantum_impl": impl, "probes": probes, **_flop_rates(sps, fwd, dev),
                          **_telemetry_fields(cost, t["calls_per_s"])}
-        except Exception as e:  # one impl failing keeps the others' rows
+        except Exception as e:  # lint: disable=broad-except(candidate isolation: one impl failing must not kill the others' rows; the error, a DivergenceError's dump path in its message included, is recorded on the row)
             out[impl] = _error(e)
     cfg = _grid_cfg(impl="auto")
     entry = autotune.prewarm(cfg, batch=rows, device=dev)
@@ -352,7 +352,7 @@ def bench_scenario_scaling(dev: torch.device, capacity_factor: float = 1.25) -> 
             point["samples_per_sec"] = round(1e3 / ms * b, 1)
             point["agreement"] = dispatch_agreement(s, batch=b, features=8, capacity_factor=capacity_factor,
                                                     device=dev)
-        except Exception as e:  # one S failing keeps the other points
+        except Exception as e:  # lint: disable=broad-except(point isolation: one S failing must not kill the sweep's other points; the error is recorded on the point)
             point.update(_error(e))
         points.append(point)
     return {"points": points, "features": SCALING_FEATURES, "image_hw": list(SCALING_HW),
@@ -416,7 +416,7 @@ def bench_qsc_scaling(
             if ref is not None and "mps" in (winner, ref) and chi < 1 << (n // 2):
                 point["agreement_exact_chi"] = impl_agreement(
                     n, winner, n_layers, batch=min(4, batch), mps_chi=1 << (n // 2), device=dev)
-        except Exception as e:  # one n failing keeps the other points
+        except Exception as e:  # lint: disable=broad-except(point isolation: one n failing must not kill the sweep's other points; the error is recorded on the point)
             point.update(_error(e))
         points.append(point)
     return {"points": points, "n_layers": n_layers, "mps_chi": mps_chi, "budget_s": budget_s,
@@ -499,7 +499,7 @@ def run(
     for names, fn in rows:
         try:
             record.update(fn())
-        except Exception as e:  # a failed row is recorded, the others still run
+        except Exception as e:  # lint: disable=broad-except(sub-bench isolation: one failing row must not kill the others; the error, a DivergenceError's dump path in its message included, is recorded on the row)
             for name in names:
                 record[name] = _error(e)
     record.update(_envelope(record, dev, scan_k))

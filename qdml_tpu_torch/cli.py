@@ -22,6 +22,7 @@
     python -m qdml_tpu_torch.cli plan         --trace=W.jsonl --target-rps=X --p99-ms=Y [--emit-target=T.json]
     python -m qdml_tpu_torch.cli monitor      --addr=HOST:PORT [--duration=30] [--attach --dry-run] [--out=M.jsonl]
     python -m qdml_tpu_torch.cli monitor      --render --current=M.jsonl [--events=A.jsonl] [--out=timeline.md]
+    python -m qdml_tpu_torch.cli lint         [--baseline] [--json=F] [--paths=P,...] [--durations=F] [--list-rules]
 
 Dotted flags override :mod:`qdml_tpu_torch.config` fields, as in the JAX
 package, and ``--preset=NAME`` starts from one of its presets (``single_4q``,
@@ -119,6 +120,11 @@ manifest-headed ``monitor.jsonl`` and prints its summary; ``--attach``
 ticks a fleet autoscaler each window through the ``{"op": "fleet"}`` verb
 (``--dry-run`` decides without acting), exit 0, 3 on a reconnect give-up;
 ``--render`` turns a recorded stream into the markdown timeline.
+
+``lint`` is host-side the same way (no device, no config, no world, no
+kernel built or loaded): the static-analysis gate over the port's own tree
+(:mod:`qdml_tpu_torch.analysis`), exit 0 clean, 1 on new findings, 2 on
+usage errors; ``--json=F`` writes the record ``report --lint=F`` reads.
 """
 
 from __future__ import annotations
@@ -134,7 +140,7 @@ from qdml_tpu_torch.utils.metrics import MetricsLogger
 COMMANDS = (
     "train-hdce", "train-dce", "train-sc", "train-qsc", "nat-sweep", "eval", "profile", "gen-data",
     "import-torch", "export-torch", "loss-curves", "serve", "loadgen", "control", "route",
-)  # "report", "fleet-scale", "events", "plan", "monitor" dispatch before config parsing (host-side)
+)  # "report", "fleet-scale", "events", "plan", "monitor", "lint" dispatch before config parsing (host-side)
 # the commands that lay themselves on a mesh under a world of several ranks
 MESH_COMMANDS = ("train-hdce", "train-sc", "train-qsc", "nat-sweep", "eval")
 
@@ -380,6 +386,10 @@ def _main(argv: list[str] | None) -> int:
         from qdml_tpu_torch.telemetry.timeseries import monitor_main
 
         return monitor_main(rest)
+    if cmd == "lint":
+        from qdml_tpu_torch.analysis.cli import lint_main
+
+        return lint_main(rest)
     if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}; want one of {COMMANDS}")
         return 2

@@ -602,7 +602,7 @@ class NpyGridLoader:
                     if not put(self._assemble(perms[:, :, step * bs : (step + 1) * bs])):
                         return
                 put((done, None))
-            except BaseException as e:  # forwarded to the consumer and raised there
+            except BaseException as e:  # lint: disable=broad-except(producer-thread failures (incl. KeyboardInterrupt) are forwarded through the queue and re-raised on the consumer)
                 put((failed, e))
 
         t = threading.Thread(target=producer, daemon=True)

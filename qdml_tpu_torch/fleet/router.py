@@ -584,7 +584,7 @@ class FleetRouter:
         while not self._poll_stop.wait(self.poll_interval_s):
             try:
                 self.poll_once()
-            except Exception as e:  # the re-admission engine reports a failed sweep and survives it
+            except Exception as e:  # lint: disable=broad-except(the poll thread is the re-admission engine: a transient poll failure must be reported and survived, not end health tracking for the whole fleet)
                 _emit_event("router_poll_error", error=f"{type(e).__name__}: {e}")
 
     def poll_once(self) -> None:

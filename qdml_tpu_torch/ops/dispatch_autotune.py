@@ -148,7 +148,7 @@ def lookup(
             # an alien or hand-edited entry cannot force sparse below its window
             return None
         return sel
-    except Exception:  # any table pathology degrades to the dense fallback
+    except Exception:  # lint: disable=broad-except(dispatch lookup must degrade to the dense fallback on ANY table pathology: tuning can speed routing up, never crash it)
         return None
 
 

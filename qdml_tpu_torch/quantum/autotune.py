@@ -423,7 +423,7 @@ def lookup_reason(
         if not ok:
             return None, "entry-ineligible"
         return sel, None
-    except Exception:  # any table pathology degrades to the heuristic
+    except Exception:  # lint: disable=broad-except(dispatch lookup must degrade to the heuristic on ANY table pathology: a tuner can speed dispatch up, never crash it)
         return None, None
 
 

@@ -207,7 +207,7 @@ class NativeNpyFile:
     def __del__(self):
         try:
             self.close()
-        except Exception:  # at interpreter shutdown the module's globals may be gone
+        except Exception:  # lint: disable=broad-except(__del__ at interpreter shutdown: module globals may already be torn down)
             pass
 
 
@@ -322,5 +322,5 @@ class PrefetchPipeline:
     def __del__(self):
         try:
             self.close()
-        except Exception:  # at interpreter shutdown the module's globals may be gone
+        except Exception:  # lint: disable=broad-except(__del__ at interpreter shutdown: module globals may already be torn down)
             pass

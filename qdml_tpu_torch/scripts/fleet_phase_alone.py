@@ -145,7 +145,7 @@ def main(argv: list[str]) -> int:
     ok = True
     try:
         S.fleet_phase(torch, K, mods, card)
-    except Exception as e:
+    except Exception as e:  # lint: disable=broad-except(the phase's failure of any type is this measurement's outcome: it is printed and becomes the exit code)
         ok = False
         stamp(f"fleet phase FAILED: {type(e).__name__}: {e}")
     stamp(f"fleet phase ok {ok} wall {time.perf_counter() - t:.2f} s; backend ports {ports}; "

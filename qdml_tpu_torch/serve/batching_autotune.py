@@ -108,7 +108,7 @@ def lookup(
             return None
         sel = entry.get("best_infer")
         return sel if sel in _MODES else None
-    except Exception:  # any table pathology degrades to the bucket fallback
+    except Exception:  # lint: disable=broad-except(batching lookup must degrade to the bucket incumbent on ANY table pathology: tuning can speed serving up, never crash it)
         return None
 
 

@@ -313,7 +313,7 @@ class ServeMetrics:
                 batches=self.batches,
                 completed=self.completed,
                 goodput_rps=(
-                    round(self.rows_useful / elapsed, 2) if elapsed > 0 else None
+                    round(self.rows_useful / elapsed, 2) if elapsed > 0 else None  # lint: disable=unwindowed-cumulative-rate(run-level summary over the full flush span, not a live window: the monitor differences snapshots for windowed rates)
                 ),
                 padding_waste=self.padding_waste(),
                 rows=self.rows(),
@@ -349,14 +349,14 @@ class ServeMetrics:
             # failures by kind + supervised replica restarts in this window
             "faults": dict(self.faults),
             "restarts": self.restarts,
-            "rps": round(self.completed / elapsed, 2) if elapsed > 0 else None,
+            "rps": round(self.completed / elapsed, 2) if elapsed > 0 else None,  # lint: disable=unwindowed-cumulative-rate(run-level summary rate over the run's own span: restart-safe windowed rates live in the monitor's snapshot differencing)
             # goodput = USEFUL rows/s: completed within deadline (or with no
             # deadline offered — a request is one row here), so sheds, LATE
             # completions and the window's drain all cost goodput while mere
             # rows/s hides them; padding waste is the dispatched-row fraction
             # the card computed for nothing
             "goodput_rps": (
-                round(self.rows_useful / elapsed, 2) if elapsed > 0 else None
+                round(self.rows_useful / elapsed, 2) if elapsed > 0 else None  # lint: disable=unwindowed-cumulative-rate(run-level summary over the run's own span, paired with the rps row above)
             ),
             "padding_waste": self.padding_waste(),
             "rows": self.rows(),

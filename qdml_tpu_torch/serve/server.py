@@ -693,7 +693,7 @@ class ReplicaPool:
         while not self._sup_stop.wait(self._sup_interval_s):
             try:
                 self._check_replicas()
-            except Exception as e:
+            except Exception as e:  # lint: disable=broad-except(the supervisor is the last line of defense: a transient restart failure must be reported and survived, not kill supervision and strand the pool unsupervised)
                 _emit_event(
                     "supervisor_error", error=f"{type(e).__name__}: {e}"
                 )
@@ -1197,7 +1197,7 @@ async def _handle(
                 continue
             try:
                 res = await asyncio.wrap_future(fut)
-            except Exception as e:
+            except Exception as e:  # lint: disable=broad-except(the serve loop forwards ANY dispatch failure (engine errors, injected chaos faults, DivergenceError from serve.checkify) into the future; the client must get a typed server_error reply, not a dropped connection)
                 writer.write(
                     (json.dumps({
                         "id": rid, "ok": False,

@@ -237,7 +237,7 @@ def _counter_class():
                     self.flops += f
                     self.flops_by_op[str(pk)] = self.flops_by_op.get(str(pk), 0.0) + f
                 self.bytes += nbytes(tree_flatten((args, kwargs))[0]) + nbytes(tree_flatten(out)[0])
-            except Exception as e:  # accounting never fails the op it counts
+            except Exception as e:  # lint: disable=broad-except(cost accounting must never fail the op it counts; the failure is recorded on the counter)
                 self.error = f"counting {pk} failed: {type(e).__name__}: {e}"
             return out
 
@@ -292,7 +292,7 @@ def counting(device, dtype: str = "float32") -> Iterator[dict]:
     cuda = dev.type == "cuda"
     try:
         counter = cost_counter()
-    except Exception as e:  # accounting never kills the run it measures
+    except Exception as e:  # lint: disable=broad-except(cost accounting must never kill the run it measures; the record says available:false with the reason)
         rec.update(available=False, reason=f"counting mode failed: {type(e).__name__}: {e}", platform=platform)
         yield rec
         return

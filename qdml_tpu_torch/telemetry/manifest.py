@@ -88,7 +88,7 @@ def _torch_info() -> dict:
             "process_index": dist.get_rank() if world else 0,
             "process_count": dist.get_world_size() if world else 1,
         }
-    except Exception as e:  # a manifest never kills a run: the failure goes into it
+    except Exception as e:  # lint: disable=broad-except(a manifest must never kill a run; the failure is recorded in the manifest itself)
         return {"error": f"{type(e).__name__}: {e}"}
 
 

@@ -481,6 +481,6 @@ class FlightRecorder:
                 target.emit("flightrec_dump", name=self.name, reason=reason, step=self._n,
                             epoch=int(epoch), dump_dir=dump_dir)
             return dump_dir
-        except Exception as e:  # the DivergenceError about to be raised is the failure that matters
+        except Exception as e:  # lint: disable=broad-except(a failing dump must not mask the DivergenceError about to be raised)
             print(f"[flightrec] dump failed: {type(e).__name__}: {e}", flush=True)
             return None

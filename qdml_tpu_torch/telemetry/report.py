@@ -399,8 +399,10 @@ BREAKER_OPEN_SLACK = 0.05
 
 
 def _lint_gate(lint_path: str | None) -> dict | None:
-    """Row data from a ``qdml-tpu lint --json`` artifact. The lint gate is
-    host-side static analysis: platform disarm rules never apply to it."""
+    """Row data from a lint gate's ``--json`` artifact: the port's own
+    (``python -m qdml_tpu_torch.cli lint --json=F``), or the JAX package's,
+    which has the same schema. The lint gate is host-side static analysis:
+    platform disarm rules never apply to it."""
     if lint_path is None:
         return None
     try:
@@ -470,7 +472,7 @@ def build_report_data(
     stranded_failed = False
     monitor_failed = False
 
-    # Lint gate (qdml-tpu lint --json artifact): folded in alongside the perf
+    # Lint gate (the `cli lint --json` artifact): folded in alongside the perf
     # gates so CI reads ONE exit code. Static analysis is host-side — the
     # platform-mismatch disarm below never applies to this row, and a lint
     # failure alone forces the regression exit code (report_main).

@@ -283,7 +283,8 @@ class Sanitizer(TorchDispatchMode):
             for st in states:
                 code, payload = (int(v) for v in torch.stack([st.err.to(torch.int64), st.payload]).cpu())
                 if code:
-                    kind, op, detail = self._table[code - 1]
+                    with self._lock:
+                        kind, op, detail = self._table[code - 1]
                     if kind == _NAN:
                         return f"nan generated by primitive: {op}."
                     if kind == _DIV:

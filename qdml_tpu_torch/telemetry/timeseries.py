@@ -304,7 +304,7 @@ class MonitorScraper:
         try:
             h = self.poller.health()
             m = self.poller.metrics()
-        except Exception as e:
+        except Exception as e:  # lint: disable=broad-except(a monitor must survive its target restarting mid-scrape: the failed poll is itself the observation, reported as a scrape_error event)
             self.scrape_errors += 1
             ev = {"event": "scrape_error", "t_s": t_s,
                   "error": f"{type(e).__name__}: {e}"}
@@ -436,7 +436,7 @@ class MonitorScraper:
             return []
         try:
             t = self.poller.events(self.events_cursor)
-        except Exception as e:
+        except Exception as e:  # lint: disable=broad-except(the events tail must survive its target restarting mid-scrape exactly like health/metrics: the failed poll is the observation, and the kept cursor resumes the tail)
             self.scrape_errors += 1
             ev = {"event": "scrape_error", "verb": "events",
                   "t_s": self._rel(self.clock()),

@@ -48,6 +48,10 @@ HOST_MODULES = tuple(f"qdml_tpu_torch.{m}" for m in (
     "telemetry.events", "telemetry.capacity", "telemetry.burnrate", "telemetry.timeseries", "telemetry.attach",
     "runtime", "runtime.native_io",
 ))
+# the lint gate over the port's own tree: standard library only
+ANALYSIS_MODULES = tuple(f"qdml_tpu_torch.analysis{m}" for m in (
+    "", ".engine", ".project", ".rules", ".slowmarkers", ".cli",
+))
 
 
 def test_import_everything_leaves_jax_out():
@@ -61,13 +65,14 @@ def test_import_everything_leaves_jax_out():
         f"assert set({FLEET_MODULES!r}) <= set(sys.modules)\n"
         f"assert set({TELEMETRY_MODULES!r}) <= set(sys.modules)\n"
         f"assert set({HOST_MODULES!r}) <= set(sys.modules)\n"
+        f"assert set({ANALYSIS_MODULES!r}) <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('qdml_tpu_torch')]))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 97  # every module of the sixteen slices was imported
+    assert int(out.stdout.strip()) >= 105  # every module of the seventeen slices was imported
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -108,8 +113,9 @@ def test_every_module_has_a_jax_counterpart_or_is_the_kernels():
         if rel == Path("parallel/selfcheck.py"):  # the rank programs, JAX's a test worker
             assert (ROOT / "tests/multihost_worker.py").exists()
             continue
-        if rel in (Path("scripts/fleet_phase_alone.py"), Path("scripts/warmup_cost.py")):
-            continue  # measurements of the port's own smoke and serving warmup
+        if rel in (Path("scripts/fleet_phase_alone.py"), Path("scripts/warmup_cost.py"),
+                   Path("scripts/profiler_drops.py")):
+            continue  # measurements of the port's own smoke, serving warmup and profiler sessions
         assert (ROOT / "qdml_tpu" / rel).exists(), rel
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
         "circuit_adjoint.cu", "circuit_expvals.cu", "qsc_expvals.cu", "rotation_layer.cu",
@@ -240,6 +246,7 @@ def test_submodules_import():
     assert set(MESH_MODULES) <= set(mods)
     assert set(FLEET_MODULES) <= set(mods)
     assert set(TELEMETRY_MODULES) <= set(mods)
+    assert set(ANALYSIS_MODULES) <= set(mods)
     for name in ("data.channels", "data.datasets", "train.optim", "train.qsc", "train.checkpoint",
                  "ops.quantumnat", "ops.grad_prune", "models.losses", "utils.metrics", "cli",
                  "data.baselines", "eval.sweep", "eval.report", "eval.loss_curves",
