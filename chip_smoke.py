@@ -22,13 +22,14 @@ Phases, each of which exits non-zero on failure:
    The rotation-layer kernel's entry point is the sharded statevector
    (phase 8k; the JAX package reaches its own only from
    ``tests/test_pallas.py``);
-3b. lint: ``python -m qdml_tpu_torch.cli lint --baseline
+3b. lint: ``python -m qdml_tpu_torch.cli lint --baseline --lockgraph-check
    --json=build/chip_smoke/lint.json`` in a process of its own, through a
    ``-c`` wrapper that calls ``cli.main`` and then reports
    ``torch.cuda.is_initialized()`` and whether the kernels' module was
-   loaded: it fails unless the gate exits 0 with no new finding, without a
-   CUDA context and without the kernels' module, in under 15 s (its
-   seconds logged);
+   loaded: it fails unless the gate (the whole-program concurrency pass
+   among it) exits 0 with no new finding and the committed lock graph
+   fresh, without a CUDA context and without the kernels' module, in under
+   ``LINT_MAX_S`` (its seconds logged);
 4. autotune: the circuit-impl race (``quantum/autotune.ensure``, forced) on
    the card at n=6 L=3 buckets 64 and 4096 (the training step's 2304 rows)
    and n=8 L=3 bucket 64, into a table under ``build/chip_smoke/autotune/``;
@@ -91,6 +92,14 @@ Phases, each of which exits non-zero on failure:
    second batch, traffic offered in waves until it has fired: its batch's
    futures fail, the supervisor restarts the replica, every other request
    is served, and the per-replica batch split is logged;
+6b'. lockdep: that crash and one ``swap_params`` with a wave in flight, in
+   a process of its own with ``QDML_LOCKDEP=1``
+   (``qdml_tpu_torch/scripts/lockdep_witness.py`` on the serve_tier
+   workdir, as JAX's ``scripts/chaos_dryrun.py`` witnesses its replica
+   crash): it fails unless the fault fired, the replica restarted, the swap
+   advanced the epoch and the witness saw no inversion and some locks and
+   edges, in under ``LOCKDEP_MAX_S``; each witnessed edge is logged beside
+   whether the committed static lock graph has it;
 6c. mesh_serve: the engine over a ``(fed, data, model)`` mesh at full width
    (QSC n=6 L=3 ``auto``, buckets 1, 8, 64, seeded weights): in the default
    run over logical positions on ``cuda:0`` (``make_local_mesh``, each
@@ -160,7 +169,10 @@ Phases, each of which exits non-zero on failure:
    dry-run ``MonitorAttachment`` on the front door (``live_fleet_dryrun``'s
    invariants): only ``health``, ``metrics`` and ``events`` sent, an idle
    probe completes no request, a burn alert fires in the stall window and
-   none in the baseline, ``event_drops`` 0, no give-up, every backend's
+   none in the baseline (the stall's mark is kept 2.0 s past its traffic
+   before the recovery window's, as the dryruns keep theirs, and each
+   scrape around the stall's end is logged with the router rule's burns
+   and debounce count), ``event_drops`` 0, no give-up, every backend's
    request-path work still zero; the rendered timeline shows the alert and
    the router's ejection and re-admission, and ``report`` over the baseline
    window and the monitor stream exits 0 with its monitoring gates armed;
@@ -695,7 +707,7 @@ def check_kernels(torch, K, circuits, unitary_ready=lambda: None) -> dict[str, f
     # kernel; every n of its window, at the batches its launches run at
     for n in range(1, 9):
         w = torch.tensor(rng.uniform(0, 2 * np.pi, (3, n, 2)), dtype=torch.float32, device=dev)
-        u = circuits.ansatz_unitary(w, n, 3) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
+        u = circuits.ansatz_unitary(w, n, 3) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])  # lint: disable=gate-matrix-in-loop(the loop is the check's sweep over n, not a circuit's layers: rot_gate is the whole one-qubit ansatz at the n=1 point)
         ur, ui = u.re.contiguous(), u.im.contiguous()
         for b in (1, 37, 64, 200, 2304, 4096):
             a = torch.tensor(rng.uniform(-1, 1, (b, n)), dtype=torch.float32, device=dev)
@@ -812,7 +824,7 @@ def check_kernels(torch, K, circuits, unitary_ready=lambda: None) -> dict[str, f
     for n in range(1, 15):
         w = torch.tensor(rng.uniform(-3, 3, (3, n, 2)), dtype=torch.float32, device=dev)
         layers = 3 if n <= 12 else 1
-        u = circuits.ansatz_unitary(w, n, layers) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])
+        u = circuits.ansatz_unitary(w, n, layers) if n >= 2 else circuits.rot_gate(w[0, 0, 0], w[0, 0, 1])  # lint: disable=gate-matrix-in-loop(the loop is the check's sweep over n, not a circuit's layers: rot_gate is the whole one-qubit ansatz at the n=1 point)
         for b in (1, 3, 9, 33, 64, 600, 2304) if n <= 12 else (1, 9, 64, 1024) if n == 13 else (1, 9, 64):
             re, im = randn(b, 1 << n), randn(b, 1 << n)
             norm = torch.sqrt((re * re + im * im).sum(-1, keepdim=True))
@@ -3644,6 +3656,21 @@ def fleet_phase(torch, K, mods, card: str) -> None:
         attachment = MonitorAttachment(scraper, FleetAutoscaler(
             lambda k: actuator.fleet(backends=k), min_backends=2, max_backends=3, queue_high=10.0, queue_low=2.0,
             debounce=2, cooldown_ticks=6, sink=mlog, dry_run=True), max_reconnects=8)
+        # each scrape on the process clock: its mark, the router rule's burns
+        # and debounce count, so the stall's page is read against the end of
+        # the stall window
+        scrapes: list = []
+        scrape_once, router_rule = scraper.scrape_once, alerter.rules["router"]
+
+        def scrape_logged():
+            rec = scrape_once() or {}
+            burn = (rec.get("burn") or {}).get("router") or {}
+            scrapes.append({"t": time.monotonic(), "mark": rec.get("mark"), "fast": burn.get("fast"),
+                            "slow": burn.get("slow"), "pending": router_rule.pending, "firing": router_rule.firing,
+                            "paged": router_rule.firing and "router" in (rec.get("alerts") or ())})
+            return rec or None
+
+        scraper.scrape_once = scrape_logged
         monitor.update(scraper=scraper, stop=threading.Event(), log=mlog)
         monitor["thread"] = threading.Thread(target=attachment.run, args=(900.0, monitor["stop"]), daemon=True)
         scraper.mark("baseline")
@@ -3784,7 +3811,14 @@ def fleet_phase(torch, K, mods, card: str) -> None:
                 backends[1].resume()
 
         r_before = router.router_summary()
+        t_stall = time.monotonic()
         w = window("backend_stall", during=inject_stall)
+        t_stall_end = time.monotonic()
+        # late burn transitions still attribute to backend_stall
+        # (scripts/monitor_dryrun.py:338): the router rule's 3.6 s slow
+        # window, debounce 2 and 0.4 s scrapes can latch up to about a second
+        # after the stall's traffic ends
+        time.sleep(2.0)
         deadline = time.monotonic() + 30.0
         while len(router.live_backends()) < 2 and time.monotonic() < deadline:
             time.sleep(0.1)
@@ -3795,10 +3829,20 @@ def fleet_phase(torch, K, mods, card: str) -> None:
         if not (r_after["ejections"] > r_before["ejections"] and r_after["readmissions"] > r_before["readmissions"]
                 and w["sm"]["completed"] > 0 and len(router.live_backends()) == 2):
             raise AssertionError("fleet stall: the stalled backend was not ejected and re-admitted")
+        t_recovery = time.monotonic()
         window("backend_stall_recovery")
         time.sleep(1.2)  # the last windows' scrapes
         monitor["stop"].set()
         monitor["thread"].join(timeout=60.0)
+        for s in scrapes:
+            if t_stall_end - 1.0 <= s["t"] <= t_recovery + 1.0:
+                log(f"fleet monitor scrape {s['t'] - t_stall_end:+.3f} s from the stall window's end (recovery mark "
+                    f"at {t_recovery - t_stall_end:+.3f} s): mark {s['mark']}, router fast/slow burn {s['fast']}/"
+                    f"{s['slow']}, pending {s['pending']}, firing {s['firing']}, paged {s['paged']} [{card}]")
+        page = next((s for s in scrapes if s["paged"] and s["t"] >= t_stall), None)
+        log(f"fleet monitor router page in or after the stall window: "
+            + ("none" if page is None else f"mark {page['mark']} at {page['t'] - t_stall_end:+.3f} s from the stall "
+               f"window's end, fast/slow burn {page['fast']}/{page['slow']}") + f" [{card}]")
         expect = {"fired": ["backend_stall"], "quiet": ["baseline", "idle_probe"]}
         summary = scraper.finish(extra={"expect": expect, "handsoff": attachment.summary()})
         mlog.close()
@@ -4709,16 +4753,18 @@ LINT_MAX_S = 15.0
 
 
 def lint_phase(card: str) -> None:
-    """``python -m qdml_tpu_torch.cli lint --baseline --json=build/chip_smoke/
-    lint.json`` through a ``-c`` wrapper that calls ``cli.main`` and then
-    reports ``torch.cuda.is_initialized()`` and whether the kernels' module
-    was loaded: the gate must pass (exit 0, no new finding) without a CUDA
-    context or a kernel, in under ``LINT_MAX_S`` seconds. A host tool must
-    not hold memory on a serving card."""
+    """``python -m qdml_tpu_torch.cli lint --baseline --lockgraph-check
+    --json=build/chip_smoke/lint.json`` through a ``-c`` wrapper that calls
+    ``cli.main`` and then reports ``torch.cuda.is_initialized()`` and whether
+    the kernels' module was loaded: the gate, the whole-program concurrency
+    pass among it, must pass (exit 0, no new finding, the committed lock
+    graph fresh) without a CUDA context or a kernel, in under
+    ``LINT_MAX_S`` seconds. A host tool must not hold memory on a serving
+    card."""
     out = EVAL_WORK / "lint.json"
     t = time.perf_counter()
     run = subprocess.run(
-        [sys.executable, "-c", LINT_WRAPPER, "lint", "--baseline", f"--json={out}"],
+        [sys.executable, "-c", LINT_WRAPPER, "lint", "--baseline", "--lockgraph-check", f"--json={out}"],
         cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=120,
     )
     secs = time.perf_counter() - t
@@ -4727,7 +4773,8 @@ def lint_phase(card: str) -> None:
         raise AssertionError(f"lint wrapper exited {run.returncode}: {run.stdout[-2000:]} {run.stderr[-2000:]}")
     proc = json.loads(lines[-1])
     gate = json.loads(out.read_text())
-    log(f"lint: {lines[-2] if len(lines) > 1 else ''}")
+    for line in lines[:-1]:
+        log(f"lint: {line}")
     log(f"lint: exit {proc['rc']}, new findings {gate['new_findings']}, suppressed {gate['suppressed']}, "
         f"baselined {gate['baselined']}, CUDA initialised {proc['cuda_initialized']}, kernels module loaded "
         f"{proc['kernels_loaded']}, {secs:.2f} s for the process (limit {LINT_MAX_S:g} s) [{card}]")
@@ -4737,6 +4784,48 @@ def lint_phase(card: str) -> None:
         raise AssertionError(f"lint touched the card: {proc}")
     if secs > LINT_MAX_S:
         raise AssertionError(f"lint took {secs:.2f} s, over {LINT_MAX_S:g} s")
+
+
+LOCKDEP_MAX_S = 40.0
+
+
+def lockdep_phase(card: str) -> None:
+    """The serving tier's locks witnessed at run time
+    (``qdml_tpu_torch/scripts/lockdep_witness.py`` in a process of its own
+    with ``QDML_LOCKDEP=1``, on the serve_tier phase's workdir, as JAX's
+    ``scripts/chaos_dryrun.py`` witnesses its replica crash): one injected
+    ``worker_exception`` and the supervised restart, then one
+    ``swap_params`` with a wave in flight. Fails unless the witness saw no
+    inversion and some locks and edges, in under ``LOCKDEP_MAX_S``; each
+    witnessed edge is logged beside whether the committed static lock graph
+    has it."""
+    root = Path(__file__).resolve().parent
+    t = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "qdml_tpu_torch.scripts.lockdep_witness", "--device=cuda",
+         f"--train.workdir={TIER_WORK / 'ws'}", "--quantum.n_qubits=6", "--quantum.n_layers=3",
+         "--serve.workers=2", f"--quantum.autotune_table={TUNE_DIR / 'qsc_impl.json'}"],
+        cwd=root, env={**os.environ, "QDML_LOCKDEP": "1"}, capture_output=True, text=True, timeout=120,
+    )
+    secs = time.perf_counter() - t
+    lines = run.stdout.strip().splitlines()
+    if not lines:
+        raise AssertionError(f"lockdep witness exited {run.returncode}: {run.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    graph = json.loads((root / "qdml_tpu_torch" / "analysis" / "lockgraph" / "lockgraph.json").read_text())
+    static = {(e["src"], e["dst"]) for e in graph["edges"]}
+    for a, b in rec["edges"]:
+        log(f"lockdep witnessed edge {a} -> {b}: in the static graph {(a, b) in static} [{card}]")
+    w = rec["lockdep"]
+    log(f"lockdep witness (QDML_LOCKDEP=1, own process on {rec['device']}): exit {run.returncode}, locks "
+        f"{w['locks']}, edges {w['edges']}, max held {w['max_held']}, inversions {w['inversions']}; fault fired "
+        f"{rec['fired']}, restarts {rec['restarts']}, faults {json.dumps(rec['faults'])}, swap epoch "
+        f"{rec['swap_epoch']}, requests {json.dumps(rec['outcome'])} of {rec['sent']}; {rec['seconds']:.2f} s in "
+        f"the witness, {secs:.2f} s for the process (limit {LOCKDEP_MAX_S:g} s) [{card}]")
+    if run.returncode != 0 or w["inversions"] != 0 or w["locks"] <= 0 or w["edges"] <= 0:
+        raise AssertionError(f"lockdep witness failed: exit {run.returncode}, {rec}, {run.stderr[-2000:]}")
+    if secs > LOCKDEP_MAX_S:
+        raise AssertionError(f"lockdep witness took {secs:.2f} s, over {LOCKDEP_MAX_S:g} s")
 
 
 def main() -> int:
@@ -4860,6 +4949,7 @@ def main() -> int:
     )
     micro_launches = phase("microbench", microbench, torch, K, card)
     tier_launches = phase("serve_tier", serve_tier_phase, torch, K, mods, card)
+    phase("lockdep", lockdep_phase, card)
     mesh_launches = phase("mesh_serve", mesh_serve_phase, torch, K, mods, card, False)
     control_launches = phase("control", control_phase, torch, K, mods, card)
     phase("fleet", fleet_phase, torch, K, mods, card)

@@ -7,6 +7,7 @@ no kernel (dispatched before the CLI's config layer, like ``report``).
     python -m qdml_tpu_torch.cli lint [--paths=P1,P2,...] [--baseline[=FILE]]
         [--write-baseline] [--json=FILE] [--durations=FILE] [--threshold=SECS]
         [--allow=FILE] [--list-rules] [--changed-only]
+        [--lockgraph[=DIR]] [--lockgraph-check[=DIR]]
 
 Exit codes: 0 clean (every finding fixed, suppressed with a reason, or
 baselined), 1 new findings, 2 usage/parse errors.
@@ -26,10 +27,12 @@ baselined), 1 new findings, 2 usage/parse errors.
   ``python -m qdml_tpu_torch.cli report --lint=FILE`` reads (JAX's schema);
 - ``--changed-only`` restricts the REPORT to git-touched files (staged +
   unstaged + untracked) for fast pre-commit runs; the scan still covers the
-  full path set.
-
-JAX's ``--lockgraph``/``--lockgraph-check`` belong to its whole-program
-concurrency pass, which is not ported: here they are unrecognised (exit 2).
+  full path set so the whole-program concurrency pass sees every caller;
+- ``--lockgraph[=DIR]`` writes the static lock-order graph (default
+  ``qdml_tpu_torch/analysis/lockgraph/``: JSON + DOT + markdown
+  hierarchy); ``--lockgraph-check[=DIR]`` instead verifies the committed
+  graph matches a regenerated one and exits 1 when it is stale. An empty
+  ``DIR`` is a usage error.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import json
 import os
 import sys
 
+from qdml_tpu_torch.analysis import concurrency
 from qdml_tpu_torch.analysis.engine import (
     BASELINE_DEFAULT,
     LintEngine,
@@ -126,6 +130,8 @@ def lint_main(argv: list[str]) -> int:
     threshold = 5.0
     allow: str | None = None
     changed_only = False
+    lockgraph_dir: str | None = None
+    lockgraph_check: str | None = None
     root = repo_root()
     for arg in argv:
         if arg.startswith("--paths="):
@@ -150,11 +156,23 @@ def lint_main(argv: list[str]) -> int:
             allow = arg.split("=", 1)[1]
         elif arg == "--changed-only":
             changed_only = True
+        elif arg in ("--lockgraph", "--lockgraph-check") or arg.startswith(("--lockgraph=", "--lockgraph-check=")):
+            flag, eq, value = arg.partition("=")
+            if eq and not value:
+                print(f"lint: {flag}= needs a directory")
+                return EXIT_USAGE
+            target = value or os.path.join(root, *concurrency.LOCKGRAPH_DIR.split("/"))
+            if flag == "--lockgraph":
+                lockgraph_dir = target
+            else:
+                lockgraph_check = target
         elif arg == "--list-rules":
             from qdml_tpu_torch.analysis.rules import RULES
             from qdml_tpu_torch.analysis.slowmarkers import RULE_ID
 
             for rule_id, (_fn, doc) in sorted(RULES.items()):
+                print(f"{rule_id:26s} {doc}")
+            for rule_id, doc in sorted(concurrency.CONCURRENCY_RULES.items()):
                 print(f"{rule_id:26s} {doc}")
             print(f"{RULE_ID:26s} >5s tests must be @pytest.mark.slow (needs --durations)")
             return EXIT_OK
@@ -207,7 +225,7 @@ def lint_main(argv: list[str]) -> int:
     restrict: list[str] | None = None
     if changed_only:
         restrict = changed_files(root)
-        if not restrict:
+        if not restrict and not (lockgraph_dir or lockgraph_check):
             print("qdml_tpu_torch lint: OK, --changed-only and no touched .py files")
             return EXIT_OK
     result = engine.run(
@@ -215,6 +233,22 @@ def lint_main(argv: list[str]) -> int:
     )
     print(_format_text(result, baseline_path))
     rc = EXIT_OK if result.ok else EXIT_FINDINGS
+    if (lockgraph_dir or lockgraph_check) and engine.model is not None:
+        if lockgraph_dir:
+            graph = concurrency.write_lockgraph(engine.model, lockgraph_dir)
+            print(
+                f"lint: wrote lock graph to {lockgraph_dir} "
+                f"({len(graph['nodes'])} locks, {len(graph['edges'])} edges, "
+                f"{len(graph['cycles'])} cycles)"
+            )
+        if lockgraph_check:
+            problems = concurrency.check_lockgraph(engine.model, lockgraph_check)
+            for p in problems:
+                print(f"lint: {p}")
+            if problems:
+                rc = EXIT_FINDINGS
+            else:
+                print(f"lint: lock graph {lockgraph_check} is fresh")
     if json_out:
         payload = result.to_json()
         payload["exit_code"] = rc

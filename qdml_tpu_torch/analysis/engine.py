@@ -20,9 +20,12 @@ regressions:
 
 Findings, fingerprints, suppressions and the gate's JSON are the JAX
 package's, so the two engines' outputs compare field for field. JAX's
-jit-reachability (``ModuleContext.traced``) is left out: it seeds JAX's
-tracing rules, whose torch counterparts are not ported yet. Standard library
-only.
+jit reachability (``ModuleContext.traced``) has a torch counterpart,
+``ModuleContext.captured``: the functions that run while a CUDA graph is
+captured or inside a kernel wrapper, which seed the tracing rules' torch
+counterparts. ``LintEngine.run`` runs the whole-program concurrency pass
+(:mod:`qdml_tpu_torch.analysis.concurrency`) over the scanned set. Standard
+library only.
 """
 
 from __future__ import annotations
@@ -178,9 +181,13 @@ class ModuleContext:
         self.functions: list[tuple[ast.AST, str]] = []
         self._qualname: dict[ast.AST, str] = {}
         self._collect_functions(tree, prefix="")
+        self._by_name: dict[str, list[ast.AST]] = {}
+        for node, _qual in self.functions:
+            self._by_name.setdefault(node.name, []).append(node)
 
         self.aliases = self._collect_aliases()
         self.mutable_globals = self._collect_mutable_globals()
+        self.captured = self._collect_captured()
 
     # -- construction helpers ------------------------------------------------
 
@@ -243,6 +250,107 @@ class ModuleContext:
                 if isinstance(t, ast.Name):
                     out.add(t.id)
         return out
+
+    def _collect_captured(self) -> set[ast.AST]:
+        """Functions that run while a CUDA graph is captured or inside a
+        kernel wrapper: the port's counterpart of JAX's jit reachability
+        (``qdml_tpu/analysis/engine.py:_collect_traced``). Roots:
+
+        - functions passed by name (anywhere in the call, as through
+          ``_step_fn(model, opt)``) into ``project.CAPTURE_ENTRY_POINTS``
+          (``make_scan_steps``, ``make_graphed_callables``);
+        - the callees of a ``with torch.cuda.graph(...)`` block;
+        - ``forward``/``backward`` of ``torch.autograd.Function`` subclasses;
+        - the functions that reach ``project.KERNEL_LAUNCH_CALLS`` (the
+          kernel wrappers of ``quantum/kernels.py``);
+
+        plus every same-module function a captured function calls by name,
+        or, from a method, as ``self.m()`` (fixpoint)."""
+        from qdml_tpu_torch.analysis.project import CAPTURE_ENTRY_POINTS, KERNEL_LAUNCH_CALLS
+
+        captured: set[ast.AST] = set()
+        by_qual = {qual: node for node, qual in self.functions}
+
+        def callees(fn: ast.AST, call: ast.Call) -> list[ast.AST]:
+            if isinstance(call.func, ast.Name):
+                return self._by_name.get(call.func.id, [])
+            if (
+                isinstance(call.func, ast.Attribute)
+                and isinstance(call.func.value, ast.Name)
+                and call.func.value.id == "self"
+            ):
+                owner = self.qualname(fn).rpartition(".")[0]
+                method = by_qual.get(f"{owner}.{call.func.attr}") if owner else None
+                return [method] if method is not None else []
+            return []
+
+        for node in self.nodes:
+            # names passed (possibly through nested calls) into an entry point
+            if isinstance(node, ast.Call):
+                callee = dotted_name(node.func)
+                if callee is not None and callee.rsplit(".", 1)[-1] in CAPTURE_ENTRY_POINTS:
+                    for sub in ast.walk(node):
+                        if isinstance(sub, ast.Name):
+                            captured.update(self._by_name.get(sub.id, []))
+            # the callees of a graph capture's block
+            elif isinstance(node, ast.With) and any(
+                isinstance(item.context_expr, ast.Call)
+                and (self.canonical(item.context_expr.func) or "").endswith("cuda.graph")
+                for item in node.items
+            ):
+                fn = self.enclosing_function(node)
+                for stmt in node.body:
+                    for sub in ast.walk(stmt):
+                        if isinstance(sub, ast.Call):
+                            captured.update(callees(fn, sub))
+            # an autograd Function's forward and backward
+            elif isinstance(node, ast.ClassDef) and any(
+                (self.canonical(b) or "").endswith("autograd.Function") for b in node.bases
+            ):
+                for item in node.body:
+                    if isinstance(item, _FuncNode) and item.name in ("forward", "backward"):
+                        captured.add(item)
+
+        # the kernel wrappers: functions that reach the raw launch, by a call
+        # or through a module-level name bound to something that does (the
+        # autograd Function _QSCExpvals = _kernel_fwd_plain_bwd(_qsc_launch,
+        # ...), which fused_qsc_expvals applies)
+        reach = set(KERNEL_LAUNCH_CALLS)
+        changed = any(
+            isinstance(n, ast.Call) and isinstance(n.func, ast.Name) and n.func.id in reach for n in self.nodes
+        )
+        while changed:
+            changed = False
+            for node in self.tree.body:
+                if isinstance(node, ast.Assign) and any(
+                    isinstance(sub, ast.Name) and sub.id in reach for sub in ast.walk(node.value)
+                ):
+                    for t in node.targets:
+                        if isinstance(t, ast.Name) and t.id not in reach:
+                            reach.add(t.id)
+                            changed = True
+            for fn, _qual in self.functions:
+                if fn.name in reach:
+                    continue
+                if any(
+                    isinstance(sub, ast.Name) and isinstance(sub.ctx, ast.Load) and sub.id in reach
+                    for sub in ast.walk(fn)
+                ):
+                    reach.add(fn.name)
+                    captured.add(fn)
+                    changed = True
+
+        # propagate through same-module calls
+        frontier = list(captured)
+        while frontier:
+            fn = frontier.pop()
+            for sub in ast.walk(fn):
+                if isinstance(sub, ast.Call):
+                    for callee_fn in callees(fn, sub):
+                        if callee_fn not in captured:
+                            captured.add(callee_fn)
+                            frontier.append(callee_fn)
+        return captured
 
     # -- rule helpers --------------------------------------------------------
 
@@ -393,22 +501,27 @@ class LintEngine:
 
             rules = all_rules()
         self.rules = rules
+        # the concurrency model from the last whole_program run(), for the
+        # CLI's --lockgraph rendering and freshness check
+        self.model = None
 
     def lint_file(
-        self, relpath: str, pre: Iterable[Finding] = ()
+        self, relpath: str, pre: Iterable[Finding] = (), ctx: ModuleContext | None = None
     ) -> tuple[list[Finding], str | None]:
         """Run the per-module rules over one file. ``pre`` carries findings a
         whole-program pass already produced for this path, merged BEFORE
         suppression processing so an inline ``# lint: disable=...`` works on
-        them and a stale one is flagged dead-suppression like any other."""
-        abspath = os.path.join(self.root, relpath)
-        try:
-            with open(abspath, encoding="utf-8") as fh:
-                source = fh.read()
-            tree = ast.parse(source, filename=relpath)
-        except (OSError, SyntaxError, ValueError) as e:
-            return [], f"{relpath}: {type(e).__name__}: {e}"
-        ctx = ModuleContext(abspath, relpath, source, tree)
+        them and a stale one is flagged dead-suppression like any other;
+        ``ctx`` is the file's parse from that pass, when there was one."""
+        if ctx is None:
+            abspath = os.path.join(self.root, relpath)
+            try:
+                with open(abspath, encoding="utf-8") as fh:
+                    source = fh.read()
+                tree = ast.parse(source, filename=relpath)
+            except (OSError, SyntaxError, ValueError) as e:
+                return [], f"{relpath}: {type(e).__name__}: {e}"
+            ctx = ModuleContext(abspath, relpath, source, tree)
         findings: list[Finding] = []
         seen_lines: set[tuple[str, int]] = set()
         for rule in self.rules:
@@ -485,19 +598,29 @@ class LintEngine:
         whole_program: bool = True,
         restrict_to: Iterable[str] | None = None,
     ) -> LintResult:
-        """``whole_program`` is the switch of the interprocedural pass over
-        the full scanned set, whose findings would reach each file through
-        ``lint_file``'s ``pre``; that pass (JAX's ``analysis/concurrency.py``)
-        is not ported yet, so the flag changes nothing today. ``restrict_to``
-        filters the REPORT to the given repo-relative paths without narrowing
-        the scan: ``--changed-only`` keeps the whole program in view but
-        reports only the touched files' findings."""
+        """``whole_program`` additionally runs the interprocedural
+        concurrency pass over the full scanned set: its findings reach each
+        file through ``lint_file``'s ``pre``, and its model stays on
+        ``self.model`` for the lock graph. ``restrict_to`` filters the
+        REPORT to the given repo-relative paths without narrowing the scan:
+        ``--changed-only`` needs the whole program to resolve the call
+        closure, but only the touched files' findings."""
         result = LintResult()
         all_findings: list[Finding] = list(extra_findings)
         missing: list[str] = []
         files = iter_python_files(self.root, paths, missing=missing)
+        pre_by_path: dict[str, list[Finding]] = {}
+        parsed: dict[str, ModuleContext] = {}
+        if whole_program:
+            from qdml_tpu_torch.analysis import concurrency
+
+            ctxs, _errs = concurrency.load_contexts(self.root, files)
+            pre_by_path, self.model = concurrency.analyze_modules(ctxs)
+            parsed = {c.path: c for c in ctxs}  # an unparseable file is parsed again and reported
         for relpath in files:
-            findings, err = self.lint_file(relpath)
+            findings, err = self.lint_file(
+                relpath, pre=pre_by_path.get(relpath, ()), ctx=parsed.get(relpath.replace(os.sep, "/"))
+            )
             if err is not None:
                 result.errors.append(err)
             all_findings.extend(findings)

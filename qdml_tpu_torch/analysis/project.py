@@ -18,9 +18,18 @@ names, never the JAX package's:
 - :data:`TYPED_EXCEPTIONS`: the typed error contracts a broad ``except``
   can silently swallow (``DivergenceError`` exits the CLI with code 4).
 
-JAX's tracing maps (jit reachability, host syncs, shard_map axes, the
-concurrency analyzer's tables) have no entry here: the rules that read them
-are not ported yet.
+- :data:`CAPTURE_ENTRY_POINTS`, :data:`HOT_HOST_FUNCS` and the tracing
+  rules' name sets: the port's counterpart of JAX's jit reachability is
+  code that runs while a CUDA graph is captured or inside a kernel wrapper
+  (``ModuleContext.captured``), plus the serve request path;
+- the concurrency pass's tables (:data:`BLOCKING_CALLS` ...
+  :data:`THREAD_ROOT_CALLS`): JAX's, with torch's device fences among the
+  blocking calls.
+
+JAX's ``SHARD_AXIS_CALLS`` and ``TRAIN_MAKER_PATTERN`` have no entry: the
+rules that read them (``collective-outside-shardmap``,
+``train-step-jit-audit``) have no torch counterpart (README, the port's
+lint gate).
 """
 
 from __future__ import annotations
@@ -311,3 +320,182 @@ WALL_TIME_CALLS: frozenset[str] = frozenset({"time", "monotonic", "perf_counter"
 # helpers themselves (they difference FIRST, then divide the delta by the
 # window width: the pattern the rule funnels everything through).
 RATE_SANCTIONED_MODULES: tuple[str, ...] = ("qdml_tpu_torch/telemetry/timeseries.py",)
+
+# ---------------------------------------------------------------------------
+# The tracing rules' maps (qdml_tpu_torch/analysis/rules.py)
+# ---------------------------------------------------------------------------
+
+# (file, Class.method) host-side hot paths audited for device->host syncs:
+# the serve request path, where a sync is sometimes THE point (the reply
+# fetch) but must carry a written reason. Captured code is found by
+# ModuleContext.captured.
+HOT_HOST_FUNCS: dict[str, tuple[str, ...]] = {
+    "qdml_tpu_torch/serve/engine.py": ("ServeEngine.infer",),
+    "qdml_tpu_torch/serve/server.py": ("ServeLoop._serve_one",),
+}
+
+# Calls whose function-valued arguments run while a CUDA graph is captured
+# (matched on the callee's last name segment, names found anywhere in the
+# call, as through ``_step_fn(model, opt)``): the K-step runner
+# (train/scan.make_scan_steps) and torch's own graphed callables.
+CAPTURE_ENTRY_POINTS: frozenset[str] = frozenset({"make_scan_steps", "make_graphed_callables"})
+
+# The raw kernel launch (quantum/kernels._launch): a function of the module
+# that reaches it is a kernel wrapper, captured code (the launch is what a
+# graph records), and its callers' loops are launch loops.
+KERNEL_LAUNCH_CALLS: frozenset[str] = frozenset({"_launch"})
+
+# The kernel wrappers other modules call (quantum/kernels.py), each one
+# launch (or one launch stack) a call: called from a host-side loop over
+# layers or gates, every iteration is a launch with a device-memory round
+# trip between them (rule pallas-host-loop).
+KERNEL_WRAPPER_CALLS: frozenset[str] = frozenset(
+    {
+        "_launch",
+        "fused_qsc_expvals",
+        "fused_circuit_expvals",
+        "fused_circuit_expvals_ensemble",
+        "circuit_adjoint",
+        "circuit_adjoint_ensemble",
+        "apply_rotation_layer",
+        "fused_unitary_expvals",
+    }
+)
+
+# Names whose call is a device->host sync when it appears in captured code
+# or a HOT_HOST_FUNCS request path: torch's fetches and fences
+# (``torch.cuda.synchronize``, ``Stream``/``Event.synchronize``).
+HOST_SYNC_ATTRS: frozenset[str] = frozenset({"item", "cpu", "tolist", "synchronize"})
+HOST_SYNC_NAMES: frozenset[str] = frozenset({"float", "int", "bool"})
+
+# Wall-clock sources read once while a graph is captured: every replay
+# reuses the capture's value.
+WALL_CLOCK_CALLS: frozenset[str] = frozenset(
+    {"time", "monotonic", "perf_counter", "process_time", "now", "utcnow", "today"}
+)
+
+# torch calls whose OUTPUT SHAPE depends on input VALUES: each syncs the
+# host to size its result, which a CUDA graph cannot capture (rule
+# data-dependent-shape-in-jit). Matched on the callee's last segment under
+# the torch namespace; torch.where is handled separately (only its
+# one-argument nonzero form is data-dependent).
+DATA_DEP_SHAPE_CALLS: frozenset[str] = frozenset(
+    {
+        "nonzero",
+        "argwhere",
+        "masked_select",
+        "unique",
+        "unique_consecutive",
+    }
+)
+
+# Request-tracing construction/stamping API (telemetry/tracing.py), host
+# side only: inside captured code a stamp is read once, at capture (rule
+# trace-in-jit-path).
+TRACE_STAMP_CALLS: frozenset[str] = frozenset({"TraceContext", "trace_sampled", "add_phase"})
+
+# Per-gate matrix constructors of the port's quantum/ (circuits.rot_gate;
+# JAX's gate_h and gate_rx have no port, nothing on the port's paths builds
+# an H or RX matrix): one inside a host-side Python loop rebuilds the gate
+# matrix every iteration (rule gate-matrix-in-loop).
+GATE_MATRIX_CONSTRUCTORS: frozenset[str] = frozenset({"rot_gate"})
+
+# torch.cuda calls that do not initialise CUDA: allowed at import (rule
+# import-time-jnp flags every other torch.cuda call at module level).
+CUDA_QUERY_CALLS: frozenset[str] = frozenset({"is_available", "device_count", "is_initialized"})
+
+# ---------------------------------------------------------------------------
+# The concurrency pass's tables (qdml_tpu_torch/analysis/concurrency.py)
+# ---------------------------------------------------------------------------
+
+# Calls that can block the calling thread for unbounded (or scheduling-
+# dependent) time. Reachable inside a held-lock region they serialize every
+# peer of that lock behind one slow operation (rule blocking-under-lock).
+# Matched on the callee's LAST name/attribute segment; deliberately narrow:
+# `.get()`/`.pop()` are far too generic to flag.
+BLOCKING_CALLS: frozenset[str] = frozenset(
+    {
+        # host scheduling
+        "sleep",
+        "wait",            # Event.wait / Condition.wait / Popen.wait
+        "join",            # Thread.join / Process.join
+        "result",          # concurrent.futures drain
+        # device fences: a lock held across a device sync serializes every
+        # submit behind the fence (the swap path suppresses WITH a reason).
+        # JAX's block_until_ready/device_get, and torch's
+        # torch.cuda.synchronize (Stream/Event.synchronize too) and the
+        # fetches that wait for the card: .item(), .cpu(), .tolist()
+        "block_until_ready",
+        "device_get",
+        "synchronize",
+        "item",
+        "cpu",
+        "tolist",
+        # socket / stream IO
+        "create_connection",
+        "connect",
+        "accept",
+        "recv",
+        "recv_into",
+        "sendall",
+        "readline",
+        "readexactly",
+        "urlopen",
+        # subprocess
+        "check_output",
+        "check_call",
+        "communicate",
+        "popen",
+        "Popen",
+    }
+)
+
+# Synchronous calls that stall the event loop when reached from an
+# ``async def`` handler without an executor hop (rule sync-io-in-async).
+# time.sleep is the classic; asyncio.sleep resolves to a different canonical
+# name and is exempt. The sanctioned escape hatches are the loop's
+# run_in_executor / asyncio.to_thread (the callable is PASSED, not called).
+ASYNC_BLOCKING_CALLS: frozenset[str] = frozenset(
+    {
+        "sleep",
+        "create_connection",
+        "connect",
+        "accept",
+        "recv",
+        "recv_into",
+        "sendall",
+        "urlopen",
+        "check_output",
+        "check_call",
+        "communicate",
+        "result",          # concurrent.futures .result() parks the loop
+        "join",
+        "run",             # subprocess.run
+    }
+)
+
+# Files whose ``async def`` handlers are on the serving event loop and are
+# therefore in scope for sync-io-in-async (a stalled loop stops EVERY
+# connection, not one request).
+ASYNC_SCOPED_FILES: tuple[str, ...] = (
+    "qdml_tpu_torch/serve/server.py",
+    "qdml_tpu_torch/fleet/router.py",
+)
+
+# Executor escape hatches: a callable passed INTO one of these runs off the
+# event loop, so sync work inside it is sanctioned.
+EXECUTOR_CALLS: frozenset[str] = frozenset(
+    {"run_in_executor", "to_thread", "run_coroutine_threadsafe"}
+)
+
+# Call sites whose function-valued arguments become THREAD ENTRY POINTS:
+# the roots the unmapped-shared-state rule counts distinct writers from.
+THREAD_ROOT_CALLS: frozenset[str] = frozenset(
+    {
+        "Thread",
+        "Timer",
+        "add_done_callback",
+        "call_soon_threadsafe",
+        "submit",  # executor.submit(fn, ...)
+    }
+)

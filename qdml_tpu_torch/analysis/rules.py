@@ -1,13 +1,22 @@
 """The port's lint rules (``qdml_tpu/analysis/rules.py``): the seven
-framework-neutral hazard classes, over the port's maps
+framework-neutral hazard classes, and the torch counterparts of ten of
+JAX's thirteen tracing rules, over the port's maps
 (:mod:`qdml_tpu_torch.analysis.project`).
 
 Each rule is a callable ``(ModuleContext) -> list[Finding]`` registered in
-:data:`RULES` with its id and a one-line rationale. The logic is JAX's rule
-for rule, so the two engines report the same findings on the same source;
-the messages name the port's helpers. JAX's tracing rules (``jit-mutable-
-global`` ... ``trace-in-jit-path``) are not here: their torch counterparts
-are not ported yet.
+:data:`RULES` with its id and a one-line rationale. The seven neutral rules
+are JAX's logic rule for rule, so the two engines report the same findings
+on the same source. Each tracing counterpart keeps JAX's id, so a
+suppression reads the same in both packages, and reads torch's hazard where
+JAX reads XLA's: JAX's jit reachability becomes ``ModuleContext.captured``
+(code that runs while a CUDA graph is captured or inside a kernel wrapper),
+``pallas_call`` becomes a kernel wrapper, ``jnp`` becomes ``torch``. The
+messages name the port's helpers. Three JAX rules have no counterpart and
+are not registered: ``train-step-jit-audit`` (torch updates in place, so
+there is no donation to declare), ``pallas-interpret-literal`` (the port has
+no interpret mode; a wrapper takes its plain version only for a CPU tensor)
+and ``collective-outside-shardmap`` (a torch collective takes its process
+group explicitly; ``primary-only-collective`` covers the deadlock shape).
 
 Rules are deliberately precise over exhaustive: a lint that cries wolf gets
 disabled; one that encodes the exact shape of a shipped bug gets trusted.
@@ -480,6 +489,548 @@ def rule_unwindowed_cumulative_rate(ctx: ModuleContext) -> list[Finding]:
 
 
 # ---------------------------------------------------------------------------
+# The tracing rules' torch counterparts. "Captured" is ModuleContext.captured:
+# a function that runs while a CUDA graph is captured (its Python runs once,
+# at capture; every replay repeats only the recorded launches) or inside a
+# kernel wrapper.
+# ---------------------------------------------------------------------------
+
+
+def _all_args(fn: ast.AST) -> list[ast.arg]:
+    a = fn.args
+    return [*a.posonlyargs, *a.args, *a.kwonlyargs] + (
+        [a.vararg] if a.vararg else []
+    ) + ([a.kwarg] if a.kwarg else [])
+
+
+def rule_jit_mutable_global(ctx: ModuleContext) -> list[Finding]:
+    """A captured function reading a module-level dict/list/set reads it
+    once, at capture: the graph records the launches on what the read saw
+    then, and every replay runs on that (an entry swapped for a new tensor
+    leaves the graph on the old one). Reads of immutable module constants
+    (tuples, numbers, strings) are fine and not flagged. Deliberately NOT
+    caught: mutables reached through an attribute (``mod.TABLE``)."""
+    out: list[Finding] = []
+    if not ctx.mutable_globals:
+        return out
+    for fn in ctx.captured:
+        params = {a.arg for a in _all_args(fn)}
+        local_stores: set[str] = set()
+        for sub in ast.walk(fn):
+            if isinstance(sub, ast.Assign):
+                targets = sub.targets
+            elif isinstance(sub, (ast.AnnAssign, ast.AugAssign)):
+                targets = [sub.target]
+            else:
+                continue
+            for t in targets:
+                for n in ast.walk(t):
+                    if isinstance(n, ast.Name):
+                        local_stores.add(n.id)
+        seen: set[str] = set()
+        for sub in ast.walk(fn):
+            if not (isinstance(sub, ast.Name) and isinstance(sub.ctx, ast.Load)):
+                continue
+            name = sub.id
+            if (
+                name in ctx.mutable_globals
+                and name not in params
+                and name not in local_stores
+                and name not in seen
+            ):
+                seen.add(name)
+                out.append(
+                    ctx.finding(
+                        "jit-mutable-global",
+                        sub,
+                        f"captured {ctx.qualname(fn)!r} reads module-level "
+                        f"mutable {name!r}: the read happens once, at graph "
+                        "capture, and every replay runs on what it saw; pass "
+                        "it as an argument or make it immutable",
+                    )
+                )
+    return out
+
+
+# torch functions that answer on the host (no tensor, no sync): their result
+# in an if/while test is plain Python
+_TORCH_HOST_PREFIXES = ("is_", "get_", "are_", "set_")
+_TORCH_HOST_NAMES = frozenset(
+    {"device", "dtype", "Size", "numel", "finfo", "iinfo", "Generator", "no_grad", "enable_grad",
+     "inference_mode"}
+)
+# torch's namespaces whose calls make tensors (others: torch.cuda, .distributed,
+# .backends, ... answer on the host)
+_TORCH_TENSOR_NAMESPACES = ("torch.nn.functional.", "torch.linalg.", "torch.fft.", "torch.special.")
+
+
+def _mentions_torch_call(ctx: ModuleContext, node: ast.AST) -> bool:
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            callee = ctx.canonical(sub.func) or ""
+            if callee.startswith(_TORCH_TENSOR_NAMESPACES):
+                return True
+            head, _, tail = callee.rpartition(".")
+            if head == "torch" and not (tail.startswith(_TORCH_HOST_PREFIXES) or tail in _TORCH_HOST_NAMES):
+                return True
+    return False
+
+
+def rule_tracer_branch(ctx: ModuleContext) -> list[Finding]:
+    """``if``/``while`` on a tensor made by a torch op inside captured code:
+    ``bool(t)`` waits for the card (illegal while a graph is captured, where
+    it raises), and the branch the capture took is the one every replay
+    runs. Static Python flags (``if probes:`` bound before capture) are NOT
+    flagged, only tests that call a torch op or reference a local assigned
+    from one. Deliberately NOT caught: tensor methods (``if t.any():``, the
+    receiver's type is not known) and tensors that come in as arguments."""
+    out: list[Finding] = []
+    for fn in ctx.captured:
+        device_locals: set[str] = set()
+        for sub in ast.walk(fn):
+            if isinstance(sub, ast.Assign) and _mentions_torch_call(ctx, sub.value):
+                for t in sub.targets:
+                    for n in ast.walk(t):
+                        if isinstance(n, ast.Name):
+                            device_locals.add(n.id)
+        for sub in ast.walk(fn):
+            if not isinstance(sub, (ast.If, ast.While)):
+                continue
+            test = sub.test
+            bad = _mentions_torch_call(ctx, test) or any(
+                isinstance(n, ast.Name) and n.id in device_locals
+                for n in ast.walk(test)
+            )
+            if bad:
+                kind = "if" if isinstance(sub, ast.If) else "while"
+                out.append(
+                    ctx.finding(
+                        "tracer-branch",
+                        sub,
+                        f"Python `{kind}` on a tensor inside captured "
+                        f"{ctx.qualname(fn)!r}: the test syncs the host (and "
+                        "raises under graph capture), and a replay repeats "
+                        "the capture's branch; select on the device "
+                        "(torch.where) instead",
+                    )
+                )
+    return out
+
+
+def rule_host_sync_hot_path(ctx: ModuleContext) -> list[Finding]:
+    """``.item()`` / ``.cpu()`` / ``.tolist()`` / ``torch.cuda.synchronize()``
+    (``project.HOST_SYNC_ATTRS``), ``np.asarray`` and, in captured code,
+    ``float/int/bool(t)``: inside captured code a device->host wait raises
+    under capture (and on the eager path stalls the launch queue every
+    step); inside the serve request path (``project.HOT_HOST_FUNCS``) each
+    is a stall that must be deliberate: intentional syncs carry a
+    suppression with the reason written next to them. Deliberately NOT
+    caught: ``float()``/``int()`` in the request path (host values there are
+    plain Python) and syncs in a nested function of a request-path method."""
+    out: list[Finding] = []
+    hot_host = project.HOT_HOST_FUNCS.get(ctx.path, ())
+    targets: list[tuple[ast.AST, str, str]] = []  # (fn, qual, kind)
+    for fn, qual in ctx.functions:
+        if fn in ctx.captured:
+            targets.append((fn, qual, "captured"))
+        elif qual in hot_host:
+            targets.append((fn, qual, "serve-request-path"))
+    for fn, qual, kind in targets:
+        nested = {
+            sub for sub in ast.walk(fn) if isinstance(sub, _FuncNode) and sub is not fn
+        }
+        for sub in ast.walk(fn):
+            if not isinstance(sub, ast.Call):
+                continue
+            if any(sub in ast.walk(n) for n in nested) and kind == "serve-request-path":
+                continue  # nested defs in host funcs judged on their own merits
+            label = None
+            callee = ctx.canonical(sub.func)
+            if isinstance(sub.func, ast.Attribute) and sub.func.attr in project.HOST_SYNC_ATTRS:
+                label = f".{sub.func.attr}()"
+            elif callee in ("numpy.asarray", "numpy.array"):
+                label = callee.replace("numpy", "np")
+            elif (
+                kind == "captured"
+                and isinstance(sub.func, ast.Name)
+                and sub.func.id in project.HOST_SYNC_NAMES
+                and sub.args
+                and not isinstance(sub.args[0], ast.Constant)
+            ):
+                label = f"{sub.func.id}()"
+            if label:
+                out.append(
+                    ctx.finding(
+                        "host-sync-hot-path",
+                        sub,
+                        f"host sync {label} in {kind} {qual!r}: a device->host "
+                        "wait here stalls the launch queue (and raises under "
+                        "graph capture); move it off the hot path or suppress "
+                        "with the reason the sync is deliberate",
+                    )
+                )
+    return out
+
+
+def rule_wall_clock_in_jit(ctx: ModuleContext) -> list[Finding]:
+    """``time.time()``/``datetime.now()`` inside captured code runs once, at
+    capture: the graph never reads the clock again, so anything it feeds is
+    the capture's timestamp at every replay. Timing belongs around the
+    dispatch (``telemetry/counters.StepClock``)."""
+    out: list[Finding] = []
+    for fn in ctx.captured:
+        for sub in ast.walk(fn):
+            if not isinstance(sub, ast.Call):
+                continue
+            callee = ctx.canonical(sub.func)
+            if not callee:
+                continue
+            head, _, tail = callee.rpartition(".")
+            if tail in project.WALL_CLOCK_CALLS and head.split(".")[0] in (
+                "time",
+                "datetime",
+            ):
+                out.append(
+                    ctx.finding(
+                        "wall-clock-in-jit",
+                        sub,
+                        f"{callee}() inside captured {ctx.qualname(fn)!r} is "
+                        "read once, at graph capture; time the dispatch from "
+                        "the host (telemetry/counters.StepClock)",
+                    )
+                )
+    return out
+
+
+def _cuda_target(node: ast.AST) -> bool:
+    """A device argument that names the card: ``"cuda"``/``"cuda:0"`` or
+    ``torch.device("cuda...")``."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value.startswith("cuda")
+    if isinstance(node, ast.Call) and (dotted_name(node.func) or "").endswith("device") and node.args:
+        return _cuda_target(node.args[0])
+    return False
+
+
+def rule_import_time_jnp(ctx: ModuleContext) -> list[Finding]:
+    """A tensor made on the card (``device="cuda"``, ``.cuda()``,
+    ``.to("cuda")``) or a ``torch.cuda`` call that initialises CUDA, at
+    module scope: importing the module opens a CUDA context (before the
+    process picks its card, before a world is joined, in host tools such as
+    ``lint`` that must hold nothing on a serving card). The port's tests
+    import every module without a card. ``torch.cuda.is_available()``/
+    ``device_count()``/``is_initialized()`` do not initialise
+    (``project.CUDA_QUERY_CALLS``). Device constants belong inside the
+    function that uses them (a per-device cache, as
+    ``quantum/statevector.ring_index``). Deliberately NOT caught: class
+    bodies and a device held in a module-level name."""
+    out: list[Finding] = []
+    stack: list[ast.AST] = list(ctx.tree.body)
+    while stack:
+        stmt = stack.pop()
+        if isinstance(stmt, (*_FuncNode, ast.ClassDef)):
+            continue
+        for sub in ast.iter_child_nodes(stmt):
+            stack.append(sub)
+        if not isinstance(stmt, ast.Call):
+            continue
+        callee = ctx.canonical(stmt.func) or dotted_name(stmt.func) or ""
+        what = None
+        if callee.startswith("torch.cuda.") and callee.rsplit(".", 1)[-1] not in project.CUDA_QUERY_CALLS:
+            what = f"{callee}() initialises CUDA"
+        elif any(kw.arg == "device" and _cuda_target(kw.value) for kw in stmt.keywords):
+            what = f"{callee}(device=cuda) makes a tensor on the card"
+        elif isinstance(stmt.func, ast.Attribute) and (
+            stmt.func.attr == "cuda" or (stmt.func.attr == "to" and stmt.args and _cuda_target(stmt.args[0]))
+        ):
+            what = f".{stmt.func.attr}() moves a tensor to the card"
+        if what:
+            out.append(
+                ctx.finding(
+                    "import-time-jnp",
+                    stmt,
+                    f"{what} at module import time: a CUDA context as an "
+                    "import side effect; build device constants inside the "
+                    "function that uses them",
+                )
+            )
+    return out
+
+
+def _carried(ctx: ModuleContext, call: ast.Call) -> bool:
+    """True when the statement holding ``call`` assigns a plain name the
+    call also reads (``x = f(x)``, ``x, y = f(x, y)``, ``x += f(x)``): the
+    output feeds the next launch. A store into a container (``t["ms"] =
+    f(t["args"])``) carries nothing."""
+    stmt = ctx.parent.get(call)
+    while stmt is not None and not isinstance(stmt, ast.stmt):
+        stmt = ctx.parent.get(stmt)
+    if isinstance(stmt, ast.Assign):
+        targets = list(stmt.targets)
+    elif isinstance(stmt, (ast.AugAssign, ast.AnnAssign)):
+        targets = [stmt.target]
+    else:
+        return False
+    stored: set[str] = set()
+    while targets:
+        t = targets.pop()
+        if isinstance(t, ast.Name):
+            stored.add(t.id)
+        elif isinstance(t, (ast.Tuple, ast.List)):
+            targets.extend(t.elts)
+        elif isinstance(t, ast.Starred):
+            targets.append(t.value)
+    read = {
+        n.id
+        for arg in [*call.args, *(kw.value for kw in call.keywords)]
+        for n in ast.walk(arg)
+        if isinstance(n, ast.Name)
+    }
+    return bool(stored & read)
+
+
+def rule_pallas_host_loop(ctx: ModuleContext) -> list[Finding]:
+    """A kernel wrapper (``project.KERNEL_WRAPPER_CALLS``: the raw
+    ``_launch`` and the wrappers of ``quantum/kernels.py``) called inside a
+    host-side Python ``for``/``while`` with its output carried into the next
+    iteration's launch (``psi = apply_rotation_layer(psi, ...)``), the
+    per-layer circuit shape: one launch per layer or gate, the state through
+    device memory between them. The loop belongs inside the kernel
+    (``csrc/circuit_expvals.cu`` runs all layers in one launch). Loops
+    inside a nested function are not this function's loops and are not
+    flagged. Deliberately NOT caught: launches whose output feeds no later
+    launch of the loop (a sweep over shapes, a check per point), loops in
+    comprehensions, and wrappers reached through another module's helper."""
+    out: list[Finding] = []
+    for call in ctx.nodes:
+        if not isinstance(call, ast.Call):
+            continue
+        callee = ctx.canonical(call.func) or dotted_name(call.func) or ""
+        if callee.rsplit(".", 1)[-1] not in project.KERNEL_WRAPPER_CALLS or not _carried(ctx, call):
+            continue
+        cur = ctx.parent.get(call)
+        while cur is not None and not isinstance(cur, _FuncNode):
+            if isinstance(cur, (ast.For, ast.AsyncFor, ast.While)):
+                out.append(
+                    ctx.finding(
+                        "pallas-host-loop",
+                        call,
+                        f"kernel wrapper {callee!r} launched from a host-side "
+                        "Python loop: each iteration is a separate launch "
+                        "with a device-memory round trip between them; move "
+                        "the loop into the kernel (quantum/kernels."
+                        "fused_circuit_expvals runs every layer in one "
+                        "launch)",
+                    )
+                )
+                break
+            cur = ctx.parent.get(cur)
+    return out
+
+
+def rule_gate_matrix_in_loop(ctx: ModuleContext) -> list[Finding]:
+    """A gate-matrix constructor (``project.GATE_MATRIX_CONSTRUCTORS``:
+    ``quantum/circuits.rot_gate``) called inside a host-side Python
+    ``for``/``while`` rebuilds the per-gate matrix every iteration: the
+    circuit's trig belongs in one vectorized shot, the layer unitary fused.
+    Loops inside a nested function are not host loops here. Deliberately NOT
+    caught: ad-hoc ``torch.stack``-built matrices (no name to match) and
+    loops that merely APPLY a precomputed matrix, which is the fix."""
+    out: list[Finding] = []
+    for node in ctx.nodes:
+        if not isinstance(node, ast.Call):
+            continue
+        callee = ctx.canonical(node.func) or dotted_name(node.func) or ""
+        if callee.rsplit(".", 1)[-1] not in project.GATE_MATRIX_CONSTRUCTORS:
+            continue
+        cur = ctx.parent.get(node)
+        while cur is not None and not isinstance(cur, _FuncNode):
+            if isinstance(cur, (ast.For, ast.AsyncFor, ast.While)):
+                out.append(
+                    ctx.finding(
+                        "gate-matrix-in-loop",
+                        node,
+                        f"per-gate matrix constructor {callee!r} called inside "
+                        "a Python loop: the gate matrices are rebuilt every "
+                        "iteration; derive the whole circuit's trig in one "
+                        "vectorized shot and fuse the layer unitary "
+                        "(quantum/circuits.py)",
+                    )
+                )
+                break
+            cur = ctx.parent.get(cur)
+    return out
+
+
+def rule_data_dependent_shape_in_jit(ctx: ModuleContext) -> list[Finding]:
+    """A value-dependent-shape op inside captured code or a serve request
+    path (``project.HOT_HOST_FUNCS``): the shape of ``torch.nonzero``/
+    ``torch.unique``/one-arg ``torch.where`` (and of boolean-mask indexing)
+    depends on runtime VALUES, so torch syncs the host to size the result:
+    illegal under graph capture, a stall on every eager step. The hazard
+    capacity-bucketed sparse dispatch (``ops/routing.py``) is built to
+    avoid: rank with a one-hot cumsum, pack into FIXED-capacity buckets.
+
+    Three shapes are caught: (a) calls to the ``project.DATA_DEP_SHAPE_CALLS``
+    torch functions, (b) ``torch.where`` with exactly one argument (the
+    3-arg select is the FIX, never flagged), (c) subscripts whose index is a
+    comparison (``x[y > 0]``) or a local assigned from one. Deliberately NOT
+    caught: the same ops in other host code, tensor methods (``t.nonzero()``),
+    integer-array gathers (``x[idx]`` is shape-static), and masks consumed
+    by ``torch.where``/arithmetic."""
+    out: list[Finding] = []
+    hot_host = project.HOT_HOST_FUNCS.get(ctx.path, ())
+    fns = [(fn, "captured") for fn, _q in ctx.functions if fn in ctx.captured] + [
+        (fn, "serve-request-path") for fn, qual in ctx.functions if qual in hot_host and fn not in ctx.captured
+    ]
+    for fn, kind in fns:
+        mask_locals: set[str] = set()
+        for sub in ast.walk(fn):
+            if isinstance(sub, ast.Assign) and isinstance(sub.value, ast.Compare):
+                for t in sub.targets:
+                    if isinstance(t, ast.Name):
+                        mask_locals.add(t.id)
+        for sub in ast.walk(fn):
+            if isinstance(sub, ast.Call):
+                callee = ctx.canonical(sub.func) or ""
+                if callee.startswith("torch."):
+                    tail = callee.rsplit(".", 1)[-1]
+                    if tail in project.DATA_DEP_SHAPE_CALLS and any(
+                        kw.arg == "size" for kw in sub.keywords
+                    ):
+                        continue  # a static size: the output shape is the literal
+                    if tail in project.DATA_DEP_SHAPE_CALLS:
+                        out.append(
+                            ctx.finding(
+                                "data-dependent-shape-in-jit",
+                                sub,
+                                f"{callee} inside {kind} {ctx.qualname(fn)!r}: "
+                                "its output shape depends on runtime values, "
+                                "so the host waits for the card to size it "
+                                "(raises under graph capture); pack into "
+                                "fixed-capacity buckets with computed slots "
+                                "(ops/routing.sparse_dispatch)",
+                            )
+                        )
+                    elif tail == "where" and len(sub.args) == 1 and not sub.keywords:
+                        out.append(
+                            ctx.finding(
+                                "data-dependent-shape-in-jit",
+                                sub,
+                                "one-argument torch.where (the nonzero form) "
+                                f"inside {kind} {ctx.qualname(fn)!r} returns "
+                                "value-dependent shapes; use the 3-argument "
+                                "select, or fixed-capacity slot packing",
+                            )
+                        )
+            elif isinstance(sub, ast.Subscript):
+                idx = sub.slice
+                masked = isinstance(idx, ast.Compare) or (
+                    isinstance(idx, ast.Name) and idx.id in mask_locals
+                )
+                if masked:
+                    out.append(
+                        ctx.finding(
+                            "data-dependent-shape-in-jit",
+                            sub,
+                            f"boolean-mask indexing inside {kind} "
+                            f"{ctx.qualname(fn)!r} is nonzero + gather (a "
+                            "value-dependent shape); select with "
+                            "torch.where(mask, a, b), or pack fixed-capacity "
+                            "buckets (ops/routing.sparse_dispatch)",
+                        )
+                    )
+    return out
+
+
+def rule_pad_to_bucket_in_serve(ctx: ModuleContext) -> list[Finding]:
+    """A function in a ``serve/`` module that picks a static bucket
+    (``pick_bucket``) AND pads data into a fresh zeros/empty allocation via
+    slice assignment (``xp[:n] = x``) re-implements the engine's
+    pad-to-bucket step outside the one sanctioned path: every such pad is
+    compute on rows nobody asked for, and a second pad site dodges the
+    DispatchInfo goodput/padding-waste ledger. ``ServeEngine.infer`` carries
+    the suppression with the reason written next to it. Deliberately NOT
+    caught: picking a bucket without padding, padding without a bucket pick,
+    and device-side scatter packing (``ops/routing.py``: the fix)."""
+    if "serve/" not in ctx.path.replace("\\", "/"):
+        return []
+    out: list[Finding] = []
+    for fn, qual in ctx.functions:
+        picks = [
+            sub
+            for sub in ast.walk(fn)
+            if isinstance(sub, ast.Call)
+            and (ctx.canonical(sub.func) or dotted_name(sub.func) or "").rsplit(
+                ".", 1
+            )[-1] == "pick_bucket"
+        ]
+        if not picks:
+            continue
+        allocates = any(
+            isinstance(sub, ast.Call)
+            and (ctx.canonical(sub.func) or dotted_name(sub.func) or "").rsplit(
+                ".", 1
+            )[-1] in ("zeros", "empty", "zeros_like", "empty_like", "new_zeros", "new_empty")
+            for sub in ast.walk(fn)
+        )
+        pad_assign = any(
+            isinstance(sub, ast.Assign)
+            and any(
+                isinstance(t, ast.Subscript) and isinstance(t.slice, ast.Slice)
+                for t in sub.targets
+            )
+            for sub in ast.walk(fn)
+        )
+        if allocates and pad_assign:
+            out.append(
+                ctx.finding(
+                    "pad-to-bucket-in-serve",
+                    picks[0],
+                    f"{qual!r} picks a static bucket and pads a batch into it "
+                    "outside the sanctioned batcher path "
+                    "(serve/engine.ServeEngine.infer): route the batch "
+                    "through the engine so the pad rows land in the "
+                    "DispatchInfo goodput/padding-waste ledger (or serve the "
+                    "tier ragged)",
+                )
+            )
+    return out
+
+
+def rule_trace_in_jit_path(ctx: ModuleContext) -> list[Finding]:
+    """A request-tracing call (``project.TRACE_STAMP_CALLS``: TraceContext
+    construction, ``trace_sampled``, ``add_phase``) inside captured code (a
+    graph capture's step or a kernel wrapper). Tracing is host-side ONLY:
+    under capture the stamp is read once and every replay repeats nothing
+    of it (``wall-clock-in-jit``'s hazard), and a stamp inside a wrapper
+    times the launch's host side, not the kernel. Deliberately NOT caught:
+    stamping in host-side serve/router/loadgen code (the sanctioned
+    surface) and cross-module call chains."""
+    out: list[Finding] = []
+    for fn in ctx.captured:
+        for sub in ast.walk(fn):
+            if not isinstance(sub, ast.Call):
+                continue
+            callee = ctx.canonical(sub.func) or dotted_name(sub.func) or ""
+            if callee.rsplit(".", 1)[-1] not in project.TRACE_STAMP_CALLS:
+                continue
+            out.append(
+                ctx.finding(
+                    "trace-in-jit-path",
+                    sub,
+                    f"request-tracing call {callee!r} in captured "
+                    f"{ctx.qualname(fn) or fn.name!r}: tracing is host-side "
+                    "only; under graph capture the stamp is read once and "
+                    "never replayed; stamp around the dispatch, never inside "
+                    "it (serve/server.ServeLoop._serve_one is the sanctioned "
+                    "site)",
+                )
+            )
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -511,6 +1062,47 @@ RULES: dict[str, tuple[Callable[[ModuleContext], list[Finding]], str]] = {
     "unwindowed-cumulative-rate": (
         rule_unwindowed_cumulative_rate,
         "cumulative counter divided by wall time outside the sanctioned differencing helpers",
+    ),
+    # the tracing rules' torch counterparts, under JAX's ids
+    "jit-mutable-global": (
+        rule_jit_mutable_global,
+        "captured code reading module-level mutable state (read once, at capture)",
+    ),
+    "tracer-branch": (
+        rule_tracer_branch,
+        "Python if/while on a tensor in captured code (a host sync, illegal under capture)",
+    ),
+    "host-sync-hot-path": (
+        rule_host_sync_hot_path,
+        ".item()/.cpu()/.tolist()/synchronize in captured code / serve-request paths",
+    ),
+    "wall-clock-in-jit": (
+        rule_wall_clock_in_jit,
+        "time.time()/datetime.now() in captured code (read once, at capture)",
+    ),
+    "import-time-jnp": (
+        rule_import_time_jnp,
+        "tensors on the card or CUDA initialised at module import time",
+    ),
+    "pallas-host-loop": (
+        rule_pallas_host_loop,
+        "kernel wrapper launched from a host-side Python loop over gates/layers",
+    ),
+    "gate-matrix-in-loop": (
+        rule_gate_matrix_in_loop,
+        "per-gate matrix construction inside a circuit layer loop",
+    ),
+    "data-dependent-shape-in-jit": (
+        rule_data_dependent_shape_in_jit,
+        "torch.nonzero/unique/bool-mask indexing in captured or serve-request code",
+    ),
+    "pad-to-bucket-in-serve": (
+        rule_pad_to_bucket_in_serve,
+        "request batch padded to a static bucket outside the sanctioned batcher path",
+    ),
+    "trace-in-jit-path": (
+        rule_trace_in_jit_path,
+        "TraceContext construction / phase stamping in captured code or a kernel wrapper",
     ),
     # "slow-marker" is data-driven (needs a --durations report) and lives in
     # qdml_tpu_torch.analysis.slowmarkers; the CLI folds it in when given the data.

@@ -285,7 +285,7 @@ class BackendLifecycle:
             while self.fleet_size() > n:
                 # one retirement at a time under _scale_lock: the
                 # dedup-grace sleep ends before the next one starts
-                actions.append(self.scale_down())
+                actions.append(self.scale_down())  # lint: disable=blocking-under-lock(scale ops are one-at-a-time by design: _scale_lock is the coarse serializer for admissions/retirements, held only on the control path; the dedup-grace sleep must finish before the next retirement starts)
             after = self.fleet_size()
         return {
             "backends_before": before,

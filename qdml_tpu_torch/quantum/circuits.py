@@ -108,9 +108,9 @@ def ansatz_unitary(weights: torch.Tensor, n: int, n_layers: int) -> CArr:
     ring = sv.ring_index(n, str(weights.device))
     total: CArr | None = None
     for l in range(n_layers):
-        u = rot_gate(weights[l, 0, 0], weights[l, 0, 1])
+        u = rot_gate(weights[l, 0, 0], weights[l, 0, 1])  # lint: disable=gate-matrix-in-loop(the unfused construction the dense_fused equivalence tests compare against; the pallas impl builds its U with it once a forward, as JAX's pallas path does (qdml_tpu/quantum/circuits.py:337))
         for q in range(1, n):
-            u = ckron(u, rot_gate(weights[l, q, 0], weights[l, q, 1]))
+            u = ckron(u, rot_gate(weights[l, q, 0], weights[l, q, 1]))  # lint: disable=gate-matrix-in-loop(unfused twin of fused_layer_unitaries: see above)
         # ring perm acts on rows: (P M)[y, :] = M[src[y], :]
         u = CArr(u.re[ring, :], u.im[ring, :])
         total = u if total is None else ceinsum("ij,jk->ik", u, total)

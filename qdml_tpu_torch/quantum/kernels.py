@@ -197,12 +197,12 @@ def build(names=KERNELS) -> dict[str, float]:
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
             out,
-            time.perf_counter(),
+            time.perf_counter(),  # lint: disable=wall-clock-in-jit(nvcc's wall time on the host: _load builds once, before any graph is captured, and no launch reads it)
         )
     failed = []
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        seconds[name] = time.perf_counter() - t0  # lint: disable=wall-clock-in-jit(nvcc's wall time on the host: _load builds once, before any graph is captured, and no launch reads it)
         build_log[name] = log
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
@@ -266,7 +266,7 @@ def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> 
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
         capturing = torch.cuda.is_current_stream_capturing()
-        if capturing and not _capture_tallies:
+        if capturing and not _capture_tallies:  # lint: disable=jit-mutable-global(read at capture by design: a captured launch counts into the capture's tally once, and count_replay adds it at each replay)
             raise RuntimeError(
                 f"{name} launch captured into a CUDA graph outside kernels.counting_capture(): "
                 "its replays would go uncounted"
@@ -274,7 +274,7 @@ def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> 
         err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
-    _count(_capture_tallies[-1] if capturing else launches, counter or name)
+    _count(_capture_tallies[-1] if capturing else launches, counter or name)  # lint: disable=jit-mutable-global(read at capture by design: a captured launch counts into the capture's tally once, and count_replay adds it at each replay)
 
 
 def _observers() -> list:
@@ -474,7 +474,7 @@ def _circuit_launch_members(angles, weights, n: int, layers: int, with_state: bo
     work = lambda: _work("circuit_expvals", batch, n, layers, members, with_state)  # noqa: E731
     with _observed("circuit_expvals", work) as outs:
         cs = circuit_gate_table(weights)  # (E, layers, n, 4), one call for every member
-        _launch("circuit_expvals", dev, angles, cs, ev, fre, fim, batch, n, layers, int(with_state), members,
+        _launch("circuit_expvals", dev, angles, cs, ev, fre, fim, batch, n, layers, int(with_state), members,  # lint: disable=host-sync-hot-path(with_state is the caller's Python bool: int() of it is host arithmetic, no device fetch)
                 counter=_counter("circuit_expvals", ensemble))
         outs += [ev, fre, fim]
     return ev, fre, fim

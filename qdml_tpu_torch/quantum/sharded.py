@@ -204,7 +204,7 @@ def run_circuit_sharded(
         for q in range(k):
             psi = ry_global(psi, _fetch(psi, group, peers[q]), weights[l, q, 0], bits[q])
             psi = rz_global(psi, weights[l, q, 1], bits[q])
-        psi = apply_rotation_layer(psi, weights[l, k:], n_local)
+        psi = apply_rotation_layer(psi, weights[l, k:], n_local)  # lint: disable=pallas-host-loop(the layer loop exchanges shards between ranks for the global wires before and after each layer's local rotations, so the layers cannot fuse into one launch)
         # the ring: CNOT(c, c+1) for c < n-1, then CNOT(n-1, 0)
         for c in range(k):
             # a global target needs the partner's shard only where the

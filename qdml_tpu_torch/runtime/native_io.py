@@ -91,7 +91,7 @@ def _load() -> ctypes.CDLL | None:
             return _LIB
         _TRIED = True
         try:
-            lib = ctypes.CDLL(str(_build_lib()))
+            lib = ctypes.CDLL(str(_build_lib()))  # lint: disable=blocking-under-lock(one-time lazy build: _LOCK makes the native compile exactly-once; every later caller needs the library and must wait for it regardless)
         except (RuntimeError, OSError) as e:
             build_error = str(e)
             return None

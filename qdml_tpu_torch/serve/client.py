@@ -169,11 +169,11 @@ class ServeClient:
             per_try = timeout_s if remaining is None else min(timeout_s, remaining)
             try:
                 with self._lock:
-                    self._ensure_connected(per_try)
+                    self._ensure_connected(per_try)  # lint: disable=blocking-under-lock(the hold IS the wire protocol: one in-flight exchange per connection; _lock serializes this client's threads over one socket, reconnect included)
                     self._sock.settimeout(per_try)
-                    self._sock.sendall(payload)
+                    self._sock.sendall(payload)  # lint: disable=blocking-under-lock(the hold IS the wire protocol: one request/reply exchange owns the socket; send stays under _lock so a peer thread cannot interleave bytes)
                     while True:
-                        line = self._rfile.readline()
+                        line = self._rfile.readline()  # lint: disable=blocking-under-lock(the hold IS the wire protocol: the reply read belongs to the same exchange as the send; socket timeout bounds the wait)
                         if not line:
                             raise ConnectionResetError(
                                 "server closed the connection"

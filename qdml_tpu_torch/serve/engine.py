@@ -84,7 +84,6 @@ are :mod:`~qdml_tpu_torch.serve.batcher` and
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 from typing import Any, Mapping, NamedTuple
 
@@ -105,6 +104,7 @@ from qdml_tpu_torch.serve.types import DispatchInfo
 from qdml_tpu_torch.telemetry import cost
 from qdml_tpu_torch.telemetry.spans import get_sink
 from qdml_tpu_torch.train.hdce import HDCE, build_hdce
+from qdml_tpu_torch.utils import lockdep
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.tune_table import activity
 
@@ -218,10 +218,10 @@ class ServeEngine:
         )
         # the live (hdce, clf) modules: read once per batch under _swap_lock,
         # replaced whole by swap_params, so a batch never sees a torn pair
-        self._swap_lock = threading.Lock()
+        self._swap_lock = lockdep.Lock("ServeEngine._swap_lock")
         # serializes whole swaps (validate -> build -> flip); never taken on
         # the request path
-        self._swap_gate = threading.RLock()
+        self._swap_gate = lockdep.RLock("ServeEngine._swap_gate")
         self._swap_epoch = 0
         self._live = self._build(hdce_sd, clf_sd)
         # per bucket: the circuit impl (quantum classifier only, with the
@@ -241,7 +241,7 @@ class ServeEngine:
         # "replicated" (position (0, 0, 0) alone); empty without a mesh
         self.bucket_sharding: dict[str, str] = {}
         # sparse overflow accounting (overflow rows are served dense, never dropped)
-        self._dispatch_lock = threading.Lock()
+        self._dispatch_lock = lockdep.Lock("ServeEngine._dispatch_lock")
         self._overflow_rows = 0
         self._routed_rows = 0
         self._work0: dict[str, int] = {}
@@ -378,7 +378,7 @@ class ServeEngine:
                     )
             pre = self._work()
             new_live = self._build(hdce_sd, clf_sd)
-            self._sync_all()
+            self._sync_all()  # lint: disable=blocking-under-lock(sanctioned off-request-path sync: the fence keeps half-copied params off replicas; _swap_gate is only ever held by swap/control calls, never the request path)
             post = self._work()
             with self._swap_lock:
                 self._swap_epoch += 1
@@ -402,7 +402,7 @@ class ServeEngine:
                     f"hot-swap checkpoint {clf_tag!r} was trained for another quantum "
                     "config than this engine serves: deploy it with a fresh engine"
                 )
-            rec = self.swap_params(hdce_sd, clf_sd)
+            rec = self.swap_params(hdce_sd, clf_sd)  # lint: disable=blocking-under-lock(sanctioned off-request-path sync: swap_from_workdir is a control verb; _swap_gate re-entry serializes it with swap_params by design)
         rec["tags"] = {"hdce": hdce_tag, prefix: clf_tag}
         return rec
 
@@ -759,7 +759,7 @@ class ServeEngine:
         the reply's ``.cpu()`` is the one wait."""
         if not self._warm:
             raise RuntimeError("ServeEngine.infer before warmup()")
-        x = np.asarray(x, dtype=np.float32)
+        x = np.asarray(x, dtype=np.float32)  # lint: disable=host-sync-hot-path(the request rows arrive as host arrays: asarray is a host copy, no device transfer)
         n = int(x.shape[0])
         if n == 0:
             raise ValueError("empty batch")
@@ -782,7 +782,7 @@ class ServeEngine:
                     fetch_s=sum(i.fetch_s or 0.0 for i in infos) if traced else None,
                 ),
             )
-        b = pick_bucket(n, self.buckets)
+        b = pick_bucket(n, self.buckets)  # lint: disable=pad-to-bucket-in-serve(THE sanctioned pad site: every request batch reaches the card through this one tier pick + pad, where DispatchInfo accounts the waste)
         xp = np.zeros((b, *x.shape[1:]), np.float32)
         xp[:n] = x
         t_dispatch = time.perf_counter() if traced else None
@@ -795,7 +795,7 @@ class ServeEngine:
             with self._dispatch_lock:
                 self._overflow_rows += overflow
                 self._routed_rows += n
-        out_h, out_pred, out_conf = h[:n].cpu().numpy(), pred[:n].cpu().numpy(), conf[:n].cpu().numpy()
+        out_h, out_pred, out_conf = h[:n].cpu().numpy(), pred[:n].cpu().numpy(), conf[:n].cpu().numpy()  # lint: disable=host-sync-hot-path(the one result fetch per served batch: these transfers ARE the reply, h with the pred and conf of the same dispatch)
         info = DispatchInfo(bucket=b, n=n, rows=b, mode=self.batching_mode[str(b)])
         if traced:
             info.compute_s = t_fetch - t_dispatch

@@ -89,6 +89,12 @@ class BurnRateRule:
         self.fired_count = 0
         self.resolved_count = 0
 
+    @property
+    def pending(self) -> int:
+        """Consecutive over-threshold evaluations so far toward ``debounce``
+        (0 while firing)."""
+        return self._pending
+
     def feed(self, t: float, errors: float, total: float) -> None:
         self._samples.append((float(t), float(errors), float(total)))
         horizon = t - self.slow_s

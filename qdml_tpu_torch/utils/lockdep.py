@@ -33,6 +33,7 @@ __all__ = [
     "enabled",
     "reset",
     "witness_summary",
+    "witnessed_edges",
 ]
 
 
@@ -215,3 +216,11 @@ def witness_summary() -> dict:
             "inversions": len(_inversions),
             "inversion_edges": list(_inversions),
         }
+
+
+def witnessed_edges() -> list[tuple[str, str]]:
+    """Every order edge witnessed since the last :func:`reset`, as
+    ``(held, acquired)`` lock names, sorted: the runtime twin of the static
+    lock graph's edges."""
+    with _guard:
+        return sorted(_edges)

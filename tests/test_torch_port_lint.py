@@ -36,7 +36,18 @@ FIXTURES = (
     "violations.py", "clean.py", "serve/violations.py", "serve/clean.py",
     "telemetry/rate_violations.py", "telemetry/rate_clean.py",
 )
-RULE_IDS = tuple(TRULES)
+# the seven framework-neutral rules, which are JAX's rule for rule (the ten
+# tracing counterparts read torch where JAX reads XLA, and are held against
+# JAX's rules on mirrored sources in tests/test_torch_port_tracing_rules.py)
+RULE_IDS = (
+    "primary-only-collective", "serve-lock-discipline", "stranded-future", "broad-except",
+    "retry-without-backoff", "unbounded-readline", "unwindowed-cumulative-rate",
+)
+TRACING_IDS = (
+    "jit-mutable-global", "tracer-branch", "host-sync-hot-path", "wall-clock-in-jit", "import-time-jnp",
+    "pallas-host-loop", "gate-matrix-in-loop", "data-dependent-shape-in-jit", "pad-to-bucket-in-serve",
+    "trace-in-jit-path",
+)
 
 
 def _keys(findings, fingerprint=True):
@@ -69,11 +80,12 @@ def _write(root: Path, relpath: str, src: str) -> None:
 
 
 def test_the_seven_rules_and_their_ids():
-    assert set(TRULES) == {
-        "primary-only-collective", "serve-lock-discipline", "stranded-future", "broad-except",
-        "retry-without-backoff", "unbounded-readline", "unwindowed-cumulative-rate",
-    }
+    assert set(TRULES) == set(RULE_IDS) | set(TRACING_IDS)
     assert set(TRULES) <= set(JRULES)
+    # JAX's three tracing rules with no torch counterpart are not registered
+    assert set(JRULES) - set(TRULES) == {
+        "train-step-jit-audit", "pallas-interpret-literal", "collective-outside-shardmap",
+    }
     # the maps the seven rules share with JAX's, unchanged (the port's code
     # uses the same IO calls, counters and clocks)
     for name in ("RETRY_IO_CALLS", "BACKOFF_CALLS", "TRANSIENT_IO_EXCEPTIONS", "UNBOUNDED_READ_CALLS",
@@ -446,8 +458,8 @@ def test_json_artifact_keys_and_per_rule_match_jax(tmp_path, capsys):
     assert tgate["kind"] == "lint_gate" and tgate["schema"] == 1 and tgate["exit_code"] == 1
     assert tgate["new_findings"] == sum(tgate["per_rule"].values()) == len(tgate["findings"])
     # JAX's per_rule on the seven rules, less the save_checkpoint pair
-    want = {r: n for r, n in jgate["per_rule"].items() if r in TRULES and r != "primary-only-collective"}
-    assert tgate["per_rule"] == want
+    want = {r: n for r, n in jgate["per_rule"].items() if r in RULE_IDS and r != "primary-only-collective"}
+    assert {r: n for r, n in tgate["per_rule"].items() if r in RULE_IDS} == want
     assert set(tgate["findings"][0]) == set(jgate["findings"][0])
 
 
@@ -481,16 +493,27 @@ def test_port_tree_is_clean_under_its_baseline(tree_gate):
 
 
 def test_port_tree_suppressions_all_carry_reasons():
+    from qdml_tpu_torch.analysis.concurrency import CONCURRENCY_RULES
+
     for path in sorted((ROOT / "qdml_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         for line, rules in tengine.parse_suppressions(path.read_text()).items():
             for rule_id, reason in rules.items():
-                assert reason and rule_id in TRULES, (path, line, rule_id)
+                assert reason and (rule_id in TRULES or rule_id in CONCURRENCY_RULES), (path, line, rule_id)
 
 
 @pytest.fixture(scope="module")
 def port_tree():
     """The port's engine over its own tree, once."""
     return tengine.LintEngine(str(ROOT)).run(list(tproject.DEFAULT_PATHS))
+
+
+@pytest.fixture(scope="module")
+def port_tree_neutral():
+    """The port's seven neutral rules alone over its tree, per module, once:
+    what JAX's same seven rules are held to (both see the tracing and
+    concurrency suppressions as dead)."""
+    return tengine.LintEngine(str(ROOT), rules=[TRULES[r][0] for r in RULE_IDS]).run(
+        list(tproject.DEFAULT_PATHS), whole_program=False)
 
 
 # the scanned tree in parts: each subpackage, the package's own modules, the smoke
@@ -513,16 +536,19 @@ def test_tree_parts_cover_the_scan():
 
 
 @pytest.mark.parametrize("part", TREE_PARTS)
-def test_port_tree_findings_match_jax_engine(port_tree, part):
-    """JAX's engine over the port's tree finds what the port's does, plus the
-    flight recorder's save_checkpoint (a collective in JAX's maps alone)."""
+def test_port_tree_findings_match_jax_engine(port_tree, port_tree_neutral, part):
+    """JAX's engine over the port's tree finds what the port's does on the
+    seven neutral rules, plus the flight recorder's save_checkpoint (a
+    collective in JAX's maps alone); the port's whole gate finds nothing."""
     paths = _part_paths(part)
     files = set(tengine.iter_python_files(str(ROOT), paths))
     j = jengine.LintEngine(str(ROOT), rules=[JRULES[r][0] for r in RULE_IDS]).run(paths, whole_program=False)
     assert j.errors == []
-    assert _keys(j.suppressed) == _keys([f for f in port_tree.suppressed if f.path in files])
+    assert _keys(j.suppressed) == _keys([f for f in port_tree_neutral.suppressed if f.path in files])
     want = [("primary-only-collective", "qdml_tpu_torch/telemetry/numerics.py", "FlightRecorder.dump")]
-    assert [(f.rule, f.path, f.context) for f in j.new] == (want if part == "qdml_tpu_torch/telemetry" else [])
+    mine = [(f.rule, f.path, f.context) for f in port_tree_neutral.new if f.path in files]
+    assert sorted((f.rule, f.path, f.context) for f in j.new) == sorted(
+        mine + (want if part == "qdml_tpu_torch/telemetry" else []))
     assert port_tree.new == []
 
 
@@ -530,8 +556,8 @@ def test_port_tree_findings_match_jax_engine(port_tree, part):
     ([f"--paths={FIXDIR}/clean.py"], 0),
     ([f"--paths={FIXDIR}/violations.py"], 1),
     (["--paths=qdml_tpu_torch/serv"], 1),          # a missing path fails the gate
-    (["--lockgraph"], 2),                           # comes with the concurrency pass
-    (["--lockgraph-check"], 2),
+    (["--lockgraph="], 2),                          # a lock graph needs a directory
+    (["--lockgraph-check="], 2),
     (["--threshold=fast"], 2),
     (["--no-such-flag"], 2),
     ([f"--durations=/nonexistent/d.log", f"--paths={FIXDIR}/clean.py"], 2),
@@ -592,7 +618,8 @@ def test_report_reads_the_port_lint_artifact(tree_gate, tmp_path, capsys):
 
 def test_cli_lint_is_host_side():
     """``cli lint`` loads no kernel module, opens no CUDA context and joins
-    no world; --list-rules lists the seven rules and slow-marker."""
+    no world; --list-rules lists the 17 per-module rules, the five
+    concurrency rules and slow-marker."""
     code = (
         "import json, sys, torch\n"
         "from qdml_tpu_torch import cli\n"
@@ -608,7 +635,10 @@ def test_cli_lint_is_host_side():
     lines = out.stdout.strip().splitlines()
     assert json.loads(lines[-1]) == {"rc": 0, "cuda": False, "kernels": False, "world": False, "jax": []}
     listed = [ln.split()[0] for ln in lines[:-1]]
-    assert listed == sorted(TRULES) + ["slow-marker"]
+    from qdml_tpu_torch.analysis.concurrency import CONCURRENCY_RULES
+
+    assert listed == sorted(TRULES) + sorted(CONCURRENCY_RULES) + ["slow-marker"]
+    assert len(TRULES) == 17 and len(CONCURRENCY_RULES) == 5
 
 
 ANALYSIS_STDLIB = {"__future__", "ast", "contextlib", "dataclasses", "hashlib", "io", "json", "os", "re",

@@ -50,7 +50,7 @@ HOST_MODULES = tuple(f"qdml_tpu_torch.{m}" for m in (
 ))
 # the lint gate over the port's own tree: standard library only
 ANALYSIS_MODULES = tuple(f"qdml_tpu_torch.analysis{m}" for m in (
-    "", ".engine", ".project", ".rules", ".slowmarkers", ".cli",
+    "", ".engine", ".project", ".rules", ".slowmarkers", ".cli", ".concurrency",
 ))
 
 
@@ -112,6 +112,9 @@ def test_every_module_has_a_jax_counterpart_or_is_the_kernels():
             continue
         if rel == Path("parallel/selfcheck.py"):  # the rank programs, JAX's a test worker
             assert (ROOT / "tests/multihost_worker.py").exists()
+            continue
+        if rel == Path("scripts/lockdep_witness.py"):  # the lockdep block of JAX's chaos dryrun
+            assert (ROOT / "scripts/chaos_dryrun.py").exists()
             continue
         if rel in (Path("scripts/fleet_phase_alone.py"), Path("scripts/warmup_cost.py"),
                    Path("scripts/profiler_drops.py")):
