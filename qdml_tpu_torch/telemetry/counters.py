@@ -133,10 +133,10 @@ class _StepCtx:
     __slots__ = ("t_transfer",)
 
     def __init__(self):
-        self.t_transfer: float | None = None
+        self.t_transfer: int | None = None  # time.perf_counter_ns()
 
     def transfer(self) -> None:
-        self.t_transfer = time.perf_counter()
+        self.t_transfer = time.perf_counter_ns()
 
 
 class StepClock:
@@ -167,21 +167,18 @@ class StepClock:
     @contextlib.contextmanager
     def step(self) -> Iterator[_StepCtx]:
         ctx = _StepCtx()
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         yield ctx
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         if self.compile_s is None:
-            self.compile_s = t1 - t0
+            self.compile_s = (t1 - t0) / 1e9
             target = self._target()
             if target is not None and getattr(target, "active", False):
-                target.emit(
-                    "span", name="compile_first_step", path=f"{self.name}/compile_first_step",
-                    depth=0, dur_s=round(self.compile_s, 6),
-                )
+                target.write_raw(_spans.record("compile_first_step", f"{self.name}/compile_first_step", 0, t0, t1))
         else:
-            self.steps.add(t1 - t0)
+            self.steps.add((t1 - t0) / 1e9)
             if ctx.t_transfer is not None:
-                self.transfers.add(t1 - ctx.t_transfer)
+                self.transfers.add((t1 - ctx.t_transfer) / 1e9)
 
     def epoch_end(self, **tags) -> None:
         """Flush one ``counters`` record (step/transfer percentiles, the

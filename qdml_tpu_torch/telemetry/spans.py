@@ -3,11 +3,25 @@
 ``with span("serve_warmup"): ...`` times the block and writes one ``span``
 record at exit (children close before parents; ``path``/``depth`` rebuild
 the tree) to the explicit ``sink``, else to the process-global one
-(:func:`set_sink`). With neither, a span costs two clock reads. Under a
-``torch.distributed`` world a record carries the writing rank as
-``process``. Bridge: while a ``torch.profiler`` session is recording, each
-span is also a ``record_function`` range, so it shows as a named region in
-the trace (:func:`profiler_trace`, ``cli profile``).
+(:func:`set_sink`). With neither, a span costs two clock reads and builds
+no record. Under a ``torch.distributed`` world a record carries the writing
+rank as ``process``. Bridge: while a ``torch.profiler`` session is
+recording, each span is also a ``record_function`` range, so it shows as a
+named region in the trace (:func:`profiler_trace`, ``cli profile``).
+
+A record's start and end, ``t0_ns`` and ``t1_ns``, are
+``time.perf_counter_ns()`` readings (on Linux ``CLOCK_MONOTONIC``, which
+``time.perf_counter`` reads too), so a profiler session's device timeline
+is aligned to them by one marker: a kernel launched, after a
+synchronisation, at a known reading. ``dur_s`` is their difference in
+seconds and ``ts`` the start's wall clock, to the millisecond. The two
+clock fields are the port's own: JAX's records carry ``ts`` and ``dur_s``
+alone.
+
+``with span(...) as tags`` yields the record's tags, which the block may
+add to. A hot path times its phases into a ``phases`` tag, each a
+``[t0_ns, t1_ns]`` pair on the same clock, so a call writes one record
+where a span a phase would write several.
 """
 
 from __future__ import annotations
@@ -55,35 +69,46 @@ def _bridge(name: str):
     return profiler.record_function(name)
 
 
+def record(name: str, path: str, depth: int, t0_ns: int, t1_ns: int, **tags) -> dict:
+    """The ``span`` record of a block that ran from ``t0_ns`` to ``t1_ns``
+    (``time.perf_counter_ns`` readings): what :func:`span` writes, and any
+    other code that times a block itself."""
+    dur_s = (t1_ns - t0_ns) / 1e9
+    rec = {
+        "kind": "span",
+        "ts": round(time.time() - dur_s, 3),
+        "name": name,
+        "path": path,
+        "depth": depth,
+        "dur_s": round(dur_s, 6),
+        "t0_ns": t0_ns,
+        "t1_ns": t1_ns,
+        **tags,
+    }
+    proc = _process_index()
+    if proc is not None:
+        rec["process"] = proc
+    return rec
+
+
 @contextlib.contextmanager
-def span(name: str, sink=None, **tags) -> Iterator[None]:
-    """Time a block; write one nested ``span`` record at exit."""
+def span(name: str, sink=None, **tags) -> Iterator[dict]:
+    """Time a block; write one nested ``span`` record at exit. Yields the
+    record's tags."""
     st = _stack()
     st.append(name)
-    path = "/".join(st)
-    t_wall = time.time()
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     try:
         with _bridge(name):
-            yield
+            yield tags
     finally:
-        dur = time.perf_counter() - t0
-        st.pop()
+        t1 = time.perf_counter_ns()
         target = sink if sink is not None else _sink
-        if target is not None and getattr(target, "active", False):
-            rec = {
-                "kind": "span",
-                "ts": round(t_wall, 3),
-                "name": name,
-                "path": path,
-                "depth": len(st),
-                "dur_s": round(dur, 6),
-                **tags,
-            }
-            proc = _process_index()
-            if proc is not None:
-                rec["process"] = proc
-            target.write_raw(rec)
+        active = target is not None and getattr(target, "active", False)
+        path = "/".join(st) if active else ""
+        st.pop()  # before the write, so a sink that raises leaves the stack right
+        if active:
+            target.write_raw(record(name, path, len(st), t0, t1, **tags))
 
 
 @contextlib.contextmanager

@@ -58,6 +58,7 @@ from qdml_tpu_torch.train.checkpoint import save_checkpoint, try_resume
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
 from qdml_tpu_torch.telemetry.numerics import branch_params
 from qdml_tpu_torch.telemetry.sanitizer import checkify_step
+from qdml_tpu_torch.telemetry.spans import span
 from qdml_tpu_torch.train.scan import (
     LoopTelemetry,
     ScanSteps,
@@ -118,16 +119,21 @@ def init_hdce_state(
     """The HDCE to train (``qdml_tpu/train/hdce.py:196-216``): BatchNorm decay
     ``0.9 ** n_users``, activations in ``model.dtype``, weights drawn as Flax
     draws them from ``generator`` (default: a CPU generator seeded with
-    ``cfg.train.seed``), in train mode."""
+    ``cfg.train.seed``), in train mode. Spans ``hdce_init`` (the module
+    built and drawn on the host) and ``hdce_to_device``."""
     dev = resolve_device(device)
-    model = HDCE(
-        cfg.data.n_scenarios, cfg.model.features, cfg.h_out_dim, cfg.image_hw,
-        bn_decay=0.9**cfg.data.n_users, dtype=activation_dtype(cfg.model.dtype),
-    )
-    flax_init_(model, generator or torch.Generator().manual_seed(cfg.train.seed))
-    return model.to(dev).train()
+    with span("hdce_init"):
+        model = HDCE(
+            cfg.data.n_scenarios, cfg.model.features, cfg.h_out_dim, cfg.image_hw,
+            bn_decay=0.9**cfg.data.n_users, dtype=activation_dtype(cfg.model.dtype),
+        )
+        flax_init_(model, generator or torch.Generator().manual_seed(cfg.train.seed))
+    with span("hdce_to_device"):
+        model = model.to(dev)
+    return model.train()
 
 
+@span("hdce_make_trainer")
 def make_trainer(
     cfg: ExperimentConfig,
     device: str | torch.device | None,
@@ -135,7 +141,8 @@ def make_trainer(
     init_state: dict | None = None,
 ) -> tuple[HDCE, Optimizer]:
     """The HDCE that :func:`train_hdce` trains and its optimizer: the seeded
-    init (or ``init_state``) and ``cfg.train``'s optimizer and schedule."""
+    init (or ``init_state``) and ``cfg.train``'s optimizer and schedule,
+    under a ``hdce_make_trainer`` span."""
     model = init_hdce_state(cfg, device)
     if init_state is not None:
         model.load_state_dict(init_state)

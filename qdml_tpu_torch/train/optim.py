@@ -41,6 +41,7 @@ import torch
 
 from qdml_tpu_torch.config import QuantumConfig, TrainConfig
 from qdml_tpu_torch.ops.grad_prune import check_prune_args, gradient_prune_
+from qdml_tpu_torch.telemetry.spans import span
 
 
 def lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], float]:
@@ -310,6 +311,7 @@ class Optimizer:
 _MOMENTS_DTYPES = ("float32", "bfloat16")
 
 
+@span("optimizer_init")
 def get_optimizer(
     cfg: TrainConfig,
     params: Iterable[torch.Tensor],
@@ -317,6 +319,9 @@ def get_optimizer(
     quantum: QuantumConfig | None = None,
     members: bool = False,
 ) -> Optimizer:
+    """``cfg``'s optimizer and rate schedule over ``params``, built under an
+    ``optimizer_init`` span (a first construction imports what torch.optim
+    loads lazily)."""
     # the JAX package's rejection contract: a typo like 'bf16' must not
     # silently select the f32 path
     if cfg.moments_dtype not in _MOMENTS_DTYPES:

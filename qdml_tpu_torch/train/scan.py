@@ -39,11 +39,22 @@ one for K and one for the epoch's tail, as JAX bounds its recompiles.
 
 No fallback: on the card a capture or replay that fails raises, and the
 run stops; nothing continues eagerly.
+
+Spans (:mod:`~qdml_tpu_torch.telemetry.spans`), all on the host, none in
+the code a graph captures: one ``scan_call`` (tag ``k``) a call. On the
+card its ``phases`` tag times, as ``[t0_ns, t1_ns]``, ``scan_stage_wait``
+(the host waiting for the previous chunk's copies, so for the card),
+``scan_stage`` (the rest of the staging) and ``scan_replay`` (the graph's
+launch), so a replayed call writes one record. The one-off calls open
+spans of their own: ``scan_warmup`` (the eager first chunk) and
+``scan_capture`` (tag ``k``). A call's host work is its ``scan_call``
+less its ``scan_stage_wait``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -51,6 +62,7 @@ import torch
 
 from qdml_tpu_torch.data.datasets import GridData
 from qdml_tpu_torch.quantum import kernels
+from qdml_tpu_torch.telemetry.spans import span
 from qdml_tpu_torch.train.optim import Optimizer
 
 # A step: (batch, that step's noise or None) -> its outputs, device tensors
@@ -221,16 +233,21 @@ class ScanSteps:
         self._warm = True
         return out
 
-    def _stage(self, idx: np.ndarray, snrs: np.ndarray, noise: torch.Tensor | None) -> None:
+    def _stage(self, idx: np.ndarray, snrs: np.ndarray, noise: torch.Tensor | None, phases: dict) -> None:
         """Fill the static inputs for a chunk of ``len(snrs)`` steps: one
         asynchronous copy each from pinned staging memory, which the host
-        reuses only after the last chunk's copies have run."""
+        reuses only after the last chunk's copies have run. Times the wait
+        and the rest into ``phases``."""
         k = len(snrs)
         if self._idx_buf is None:
             self._idx_buf = torch.zeros((self.k, *idx.shape[1:]), dtype=torch.long, device=self.device)
             self._idx_host = torch.zeros((self.k, *idx.shape[1:]), dtype=torch.long).pin_memory()
+        t0 = time.perf_counter_ns()
         if self._staged is not None:
             self._staged.synchronize()
+            t1 = time.perf_counter_ns()
+            phases["scan_stage_wait"] = (t0, t1)
+            t0 = t1
         self._idx_host.numpy()[:k] = idx
         self._snr_host.numpy()[:k] = snrs
         self._idx_buf[:k].copy_(self._idx_host[:k], non_blocking=True)
@@ -239,6 +256,7 @@ class ScanSteps:
             self._noise_buf[:k].copy_(noise)
         self._staged = torch.cuda.Event()
         self._staged.record(torch.cuda.current_stream(self.device))
+        phases["scan_stage"] = (t0, time.perf_counter_ns())
 
     def _capture(self, k: int) -> None:
         """Capture a graph of ``k`` steps over the static inputs. The update
@@ -270,23 +288,29 @@ class ScanSteps:
             raise ValueError(f"a chunk of {idx.shape[0]} windows and {k} SNRs, want 1..{self.k} of each")
         if (noise is None) != (self.noise_shape is None):
             raise ValueError("noise must be given exactly when the runner was built with noise_shape")
-        self.opt.pin_rate(k)
-        try:
-            if self.device.type != "cuda":
-                return self._eager(idx, snrs, noise)
-            if not self._warm:
-                return self._warmup(idx, snrs, noise)
-            self._stage(idx, snrs, noise)
-            if k not in self.graphs:
-                self._capture(k)
-            graph, tally, out = self.graphs[k]
-            graph.replay()
-            kernels.count_replay(tally)
-            activity["replays"] += 1
-            self.opt.count += k
-            return _clone(out)
-        finally:
-            self.opt.unpin_rate()
+        with span("scan_call", k=k) as tags:
+            self.opt.pin_rate(k)
+            try:
+                if self.device.type != "cuda":
+                    return self._eager(idx, snrs, noise)
+                if not self._warm:
+                    with span("scan_warmup"):
+                        return self._warmup(idx, snrs, noise)
+                phases = tags["phases"] = {}
+                self._stage(idx, snrs, noise, phases)
+                if k not in self.graphs:
+                    with span("scan_capture", k=k):
+                        self._capture(k)
+                graph, tally, out = self.graphs[k]
+                t0 = time.perf_counter_ns()
+                graph.replay()
+                kernels.count_replay(tally)
+                phases["scan_replay"] = (t0, time.perf_counter_ns())
+                activity["replays"] += 1
+                self.opt.count += k
+                return _clone(out)
+            finally:
+                self.opt.unpin_rate()
 
 
 def make_scan_steps(
@@ -371,8 +395,6 @@ def run_epoch(
     ``max(print_freq // K, 1)`` chunks: ``loss`` the chunk's last,
     ``losses`` all of them. Without ``tele`` every such chunk is fetched.
     Returns the loss sum (host, float64) and the step count."""
-    from qdml_tpu_torch.telemetry.spans import span
-
     k = run.k
     tot, n = None, 0
     with span("train_epoch", epoch=epoch):
@@ -425,8 +447,6 @@ def run_steps(
     device. Every ``print_freq`` steps that step's loss is logged. Returns
     the loss sum (host, float64) and the step count, as :func:`run_epoch`
     does."""
-    from qdml_tpu_torch.telemetry.spans import span
-
     tot, n = None, 0
     with span("train_epoch", epoch=epoch):
         for batch in loader.epoch(epoch):

@@ -629,6 +629,58 @@ def test_an_uncounted_or_uncapturable_capture_raises(dev):
     assert opt.count == count and not run.graphs
 
 
+def test_k_step_calls_write_the_card_path_spans(dev):
+    """One warm-up, one capture and two replays: each ``scan_call`` (tagged
+    with k) holds its host work, timed in its ``phases`` tag and, for the
+    warm-up and the capture, in a span each; no span lies deeper (the
+    captured steps open none)."""
+    from qdml_tpu_torch.data.datasets import GridData
+    from qdml_tpu_torch.telemetry import set_sink
+    from qdml_tpu_torch.train import hdce
+
+    class Spans:
+        active = True
+
+        def __init__(self):
+            self.records = []
+
+        def write_raw(self, rec):
+            self.records.append(rec)
+
+    cfg = _scan_cfg(2)
+    data = GridData.synthesize(cfg.data, dev)
+    model, opt = hdce.make_trainer(cfg, dev, 100)
+    run = hdce.make_hdce_scan_steps(model, opt, data, 2)
+    idx = np.zeros((2, 3, 3, 8), np.int64)
+    snrs = np.full(2, 10.0, np.float32)
+    sink = Spans()
+    set_sink(sink)
+    try:
+        for _ in range(3):
+            run(idx, snrs)
+        torch.cuda.synchronize()
+    finally:
+        set_sink(None)
+    recs = sink.records
+    calls = [r for r in recs if r["name"] == "scan_call"]
+    assert [(r["k"], r["depth"]) for r in calls] == [(2, 0)] * 3 and len(run.graphs) == 1
+    # the one-off calls open a span each; a replayed call writes its one record
+    assert [r["name"] for r in recs] == ["scan_warmup", "scan_call", "scan_capture", "scan_call", "scan_call"]
+    for r in recs:
+        if r["name"] != "scan_call":
+            assert (r["path"], r["depth"]) == ("scan_call/" + r["name"], 1)
+    capture = recs[2]
+    assert capture["k"] == 2 and calls[1]["t0_ns"] <= capture["t0_ns"] <= capture["t1_ns"] <= calls[1]["t1_ns"]
+    assert "phases" not in calls[0]
+    assert [list(c["phases"]) for c in calls[1:]] == [["scan_stage", "scan_replay"],
+                                                     ["scan_stage_wait", "scan_stage", "scan_replay"]]
+    for c in calls[1:]:
+        bounds = [t for pair in c["phases"].values() for t in pair]
+        assert c["t0_ns"] <= bounds[0] and bounds == sorted(bounds) and bounds[-1] <= c["t1_ns"]
+    stage, replay = calls[1]["phases"]["scan_stage"], calls[1]["phases"]["scan_replay"]
+    assert stage[1] <= capture["t0_ns"] and capture["t1_ns"] <= replay[0]  # the capture between the two
+
+
 _DETERMINISTIC_CHILD = """
 import json
 import torch

@@ -276,8 +276,10 @@ def test_cli_nat_sweep_on_the_cpu(tmp_path, capsys):
     last = json.loads((wd / "nat-sweep.metrics.jsonl").read_text().splitlines()[-1])
     assert {"train_loss_sigma0", "val_acc_sigma0.1"} <= set(last)
     assert "nat-sweep done" in capsys.readouterr().out
-    # K steps a dispatch is the default (K = 1); a negative K is refused
-    head = [json.loads(line) for line in (wd / "nat-sweep.metrics.jsonl").read_text().splitlines()[:2]]
-    assert [r["kind"] for r in head] == ["manifest", "scan_dispatch"]
+    # K steps a dispatch is the default (K = 1), decided after the optimizer
+    # is built (its optimizer_init span); a negative K is refused
+    head = [json.loads(line) for line in (wd / "nat-sweep.metrics.jsonl").read_text().splitlines()[:3]]
+    assert [r["kind"] for r in head] == ["manifest", "span", "scan_dispatch"]
+    assert head[1]["name"] == "optimizer_init" and head[2]["eligible"] is True
     with pytest.raises(ValueError, match="scan_steps"):
         cli.main(["nat-sweep", "--device=cpu", "--train.scan_steps=-1"])

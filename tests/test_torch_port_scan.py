@@ -14,7 +14,8 @@ Within the port: ``scan_steps=K`` takes the same steps as ``scan_steps=0``
 bit for bit (on the CPU a chunk is its steps run eagerly); the chunks are
 JAX's ``epoch_chunks``; ``scan_eligible`` decides as JAX's does; the rate,
 a tensor, follows the halving schedule across an epoch boundary and a chunk
-may not cross one. The CUDA graph's own checks are in
+may not cross one; an epoch writes one ``scan_call`` span a chunk. The CUDA
+graph's own checks (its spans among them) are in
 ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``'s scan phase.
 """
 
@@ -279,6 +280,39 @@ def test_tensor_rate_follows_the_halving_schedule_across_an_epoch_boundary():
         opt.pin_rate(3)
     assert opt.pin_rate(2) == 1e-3 and float(opt.lr) == np.float32(1e-3)
     opt.unpin_rate()
+
+
+def test_a_k_step_epoch_writes_one_scan_call_a_chunk_with_its_k():
+    """On the CPU a chunk runs eagerly: its ``scan_call`` span, tagged with
+    the chunk's length, sits in the epoch's span and has no children and
+    no phases."""
+    from qdml_tpu_torch.telemetry import set_sink
+
+    class Spans:
+        active = True
+
+        def __init__(self):
+            self.records = []
+
+        def write_raw(self, rec):
+            self.records.append(rec)
+
+    _, cfg = _cfgs(ESTIMATOR, features=4)
+    data = GridData.synthesize(cfg.data, "cpu")
+    loader = DMLGridLoader(data, 8, "train")
+    model, opt = thdce.make_trainer(cfg, "cpu", loader.steps_per_epoch)
+    run = thdce.make_hdce_scan_steps(model, opt, data, 3)
+    sink = Spans()
+    set_sink(sink)
+    try:
+        tscan.run_epoch(run, loader, 0, Recorder(), 1000)
+    finally:
+        set_sink(None)
+    assert [r["name"] for r in sink.records] == ["scan_call", "scan_call", "train_epoch"]
+    calls, (epoch,) = sink.records[:-1], sink.records[-1:]
+    assert [r["k"] for r in calls] == [len(snrs) for _, snrs in loader.epoch_chunks(0, 3)] == [3, 1]
+    assert all(r["path"] == "train_epoch/scan_call" and r["depth"] == 1 and "phases" not in r for r in calls)
+    assert epoch["t0_ns"] <= calls[0]["t0_ns"] <= calls[0]["t1_ns"] <= calls[1]["t0_ns"] <= epoch["t1_ns"]
 
 
 def test_a_chunk_longer_than_k_or_without_its_noise_is_refused():

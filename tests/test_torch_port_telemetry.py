@@ -5,7 +5,9 @@
   shipped preset the two packages share (their ``asdict`` dumps equal);
 - ``MetricsLogger(manifest=...)`` opens its stream with the manifest, as
   JAX's does; a non-primary rank's sink writes nothing;
-- spans (nesting, the sink, ``profiler_trace``), ``StepClock``'s
+- spans (nesting, the sink, ``profiler_trace``; JAX's fields and the port's
+  own ``t0_ns``/``t1_ns`` on ``perf_counter_ns``'s clock; no record built
+  without an active sink; the trainer set-up's spans), ``StepClock``'s
   ``counters`` records;
 - JAX's zero-transfer pin (``tests/test_train.py:433-467``): a K-step epoch
   at ``probe_every=0`` makes no host transfer, at ``probe_every=1`` one a
@@ -18,6 +20,7 @@
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # small shapes: leave the cores to the suite's other workers
 
 from qdml_tpu import config as jconfig  # noqa: E402
+from qdml_tpu.telemetry import span as jspan  # noqa: E402
 from qdml_tpu.telemetry import config_hash as jconfig_hash  # noqa: E402
 from qdml_tpu.telemetry import run_manifest as jrun_manifest  # noqa: E402
 from qdml_tpu.utils.metrics import MetricsLogger as JMetricsLogger  # noqa: E402
@@ -43,7 +47,9 @@ from qdml_tpu_torch.telemetry import (  # noqa: E402
     span,
 )
 from qdml_tpu_torch.telemetry import core as tcore  # noqa: E402
+from qdml_tpu_torch.telemetry import spans as tspans  # noqa: E402
 from qdml_tpu_torch.train import dce as tdce  # noqa: E402
+from qdml_tpu_torch.train import hdce as thdce  # noqa: E402
 from qdml_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 DATA = dict(n_ant=16, n_sub=8, n_beam=4, data_len=40)
@@ -52,6 +58,18 @@ DATA = dict(n_ant=16, n_sub=8, n_beam=4, data_len=40)
 def _read(path):
     with open(path) as fh:
         return [json.loads(ln) for ln in fh if ln.strip()]
+
+
+class _Spans:
+    """A sink that keeps its records in a list."""
+
+    active = True
+
+    def __init__(self):
+        self.records = []
+
+    def write_raw(self, rec):
+        self.records.append(rec)
 
 
 def _tcfg(**over):
@@ -161,6 +179,92 @@ def test_spans_nest_into_the_sink_and_profiler_trace_writes_its_trace(tmp_path):
     assert any(e.name == "traced" for e in prof.events())  # the span is a region of the trace
 
 
+def test_span_records_carry_start_and_end_on_perf_counter_ns_inside_their_parent():
+    sink = _Spans()
+    wall, before = time.time(), time.perf_counter_ns()
+    with span("outer", sink=sink, epoch=2):
+        with span("inner", sink=sink):
+            time.sleep(0.002)
+    after = time.perf_counter_ns()
+    inner, outer = sink.records
+    for rec in (inner, outer):
+        assert isinstance(rec["t0_ns"], int) and before <= rec["t0_ns"] <= rec["t1_ns"] <= after
+        assert rec["dur_s"] == round((rec["t1_ns"] - rec["t0_ns"]) / 1e9, 6)
+        assert wall - 0.001 <= rec["ts"] <= wall + (after - before) / 1e9 + 0.001  # the start's wall clock
+    assert outer["t0_ns"] <= inner["t0_ns"] and inner["t1_ns"] <= outer["t1_ns"] and inner["dur_s"] >= 0.002
+    assert (inner["path"], inner["depth"], outer["path"], outer["depth"]) == ("outer/inner", 1, "outer", 0)
+
+
+def test_span_records_hold_jaxs_fields_and_the_two_clock_fields():
+    """The port's deliberate difference: ``t0_ns`` and ``t1_ns`` beside
+    every field JAX's record has (``process``: JAX's always, the port's
+    under a ``torch.distributed`` world)."""
+    got, want = _Spans(), _Spans()
+    with span("a", sink=got, epoch=1):
+        pass
+    with jspan("a", sink=want, epoch=1):
+        pass
+    (g,), (w,) = got.records, want.records
+    assert set(g) - set(w) == {"t0_ns", "t1_ns"} and set(w) - {"process"} <= set(g)
+    assert {k: g[k] for k in ("kind", "name", "path", "depth", "epoch")} == {
+        k: w[k] for k in ("kind", "name", "path", "depth", "epoch")}
+
+
+def test_a_span_without_an_active_sink_builds_no_record(monkeypatch):
+    def built(*a, **k):
+        raise AssertionError("a span built a record with no active sink")
+
+    monkeypatch.setattr(tspans, "record", built)
+    assert get_sink() is None
+    with span("no_sink"):
+        with span("inactive", sink=Telemetry(None)):
+            pass
+    assert tspans._stack() == []
+
+
+def test_tags_added_inside_a_span_land_in_its_record():
+    sink = _Spans()
+    with span("call", sink=sink, k=4) as tags:
+        tags["phases"] = {"stage": (1, 2)}
+    (rec,) = sink.records
+    assert rec["k"] == 4 and rec["phases"] == {"stage": (1, 2)}
+
+
+def test_a_sink_that_raises_leaves_the_span_stack_as_it_was():
+    class Broken:
+        active = True
+
+        def write_raw(self, rec):
+            raise OSError("closed")
+
+    sink = _Spans()
+    with pytest.raises(OSError):
+        with span("outer", sink=Broken()):
+            pass
+    assert tspans._stack() == []
+    with span("after", sink=sink):
+        pass
+    assert (sink.records[0]["path"], sink.records[0]["depth"]) == ("after", 0)
+
+
+def test_make_trainer_writes_its_span_with_the_three_children():
+    sink = _Spans()
+    set_sink(sink)
+    try:
+        thdce.make_trainer(_tcfg(), "cpu", steps_per_epoch=4)
+    finally:
+        set_sink(None)
+    children = ["hdce_init", "hdce_to_device", "optimizer_init"]
+    assert [r["name"] for r in sink.records] == [*children, "hdce_make_trainer"]
+    top = sink.records[-1]
+    assert (top["path"], top["depth"]) == ("hdce_make_trainer", 0)
+    for rec in sink.records[:-1]:
+        assert (rec["path"], rec["depth"]) == (f"hdce_make_trainer/{rec['name']}", 1)
+        assert top["t0_ns"] <= rec["t0_ns"] <= rec["t1_ns"] <= top["t1_ns"]
+    starts = [r["t0_ns"] for r in sink.records[:-1]]
+    assert starts == sorted(starts)
+
+
 def test_step_clock_flushes_a_counters_record(tmp_path):
     tele = Telemetry(str(tmp_path / "c.jsonl"))
     clock = StepClock("unit", sink=tele)
@@ -174,6 +278,9 @@ def test_step_clock_flushes_a_counters_record(tmp_path):
     assert recs[0]["name"] == "compile_first_step" and recs[0]["path"] == "unit/compile_first_step"
     c = recs[1]
     assert c["kind"] == "counters" and c["name"] == "unit" and c["epoch"] == 0
+    # built by span()'s record code: its clock fields, dur_s derived from them
+    assert recs[0]["t0_ns"] <= recs[0]["t1_ns"] and recs[0]["dur_s"] == c["compile_s"]
+    assert recs[0]["dur_s"] == round((recs[0]["t1_ns"] - recs[0]["t0_ns"]) / 1e9, 6)
     assert c["step"]["n"] == 3 and c["host_transfers"] == 2 and c["compile_s"] is not None
     assert c["memory"] is None and device_memory_snapshot() is None  # no card here
     assert {"autotune_measure", "autotune_table_write"} <= set(c["compile_cache"])
