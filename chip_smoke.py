@@ -365,7 +365,9 @@ Phases, each of which exits non-zero on failure:
    (n=14, B=144) and at n 8 and 14, B 1 and
    2304, and at n 20, B 64; the unitary kernel at n 6, B 2304, n 10, B 1 and
    2304, and n 14, B 1, and the complex64 ``torch.matmul`` alone beside
-   it, both always as CUDA graph replays between events), each with its
+   it, both always as CUDA graph replays between events; the BatchNorm +
+   ReLU pair at a trunk site, 768 x 32 x 16 x 8, against the plain path,
+   with the cuDNN chain it replaced beside it, by graph replays), each with its
    bound, the card's launch floor (the device time of a one-element
    in-place ``add_``, a yardstick on no path), the
    adjoint's resident blocks per SM (occupancy query), each bucket's
@@ -1925,7 +1927,8 @@ def dce_phase(torch, K, mods, card: str, train_data) -> dict[str, int]:
     card against a CPU twin (as the other trainers), then one epoch of
     ``train_dce`` with the counters zeroed just before and read just after,
     writing ``dce_best`` where ``cli eval`` finds it. The DCE runs no circuit
-    kernel: its launches must all be 0."""
+    kernel, so those launches must be 0; its one trunk launches the
+    BatchNorm + ReLU pair at its 3 sites each way a step."""
     data, batches, spe = train_data
     cfg = every_step_logged(trainer_configs(mods["config"])["hdce"][0])  # every step's loss is read
     cpu_twin(torch, mods, "dce", cfg, "dce", batches, spe)
@@ -1943,8 +1946,9 @@ def dce_phase(torch, K, mods, card: str, train_data) -> dict[str, int]:
         f"{json.dumps(hist)}; launches {json.dumps(counts)} [{card}]")
     if len(steps) != spe or not all(np.isfinite(steps)):
         raise AssertionError(f"train dce: step losses {steps}")
-    if not all(np.isfinite(v).all() for v in hist.values()) or any(counts.values()):
-        raise AssertionError(f"train dce: history {hist}, launches {counts}")
+    bn = {"bn_relu_fwd": 3 * spe, "bn_relu_bwd": 3 * spe}
+    if not all(np.isfinite(v).all() for v in hist.values()) or counts != {k: bn.get(k, 0) for k in counts}:
+        raise AssertionError(f"train dce: history {hist}, launches {counts}, want {bn} and no other")
     return counts
 
 
@@ -2154,6 +2158,118 @@ def ensemble_event_times(torch, K, ens: dict) -> dict:
     ab, af = adjoint_work(b, n, layers)
     out["fwd_bound"] = bound(members * fb, members * ff)
     out["adj_bound"] = bound(members * ab, members * af)
+    return out
+
+
+# one trunk's BatchNorm site in the HDCE step (2304 rows over 3 trunks, 32
+# features on the 16 x 8 pilot image) and the trunks' torch momentum, 1 -
+# 0.9 ** n_users at 3 users
+BN_SHAPE = (768, 32, 16, 8)
+BN_MOMENTUM = 1.0 - 0.9**3
+
+
+def bn_relu_times(torch, K, card: str) -> dict:
+    """The BatchNorm + ReLU pair at one trunk site of the HDCE step, forward
+    and backward: the trunks' own call (``BatchNorm2d.forward_relu``, and
+    ``torch.autograd.grad`` through it) against the plain path on the card
+    on a twin module (``BatchNorm2d``'s own train forward and a ReLU;
+    autograd through it with the kernel's ReLU mask, so an entry within
+    rounding of 0 counts on the kernel's side): y, the three gradients and
+    the running statistics, the largest errors raising past 1e-4 of the
+    largest output, and ``num_batches_tracked`` equal; the wrapper's
+    event-timed ms; the device time a launch by CUDA graph replays; the
+    plain path's event-timed ms (forward: batch_norm, var_mean, two lerp_,
+    the counter, relu; backward: autograd through it); its bound (bytes);
+    and as the yardstick the cuDNN chain the port ran before, by graph
+    replays: ``F.batch_norm`` + ``var_mean`` + ``relu``, and for the
+    backward that chain with its autograd backward less the chain alone
+    (``threshold_backward`` and cuDNN's backward). Returns ``{"fwd": {...},
+    "bwd": {...}}``."""
+    import torch.nn.functional as F
+
+    from qdml_tpu_torch.models.cnn import BatchNorm2d
+    from qdml_tpu_torch.telemetry.cost import bn_relu_work
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 22)
+    n, c, h, w = BN_SHAPE
+    off = rng.uniform(-1, 1, (1, c, 1, 1))
+    x = torch.tensor(off + rng.standard_normal(BN_SHAPE), dtype=torch.float32, device=dev)
+    dy = torch.tensor(rng.standard_normal(BN_SHAPE), dtype=torch.float32, device=dev)
+    bn = BatchNorm2d(c, decay=1.0 - BN_MOMENTUM).to(dev).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.tensor(rng.uniform(0.5, 1.5, c), dtype=torch.float32))
+        bn.bias.copy_(torch.tensor(rng.uniform(-0.3, 0.3, c), dtype=torch.float32))
+    wt, bs, eps = bn.weight.detach(), bn.bias.detach(), bn.eps
+    rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+    fused = BatchNorm2d(c, decay=1.0 - BN_MOMENTUM).to(dev).train()
+    fused.load_state_dict(bn.state_dict())
+
+    xf = x.clone().requires_grad_(True)
+    y = fused.forward_relu(xf)
+    dx, dw, db = torch.autograd.grad(y, (xf, fused.weight, fused.bias), dy)
+    xr = x.clone().requires_grad_(True)
+    z = bn(xr)
+    want_y = F.relu(z)
+    want_dx, want_dw, want_db = torch.autograd.grad(z * (y > 0), (xr, bn.weight, bn.bias), dy)
+    errs = {}
+    for what, got, want in (("y", y, want_y), ("running_mean", fused.running_mean, bn.running_mean),
+                            ("running_var", fused.running_var, bn.running_var), ("dx", dx, want_dx),
+                            ("dweight", dw, want_dw), ("dbias", db, want_db)):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = max(want.abs().max().item(), 1.0)
+        errs[what] = err
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"bn_relu {what} at {BN_SHAPE}: max |diff| {err:.3e} against the plain path "
+                                 f"(largest {scale:.3e})")
+    if not int(fused.num_batches_tracked) == int(bn.num_batches_tracked) == 1:
+        raise AssertionError(f"bn_relu num_batches_tracked {int(fused.num_batches_tracked)}, the plain path's "
+                             f"{int(bn.num_batches_tracked)}")
+    # the saved statistics the backward's timed launches take
+    _, mean, invstd = K._bn_relu_fwd_launch(x, wt, bs, rm, rv, BN_MOMENTUM, eps)
+    log(f"bn_relu at {BN_SHAPE} against the plain path on the card: max |diff| "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} [{card}]")
+
+    xg = x.clone().requires_grad_(True)
+    wg, bg = wt.clone().requires_grad_(True), bs.clone().requires_grad_(True)
+
+    def library_fwd():
+        out = F.relu(F.batch_norm(xg, None, None, wg, bg, True, 0.0, eps))
+        torch.var_mean(xg.detach(), dim=(0, 2, 3), unbiased=False)
+        return out
+
+    def library_fwd_bwd():
+        torch.autograd.grad(library_fwd(), (xg, wg, bg), dy)
+
+    def plain_fwd_bwd():
+        torch.autograd.grad(F.relu(bn(xg)), (xg, bn.weight, bn.bias), dy)
+
+    out = {}
+    for key, call, plain in (
+        ("fwd", lambda: K._bn_relu_fwd_launch(x, wt, bs, rm, rv, BN_MOMENTUM, eps),
+         lambda: F.relu(bn(xg))),
+        ("bwd", lambda: K._bn_relu_bwd_launch(x, dy, wt, bs, mean, invstd), plain_fwd_bwd),
+    ):
+        bytes_moved, flops = bn_relu_work(n, c, h * w, key == "bwd")
+        out[key] = {
+            "ms": event_ms(torch, call),
+            "device_us": graph_device_us(torch, K, call),
+            "plain_ms": event_ms(torch, plain),
+            "bound": bound(bytes_moved, flops),
+            "max_abs_err": max(errs["y"], errs["running_mean"], errs["running_var"]) if key == "fwd"
+            else max(errs["dx"], errs["dweight"], errs["dbias"]),
+        }
+    lib_fwd_us = graph_device_us(torch, K, library_fwd)
+    lib_both_us = graph_device_us(torch, K, library_fwd_bwd)
+    out["fwd"]["library_us"] = lib_fwd_us
+    out["bwd"]["library_us"] = lib_both_us - lib_fwd_us
+    # the plain backward's event time holds its forward too: less the forward's
+    out["bwd"]["plain_ms"] -= out["fwd"]["plain_ms"]
+    for key, t in out.items():
+        log(f"time bn_relu_{key} {BN_SHAPE}: wrapper {t['ms']:.5f} ms, device {t['device_us']:.3f} us a launch "
+            f"(graph replays), plain {t['plain_ms']:.5f} ms, cuDNN chain {t['library_us']:.3f} us (graph replays), "
+            f"bound {t['bound'][0] * 1e3:.3f} us ({t['bound'][1]}) [{card}]")
     return out
 
 
@@ -4885,7 +5001,7 @@ def main() -> int:
 
     slow_thread = threading.Thread(target=build_slow)
     slow_thread.start()
-    log_build(K.build(tuple(k for k in K.KERNELS if k != slow)), t0)
+    log_build(K.build(tuple(k for k in K.SOURCES if k != slow)), t0)
 
     def unitary_ready() -> None:
         t = time.perf_counter()
@@ -5041,6 +5157,8 @@ def main() -> int:
         # the member-axis circuit kernels at the ensemble's shape, beside E
         # one-member launches of the same work
         ens_t = ensemble_event_times(torch, K, ens)
+    # the BatchNorm + ReLU pair at a trunk site (its backward needs autograd)
+    bn_t = bn_relu_times(torch, K, card)
 
     for name, (gpu, _) in engines.items():
         for b in BUCKETS:
@@ -5210,6 +5328,23 @@ def main() -> int:
             "library_ms": None,
             "one_member_launches_ms": ens_t[f"{key}_single_ms"],
             "one_member_launches_device_ms": None if single_us is None else single_us / 1e3,
+        })
+    # the trunks' BatchNorm + ReLU, which replaces no TPU kernel (the JAX
+    # package leaves it to XLA); its yardstick is the cuDNN chain it replaced
+    for key, t in bn_t.items():
+        kernels.append({
+            "name": f"bn_relu_{key}",
+            "route": "cuda",
+            "source": "qdml_tpu_torch/csrc/bn_relu.cu",
+            "replaces": None,
+            "launches": launches[f"bn_relu_{key}"],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "device_ms": t["device_us"] / 1e3,
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1],
+            "library_ms": t["library_us"] / 1e3,
         })
     for rec in kernels:  # the card's launch floor beside every bound
         rec["floor_ms"] = None if floor_us is None else floor_us / 1e3

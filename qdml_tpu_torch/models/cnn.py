@@ -61,7 +61,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     of squares over the group (Flax's mean-of-squares variance), and the
     running statistics update alike on every rank. The sums enter each
     rank's part of a loss that is the sum over the ranks, so their gradient
-    is summed too (:func:`~qdml_tpu_torch.parallel.collectives.psum_parts`)."""
+    is summed too (:func:`~qdml_tpu_torch.parallel.collectives.psum_parts`).
+
+    The trunks call :meth:`forward_relu`, BatchNorm and the ReLU after it in
+    one call: on the card in train mode without a group that is one
+    hand-written kernel pair (:func:`~qdml_tpu_torch.quantum.kernels.
+    batch_norm_relu`); everywhere else this module's plain path."""
 
     def __init__(self, num_features: int, decay: float = 0.9, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=1.0 - decay)
@@ -77,6 +82,20 @@ class BatchNorm2d(nn.BatchNorm2d):
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self._update_running(mean, var)
         return out
+
+    def forward_relu(self, x: torch.Tensor) -> torch.Tensor:
+        """``relu(self(x))``. A CUDA tensor in train mode without a group
+        takes the fused kernels, forward and backward: the statistics taken
+        once, the running statistics updated in the kernel as
+        :meth:`_update_running` updates them, the ReLU applied in the same
+        pass. The CPU, eval mode and a mesh's group take the plain path."""
+        if not self.training or self.group is not None or x.device.type == "cpu":
+            return F.relu(self(x))
+        from qdml_tpu_torch.quantum.kernels import batch_norm_relu
+
+        y = batch_norm_relu(x, self.weight, self.bias, self.running_mean, self.running_var, self.momentum, self.eps)
+        self.num_batches_tracked += 1
+        return y
 
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         self.running_mean.lerp_(mean, self.momentum)
@@ -137,9 +156,9 @@ class ConvP128(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.act_dtype
         for i in range(0, len(self.cnn), 3):
-            conv, bn, relu = self.cnn[i : i + 3]
+            conv, bn = self.cnn[i], self.cnn[i + 1]  # the ReLU at i + 2 is bn.forward_relu's
             x = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride, conv.padding)
-            x = relu(bn(x.float()))
+            x = bn.forward_relu(x.float())
         return x.flatten(1)
 
 

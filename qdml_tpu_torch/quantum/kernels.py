@@ -1,4 +1,4 @@
-"""The circuit kernels: CUDA C++ for Hopper, their build, bindings and plain versions.
+"""The hand-written CUDA kernels for Hopper: their build, bindings and plain versions.
 
 Counterpart of ``qdml_tpu/quantum/pallas_kernels.py``. All four of its Pallas
 kernels are ported here, each as a CUDA C++ source under ``csrc/``:
@@ -22,6 +22,12 @@ kernels are ported here, each as a CUDA C++ source under ``csrc/``:
   ``_fused_kernel``): states through a unitary -> per-wire <Z>, the complex
   product computed in the kernel; its backward is autograd through the plain
   version.
+
+One kernel has no TPU counterpart, since the JAX package leaves its work to
+XLA: :func:`batch_norm_relu` (``csrc/bn_relu.cu``), the trunks' train-mode
+BatchNorm and ReLU as one launch forward and one backward, counted under
+``bn_relu_fwd`` and ``bn_relu_bwd``; its plain version is
+``models/cnn.py:BatchNorm2d``'s own path.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface the first time it is needed, under
@@ -69,10 +75,16 @@ from qdml_tpu_torch.quantum import statevector as sv
 from qdml_tpu_torch.utils.complexops import CArr
 
 KERNELS = ("qsc_expvals", "circuit_expvals", "circuit_adjoint", "rotation_layer", "unitary_expvals")
+# Hand kernels with no TPU counterpart (the JAX package leaves their work to
+# XLA): the trunks' train-mode BatchNorm + ReLU, forward and backward.
+NATIVE_KERNELS = ("bn_relu",)
+SOURCES = KERNELS + NATIVE_KERNELS
 # Launch counters: each kernel's one-call wrappers, then the member-axis
-# entry points, which launch the circuit kernels once for a whole ensemble.
+# entry points, which launch the circuit kernels once for a whole ensemble,
+# then the BatchNorm + ReLU kernel's two directions.
 ENSEMBLE_COUNTERS = ("circuit_expvals_ensemble", "circuit_adjoint_ensemble")
-COUNTERS = KERNELS + ENSEMBLE_COUNTERS
+BN_RELU_COUNTERS = ("bn_relu_fwd", "bn_relu_bwd")
+COUNTERS = KERNELS + ENSEMBLE_COUNTERS + BN_RELU_COUNTERS
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qdml_tpu_torch"
 NVCC_FLAGS = (
@@ -85,7 +97,7 @@ NVCC_FLAGS = (
 launches = {name: 0 for name in COUNTERS}
 # nvcc builds started per kernel since the process started (the serving
 # engine reads them to show that its request path builds nothing)
-builds = {name: 0 for name in KERNELS}
+builds = {name: 0 for name in SOURCES}
 # nvcc's output (ptxas register/shared-memory report) per freshly built kernel
 build_log: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -178,7 +190,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names=KERNELS) -> dict[str, float]:
+def build(names=SOURCES) -> dict[str, float]:
     """Compile every kernel in ``names`` whose library is missing, all nvcc
     processes at once. Returns each build's wall seconds (0.0 when it was
     already built). Raises ``RuntimeError`` with nvcc's output on failure."""
@@ -219,9 +231,19 @@ def _load(name: str) -> ctypes.CDLL:
         return lib
     build((name,))
     lib = ctypes.CDLL(str(library_path(name)))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "bn_relu":
+        lib.bn_relu_fwd_launch.restype = lib.bn_relu_bwd_launch.restype = ctypes.c_int
+        lib.bn_relu_fwd_launch.argtypes = [ptr] * 9 + [i32, i32, i32, f32, f32, ptr]
+        lib.bn_relu_bwd_launch.argtypes = [ptr] * 10 + [i32, i32, i32, ptr]
+        lib.bn_relu_tile.restype = ctypes.c_int
+        lib.bn_relu_tile.argtypes = []
+        if lib.bn_relu_tile() != BN_RELU_TILE:
+            raise RuntimeError(f"bn_relu's kTile is {lib.bn_relu_tile()}, the wrapper's BN_RELU_TILE {BN_RELU_TILE}")
+        _libs[name] = lib
+        return lib
     fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "qsc_expvals":
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
     elif name == "circuit_expvals":
@@ -258,23 +280,28 @@ def _check(t: torch.Tensor, what: str, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{what} must be contiguous")
 
 
-def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> None:
-    """Call ``<name>_launch(*args, stream)`` on ``dev``'s current stream
-    (tensors passed as their data pointers), raise on a CUDA error, count the
-    launch under ``counter`` (default: the kernel's name)."""
-    fn = getattr(_load(name), f"{name}_launch")
+def _launch(name: str, dev: torch.device, *args, counter: str | None = None, entry: str | None = None) -> None:
+    """Call ``<entry>_launch(*args, stream)`` of kernel ``name``'s library
+    (``entry`` defaults to ``name``) on ``dev``'s current stream (tensors
+    passed as their data pointers), raise on a CUDA error, count the launch
+    under ``counter`` (default: the entry's name)."""
+    entry = entry or name
+    fn = getattr(_load(name), f"{entry}_launch")
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
+    # the host's cost a launch: a device switch only when another device is
+    # current, and the stream's raw handle without a Stream object
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(idx) if idx != torch.cuda.current_device() else contextlib.nullcontext():
         capturing = torch.cuda.is_current_stream_capturing()
         if capturing and not _capture_tallies:  # lint: disable=jit-mutable-global(read at capture by design: a captured launch counts into the capture's tally once, and count_replay adds it at each replay)
             raise RuntimeError(
                 f"{name} launch captured into a CUDA graph outside kernels.counting_capture(): "
                 "its replays would go uncounted"
             )
-        err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*ptrs, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
-    _count(_capture_tallies[-1] if capturing else launches, counter or name)  # lint: disable=jit-mutable-global(read at capture by design: a captured launch counts into the capture's tally once, and count_replay adds it at each replay)
+        raise RuntimeError(f"{entry} kernel launch failed with cudaError {err}")
+    _count(_capture_tallies[-1] if capturing else launches, counter or entry)  # lint: disable=jit-mutable-global(read at capture by design: a captured launch counts into the capture's tally once, and count_replay adds it at each replay)
 
 
 def _observers() -> list:
@@ -892,3 +919,135 @@ def fused_unitary_expvals(psi: CArr, u: CArr, n: int) -> torch.Tensor:
         ins = [t.clone() if t.data_ptr() % align else t for t in ins]
         ev = _UnitaryExpvals.apply(*ins, n)
     return ev.reshape(lead + (n,))
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm + ReLU kernel: the trunks' train-mode BatchNorm and ReLU
+# ---------------------------------------------------------------------------
+
+# values a channel the kernel takes (int arithmetic inside, with a tile's
+# room past the last), and channels (the grid's y extent)
+BN_RELU_MAX_VALUES = 1 << 30
+BN_RELU_MAX_CHANNELS = 65535
+# a channel's values a block takes: the source's kTile, compared at load
+BN_RELU_TILE = 8192
+
+
+def _bn_relu_checks(x: torch.Tensor, per_channel: dict[str, torch.Tensor]) -> tuple[int, int, int]:
+    """``(N, C, H*W)`` of ``x`` after checking it (rank and window, dtype,
+    layout, then device) and each per-channel tensor against it."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be 4-D (N, C, H, W), got shape {tuple(x.shape)}")
+    n, c, h, w = x.shape
+    if n * h * w < 2:
+        # F.batch_norm's own refusal in train mode
+        raise ValueError(f"Expected more than 1 value per channel when training, got input size {tuple(x.shape)}")
+    if n * h * w > BN_RELU_MAX_VALUES or c > BN_RELU_MAX_CHANNELS:
+        raise ValueError(
+            f"the BatchNorm kernel takes at most {BN_RELU_MAX_VALUES} values a channel and "
+            f"{BN_RELU_MAX_CHANNELS} channels, got input size {tuple(x.shape)}"
+        )
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (NCHW)")
+    if x.device.type != "cuda":
+        raise ValueError(f"x is on {x.device}: the BatchNorm kernel runs on a CUDA device")
+    for what, t in per_channel.items():
+        _check(t, what, (c,), x.device)
+    return n, c, h * w
+
+
+def _bn_relu_partials(n: int, c: int, hw: int, dev: torch.device) -> torch.Tensor:
+    """Scratch for the chunks' pairs (mean and M2, or the backward's two
+    sums), merged in a fixed order by the second kernel: (C, chunks, 2)."""
+    return torch.empty((c, -(-n * hw // BN_RELU_TILE), 2), dtype=torch.float32, device=dev)
+
+
+def _bn_relu_work(n: int, c: int, hw: int, backward: bool) -> tuple[float, float]:
+    from qdml_tpu_torch.telemetry.cost import bn_relu_work
+
+    return bn_relu_work(n, c, hw, backward)
+
+
+def _bn_relu_fwd_launch(x, weight, bias, running_mean, running_var, momentum: float, eps: float):
+    """One ``bn_relu_fwd`` launch: ``(y, mean, invstd)``, the running
+    statistics updated in place."""
+    n, c, hw = _bn_relu_checks(x, {"weight": weight, "bias": bias, "running_mean": running_mean,
+                                   "running_var": running_var})
+    dev = x.device
+    partials = _bn_relu_partials(n, c, hw, dev)
+    y = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    mean = torch.empty(c, dtype=torch.float32, device=dev)
+    invstd = torch.empty(c, dtype=torch.float32, device=dev)
+    with _observed("bn_relu_fwd", lambda: _bn_relu_work(n, c, hw, False)) as outs:
+        _launch("bn_relu", dev, x, weight, bias, running_mean, running_var, partials, y, mean, invstd,
+                n, c, hw, momentum, eps, entry="bn_relu_fwd")
+        outs += [y, mean, invstd]
+    return y, mean, invstd
+
+
+def _bn_relu_bwd_launch(x, dy, weight, bias, mean, invstd):
+    """One ``bn_relu_bwd`` launch: ``(dx, dweight, dbias)``."""
+    n, c, hw = _bn_relu_checks(x, {"weight": weight, "bias": bias, "mean": mean, "invstd": invstd})
+    _check(dy, "dy", tuple(x.shape), x.device)
+    return _bn_relu_bwd(x, dy, weight, bias, mean, invstd, n, c, hw)
+
+
+def _bn_relu_bwd(x, dy, weight, bias, mean, invstd, n: int, c: int, hw: int):
+    """:func:`_bn_relu_bwd_launch` past its checks, which the autograd
+    Function's backward skips: the forward checked x, weight and bias and
+    made mean and invstd, and autograd hands dy over in y's shape, dtype and
+    device."""
+    dev = x.device
+    partials = _bn_relu_partials(n, c, hw, dev)
+    dx = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    dweight = torch.empty(c, dtype=torch.float32, device=dev)
+    dbias = torch.empty(c, dtype=torch.float32, device=dev)
+    with _observed("bn_relu_bwd", lambda: _bn_relu_work(n, c, hw, True)) as outs:
+        _launch("bn_relu", dev, x, dy, weight, bias, mean, invstd, partials, dx, dweight, dbias, n, c, hw,
+                entry="bn_relu_bwd")
+        outs += [dx, dweight, dbias]
+    return dx, dweight, dbias
+
+
+class _BatchNormReLU(torch.autograd.Function):
+    """``relu(batch_norm(x))`` in train mode: the forward one ``bn_relu_fwd``
+    launch, which saves only the batch mean and inverse std beside ``x`` and
+    updates the running statistics (``running``, a pair of buffers outside
+    autograd) in place; the backward one ``bn_relu_bwd`` launch, which
+    recomputes the ReLU mask from them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running, momentum, eps):
+        y, mean, invstd = _bn_relu_fwd_launch(x, weight, bias, *running, momentum, eps)
+        ctx.save_for_backward(x, weight, bias, mean, invstd)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, weight, bias, mean, invstd = ctx.saved_tensors
+        n, c, h, w = x.shape
+        dx, dweight, dbias = _bn_relu_bwd(x, dy.contiguous(), weight, bias, mean, invstd, n, c, h * w)
+        return dx, dweight, dbias, None, None, None
+
+
+def batch_norm_relu(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    momentum: float,
+    eps: float,
+) -> torch.Tensor:
+    """``relu`` of train-mode BatchNorm over (N, H, W) of a contiguous
+    float32 NCHW ``x`` on the card, with Flax's running statistics: the
+    batch's biased variance normalises and is folded into ``running_var``,
+    ``running = lerp(running, batch, momentum)`` (``models/cnn.py:
+    BatchNorm2d`` holds the plain version). One ``bn_relu_fwd`` launch, and
+    one ``bn_relu_bwd`` in the backward. Raises on a CPU tensor, a dtype
+    other than float32, a non-contiguous input or one outside the window
+    (``N*H*W`` from 2 to 2^30, at most 65535 channels)."""
+    return _BatchNormReLU.apply(x, weight, bias, (running_mean, running_var), momentum, eps)

@@ -148,6 +148,21 @@ def unitary_work(batch: int, n: int) -> tuple[float, float]:
     return bytes_moved, flops
 
 
+def bn_relu_work(rows: int, channels: int, plane: int, backward: bool) -> tuple[float, float]:
+    """Bytes and flops of one train-mode BatchNorm + ReLU launch over an
+    (rows, channels, plane) input, counted as the least the function needs:
+    forward x in and y out, the scale, shift and running statistics in, the
+    running statistics, mean and inverse std out; 8 flops a value (the sum,
+    the squared deviation's 3, the normalisation's 3, the ReLU). Backward x
+    and dy in, dx out, scale, shift, mean and inverse std in, their two
+    gradients out; 12 flops a value (the pre-ReLU value's 3, the mask, x hat,
+    the two sums' 3, dx's 4)."""
+    values = rows * channels * plane
+    if backward:
+        return 4.0 * (3 * values + 6 * channels), 12.0 * values
+    return 4.0 * (2 * values + 8 * channels), 8.0 * values
+
+
 def kernel_work(name: str, batch: int, n: int, layers: int = 0, members: int = 1,
                 with_state: bool = False) -> tuple[float, float]:
     """(bytes, flops) of one launch of hand kernel ``name`` (E ``members``

@@ -382,14 +382,24 @@ def test_sparse_dispatch_on_the_card_matches_the_cpu(dev):
 
 
 def _scan_cfg(k, dtype="float32", moments="float32", **quantum):
+    """The tests' small config at ``scan_steps`` k. ``probe_every=1``: the
+    K-step path fetches and logs a chunk's losses only on the probe cadence,
+    so the tests that read every step's loss from the log set it to every
+    step."""
     from qdml_tpu_torch import config as tconfig
 
     return tconfig.ExperimentConfig(
         data=tconfig.DataConfig(n_ant=16, data_len=40),
         model=tconfig.ModelConfig(features=8, dtype=dtype),
         quantum=tconfig.QuantumConfig(n_qubits=4, n_layers=2, **quantum),
-        train=tconfig.TrainConfig(batch_size=8, n_epochs=2, print_freq=1, scan_steps=k, moments_dtype=moments),
+        train=tconfig.TrainConfig(batch_size=8, n_epochs=2, print_freq=1, scan_steps=k, moments_dtype=moments,
+                                  probe_every=1),
     )
+
+
+# the trunks' BatchNorm sites a training step (S trunks of 3, or the DCE's
+# one trunk), each one bn_relu_fwd and one bn_relu_bwd launch
+BN_SITES = {"hdce": 9, "dce": 3, "qsc": 0}
 
 
 class _Recorder:
@@ -428,8 +438,8 @@ def test_scan_graph_matches_the_per_step_path(dev, trainer, quantum):
     parameters within the Adam bound (every entry within 1.1 lr a step, at
     most 1% of all entries past 1e-5 + 1e-4|p|: the last layer's RZ weights
     have rounding-only gradients), the same kernel launches counted on both
-    paths, and the QuantumNAT stream drawn step for step as the per-step path
-    draws it."""
+    paths (for HDCE 9 BatchNorm + ReLU launches each way a step), and the
+    QuantumNAT stream drawn step for step as the per-step path draws it."""
     from qdml_tpu_torch.data.datasets import GridData
     from qdml_tpu_torch.train import scan
 
@@ -452,20 +462,22 @@ def test_scan_graph_matches_the_per_step_path(dev, trainer, quantum):
             assert torch.equal(p3[k], want), k
     assert outside <= 0.01 * total
     assert n3 == n0
+    assert n0["bn_relu_fwd"] == n0["bn_relu_bwd"] == BN_SITES[trainer] * len(l0)
 
 
 @pytest.mark.parametrize("trainer,moments", [("hdce", "float32"), ("dce", "float32"), ("hdce", "bfloat16")])
 def test_bf16_scan_graph_matches_the_per_step_path(dev, trainer, moments):
     """``model.dtype=bfloat16`` (and bfloat16 Adam moments) inside the K = 3
     graph against the per-step path from the same init: step losses within
-    rtol 1e-5, parameters within the Adam bound, as in float32."""
+    rtol 1e-5, parameters within the Adam bound, as in float32, and the same
+    BatchNorm + ReLU launches (which run in float32 on the convs' output)."""
     from qdml_tpu_torch.data.datasets import GridData
     from qdml_tpu_torch.train import scan
 
     data = GridData.synthesize(_scan_cfg(0).data, dev)
-    l0, p0, _ = _scan_run(trainer, _scan_cfg(0, "bfloat16", moments), data)
+    l0, p0, n0 = _scan_run(trainer, _scan_cfg(0, "bfloat16", moments), data)
     before = dict(scan.activity)
-    l3, p3, _ = _scan_run(trainer, _scan_cfg(3, "bfloat16", moments), data)
+    l3, p3, n3 = _scan_run(trainer, _scan_cfg(3, "bfloat16", moments), data)
     assert scan.activity["captures"] - before["captures"] == 2
     assert len(l0) == len(l3) == 8
     np.testing.assert_allclose(l3, l0, rtol=1e-5, atol=0)
@@ -475,6 +487,8 @@ def test_bf16_scan_graph_matches_the_per_step_path(dev, trainer, moments):
             assert (p3[k] - want).abs().max().item() <= 1.1 * 8 * 1e-3 + 1e-5, k
         else:
             assert torch.equal(p3[k], want), k
+    assert n3 == n0
+    assert n0["bn_relu_fwd"] == n0["bn_relu_bwd"] == BN_SITES[trainer] * len(l0)
 
 
 def test_bf16_moments_adam_is_captured_with_its_storage_dtypes(dev):

@@ -121,7 +121,7 @@ def test_every_module_has_a_jax_counterpart_or_is_the_kernels():
             continue  # measurements of the port's own smoke, serving warmup and profiler sessions
         assert (ROOT / "qdml_tpu" / rel).exists(), rel
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "circuit_adjoint.cu", "circuit_expvals.cu", "qsc_expvals.cu", "rotation_layer.cu",
+        "bn_relu.cu", "circuit_adjoint.cu", "circuit_expvals.cu", "qsc_expvals.cu", "rotation_layer.cu",
         "unitary_expvals.cu",
     ]
 
@@ -214,7 +214,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 def test_library_path_is_keyed_by_source_and_lives_in_build():
-    for name in tk.KERNELS:
+    for name in tk.SOURCES:
         path = tk.library_path(name)
         assert path.parent == ROOT / "build" / "qdml_tpu_torch"
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"

@@ -393,13 +393,10 @@ def test_launch_counters_count_every_launch_from_eight_threads(monkeypatch):
         def __getattr__(self, name):
             return lambda *args: 0
 
-    class _Stream:
-        cuda_stream = 0
-
     monkeypatch.setattr(tk, "_load", lambda name: _Stub())
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: __import__("contextlib").nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda idx: 0, raising=False)
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
     tk.reset_launch_counts()
