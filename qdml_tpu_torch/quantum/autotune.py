@@ -62,6 +62,7 @@ import torch
 
 from qdml_tpu_torch.quantum.kernels import CIRCUIT_MIN_QUBITS, QSC_MAX_QUBITS
 from qdml_tpu_torch.quantum.mps import DEFAULT_CHI
+from qdml_tpu_torch.telemetry.spans import span
 from qdml_tpu_torch.utils.device import resolve_device
 from qdml_tpu_torch.utils.tune_table import TableStore, activity
 
@@ -480,7 +481,10 @@ def prewarm(
     per-call lookup reads the table the tuner writes. Under a ``mesh`` rank
     0 alone races and writes the table, and every rank adopts its entry
     (:func:`adopt_entry`), so the ranks dispatch one impl. Returns the
-    entry, or ``None`` when tuning was skipped."""
+    entry, or ``None`` when tuning was skipped. Tuning runs under a
+    ``circuit_impl_race`` span tagged ``n``, ``L``, ``batch``, the winning
+    train ``impl`` and ``raced`` (whether this process measured, or read
+    the entry from the table or another rank)."""
     q = cfg.quantum
     if q.autotune_table:
         set_table_path(q.autotune_table)
@@ -489,17 +493,20 @@ def prewarm(
     dev = resolve_device(device)
     if not autotune_enabled(q.autotune, dev.type):
         return None
-    entry = None
-    if mesh is None or mesh.rank == 0:
-        entry = ensure(
-            q.n_qubits, q.n_layers, batch, path=q.autotune_table or None, force=force, device=dev,
-            mps_chi=q.mps_chi,
-        )
-    if mesh is not None:
-        from qdml_tpu_torch.parallel.collectives import broadcast_object
+    with span("circuit_impl_race", n=q.n_qubits, L=q.n_layers, batch=batch) as tags:
+        measured = activity["measure"]
+        entry = None
+        if mesh is None or mesh.rank == 0:
+            entry = ensure(
+                q.n_qubits, q.n_layers, batch, path=q.autotune_table or None, force=force, device=dev,
+                mps_chi=q.mps_chi,
+            )
+        if mesh is not None:
+            from qdml_tpu_torch.parallel.collectives import broadcast_object
 
-        entry = broadcast_object(entry)
-        adopt_entry(entry, q.autotune_table or None)
+            entry = broadcast_object(entry)
+            adopt_entry(entry, q.autotune_table or None)
+        tags.update(impl=entry["best_train"], raced=activity["measure"] > measured)
     return entry
 
 

@@ -21,6 +21,9 @@ numerics probe in every step at ``train.probe_every > 0`` (branches named
 as JAX's tree, :data:`QSC_BRANCHES` / :data:`SC_BRANCHES`), the loop's
 clock, flight recorder (the QuantumNAT generator's seed and offset in a
 dump) and one cost record, and the sanitizer under ``train.checkify``.
+Set-up spans: ``qsc_make_trainer`` (``sc_make_trainer``) over ``qsc_init``,
+``qsc_to_device`` and ``optimizer_init``; the impl race's
+``circuit_impl_race`` (:func:`~qdml_tpu_torch.quantum.autotune.prewarm`).
 
 Under a world of several ranks (``qdml_tpu/train/qsc.py:221-242``) the
 state is replicated from rank 0, each rank computes on its rows of every
@@ -55,6 +58,7 @@ from qdml_tpu_torch.train.checkpoint import save_checkpoint, save_train_state, t
 from qdml_tpu_torch.train.hdce import run_device
 from qdml_tpu_torch.train.optim import Optimizer, get_optimizer
 from qdml_tpu_torch.telemetry.numerics import branch_params
+from qdml_tpu_torch.telemetry.spans import span
 from qdml_tpu_torch.telemetry.sanitizer import checkify_step
 from qdml_tpu_torch.train.scan import (
     LoopTelemetry,
@@ -106,14 +110,22 @@ def make_trainer(
     """The classifier that :func:`train_classifier` trains and its optimizer:
     the seeded init (or ``init_state``), ``cfg.train``'s optimizer and
     schedule, and for the quantum classifier AdamW (reference
-    ``Runner...py:320``) with the quantum config's gradient pruning."""
-    model = build_classifier(cfg, quantum, device)
-    if init_state is not None:
-        model.load_state_dict(init_state)
-    train_cfg = dataclasses.replace(cfg.train, optimizer="adamw") if quantum else cfg.train
-    opt = get_optimizer(
-        train_cfg, model.parameters(), steps_per_epoch, cfg.quantum if quantum else None
-    )
+    ``Runner...py:320``) with the quantum config's gradient pruning. Spans
+    ``qsc_make_trainer`` over ``qsc_init`` (the module built and drawn on
+    the host), ``qsc_to_device`` and ``optimizer_init`` (``sc_*`` for the
+    classical classifier)."""
+    tag = "qsc" if quantum else "sc"
+    with span(f"{tag}_make_trainer"):
+        with span(f"{tag}_init"):
+            model = build_classifier(cfg, quantum, "cpu")
+        with span(f"{tag}_to_device"):
+            model = model.to(resolve_device(device))
+        if init_state is not None:
+            model.load_state_dict(init_state)
+        train_cfg = dataclasses.replace(cfg.train, optimizer="adamw") if quantum else cfg.train
+        opt = get_optimizer(
+            train_cfg, model.parameters(), steps_per_epoch, cfg.quantum if quantum else None
+        )
     return model, opt
 
 
