@@ -13,6 +13,15 @@ point while the optimizer updates the clean parameter
 (``qdml_tpu/models/qsc.py:83-87``). The noise is passed in or drawn from the
 caller's generator.
 
+The front end (``preprocess``, the reference's ``nn.Sequential``) runs on
+the card as one hand-written kernel pair
+(:func:`~qdml_tpu_torch.quantum.kernels.qsc_front_end`) where
+:func:`front_end_on_kernel` finds what the kernel computes: a float32 CUDA
+input that needs no gradient of its own, H and W multiples of 4, the
+published widths, at most 32 qubits. Everything else, the CPU among it,
+runs the ``nn.Sequential``; so does code that calls ``preprocess`` itself,
+as the noise-sweep ensemble's ``vmap`` does.
+
 Depolarizing noise (``depolarizing_p > 0``, beyond the reference): the clean
 circuit is replaced by the trajectory average of
 :func:`~qdml_tpu_torch.quantum.trajectories.run_circuit_trajectories`, whose
@@ -31,9 +40,52 @@ from torch import nn
 
 from qdml_tpu_torch.config import ExperimentConfig
 from qdml_tpu_torch.models.cnn import SCP128, QSCPreprocess, seeded_init_
+from qdml_tpu_torch.quantum import kernels
 from qdml_tpu_torch.quantum.circuits import run_circuit
 from qdml_tpu_torch.quantum.trajectories import run_circuit_trajectories
 from qdml_tpu_torch.utils.device import resolve_device
+
+
+def _published(pre: nn.Module) -> bool:
+    """``pre`` is the published front end, layer for layer: conv 2 -> 16 and
+    16 -> 32 (3x3, stride 1, zero padding 1, a bias), each with a ReLU and a
+    2x2 max-pool of stride 2, the flatten, a Linear with a bias, tanh."""
+    if type(pre) is not QSCPreprocess or len(pre) != 9:
+        return False
+    conv1, conv2, fc = pre[0], pre[3], pre[7]
+    convs = all(
+        type(c) is nn.Conv2d and c.bias is not None
+        and (c.stride, c.padding, c.dilation, c.groups, c.padding_mode) == ((1, 1), (1, 1), (1, 1), 1, "zeros")
+        for c in (conv1, conv2)
+    )
+    pools = all(
+        type(m) is nn.MaxPool2d and (m.kernel_size, m.stride, m.padding, m.dilation, m.ceil_mode) == (2, 2, 0, 1, False)
+        for m in (pre[2], pre[5])
+    )
+    return (
+        convs and pools
+        and tuple(conv1.weight.shape) == kernels.QSC_FRONT_CONV_SHAPES[0]
+        and tuple(conv2.weight.shape) == kernels.QSC_FRONT_CONV_SHAPES[2]
+        and type(fc) is nn.Linear and fc.bias is not None
+        and [type(pre[i]) for i in (1, 4, 6, 8)] == [nn.ReLU, nn.ReLU, nn.Flatten, nn.Tanh]
+        and (pre[6].start_dim, pre[6].end_dim) == (1, -1)
+    )
+
+
+def front_end_on_kernel(pre: nn.Module, x: torch.Tensor) -> bool:
+    """Whether ``QSCP128.forward`` runs the front end ``pre`` on ``x`` as the
+    hand-written kernel pair: ``x`` a 4-D float32 CUDA tensor that does not
+    require grad, its H and W multiples of 4 and the Linear's width theirs,
+    ``pre`` the published front end with at most 32 outputs. Reads shapes
+    and flags only."""
+    if not (x.device.type == "cuda" and x.dtype == torch.float32 and not x.requires_grad and x.dim() == 4):
+        return False
+    h, w = x.shape[2], x.shape[3]
+    return (
+        h % 4 == 0 and w % 4 == 0 and _published(pre)
+        and pre[7].in_features == 32 * (h // 4) * (w // 4)
+        and pre[7].out_features <= kernels.QSC_FRONT_MAX_QUBITS
+    )
 
 
 class QuantumLayer(nn.Module):
@@ -80,7 +132,8 @@ class QSCP128(nn.Module):
         impl: str | None = None,
         traj_generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        """``train`` turns QuantumNAT on (when configured): the circuit weights
+        """The front end runs where :func:`front_end_on_kernel` says. ``train``
+        turns QuantumNAT on (when configured): the circuit weights
         get ``noise`` added, or ``noise_level * N(0, 1)`` drawn from
         ``generator`` when no noise is passed. ``impl`` pins the circuit impl
         for this call (the serving engine pins each bucket's warmup
@@ -92,7 +145,13 @@ class QSCP128(nn.Module):
         if self.input_norm:
             rms = torch.sqrt(torch.mean(x**2, dim=(1, 2, 3), keepdim=True) + 1e-12)
             x = x / rms
-        angles = self.preprocess(x)
+        pre = self.preprocess
+        if front_end_on_kernel(pre, x):
+            angles = kernels.qsc_front_end(
+                x.contiguous(), pre[0].weight, pre[0].bias, pre[3].weight, pre[3].bias, pre[7].weight, pre[7].bias
+            )
+        else:
+            angles = pre(x)
         weights = self.qlayer.weights
         if train and self.use_quantumnat and self.noise_level > 0:
             if noise is None:

@@ -23,11 +23,16 @@ kernels are ported here, each as a CUDA C++ source under ``csrc/``:
   product computed in the kernel; its backward is autograd through the plain
   version.
 
-One kernel has no TPU counterpart, since the JAX package leaves its work to
-XLA: :func:`batch_norm_relu` (``csrc/bn_relu.cu``), the trunks' train-mode
+Two kernels have no TPU counterpart, since the JAX package leaves their work
+to XLA: :func:`batch_norm_relu` (``csrc/bn_relu.cu``), the trunks' train-mode
 BatchNorm and ReLU as one launch forward and one backward, counted under
-``bn_relu_fwd`` and ``bn_relu_bwd``; its plain version is
-``models/cnn.py:BatchNorm2d``'s own path.
+``bn_relu_fwd`` and ``bn_relu_bwd``, its plain version
+``models/cnn.py:BatchNorm2d``'s own path; and :func:`qsc_front_end`
+(``csrc/qsc_front.cu``), the quantum classifier's whole CNN front end (both
+convolutions, ReLUs and pools, the Linear and tanh) as one launch forward and
+one backward, counted under ``qsc_front_fwd`` and ``qsc_front_bwd``, its
+plain version :func:`qsc_front_end_plain`, ``models/cnn.py:QSCPreprocess``'s
+own arithmetic.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface the first time it is needed, under
@@ -76,15 +81,17 @@ from qdml_tpu_torch.utils.complexops import CArr
 
 KERNELS = ("qsc_expvals", "circuit_expvals", "circuit_adjoint", "rotation_layer", "unitary_expvals")
 # Hand kernels with no TPU counterpart (the JAX package leaves their work to
-# XLA): the trunks' train-mode BatchNorm + ReLU, forward and backward.
-NATIVE_KERNELS = ("bn_relu",)
+# XLA): the trunks' train-mode BatchNorm + ReLU, and the quantum classifier's
+# CNN front end, each forward and backward.
+NATIVE_KERNELS = ("bn_relu", "qsc_front")
 SOURCES = KERNELS + NATIVE_KERNELS
 # Launch counters: each kernel's one-call wrappers, then the member-axis
 # entry points, which launch the circuit kernels once for a whole ensemble,
-# then the BatchNorm + ReLU kernel's two directions.
+# then the BatchNorm + ReLU kernel's two directions and the front end's.
 ENSEMBLE_COUNTERS = ("circuit_expvals_ensemble", "circuit_adjoint_ensemble")
 BN_RELU_COUNTERS = ("bn_relu_fwd", "bn_relu_bwd")
-COUNTERS = KERNELS + ENSEMBLE_COUNTERS + BN_RELU_COUNTERS
+QSC_FRONT_COUNTERS = ("qsc_front_fwd", "qsc_front_bwd")
+COUNTERS = KERNELS + ENSEMBLE_COUNTERS + BN_RELU_COUNTERS + QSC_FRONT_COUNTERS
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qdml_tpu_torch"
 NVCC_FLAGS = (
@@ -240,6 +247,15 @@ def _load(name: str) -> ctypes.CDLL:
         lib.bn_relu_tile.argtypes = []
         if lib.bn_relu_tile() != BN_RELU_TILE:
             raise RuntimeError(f"bn_relu's kTile is {lib.bn_relu_tile()}, the wrapper's BN_RELU_TILE {BN_RELU_TILE}")
+        _libs[name] = lib
+        return lib
+    if name == "qsc_front":
+        lib.qsc_front_fwd_launch.restype = lib.qsc_front_bwd_launch.restype = ctypes.c_int
+        lib.qsc_front_fwd_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.qsc_front_bwd_launch.argtypes = [ptr] * 15 + [i32] * 5 + [ptr]
+        for query, args in ((lib.qsc_front_entries, 3), (lib.qsc_front_bwd_blocks, 4)):
+            query.restype = ctypes.c_int
+            query.argtypes = [i32] * args
         _libs[name] = lib
         return lib
     fn = getattr(lib, f"{name}_launch")
@@ -1051,3 +1067,138 @@ def batch_norm_relu(
     other than float32, a non-contiguous input or one outside the window
     (``N*H*W`` from 2 to 2^30, at most 65535 channels)."""
     return _BatchNormReLU.apply(x, weight, bias, (running_mean, running_var), momentum, eps)
+
+
+# ---------------------------------------------------------------------------
+# QSC front-end kernel: the quantum classifier's CNN front end
+# ---------------------------------------------------------------------------
+
+# the angles a launch takes (the kernel's widest Linear output)
+QSC_FRONT_MAX_QUBITS = 32
+# the published front end's convolutions: (out, in, 3, 3) weights and their biases
+QSC_FRONT_CONV_SHAPES = ((16, 2, 3, 3), (16,), (32, 16, 3, 3), (32,))
+
+
+def qsc_front_end_plain(x, conv1_w, conv1_b, conv2_w, conv2_b, fc_w, fc_b) -> torch.Tensor:
+    """Plain version: ``QSCPreprocess``'s own arithmetic, op for op (conv 2 ->
+    16 + bias, ReLU, max-pool 2, conv 16 -> 32 + bias, ReLU, max-pool 2,
+    flatten, Linear, tanh). x (B, 2, H, W) -> angles (B, n)."""
+    import torch.nn.functional as F
+
+    h = F.max_pool2d(F.relu(F.conv2d(x, conv1_w, conv1_b, padding=1)), 2, 2)
+    h = F.max_pool2d(F.relu(F.conv2d(h, conv2_w, conv2_b, padding=1)), 2, 2)
+    return torch.tanh(F.linear(h.flatten(1), fc_w, fc_b))
+
+
+def _qsc_front_checks(x: torch.Tensor, params) -> tuple[int, int, int, int]:
+    """``(B, n, H, W)`` of the front end's call after checking x (rank, two
+    channels, H and W multiples of 4, dtype, layout, no gradient of its own),
+    each parameter against it, then x's device."""
+    if x.dim() != 4 or x.shape[1] != 2:
+        raise ValueError(f"x must be (B, 2, H, W), got shape {tuple(x.shape)}")
+    batch, _, h, w = x.shape
+    if h < 4 or w < 4 or h % 4 or w % 4:
+        raise ValueError(f"the front-end kernel takes H and W that are multiples of 4, got {h} x {w}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (NCHW)")
+    if x.requires_grad:
+        raise ValueError("x requires grad: the front-end kernel computes no input gradient")
+    fc_w = params[4]
+    n = fc_w.shape[0] if fc_w.dim() == 2 else 0
+    if not 1 <= n <= QSC_FRONT_MAX_QUBITS:
+        raise ValueError(f"the front-end kernel takes 1 to {QSC_FRONT_MAX_QUBITS} angles, got fc_w {tuple(fc_w.shape)}")
+    shapes = (*QSC_FRONT_CONV_SHAPES, (n, 32 * (h // 4) * (w // 4)), (n,))
+    for t, what, shape in zip(params, ("conv1_w", "conv1_b", "conv2_w", "conv2_b", "fc_w", "fc_b"), shapes):
+        _check(t, what, shape, x.device)
+    if x.device.type != "cuda":
+        raise ValueError(f"x is on {x.device}: the front-end kernel runs on a CUDA device")
+    return batch, n, h, w
+
+
+def _qsc_front_work(batch: int, n: int, h: int, w: int, backward: bool) -> tuple[float, float]:
+    from qdml_tpu_torch.telemetry.cost import qsc_front_work
+
+    return qsc_front_work(batch, n, h, w, backward)
+
+
+def _qsc_front_fwd(x, params, batch: int, n: int, h: int, w: int) -> torch.Tensor:
+    """One ``qsc_front_fwd`` launch past its checks: the angles (B, n)."""
+    dev = x.device
+    angles = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    if batch == 0:
+        return angles
+    with _observed("qsc_front_fwd", lambda: _qsc_front_work(batch, n, h, w, False)) as outs:
+        _launch("qsc_front", dev, x, *params, angles, batch, n, h, w, entry="qsc_front_fwd")
+        outs.append(angles)
+    return angles
+
+
+def _qsc_front_bwd(x, params, dangles, batch: int, n: int, h: int, w: int) -> list[torch.Tensor]:
+    """One ``qsc_front_bwd`` launch (the kernel, then its fold of the
+    blocks' partials in a fixed order): the six parameter gradients."""
+    dev = x.device
+    grads = [torch.empty(p.shape, dtype=torch.float32, device=dev) for p in params]
+    if batch == 0:
+        return [g.zero_() for g in grads]
+    lib = _load("qsc_front")
+    # the launch's grid (an occupancy query, the same on one card every
+    # time): the partials have a row a block
+    with torch.cuda.device(dev):
+        blocks = lib.qsc_front_bwd_blocks(batch, n, h, w)
+    if blocks < 1:
+        raise RuntimeError(f"qsc_front_bwd grid query failed with cudaError {-blocks}")
+    partials = torch.empty((blocks, lib.qsc_front_entries(n, h, w)), dtype=torch.float32, device=dev)
+    with _observed("qsc_front_bwd", lambda: _qsc_front_work(batch, n, h, w, True)) as outs:
+        _launch("qsc_front", dev, x, *params, dangles, partials, *grads, blocks, batch, n, h, w,
+                entry="qsc_front_bwd")
+        outs += grads
+    return grads
+
+
+def _qsc_front_bwd_launch(x, conv1_w, conv1_b, conv2_w, conv2_b, fc_w, fc_b, dangles) -> list[torch.Tensor]:
+    """One checked ``qsc_front_bwd`` launch: the gradients of conv1's weight
+    and bias, conv2's, and the Linear's, from x and the angles' gradient."""
+    params = (conv1_w, conv1_b, conv2_w, conv2_b, fc_w, fc_b)
+    batch, n, h, w = _qsc_front_checks(x, params)
+    _check(dangles, "dangles", (batch, n), x.device)
+    return _qsc_front_bwd(x, params, dangles, batch, n, h, w)
+
+
+class _QSCFrontEnd(torch.autograd.Function):
+    """The front end with its parameters' gradients: the forward one
+    ``qsc_front_fwd`` launch, which saves nothing but its inputs; the
+    backward one ``qsc_front_bwd`` launch, which recomputes the forward
+    inside the kernel."""
+
+    @staticmethod
+    def forward(ctx, x, conv1_w, conv1_b, conv2_w, conv2_b, fc_w, fc_b, dims):
+        params = (conv1_w, conv1_b, conv2_w, conv2_b, fc_w, fc_b)
+        ctx.save_for_backward(x, *params)
+        ctx.dims = dims
+        return _qsc_front_fwd(x, params, *dims)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dangles):
+        x, *params = ctx.saved_tensors
+        grads = _qsc_front_bwd(x, params, dangles.contiguous(), *ctx.dims)
+        return (None, *grads, None)
+
+
+def qsc_front_end(x, conv1_w, conv1_b, conv2_w, conv2_b, fc_w, fc_b) -> torch.Tensor:
+    """The quantum classifier's CNN front end on the card: x (B, 2, H, W)
+    float32 -> angles (B, n), ``tanh(Linear(flatten(pool(relu(conv2(
+    pool(relu(conv1(x)))))))))`` as ``models/cnn.py:QSCPreprocess`` computes
+    it (:func:`qsc_front_end_plain`). One ``qsc_front_fwd`` launch, and when
+    autograd needs the parameters' gradients one ``qsc_front_bwd`` in the
+    backward. Raises on a CPU tensor, an x that requires grad, a dtype other
+    than float32, a non-contiguous input, H or W not a multiple of 4, more
+    than 32 angles, or parameters of other shapes than the published front
+    end's."""
+    params = (conv1_w, conv1_b, conv2_w, conv2_b, fc_w, fc_b)
+    dims = _qsc_front_checks(x, params)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return _QSCFrontEnd.apply(x, *params, dims)
+    return _qsc_front_fwd(x, params, *dims)

@@ -163,6 +163,27 @@ def bn_relu_work(rows: int, channels: int, plane: int, backward: bool) -> tuple[
     return 4.0 * (2 * values + 8 * channels), 8.0 * values
 
 
+def qsc_front_work(batch: int, n: int, h: int, w: int, backward: bool) -> tuple[float, float]:
+    """Bytes and flops of one launch of the quantum classifier's front end
+    (conv 2 -> 16 and 16 -> 32, 3x3, each with ReLU and a 2x2 max-pool, the
+    Linear to n angles and tanh) over a (batch, 2, h, w) input, counted as
+    the least the function needs: forward x and the parameters in, the
+    angles out; the forward's flops are its convolutions' and the Linear's,
+    two a multiply-add (at 16 x 8 and n = 8: 73,728 + 294,912 + 4,096 a
+    sample). Backward x, the parameters and the angles' gradient in, the
+    parameters' gradients out; flops the recomputed forward, the Linear's
+    weight and input gradients, conv2's weight and input gradients and
+    conv1's weight gradient, counted dense (1,044,480 a sample there)."""
+    feats = 32 * (h // 4) * (w // 4)
+    conv1 = 2 * h * w * 9 * 2 * 16
+    conv2 = 2 * (h // 2) * (w // 2) * 9 * 16 * 32
+    linear = 2 * feats * n
+    params = 16 * 2 * 9 + 16 + 32 * 16 * 9 + 32 + feats * n + n
+    if backward:
+        return 4.0 * (batch * 2 * h * w + 2 * params + batch * n), float(batch * (2 * conv1 + 3 * conv2 + 3 * linear))
+    return 4.0 * (batch * 2 * h * w + params + batch * n), float(batch * (conv1 + conv2 + linear))
+
+
 def kernel_work(name: str, batch: int, n: int, layers: int = 0, members: int = 1,
                 with_state: bool = False) -> tuple[float, float]:
     """(bytes, flops) of one launch of hand kernel ``name`` (E ``members``

@@ -144,7 +144,7 @@ def test_bn_relu_source_declares_its_c_interface_and_why_it_exists():
     """The source is built with the others and says what it replaces (no
     TPU kernel), what bounds it and what its design does about that; its C
     entry points check the launch's error."""
-    assert tk.NATIVE_KERNELS == ("bn_relu",) and "bn_relu" in tk.SOURCES and "bn_relu" not in tk.KERNELS
+    assert "bn_relu" in tk.NATIVE_KERNELS and "bn_relu" in tk.SOURCES and "bn_relu" not in tk.KERNELS
     text = (tk.CSRC / "bn_relu.cu").read_text()
     for entry in ("bn_relu_fwd_launch(", "bn_relu_bwd_launch(", "bn_relu_tile("):
         assert f'extern "C" int {entry}' in text

@@ -121,8 +121,8 @@ def test_every_module_has_a_jax_counterpart_or_is_the_kernels():
             continue  # measurements of the port's own smoke, serving warmup and profiler sessions
         assert (ROOT / "qdml_tpu" / rel).exists(), rel
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "bn_relu.cu", "circuit_adjoint.cu", "circuit_expvals.cu", "qsc_expvals.cu", "rotation_layer.cu",
-        "unitary_expvals.cu",
+        "bn_relu.cu", "circuit_adjoint.cu", "circuit_expvals.cu", "qsc_expvals.cu", "qsc_front.cu",
+        "rotation_layer.cu", "unitary_expvals.cu",
     ]
 
 
